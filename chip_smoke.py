@@ -20,7 +20,20 @@ card, builds every kernel of ``infera_tpu_torch/csrc`` with nvcc (sm_90a), and:
    the same function with CUDA events (median of 25 runs after warm-up),
    beside the least time the card could take (``bound_ms``), and engine
    ``predict`` of 1,048,576 rows on the host clock beside its parts;
-5. prints the ``{"kernels": [...]}`` line, the card's name and power limit,
+5. the SQL form of the main path, driven only through ``load_model``,
+   ``register_table`` and ``Connection.execute``, with K2's launch counts
+   set to 0 just before and read just after: query A, the repo's SQL
+   flagship over a 1,048,576-row ``range()`` table with a 4-32-1 MLP, and
+   query B over 1,048,576 seeded rows of 32 columns with the 32-128-128-16
+   softmax MLP loaded at f32 and at bf16, and query C, K2's core slots
+   alone (two keys, min, max, count, HAVING) over the first table. Each
+   must run on
+   ``device_plan_cuda`` with K2 launched and give the host executor's rows
+   (the same catalog with ``INFERA_PALLAS_SQL=0``); it prints each query's
+   steady time on the host clock and its phases, holds K2 against its plain
+   version on the emitted plans at 1,048,576 and 1,000,003 rows, and times
+   K2, its plain version and a PyTorch library chain;
+6. prints the ``{"kernels": [...]}`` line, the card's name and power limit,
    and last ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero without the ``ok`` line. The script
@@ -113,6 +126,213 @@ def emulate_int8_shift(qparams, xq: np.ndarray):
     pred = np.argmax(h, axis=0)
     sel = h[0] > 0
     return np.bincount(pred[sel], minlength=h.shape[0]).astype(np.int64)
+
+
+SQL_A = ("select g, count(*) c, avg(infera_predict('m', f1, f2, f3, f4)) p, sum(f1) s "
+         "from big where f2 > 1.0 group by g order by g")
+SQL_B = ("select g, count(*), avg(infera_predict_multi_list('{m}', {cols})[1]), "
+         "max(infera_predict_multi_list('{m}', {cols})[1]) from wide where c0 > 0 "
+         "group by g order by g")
+SQL_C = ("select g, h, min(f1) mn, max(f2) mx, count(*) c from big group by g, h "
+         "having count(*) > 10 order by g, h")
+# rows against the host executor: per column, None for exact (keys and
+# counts) or the relative tolerance. A, C: the table block is f32 where the
+# host keeps f64. B f32: the MLP's sums in another order. B bf16: a hidden
+# activation's bf16 rounding can go the other way when the f32 sum before
+# it differs in its last bit, which moves one row's prediction by ~1e-3.
+SQL_TOL = {"A": (None, None, 1e-6, 1e-6), "B-f32": (None, None, 1e-5, 1e-5),
+           "B-bf16": (None, None, 1e-3, 2e-2), "C": (None, None, 1e-7, 1e-7, None)}
+# (groups in the result, K2's group slots, keys) of each query's plan
+SQL_SHAPE = {"A": (64, 64, 1), "B-f32": (64, 64, 1), "B-bf16": (64, 64, 1), "C": (320, 512, 2)}
+
+
+def sql_phase(torch, itt, x_rows, peaks, device) -> list:
+    """Queries A and B through Connection.execute on the card; returns the
+    K2 rows of the kernels line."""
+    import os
+
+    from infera_tpu_torch.columnar import Column, Table
+    from infera_tpu_torch.columnar import types as T
+    from infera_tpu_torch.onnx import builder, proto
+    from infera_tpu_torch.ops import fused_sql as fs
+    from infera_tpu_torch.registry import MODELS
+    from infera_tpu_torch.sql import Connection
+
+    n = N_MAIN
+    os.environ.pop("INFERA_PALLAS_SQL", None)   # the default: the kernel tier on CUDA
+    conn = Connection()
+    t0 = time.perf_counter()
+    conn.execute("create table big as select x % 64 as g, x % 5 as h, "
+                 "(x % 100)::float / 10.0 as f1, "
+                 "((x + 3) % 50)::float / 5.0 as f2, ((x * 7) % 30)::float / 3.0 as f3, "
+                 f"((x * 11) % 90)::float / 9.0 as f4 from range({n}) r(x)")
+    wide = {f"c{k}": Column(np.ascontiguousarray(x_rows[:, k]), T.FLOAT) for k in range(32)}
+    wide["g"] = Column(np.arange(n, dtype=np.int64) % 64, T.BIGINT)
+    conn.register_table("wide", Table(wide))
+    with tempfile.TemporaryDirectory() as d:
+        proto.save_model_file(builder.mlp_model(in_dim=4, hidden=(32,), out_dim=1), f"{d}/m.onnx")
+        proto.save_model_file(
+            builder.mlp_model(in_dim=32, hidden=(128, 128), out_dim=16, softmax=True),
+            f"{d}/mlp.onnx")
+        itt.load_model("m", f"{d}/m.onnx")
+        itt.load_model("mlp_sql", f"{d}/mlp.onnx")
+        itt.load_model("mlp_sql_bf16", f"{d}/mlp.onnx", "bf16")
+    print(f"SQL tables and models: {time.perf_counter() - t0:.2f} s on the host clock")
+    cols = ", ".join(f"c{k}" for k in range(32))
+    queries = {"A": SQL_A, "B-f32": SQL_B.format(m="mlp_sql", cols=cols),
+               "B-bf16": SQL_B.format(m="mlp_sql_bf16", cols=cols), "C": SQL_C}
+
+    # ---------------------------------------------------------------- the SQL main path
+    fs.fused_sql.launches = {"f32": 0, "bf16": 0}
+    out, launches = {}, {}
+    for key, q in queries.items():
+        before = sum(fs.fused_sql.launches.values())
+        out[key] = conn.execute(q).rows
+        torch.cuda.synchronize()
+        launches[key] = sum(fs.fused_sql.launches.values()) - before
+        check(conn._exec_path == "device_plan_cuda", f"query {key} ran on {conn._exec_path}")
+    print(f"SQL main path: launches {fs.fused_sql.launches}, per query {launches}")
+    for key, k in launches.items():
+        check(k > 0, f"K2 was not launched by query {key}")
+
+    # ---------------------------------------------------------------- rows vs the host
+    os.environ["INFERA_PALLAS_SQL"] = "0"
+    host = {key: conn.execute(q).rows for key, q in queries.items()}
+    check(conn._exec_path == "host", "INFERA_PALLAS_SQL=0 did not select the host executor")
+    os.environ.pop("INFERA_PALLAS_SQL")
+    for key, rows in out.items():
+        n_rows = SQL_SHAPE[key][0]
+        check(len(rows) == len(host[key]) == n_rows, f"query {key}: {len(rows)} groups")
+        worst = 0.0
+        for a, b in zip(rows, host[key]):
+            for x, y, rel in zip(a, b, SQL_TOL[key], strict=True):
+                if rel is None:
+                    check(x == y, f"query {key}: {a} vs host {b}")
+                    continue
+                check(np.isfinite(x) and abs(x - y) <= rel * abs(y) + 1e-12,
+                      f"query {key}: {x} vs host {y}")
+                worst = max(worst, abs(x - y) / max(abs(y), 1e-30))
+        print(f"query {key}: {n_rows} groups, keys and counts equal the host's, worst "
+              f"relative difference {worst:.3e}")
+
+    # ---------------------------------------------------------------- steady time, phases
+    for key, q in queries.items():
+        conn.execute(q)
+        times = []
+        for _ in range(5):
+            t = time.perf_counter()
+            conn.execute(q)
+            times.append((time.perf_counter() - t) * 1e3)
+        print(f"query {key} end to end: median {float(np.median(times)):.3f} ms of 5 on the "
+              f"host clock ({n / np.median(times) * 1e3:,.0f} rows/s); phases "
+              f"{conn._last_phases}")
+
+    # ---------------------------------------------------------------- K2 vs plain, times
+    plans = [ent for ent in conn._device_plan_cache.values()]
+    check(len(plans) == len(queries), f"{len(plans)} plans cached, expected {len(queries)}")
+    tw_all = {}
+    for name in ("m", "mlp_sql"):
+        tw_all[name] = [(torch.as_tensor(w, device=device), torch.as_tensor(b, device=device))
+                        for w, b in MODELS.get(name).mlp_plan[0]]
+
+    def library(key, xc, row_map):
+        """One PyTorch chain of the same function: addmm MLP, then index_add_
+        and scatter_reduce per group; timed only, the port never calls it."""
+        if key == "C":
+            f1, f2 = xc[row_map["f1"]], xc[row_map["f2"]]
+            slot = xc[row_map["g"]].long() * 5 + xc[row_map["h"]].long()
+            cnt = torch.zeros(320, device=xc.device).index_add_(0, slot, torch.ones_like(f1))
+            mn = torch.full((320,), torch.inf, device=xc.device).scatter_reduce(
+                0, slot, f1, "amin")
+            mx = torch.full((320,), -torch.inf, device=xc.device).scatter_reduce(
+                0, slot, f2, "amax")
+            return cnt, mn, mx
+        if key == "A":
+            f = xc[[row_map["f1"], row_map["f2"], row_map["f3"], row_map["f4"]]].T
+            sel = f[:, 1] > 1.0
+            h = f
+            for i, (w, b) in enumerate(tw_all["m"]):
+                h = torch.addmm(b, h, w)
+                if i < len(tw_all["m"]) - 1:
+                    h = torch.relu(h)
+            vals = [h[:, 0], f[:, 0]]
+        else:
+            f = xc[[row_map[f"c{k}"] for k in range(32)]].T
+            sel = f[:, 0] > 0
+            dt = torch.bfloat16 if key == "B-bf16" else torch.float32
+            h = f.to(dt)
+            for i, (w, b) in enumerate(tw_all["mlp_sql"]):
+                h = torch.addmm(b.to(dt), h, w.to(dt))
+                if i < 2:
+                    h = torch.relu(h)
+            vals = [torch.softmax(h.float(), dim=1)[:, 1]]
+        g = xc[row_map["g"]].long()
+        slot = torch.where(sel, g, torch.full_like(g, 64))
+        cnt = torch.zeros(65, device=xc.device).index_add_(0, slot, torch.ones_like(vals[0]))
+        sums = [torch.zeros(65, device=xc.device).index_add_(0, slot, v) for v in vals]
+        mx = torch.full((65,), -torch.inf, device=xc.device).scatter_reduce(
+            0, slot, vals[0], "amax")
+        return cnt, sums, mx
+
+    rows = []
+    for (key, q), (xc, packed) in zip(queries.items(), plans):
+        plan = packed.plan
+        check((plan.n_groups, len(plan.keys)) == SQL_SHAPE[key][1:],
+              f"query {key}: plan of {plan.n_groups} groups, {len(plan.keys)} keys")
+        err = 0.0
+        sum_rtol, mm_rtol = (1e-3, 2e-2) if plan.bf16 else (1e-5, 1e-5)
+        for n_valid in (n, N_RAGGED):
+            got = fs.fused_sql(packed, xc, n_valid)
+            want = fs.fused_sql_plain(packed, xc, n_valid)
+            torch.cuda.synchronize()
+            check(torch.equal(got["count"], want["count"]), f"K2 {key} @ {n_valid}: counts")
+            check(torch.equal(got["flags"], want["flags"]), f"K2 {key} @ {n_valid}: flags")
+            torch.testing.assert_close(got["sums"], want["sums"], rtol=sum_rtol, atol=1e-9)
+            torch.testing.assert_close(got["mm"], want["mm"], rtol=mm_rtol, atol=mm_rtol)
+            e = max([0.0] + [float((got[k] - want[k]).abs().max())
+                             for k in ("sums", "mm") if got[k].numel()])
+            err = max(err, e)
+            print(f"K2 {key} @ {n_valid} rows: counts and flags equal plain, max abs err {e:.3e}")
+        row_map = _block_rows(conn, "wide" if key.startswith("B") else "big", xc)
+        kern_times = device_ms(torch, lambda: fs.fused_sql(packed, xc, n))
+        ms, q25, q75 = (float(v) for v in np.percentile(kern_times, [50, 25, 75]))
+        plain_ms = float(np.median(device_ms(torch, lambda: fs.fused_sql_plain(packed, xc, n),
+                                             runs=5)))
+        library_ms = float(np.median(device_ms(torch, lambda: library(key, xc, row_map))))
+        res = fs.fused_sql(packed, xc, n)
+        n_sel = int(res["count"].sum())
+        macs = sum(w.shape[0] * w.shape[1] for m in plan.mlps for w, _ in m.params)
+        used = {arg for prog in plan.slot_programs + [f for m in plan.mlps for f in m.features]
+                for op, arg in prog if op == fs.COL}
+        b_ms, b_by = bound(2.0 * n_sel * macs, 4.0 * len(used) * n,
+                           "bf16" if plan.bf16 else "f32", peaks)
+        # a plan with MLP slots is K2 with K2' inside it (the MLP is most of
+        # its work); query C is K2's core slots alone
+        if plan.mlps:
+            label = "K2'-bf16 fused_sql with in-kernel MLP" if plan.bf16 else \
+                "K2'-f32 fused_sql with in-kernel MLP"
+            replaces = "infera_tpu/sql/device_plan.py:633"
+        else:
+            label, replaces = "K2 fused_sql core slots", "infera_tpu/ops/pallas_sql.py:71"
+        rows.append({"name": f"{label} (query {key[0]})", "route": "cuda",
+                     "source": "infera_tpu_torch/csrc/fused_sql.cu",
+                     "replaces": replaces, "launches": launches[key],
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": library_ms})
+        print(f"K2 {key}: kernel {ms:.4f} ms (quartiles {q25:.4f}-{q75:.4f}), plain "
+              f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+              f"{len(used)} columns, {n_sel} selected rows, {2.0 * n_sel * macs / 1e9:.2f} G "
+              f"MLP operations, {packed.smem_bytes} B of shared memory")
+    return rows
+
+
+def _block_rows(conn, name, xc):
+    """{column: row} of the table's block on the card (the plan's block)."""
+    from infera_tpu_torch.sql import device_plan
+
+    block, row_map = device_plan.get_table_block(conn.catalog.get(name), xc.device)
+    check(block is xc, f"table {name}: the plan's block is not the cached one")
+    return row_map
 
 
 def main() -> int:
@@ -390,6 +610,8 @@ def main() -> int:
     print(f"engine predict @ {N_MAIN} rows: {parts['predict']:.3f} ms on the host clock = "
           f"{N_MAIN / parts['predict'] * 1e3:,.0f} rows/s; copy in {parts['h2d']:.3f} ms, "
           f"K6 {parts['k6']:.3f} ms, copy out {parts['d2h']:.3f} ms")
+
+    rows += sql_phase(torch, itt, x_rows, peaks, device)
 
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())

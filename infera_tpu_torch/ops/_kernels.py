@@ -22,7 +22,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "_build"
-SOURCES = ("fused_mlp", "fused_query")
+SOURCES = ("fused_mlp", "fused_query", "fused_sql")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,6 +39,10 @@ _SIGNATURES = {
                                    _I, _I, _P],
         "infera_fused_query_int8_shift": [_P, _LL, _P, _LL, _P, _I, _I, _I, _P, _P, _P, _P,
                                           _I, _I, _P],
+    },
+    "fused_sql": {
+        "infera_fused_sql": [_P, _LL, _LL, _P, _P, _LL, _P, _P, _P, _P, _I, _I, _P],
+        "infera_fused_sql_fold": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     },
 }
 

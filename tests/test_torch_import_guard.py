@@ -25,6 +25,17 @@ sys.exit(1 if bad else 0)
     "infera_tpu_torch",
     "infera_tpu_torch.bench",
     "infera_tpu_torch.ops.fused_query",
+    "infera_tpu_torch.ops.fused_sql",
+    "infera_tpu_torch.sql",
+    "infera_tpu_torch.sql.device_plan",
+    "infera_tpu_torch.sql.shell",
+    "infera_tpu_torch.sql.csv_io",
+    "infera_tpu_torch.columnar.diskfile",
+    "infera_tpu_torch.columnar.pandas_io",
+    "infera_tpu_torch.ops.window",
+    "infera_tpu_torch.ops.join",
+    "infera_tpu_torch.observability",
+    "infera_tpu_torch.testing.sqllogic",
     "chip_smoke",
 ])
 def test_fresh_import_pulls_in_no_jax(module):
@@ -32,6 +43,28 @@ def test_fresh_import_pulls_in_no_jax(module):
     env.pop("INFERA_PLATFORM", None)  # importing must work with no device chosen
     res = subprocess.run([sys.executable, "-c", _PROBE.format(module=module)],
                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+_WALK = """
+import pkgutil, sys
+import infera_tpu_torch
+names = sorted(m.name for m in pkgutil.walk_packages(infera_tpu_torch.__path__, 'infera_tpu_torch.')
+               if not m.name.endswith('__main__'))
+for name in names:
+    __import__(name)
+bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'infera_tpu'))
+print(len(names), bad)
+sys.exit(1 if bad or len(names) < 30 else 0)
+"""
+
+
+def test_every_module_of_the_port_imports_without_jax():
+    """All modules of the package in one process, found by walking it."""
+    env = dict(os.environ)
+    env.pop("INFERA_PLATFORM", None)
+    res = subprocess.run([sys.executable, "-c", _WALK], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
 
 
