@@ -33,7 +33,17 @@ card, builds every kernel of ``infera_tpu_torch/csrc`` with nvcc (sm_90a), and:
    steady time on the host clock and its phases, holds K2 against its plain
    version on the emitted plans at 1,048,576 and 1,000,003 rows, and times
    K2, its plain version and a PyTorch library chain;
-6. prints the ``{"kernels": [...]}`` line, the card's name and power limit,
+6. the tree path, BASELINE config 4: engine ``predict`` of a 64-tree
+   depth-6 GBT over 262,144 seeded rows (GEMM forest, checked against the
+   gather traversal and a numpy walk), then query D (the GBT regressor in
+   WHERE, avg and max) and query E (a 3-class GBT classifier's labels in
+   avg and min) over the 32-column table through ``Connection.execute``,
+   with K2's and K4's launch counts set to 0 just before and read just
+   after. Each must run on ``device_plan_cuda`` with K4 launched and give
+   the host executor's rows; K2+K4 is held against its plain version at
+   1,048,576 and 1,000,003 rows and timed beside its bound, its plain
+   version and a PyTorch chain (the port's GEMM forest and ``index_add_``);
+7. prints the ``{"kernels": [...]}`` line, the card's name and power limit,
    and last ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero without the ``ok`` line. The script
@@ -102,6 +112,20 @@ def device_ms(torch, fn, runs: int = TIMED_RUNS) -> np.ndarray:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return np.array(times)
+
+
+def host_ms(torch, fn, runs: int = 7) -> float:
+    """Median host-clock time of ``runs`` calls, each ended by a synchronise,
+    after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(times))
 
 
 def check(cond: bool, what: str) -> None:
@@ -183,7 +207,7 @@ def sql_phase(torch, itt, x_rows, peaks, device) -> list:
                "B-bf16": SQL_B.format(m="mlp_sql_bf16", cols=cols), "C": SQL_C}
 
     # ---------------------------------------------------------------- the SQL main path
-    fs.fused_sql.launches = {"f32": 0, "bf16": 0}
+    fs.fused_sql.launches = {"f32": 0, "bf16": 0, "forest": 0}
     out, launches = {}, {}
     for key, q in queries.items():
         before = sum(fs.fused_sql.launches.values())
@@ -323,6 +347,207 @@ def sql_phase(torch, itt, x_rows, peaks, device) -> list:
               f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
               f"{len(used)} columns, {n_sel} selected rows, {2.0 * n_sel * macs / 1e9:.2f} G "
               f"MLP operations, {packed.smem_bytes} B of shared memory")
+    return rows
+
+
+# config 4 (BASELINE.json): a 64-tree depth-6 GBT over 16 features, and a
+# 3-class classifier of the same shape with labels 7, 19, 42
+N_TREE_ENGINE = 262_144   # infera_tpu/testing/benchmarks.py bench_config4_gbt's rows
+GBT = dict(n_features=16, n_trees=64, depth=6, seed=0)
+GBC = dict(n_features=16, n_trees=64, depth=6, n_classes=3, labels=[7, 19, 42], seed=3)
+TREE_FEATS = ", ".join(f"c{k}" for k in range(16))
+SQL_D = ("select g, count(*) c, avg(infera_predict('gbt', {f})) p, "
+         "max(infera_predict('gbt', {f})) mx from wide "
+         "where infera_predict('gbt', {f}) > 0.5 group by g order by g").format(f=TREE_FEATS)
+SQL_E = ("select g, count(*), avg(infera_predict('gbc', {f})), "
+         "min(infera_predict('gbc', {f})) from wide group by g order by g").format(f=TREE_FEATS)
+# rows against the host executor: keys and counts exact; D's prediction
+# aggregates rel 1e-5 (the host's GEMM forest adds the leaves in another
+# order); E's labels exact, so their average and minimum too
+TREE_TOL = {"D": (None, None, 1e-5, 1e-5), "E": (None, None, None, None)}
+
+
+def numpy_walk(model, x: np.ndarray) -> np.ndarray:
+    """The regressor's value per row of x by walking each tree from the
+    model's node attributes in numpy (every branch BRANCH_LEQ)."""
+    a = {k: v.value for k, v in model.graph.nodes[0].attributes.items()}
+    at = {(t, nd): k for k, (t, nd) in enumerate(zip(a["nodes_treeids"], a["nodes_nodeids"]))}
+    leaf_w = {(t, nd): w for t, nd, w in zip(a["target_treeids"], a["target_nodeids"],
+                                             a["target_weights"])}
+    out = np.full(len(x), a["base_values"][0], np.float64)
+    for i, row in enumerate(x):
+        for t in sorted(set(a["nodes_treeids"])):
+            k = at[(t, 0)]
+            while a["nodes_modes"][k] != "LEAF":
+                go = row[a["nodes_featureids"][k]] <= np.float32(a["nodes_values"][k])
+                k = at[(t, a["nodes_truenodeids"][k] if go else a["nodes_falsenodeids"][k])]
+            out[i] += leaf_w[(t, a["nodes_nodeids"][k])]
+    return out
+
+
+def tree_phase(torch, itt, x_rows, peaks, device) -> list:
+    """Config 4 on the card: engine predict of the GBT over 262,144 rows,
+    then queries D (regressor) and E (classifier) through Connection.execute
+    with K4 inside K2; returns the K4 rows of the kernels line."""
+    import os
+
+    from infera_tpu_torch.columnar import Column, Table
+    from infera_tpu_torch.columnar import types as T
+    from infera_tpu_torch.onnx import builder, ml_ops, proto
+    from infera_tpu_torch.ops import fused_sql as fs
+    from infera_tpu_torch.registry import MODELS
+    from infera_tpu_torch.sql import Connection
+
+    gbt_model = builder.gbt_regressor_model(**GBT)
+    with tempfile.TemporaryDirectory() as d:
+        proto.save_model_file(gbt_model, f"{d}/gbt.onnx")
+        proto.save_model_file(builder.gbt_classifier_model(**GBC), f"{d}/gbc.onnx")
+        itt.load_model("gbt", f"{d}/gbt.onnx")
+        itt.load_model("gbc", f"{d}/gbc.onnx")
+
+    # ---------------------------------------------------------------- engine predict
+    os.environ.pop("INFERA_TREE_MODE", None)          # auto: the GEMM forest
+    x_eng = np.random.default_rng(0).standard_normal((N_TREE_ENGINE, 16)).astype(np.float32)
+    res = itt.predict("gbt", x_eng)
+    check((res.rows, res.cols) == (N_TREE_ENGINE, 1), f"tree predict {res.rows}x{res.cols}")
+    check(bool(np.isfinite(res.data).all()), "tree predict: non-finite output")
+    os.environ["INFERA_TREE_MODE"] = "gather"
+    gathered = itt.predict("gbt", x_eng).data
+    os.environ.pop("INFERA_TREE_MODE")
+    np.testing.assert_allclose(res.data, gathered, rtol=1e-5, atol=1e-6)
+    sample = np.random.default_rng(5).choice(N_TREE_ENGINE, 2000, replace=False)
+    np.testing.assert_allclose(res.data[sample], numpy_walk(gbt_model, x_eng[sample]),
+                               rtol=1e-5, atol=1e-6)
+    packed_trees = ml_ops._cached_pack(MODELS.get("gbt").graph.nodes[0], 1, "target")
+    x_eng_dev = torch.as_tensor(x_eng, device=device)
+    forest_ms = float(np.median(device_ms(torch, lambda: packed_trees.evaluate(x_eng_dev),
+                                          runs=10)))
+    predict_ms = host_ms(torch, lambda: itt.predict("gbt", x_eng), runs=5)
+    print(f"engine tree predict @ {N_TREE_ENGINE} rows (config 4, 64 trees of depth 6): "
+          f"{predict_ms:.3f} ms on the host clock = {N_TREE_ENGINE / predict_ms * 1e3:,.0f} "
+          f"rows/s; GEMM forest alone {forest_ms:.4f} ms by CUDA events; outputs equal the "
+          f"gather traversal and a numpy walk of 2000 rows to 1e-5")
+
+    # ---------------------------------------------------------------- queries D and E
+    n = N_MAIN
+    os.environ.pop("INFERA_PALLAS_SQL", None)
+    conn = Connection()
+    wide = {f"c{k}": Column(np.ascontiguousarray(x_rows[:, k]), T.FLOAT) for k in range(32)}
+    wide["g"] = Column(np.arange(n, dtype=np.int64) % 64, T.BIGINT)
+    conn.register_table("wide", Table(wide))
+    queries = {"D": SQL_D, "E": SQL_E}
+
+    fs.fused_sql.launches = {"f32": 0, "bf16": 0, "forest": 0}
+    out, launches = {}, {}
+    for key, q in queries.items():
+        before = fs.fused_sql.launches["forest"]
+        out[key] = conn.execute(q).rows
+        torch.cuda.synchronize()
+        launches[key] = fs.fused_sql.launches["forest"] - before
+        check(conn._exec_path == "device_plan_cuda", f"query {key} ran on {conn._exec_path}")
+    print(f"tree SQL main path: launches {fs.fused_sql.launches}, K4 per query {launches}")
+    for key, k in launches.items():
+        check(k > 0, f"K4 was not launched by query {key}")
+
+    os.environ["INFERA_PALLAS_SQL"] = "0"
+    host = {key: conn.execute(q).rows for key, q in queries.items()}
+    check(conn._exec_path == "host", "INFERA_PALLAS_SQL=0 did not select the host executor")
+    os.environ.pop("INFERA_PALLAS_SQL")
+    for key, rows in out.items():
+        check(len(rows) == len(host[key]) == 64, f"query {key}: {len(rows)} groups")
+        worst = 0.0
+        for a, b in zip(rows, host[key]):
+            for x, y, rel in zip(a, b, TREE_TOL[key], strict=True):
+                if rel is None:
+                    check(x == y, f"query {key}: {a} vs host {b}")
+                    continue
+                check(np.isfinite(x) and abs(x - y) <= rel * abs(y) + 1e-12,
+                      f"query {key}: {x} vs host {y}")
+                worst = max(worst, abs(x - y) / max(abs(y), 1e-30))
+        if key == "E":
+            check(all(r[3] in (7.0, 19.0, 42.0) for r in rows), "query E: a label not 7/19/42")
+        print(f"query {key}: 64 groups, {sum(r[1] for r in rows)} rows kept, keys and counts "
+              f"equal the host's, worst relative difference {worst:.3e}")
+
+    for key, q in queries.items():
+        conn.execute(q)
+        times = []
+        for _ in range(5):
+            t = time.perf_counter()
+            conn.execute(q)
+            times.append((time.perf_counter() - t) * 1e3)
+        print(f"query {key} end to end: median {float(np.median(times)):.3f} ms of 5 on the "
+              f"host clock ({n / np.median(times) * 1e3:,.0f} rows/s); phases "
+              f"{conn._last_phases}")
+
+    # ---------------------------------------------------------------- K2+K4 vs plain, times
+    plans = list(conn._device_plan_cache.values())
+    check(len(plans) == len(queries), f"{len(plans)} plans cached, expected {len(queries)}")
+    gbc_trees = ml_ops._cached_pack(MODELS.get("gbc").graph.nodes[0], 3, "class")
+    labels = torch.tensor([7.0, 19.0, 42.0], device=device)
+
+    def library(key, xc, row_map):
+        """One PyTorch chain of the same function: the port's GEMM forest,
+        then index_add_ and scatter_reduce per group; timed only, the port's
+        kernel tier never calls it."""
+        f = xc[[row_map[f"c{k}"] for k in range(16)]].T
+        g = xc[row_map["g"]].long()
+        if key == "D":
+            v = packed_trees.gemm_eval(f)[:, 0] + 0.5
+            slot = torch.where(v > 0.5, g, torch.full_like(g, 64))
+            ext = torch.full((65,), -torch.inf, device=xc.device).scatter_reduce(
+                0, slot, v, "amax")
+        else:
+            v = labels[gbc_trees.gemm_eval(f).argmax(dim=1)]
+            slot = g
+            ext = torch.full((65,), torch.inf, device=xc.device).scatter_reduce(
+                0, slot, v, "amin")
+        cnt = torch.zeros(65, device=xc.device).index_add_(0, slot, torch.ones_like(v))
+        sums = torch.zeros(65, device=xc.device).index_add_(0, slot, v)
+        return cnt, sums, ext
+
+    rows = []
+    for (key, q), (xc, packed) in zip(queries.items(), plans):
+        plan = packed.plan
+        (slot,) = plan.forests
+        check((plan.n_groups, len(plan.keys), slot.n_trees) == (64, 1, 64),
+              f"query {key}: plan of {plan.n_groups} groups, {len(plan.keys)} keys")
+        err = 0.0
+        for n_valid in (n, N_RAGGED):
+            got = fs.fused_sql(packed, xc, n_valid)
+            want = fs.fused_sql_plain(packed, xc, n_valid)
+            torch.cuda.synchronize()
+            check(torch.equal(got["count"], want["count"]), f"K4 {key} @ {n_valid}: counts")
+            check(torch.equal(got["flags"], want["flags"]), f"K4 {key} @ {n_valid}: flags")
+            # each row's prediction is the plain version's bit for bit; only
+            # the order of the f64 sums differs
+            torch.testing.assert_close(got["sums"], want["sums"], rtol=1e-12, atol=1e-9)
+            torch.testing.assert_close(got["mm"], want["mm"], rtol=0, atol=0)
+            e = max([0.0] + [float((got[k] - want[k]).abs().max()) for k in ("sums", "mm")])
+            err = max(err, e)
+            print(f"K4 {key} @ {n_valid} rows: counts and flags equal plain, max abs err {e:.3e}")
+        row_map = _block_rows(conn, "wide", xc)
+        kern_times = device_ms(torch, lambda: fs.fused_sql(packed, xc, n))
+        ms, q25, q75 = (float(v) for v in np.percentile(kern_times, [50, 25, 75]))
+        plain_ms = float(np.median(device_ms(torch, lambda: fs.fused_sql_plain(packed, xc, n),
+                                             runs=5)))
+        library_ms = float(np.median(device_ms(torch, lambda: library(key, xc, row_map),
+                                               runs=5)))
+        used = {arg for prog in plan.slot_programs + [f for p in plan.preds for f in p.features]
+                for op, arg in prog if op == fs.COL}
+        # per row: depth compares in every tree, one add per tree and class
+        ops = float(n) * slot.n_trees * (slot.max_depth + (slot.n_out if slot.classifier else 1))
+        b_ms, b_by = bound(ops, 4.0 * len(used) * n, "f32", peaks)
+        kind = "classifier" if slot.classifier else "regressor"
+        rows.append({"name": f"K4 {kind} (query {key})", "route": "cuda",
+                     "source": "infera_tpu_torch/csrc/fused_sql.cu",
+                     "replaces": "infera_tpu/sql/device_plan.py:734", "launches": launches[key],
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": library_ms})
+        print(f"K4 {key}: kernel {ms:.4f} ms (quartiles {q25:.4f}-{q75:.4f}), plain "
+              f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+              f"{len(used)} columns, {ops / 1e9:.3f} G operations, {packed.smem_bytes} B of "
+              f"shared memory, {packed.trees.numel() * 4} B of forest tables")
     return rows
 
 
@@ -591,27 +816,17 @@ def main() -> int:
 
     # engine predict end to end on the host clock, beside its parts: the
     # input's copy to the card, K6, and the output's copy back
-    def host_ms(fn, runs=7):
-        fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(runs):
-            t = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t) * 1e3)
-        return float(np.median(times))
-
     out_dev = fused_mlp(k6_weights, x_dev, True)
-    parts = {"predict": host_ms(lambda: itt.predict("mlp", x_rows)),
-             "h2d": host_ms(lambda: torch.as_tensor(x_rows, device=device)),
+    parts = {"predict": host_ms(torch, lambda: itt.predict("mlp", x_rows)),
+             "h2d": host_ms(torch, lambda: torch.as_tensor(x_rows, device=device)),
              "k6": rows[0]["ms"],
-             "d2h": host_ms(lambda: out_dev.cpu())}
+             "d2h": host_ms(torch, lambda: out_dev.cpu())}
     print(f"engine predict @ {N_MAIN} rows: {parts['predict']:.3f} ms on the host clock = "
           f"{N_MAIN / parts['predict'] * 1e3:,.0f} rows/s; copy in {parts['h2d']:.3f} ms, "
           f"K6 {parts['k6']:.3f} ms, copy out {parts['d2h']:.3f} ms")
 
     rows += sql_phase(torch, itt, x_rows, peaks, device)
+    rows += tree_phase(torch, itt, x_rows, peaks, device)
 
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())

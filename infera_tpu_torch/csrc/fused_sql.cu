@@ -1,8 +1,10 @@
-// K2 and K2': the fused SQL plan over a stacked feature-major table block.
+// K2, K2' and K4: the fused SQL plan over a stacked feature-major table block.
 //
 // Replaces infera_tpu/ops/pallas_sql.py:71 `build_fused_plan_call` (its core
-// slots: count, sum/avg, min/max and the key guard) and the in-kernel MLP of
-// infera_tpu/sql/device_plan.py:633 `_lower_mlp` (K2'), which runs inside it.
+// slots: count, sum/avg, min/max and the key guard), the in-kernel MLP of
+// infera_tpu/sql/device_plan.py:633 `_lower_mlp` (K2') and the in-kernel
+// forest of infera_tpu/sql/device_plan.py:734 `_lower_tree_tables` (K4), both
+// of which run inside it.
 //
 // For every row r < n of xc [C, n_pad] f32:
 //   mask = where(r) != 0                                 (NaN counts as true)
@@ -39,6 +41,31 @@
 // programs with a switch, and reduces groups with one thread per group, so it
 // is far from either bound; wgmma for the MLP is the next design.
 //
+// K4: each `infera_predict` of a tree ensemble is a forest slot. The TPU
+// kernel ran the forest as strip-packed one-hot and ancestry matmuls for the
+// MXU; the function is "per tree, the leaf the row's decisions reach; add the
+// leaf weights", so here one thread takes one row of the 256-row tile and
+// walks every tree over node records {feature or -1, threshold bits, true
+// child, false child} (ml_ops._PackedTrees.kernel_forest), adding the leaf
+// weights in tree order with __fadd_rn, as forest_plain does, so the two agree
+// bit for bit. The tables stay in device memory and are read through the
+// read-only path (__ldg), where every block finds them in L2: no forest that
+// the TPU kernel's 2 MiB strip limit takes is refused for want of shared
+// memory. A classifier walks the forest once per 4 classes and keeps the
+// first-index argmax (a NaN wins, as jnp.argmax) before its label map. A row
+// that holds a non-finite feature sees NaN at every node that tests another
+// feature: the TPU kernel's one-hot select (and the host's GEMM forest)
+// multiplies every feature by 0 or 1, and inf * 0 is NaN.
+//
+// Bound of K4 on the H100 (config 4: 64 trees of depth 6 over 16 features,
+// 1,048,576 rows): the 17 columns it reads are 71.3 MB (0.021 ms at 3.35
+// TB/s), the 64 x 6 compares and 64 adds per row 0.47 G operations (0.007 ms
+// at 67 TFLOP/s): bound by bytes. This first version interprets each visited
+// node's feature program and chases one record per level, so it is bound by
+// the latency of those dependent loads, far from either bound; staging the
+// features and the tables in shared memory and walking trees across a warp
+// are the next design.
+//
 // Cross-block accumulation: blocks run in any order, so each (persistent)
 // block keeps its own accumulators in shared memory, one thread per group
 // adding the tile's rows in row order, and writes them to partials; a second
@@ -53,7 +80,8 @@ namespace sql {
 
 constexpr int kRows = 256;      // rows of a tile, one per thread (== kThreads)
 constexpr int kMaxStack = 16;   // MAX_STACK in ops/fused_sql.py
-constexpr int kMlpDesc = 16;
+constexpr int kSlotDesc = 16;   // words of a prediction slot's descriptor; the last is its kind
+constexpr int kOutChunk = 4;    // classes a forest walk adds up at once, in registers
 static_assert(kRows == kThreads, "one row per thread in the slot phase");
 static_assert(kRows % kTileRows == 0, "MLP sub-tiles");
 
@@ -66,9 +94,17 @@ enum Op {
 // header words of the plan: ops/fused_sql.py pack_plan
 enum Hdr {
   H_WORDS = 0, H_K, H_S, H_M, H_X, H_WHERE, H_J, H_G, H_NPROG, H_PROGS, H_CODE, H_CONSTS,
-  H_STRIDES, H_MLPS,
+  H_STRIDES, H_PREDS,
   H_SM_BLOB = 16, H_SM_ACT0, H_SM_ACT1, H_SM_PRED, H_SM_VALS, H_SM_KRAW, H_SM_KSLOT, H_SM_CNT,
   H_SM_SUMS, H_SM_MM, H_SM_FLAGS, H_SM_TOTAL
+};
+
+// a prediction slot's kind (the descriptor's last word) and a forest slot's
+// descriptor words: ops/fused_sql.py pack_plan
+enum SlotKind { SLOT_MLP = 0, SLOT_FOREST = 1 };
+enum ForestDesc {
+  F_TREES = 0, F_NODES, F_DEPTH, F_NOUT, F_DIN, F_NODE_OFF, F_W_OFF, F_STRICT, F_OUT_COL, F_BIAS,
+  F_LOGISTIC, F_MODE, F_CBIAS_OFF, F_FEAT, F_LABEL_OFF
 };
 
 __device__ inline float b2f(bool b) { return b ? 1.f : 0.f; }
@@ -155,60 +191,151 @@ __device__ inline T* at(unsigned char* smem, const int* plan, int which) {
   return reinterpret_cast<T*>(smem + plan[which]);
 }
 
-// The MLP slots on rows [rbase, rbase + 64) of the tile: predictions of
-// slot j go to pred[j][sub * 64 + r]. A feature may read an earlier slot.
-__device__ void mlp_slots(const int* plan, unsigned char* smem, const float* __restrict__ x,
-                          long long n_pad, long long n, long long rbase, int sub) {
-  const int J = plan[H_J];
+// MLP slot j (descriptor md) on rows [rbase, rbase + 64) of the tile: its
+// predictions go to pred[j][sub * 64 + r]. A feature may read an earlier slot.
+__device__ void mlp_slot(const int* plan, const int* md, int j, unsigned char* smem,
+                         const float* __restrict__ x, long long n_pad, long long n,
+                         long long rbase, int sub) {
   float* s_blob = at<float>(smem, plan, H_SM_BLOB);
   float* act0 = at<float>(smem, plan, H_SM_ACT0);
   float* act1 = at<float>(smem, plan, H_SM_ACT1);
   float* pred = at<float>(smem, plan, H_SM_PRED);
-  for (int j = 0; j < J; ++j) {
-    const int* md = plan + plan[H_MLPS] + j * kMlpDesc;
-    MlpDims d;
-    d.n_layers = md[0];
-    for (int i = 0; i <= kMaxLayers; ++i) d.dim[i] = i <= d.n_layers ? md[1 + i] : 0;
-    const int d_in = d.dim[0];
-    const bool bf16 = md[12] != 0;
-    const int feat = md[13];
-    for (int i = threadIdx.x; i < kTileRows * d_in; i += kThreads) {
-      const int k = i / kTileRows;
-      const int r = i - k * kTileRows;
-      const long long row = rbase + r;
-      float v = row < n ? run_program(plan, feat + k, x, n_pad, row, pred, sub * kTileRows + r)
-                        : 0.f;
-      if (bf16) v = round_bf16(v);
-      act0[k * kActStride + r] = v;
-    }
-    __syncthreads();
-    const float* w = s_blob + md[10];
-    const float* h = bf16 ? mlp_stack_f32<true>(d, w, act0, act1)
-                          : mlp_stack_f32<false>(d, w, act0, act1);
-    if (threadIdx.x < kTileRows) {
-      const int r = threadIdx.x;
-      const int C = d.dim[d.n_layers];
-      const int oc = md[14];
-      float v = h[oc * kActStride + r];
-      if (md[11]) {
-        // softmax over the classes, as jax.nn.softmax: exp(x - max) / sum
-        float m = h[r];
-        for (int c = 1; c < C; ++c) m = fmaxf(m, h[c * kActStride + r]);
-        float s = 0.f;
-        for (int c = 0; c < C; ++c) s = __fadd_rn(s, expf(__fsub_rn(h[c * kActStride + r], m)));
-        v = __fdiv_rn(expf(__fsub_rn(v, m)), s);
-      }
-      pred[j * kRows + sub * kTileRows + r] = v;
-    }
-    __syncthreads();
+  MlpDims d;
+  d.n_layers = md[0];
+  for (int i = 0; i <= kMaxLayers; ++i) d.dim[i] = i <= d.n_layers ? md[1 + i] : 0;
+  const int d_in = d.dim[0];
+  const bool bf16 = md[12] != 0;
+  const int feat = md[13];
+  for (int i = threadIdx.x; i < kTileRows * d_in; i += kThreads) {
+    const int k = i / kTileRows;
+    const int r = i - k * kTileRows;
+    const long long row = rbase + r;
+    float v = row < n ? run_program(plan, feat + k, x, n_pad, row, pred, sub * kTileRows + r)
+                      : 0.f;
+    if (bf16) v = round_bf16(v);
+    act0[k * kActStride + r] = v;
   }
+  __syncthreads();
+  const float* w = s_blob + md[10];
+  const float* h = bf16 ? mlp_stack_f32<true>(d, w, act0, act1)
+                        : mlp_stack_f32<false>(d, w, act0, act1);
+  if (threadIdx.x < kTileRows) {
+    const int r = threadIdx.x;
+    const int C = d.dim[d.n_layers];
+    const int oc = md[14];
+    float v = h[oc * kActStride + r];
+    if (md[11]) {
+      // softmax over the classes, as jax.nn.softmax: exp(x - max) / sum
+      float m = h[r];
+      for (int c = 1; c < C; ++c) m = fmaxf(m, h[c * kActStride + r]);
+      float s = 0.f;
+      for (int c = 0; c < C; ++c) s = __fadd_rn(s, expf(__fsub_rn(h[c * kActStride + r], m)));
+      v = __fdiv_rn(expf(__fsub_rn(v, m)), s);
+    }
+    pred[j * kRows + sub * kTileRows + r] = v;
+  }
+  __syncthreads();
+}
+
+__device__ inline bool is_finite(float v) { return fabsf(v) < INFINITY; }  // false for NaN
+
+// K4's walk for one row: adds to acc[0, nc) the weights of classes
+// [c0, c0 + nc) of the leaf each tree of forest fd reaches, tree by tree.
+// nonfin counts the row's non-finite features.
+__device__ __forceinline__ void forest_sums(const int* plan, const int* fd,
+                                            const int* __restrict__ trees,
+                                            const float* __restrict__ x, long long n_pad,
+                                            long long row, const float* pred, int r, int nonfin,
+                                            int c0, int nc, float (&acc)[kOutChunk]) {
+  const int T = fd[F_TREES], M = fd[F_NODES], depth = fd[F_DEPTH], n_out = fd[F_NOUT];
+  const int feat = fd[F_FEAT];
+  const bool strict = fd[F_STRICT] != 0;
+  const int4* nodes = reinterpret_cast<const int4*>(trees + fd[F_NODE_OFF]);
+  const float* w = reinterpret_cast<const float*>(trees + fd[F_W_OFF]);
+  for (int t = 0; t < T; ++t) {
+    const int4* tree = nodes + (long long)t * M;
+    int k = 0;
+    for (int level = 0; level < depth; ++level) {
+      const int4 nd = __ldg(tree + k);
+      if (nd.x < 0) break;  // a leaf
+      float v = run_program(plan, feat + nd.x, x, n_pad, row, pred, r);
+      // another feature of the row is non-finite: the one-hot product is NaN
+      if (nonfin > (is_finite(v) ? 0 : 1)) v = __int_as_float(0x7fc00000);
+      const float th = __int_as_float(nd.y);
+      k = (strict ? v < th : v <= th) ? nd.z : nd.w;
+    }
+    const float* wl = w + ((long long)t * M + k) * n_out + c0;
+#pragma unroll
+    for (int i = 0; i < kOutChunk; ++i)
+      if (i < nc) acc[i] = __fadd_rn(acc[i], __ldg(wl + i));
+  }
+}
+
+// jnp.argmax over scores seen one at a time: the first maximum, a NaN wins.
+__device__ inline void argmax_step(float v, int c, float& best, int& idx) {
+  if (c == 0 || (best == best && (v > best || v != v))) {
+    best = v;
+    idx = c;
+  }
+}
+
+// Forest slot j (descriptor fd, K4) on the tile's rows, one per thread: its
+// prediction goes to pred[j][r].
+__device__ void forest_slot(const int* plan, const int* fd, int j, float* pred,
+                            const int* __restrict__ trees, const float* __restrict__ x,
+                            long long n_pad, long long n, long long row0) {
+  const int r = threadIdx.x;
+  const long long row = row0 + r;
+  float out = 0.f;
+  if (row < n) {
+    const int d_in = fd[F_DIN], feat = fd[F_FEAT], mode = fd[F_MODE];
+    int nonfin = 0;
+    for (int f = 0; f < d_in; ++f)
+      nonfin += is_finite(run_program(plan, feat + f, x, n_pad, row, pred, r)) ? 0 : 1;
+    if (mode == 0) {
+      // regressor: the kept column plus its base, then an optional logistic
+      float acc[kOutChunk] = {0.f, 0.f, 0.f, 0.f};
+      forest_sums(plan, fd, trees, x, n_pad, row, pred, r, nonfin, fd[F_OUT_COL], 1, acc);
+      out = __fadd_rn(acc[0], __int_as_float(fd[F_BIAS]));
+      if (fd[F_LOGISTIC]) out = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-out)));
+    } else {
+      // classifier: per-class base, (binary expansion), argmax, label map
+      const int n_out = fd[F_NOUT];
+      const float* cbias =
+          fd[F_CBIAS_OFF] >= 0 ? reinterpret_cast<const float*>(trees + fd[F_CBIAS_OFF]) : nullptr;
+      float best = 0.f;
+      int idx = 0;
+      for (int c0 = 0; c0 < n_out; c0 += kOutChunk) {
+        const int nc = min(kOutChunk, n_out - c0);
+        float acc[kOutChunk] = {0.f, 0.f, 0.f, 0.f};
+        forest_sums(plan, fd, trees, x, n_pad, row, pred, r, nonfin, c0, nc, acc);
+#pragma unroll
+        for (int i = 0; i < kOutChunk; ++i) {
+          if (i >= nc) continue;
+          float s = acc[i];
+          if (cbias != nullptr) s = __fadd_rn(s, __ldg(cbias + c0 + i));
+          if (mode == 2) {
+            argmax_step(-s, 0, best, idx);
+            argmax_step(s, 1, best, idx);
+          } else {
+            argmax_step(s, c0 + i, best, idx);
+          }
+        }
+      }
+      out = fd[F_LABEL_OFF] >= 0
+                ? __ldg(reinterpret_cast<const float*>(trees + fd[F_LABEL_OFF]) + idx)
+                : (float)idx;
+    }
+  }
+  pred[j * kRows + r] = out;
 }
 
 __global__ void __launch_bounds__(kThreads)
 fused_sql_kernel(const float* __restrict__ x, long long n_pad, long long n,
                  const int* __restrict__ gplan, const float* __restrict__ blob, int blob_words16,
-                 long long* __restrict__ part_cnt, double* __restrict__ part_sum,
-                 float* __restrict__ part_mm, int* __restrict__ part_flags) {
+                 const int* __restrict__ trees, long long* __restrict__ part_cnt,
+                 double* __restrict__ part_sum, float* __restrict__ part_mm,
+                 int* __restrict__ part_flags) {
   extern __shared__ __align__(16) unsigned char smem[];
   int* plan = reinterpret_cast<int*>(smem);
   const int n_words = __ldg(gplan + H_WORDS);
@@ -220,8 +347,8 @@ fused_sql_kernel(const float* __restrict__ x, long long n_pad, long long n,
   const int R = M + X + 2 * K;
   const int SMX = S + M + X;
   const int* strides = plan + plan[H_STRIDES];
-  if (J > 0) copy_words16(at<float>(smem, plan, H_SM_BLOB), blob, blob_words16);
-  const float* pred = at<float>(smem, plan, H_SM_PRED);
+  if (blob_words16 > 0) copy_words16(at<float>(smem, plan, H_SM_BLOB), blob, blob_words16);
+  float* pred = at<float>(smem, plan, H_SM_PRED);
   float* vals = at<float>(smem, plan, H_SM_VALS);    // [S + M + X][kRows]
   float* kraw = at<float>(smem, plan, H_SM_KRAW);    // [K][kRows]
   int* kslot = at<int>(smem, plan, H_SM_KSLOT);      // [kRows]: group, -1 if not selected
@@ -242,11 +369,18 @@ fused_sql_kernel(const float* __restrict__ x, long long n_pad, long long n,
   const long long n_tiles = (n + kRows - 1) / kRows;
   for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const long long row0 = tile * kRows;
-    if (J > 0) {
+    // prediction slots, in order: a feature may read an earlier slot
+    for (int j = 0; j < J; ++j) {
+      const int* md = plan + plan[H_PREDS] + j * kSlotDesc;
+      if (md[kSlotDesc - 1] == SLOT_FOREST) {
+        forest_slot(plan, md, j, pred, trees, x, n_pad, n, row0);
+        __syncthreads();
+        continue;
+      }
       for (int sub = 0; sub < kRows / kTileRows; ++sub) {
         const long long rbase = row0 + sub * kTileRows;
         if (rbase >= n) break;  // uniform across the block
-        mlp_slots(plan, smem, x, n_pad, n, rbase, sub);
+        mlp_slot(plan, md, j, smem, x, n_pad, n, rbase, sub);
       }
     }
     // slot phase: one row per thread
@@ -341,12 +475,13 @@ extern "C" {
 
 // xc: [C, n_pad] f32, rows [0, n) used. plan: int32 words of
 // ops/fused_sql.py pack_plan, which also lays out the shared memory
-// (smem_bytes). blob: the MLP weights, f32. Partials: [n_blocks][G] int64,
-// [n_blocks][S][G] f64, [n_blocks][R][G] f32, [n_blocks] int32. Returns a
-// cudaError_t.
+// (smem_bytes). blob: the MLP weights, f32 (blob_floats, a multiple of 4, 0
+// without an MLP). trees: the forest slots' tables, int32 words, 16-byte
+// aligned sections. Partials: [n_blocks][G] int64, [n_blocks][S][G] f64,
+// [n_blocks][R][G] f32, [n_blocks] int32. Returns a cudaError_t.
 int infera_fused_sql(const void* xc, long long n_pad, long long n, const void* plan,
-                     const void* blob, long long blob_floats, void* part_cnt, void* part_sum,
-                     void* part_mm, void* part_flags, int n_blocks, int smem_bytes,
+                     const void* blob, long long blob_floats, const void* trees, void* part_cnt,
+                     void* part_sum, void* part_mm, void* part_flags, int n_blocks, int smem_bytes,
                      void* stream) {
   using namespace infera::sql;
   cudaError_t e = cudaFuncSetAttribute(fused_sql_kernel,
@@ -354,7 +489,7 @@ int infera_fused_sql(const void* xc, long long n_pad, long long n, const void* p
   if (e != cudaSuccess) return (int)e;
   fused_sql_kernel<<<n_blocks, infera::kThreads, smem_bytes, (cudaStream_t)stream>>>(
       (const float*)xc, n_pad, n, (const int*)plan, (const float*)blob, (int)(blob_floats / 4),
-      (long long*)part_cnt, (double*)part_sum, (float*)part_mm, (int*)part_flags);
+      (const int*)trees, (long long*)part_cnt, (double*)part_sum, (float*)part_mm, (int*)part_flags);
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,7 @@
 """ONNX subsystem: dependency-free protobuf codec, PyTorch op implementations
-and the eager graph executor."""
+(the standard ops and the ai.onnx.ml ops) and the eager graph executor."""
 
-from . import builder, ops, proto  # noqa: F401
+from . import builder, ml_ops, ops, proto  # noqa: F401
 from .executor import (  # noqa: F401
     CompiledOnnxModel,
     compile_model_bytes,

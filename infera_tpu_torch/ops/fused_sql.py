@@ -1,9 +1,10 @@
-"""K2 and K2′: the fused SQL plan as one CUDA kernel.
+"""K2, K2′ and K4: the fused SQL plan as one CUDA kernel.
 
 Counterpart of ``infera_tpu/ops/pallas_sql.py`` ``build_fused_plan_call``
-(core slots) and of ``sql/device_plan.py`` ``_lower_mlp``, which runs inside
-it. Over the stacked feature-major table block ``xc [C, n_pad]`` f32, for
-every row ``r < n_valid`` the kernel (``csrc/fused_sql.cu``) computes
+(core slots) and of ``sql/device_plan.py`` ``_lower_mlp`` and
+``_lower_tree_tables``, which run inside it. Over the stacked feature-major
+table block ``xc [C, n_pad]`` f32, for every row ``r < n_valid`` the kernel
+(``csrc/fused_sql.cu``) computes
 
     mask = where(r)                                  (true without a WHERE)
     key  = (sum_k int32(key_k(r)) * stride_k) mod G  (0 without GROUP BY)
@@ -19,11 +20,18 @@ kernel cannot, so the planner emits a small postfix **program** per slot
 (``sql/device_plan._ProgramLowerer``): the WHERE predicate, each key, each
 sum/min/max input and each feature of each ``infera_predict``. The kernel
 interprets the programs per row in registers; ``fused_sql_plain`` evaluates
-the same programs with torch ops over whole columns. ``PRED j`` reads the
-output column ``oc`` of MLP slot ``j`` (K2′), which the kernel computes on
-the tile before the slot programs run: a ReLU MLP in f32, or in bf16 (the
-features and every ReLU output rounded to bf16, f32 accumulation), then an
-optional softmax over the classes.
+the same programs with torch ops over whole columns. ``PRED j`` reads
+prediction slot ``j``, which the kernel computes on the tile before the slot
+programs run, in slot order (a feature may read an earlier slot):
+
+- an MLP slot (K2′): a ReLU MLP in f32, or in bf16 (the features and every
+  ReLU output rounded to bf16, f32 accumulation), an optional softmax over
+  the classes, then output column ``oc``;
+- a forest slot (K4): every tree walked per row over node tables in device
+  memory, the leaf weights added in tree order, then the regressor's column
+  plus its base (optional logistic), or the classifier's first-index argmax
+  over the per-class scores mapped through its labels. ``forest_plain`` is
+  the same function in torch ops.
 
 ``fused_sql`` launches the kernel for a CUDA table and runs
 ``fused_sql_plain`` for a CPU table; it raises for anything else.
@@ -102,8 +110,46 @@ class MlpSlot:
 
 
 @dataclass
+class ForestSlot:
+    """One ``infera_predict`` of a tree ensemble inside the plan (K4): the
+    walk tables of ``onnx/ml_ops._PackedTrees.kernel_forest`` (``node``
+    [T, M, 4] int32: feature or -1 for a leaf, threshold bits, true child,
+    false child; ``max_depth`` steps reach every leaf; ``strict`` compares
+    with ``<`` instead of ``<=``), the leaf weights [T, M, n_out] f32 with
+    an AVERAGE already folded in, one feature program per input, and the
+    tail of ``infera_tpu``'s ``_lower_tree_tables``: a regressor keeps
+    column ``out_col`` plus the scalar ``bias``, then an optional logistic;
+    a classifier adds ``class_bias`` per class, expands one score column to
+    (-s, s) when ``binary``, takes the first-index argmax and maps it
+    through ``labels`` (f32), or returns the index without labels."""
+
+    node: np.ndarray
+    weights: np.ndarray
+    max_depth: int
+    strict: bool
+    features: list
+    out_col: int = 0
+    bias: float = 0.0
+    logistic: bool = False
+    classifier: bool = False
+    class_bias: np.ndarray | None = None
+    binary: bool = False
+    labels: np.ndarray | None = None
+
+    @property
+    def n_trees(self) -> int:
+        return self.node.shape[0]
+
+    @property
+    def n_out(self) -> int:
+        return self.weights.shape[2]
+
+
+@dataclass
 class FusedPlan:
-    """Programs of one fused plan; COL args are block rows."""
+    """Programs of one fused plan; COL args are block rows. ``preds`` are
+    the prediction slots (``MlpSlot`` or ``ForestSlot``) that ``PRED j``
+    indexes, in the order the kernel runs them."""
 
     where: list | None
     keys: list
@@ -113,12 +159,20 @@ class FusedPlan:
     strides: list
     n_groups: int
     consts: list = field(default_factory=list)
-    mlps: list = field(default_factory=list)
+    preds: list = field(default_factory=list)
 
     @property
     def slot_programs(self) -> list:
         return ([] if self.where is None else [self.where]) + self.keys + self.sums \
             + self.mins + self.maxs
+
+    @property
+    def mlps(self) -> list:
+        return [s for s in self.preds if isinstance(s, MlpSlot)]
+
+    @property
+    def forests(self) -> list:
+        return [s for s in self.preds if isinstance(s, ForestSlot)]
 
     @property
     def bf16(self) -> bool:
@@ -128,9 +182,13 @@ class FusedPlan:
 # --------------------------------------------------------------------------- packing
 
 _HEADER = 32
-_MLP_DESC = 16
+_SLOT_DESC = 16      # words of a prediction slot's descriptor; the last says its kind
+SLOT_MLP, SLOT_FOREST = 0, 1
 (H_WORDS, H_K, H_S, H_M, H_X, H_WHERE, H_J, H_G, H_NPROG, H_PROGS, H_CODE, H_CONSTS,
- H_STRIDES, H_MLPS) = range(14)
+ H_STRIDES, H_PREDS) = range(14)
+# a forest slot's descriptor words, shared with csrc/fused_sql.cu
+(F_TREES, F_NODES, F_DEPTH, F_NOUT, F_DIN, F_NODE_OFF, F_W_OFF, F_STRICT, F_OUT_COL, F_BIAS,
+ F_LOGISTIC, F_MODE, F_CBIAS_OFF, F_FEAT, F_LABEL_OFF) = range(15)
 _SMEM_KEYS = ("blob", "act0", "act1", "pred", "vals", "kraw", "kslot", "cnt", "sums", "mm",
               "flags", "total")
 H_SMEM = 16          # header words 16..27: byte offsets of _SMEM_KEYS in shared memory
@@ -141,16 +199,37 @@ def _align16(n: int) -> int:
 
 
 @dataclass
+class ForestTables:
+    """A forest slot's tables on the device, for the plain version: per
+    node of the flattened [T * M] table its feature (-1 for a leaf),
+    threshold and children, the leaf weights [T * M, n_out], and the
+    classifier's per-class base values and labels."""
+
+    feature: torch.Tensor
+    threshold: torch.Tensor
+    true_child: torch.Tensor
+    false_child: torch.Tensor
+    weights: torch.Tensor
+    class_bias: torch.Tensor | None
+    labels: torch.Tensor | None
+
+
+@dataclass
 class PackedPlan:
     """A plan on one device: ``words`` int32 (header, program table, code,
-    constants, strides, MLP descriptors), ``blob`` f32 (every distinct MLP's
-    weights in the kernel's layout), the MLP weights for the plain version,
+    constants, strides, slot descriptors), ``blob`` f32 (every distinct MLP's
+    weights in the kernel's layout, ``blob_floats`` of them), ``trees`` int32
+    (every forest slot's node records, leaf weights, class base values and
+    labels, which K4 reads from device memory), per prediction slot its
+    weights for the plain version (``QueryWeights`` or ``ForestTables``),
     and the kernel's shared-memory layout."""
 
     plan: FusedPlan
     words: torch.Tensor
     blob: torch.Tensor
-    weights: list
+    blob_floats: int
+    trees: torch.Tensor
+    slots: list
     smem: dict
 
     @property
@@ -161,11 +240,13 @@ class PackedPlan:
 def smem_layout(plan: FusedPlan, n_words: int, blob_floats: int) -> dict:
     """Byte offsets of K2's shared memory: the plan words, the MLP weights,
     two 64-row activation tiles at the widest MLP width (only with an MLP),
-    the tile's predictions, slot values, raw keys and group slots, then the
-    block's accumulators (int64 counts, f64 sums, f32 min/max rows) and the
-    flag word. ``total`` is the budget that must fit one block's 227 KB."""
+    the tile's predictions (one row per slot, MLP or forest), slot values,
+    raw keys and group slots, then the block's accumulators (int64 counts,
+    f64 sums, f32 min/max rows) and the flag word. ``total`` is the budget
+    that must fit one block's 227 KB. A forest's tables stay in device
+    memory and take none of it."""
     K, S, M, X = len(plan.keys), len(plan.sums), len(plan.mins), len(plan.maxs)
-    G, J = plan.n_groups, len(plan.mlps)
+    G, J = plan.n_groups, len(plan.preds)
     widest = max((pad8(d) for m in plan.mlps for d in m.dims), default=0)
     sizes = [
         ("blob", 4 * blob_floats),
@@ -220,13 +301,47 @@ def _blob_floats(params) -> int:
     return sum(dims[i] * pad8(dims[i + 1]) + pad8(dims[i + 1]) for i in range(len(dims) - 1))
 
 
+def _programs(plan: FusedPlan) -> list:
+    """Every program of the plan in the kernel's order: the slot programs,
+    then each prediction slot's features."""
+    return plan.slot_programs + [f for s in plan.preds for f in s.features]
+
+
 def _sizes(plan: FusedPlan) -> tuple:
-    progs = plan.slot_programs + [f for m in plan.mlps for f in m.features]
+    progs = _programs(plan)
     n_code = sum(len(p) for p in progs)
     n_words = (_HEADER + 2 * len(progs) + 2 * n_code + len(plan.consts) + len(plan.keys)
-               + _MLP_DESC * len(plan.mlps))
+               + _SLOT_DESC * len(plan.preds))
     blob = sum(_blob_floats(p) for p, _ in _distinct_params(plan))
     return n_words, blob
+
+
+def _pack_forest(s: ForestSlot, parts: list, start: int, device) -> tuple:
+    """Append forest slot ``s``'s tables to ``parts`` (int32 arrays of the
+    trees buffer, whose next word is ``start``), each section 16-byte
+    aligned. Returns (section offsets, the words appended, ForestTables)."""
+    offs = []
+    pos = start
+    for a in (s.node, s.weights, s.class_bias, s.labels):
+        if a is None:
+            offs.append(-1)
+            continue
+        w = np.ascontiguousarray(a).view(np.int32).reshape(-1)
+        offs.append(pos)
+        parts.append(w)
+        parts.append(np.zeros(-w.size % 4, np.int32))
+        pos += w.size + (-w.size % 4)
+    node = torch.as_tensor(s.node.reshape(-1, 4), device=device)
+    f32 = torch.float32
+
+    def t(a):
+        return None if a is None else torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    tables = ForestTables(feature=node[:, 0].long(), threshold=node[:, 1].contiguous().view(f32),
+                          true_child=node[:, 2].long(), false_child=node[:, 3].long(),
+                          weights=t(s.weights.reshape(-1, s.n_out)), class_bias=t(s.class_bias),
+                          labels=t(s.labels))
+    return offs, pos - start, tables
 
 
 def pack_plan(plan: FusedPlan, device) -> PackedPlan:
@@ -241,12 +356,8 @@ def pack_plan(plan: FusedPlan, device) -> PackedPlan:
         offsets.append(off)
         parts.append(qw.blob)
         off += qw.blob.numel()
-    slot_w = []
-    for m in plan.mlps:
-        i = next(i for i, (p, b) in enumerate(distinct) if p is m.params and b == m.bf16)
-        slot_w.append((weights[i], offsets[i]))
 
-    progs = plan.slot_programs + [f for m in plan.mlps for f in m.features]
+    progs = _programs(plan)
     n_words, blob_floats = _sizes(plan)
     layout = smem_layout(plan, n_words, blob_floats)
     words = np.zeros(n_words, np.int32)
@@ -254,7 +365,7 @@ def pack_plan(plan: FusedPlan, device) -> PackedPlan:
     words[H_K], words[H_S] = len(plan.keys), len(plan.sums)
     words[H_M], words[H_X] = len(plan.mins), len(plan.maxs)
     words[H_WHERE] = int(plan.where is not None)
-    words[H_J], words[H_G], words[H_NPROG] = len(plan.mlps), plan.n_groups, len(progs)
+    words[H_J], words[H_G], words[H_NPROG] = len(plan.preds), plan.n_groups, len(progs)
     for i, key in enumerate(_SMEM_KEYS):
         words[H_SMEM + i] = layout[key]
     pos = _HEADER
@@ -271,29 +382,57 @@ def pack_plan(plan: FusedPlan, device) -> PackedPlan:
             pos += 2
     words[H_CONSTS] = pos
     for c in plan.consts:
-        words[pos] = struct.unpack("<i", struct.pack("<f", c))[0]
+        words[pos] = _f32_bits(c)
         pos += 1
     words[H_STRIDES] = pos
     for s in plan.strides:
         words[pos] = int(s) & 0x7FFFFFFF
         pos += 1
-    words[H_MLPS] = pos
+    words[H_PREDS] = pos
     feat = len(plan.slot_programs)
-    for m, (qw, boff) in zip(plan.mlps, slot_w):
-        dims = m.dims
-        words[pos] = len(dims) - 1
-        words[pos + 1:pos + 1 + len(dims)] = dims
-        words[pos + 10] = boff
-        words[pos + 11] = int(m.final_softmax)
-        words[pos + 12] = int(m.bf16)
-        words[pos + 13] = feat
-        words[pos + 14] = m.out_col
-        feat += len(m.features)
-        pos += _MLP_DESC
+    tree_parts: list = []
+    n_tree_words = 0
+    slots = []
+    for s in plan.preds:
+        d = words[pos:pos + _SLOT_DESC]
+        if isinstance(s, MlpSlot):
+            i = next(i for i, (p, b) in enumerate(distinct) if p is s.params and b == s.bf16)
+            dims = s.dims
+            d[0] = len(dims) - 1
+            d[1:1 + len(dims)] = dims
+            d[10] = offsets[i]
+            d[11] = int(s.final_softmax)
+            d[12] = int(s.bf16)
+            d[13] = feat
+            d[14] = s.out_col
+            d[_SLOT_DESC - 1] = SLOT_MLP
+            slots.append(weights[i])
+        else:
+            offs, used, tables = _pack_forest(s, tree_parts, n_tree_words, device)
+            n_tree_words += used
+            d[F_TREES], d[F_NODES] = s.n_trees, s.node.shape[1]
+            d[F_DEPTH], d[F_NOUT], d[F_DIN] = s.max_depth, s.n_out, len(s.features)
+            d[F_NODE_OFF], d[F_W_OFF], d[F_CBIAS_OFF], d[F_LABEL_OFF] = offs
+            d[F_STRICT] = int(s.strict)
+            d[F_OUT_COL] = s.out_col
+            d[F_BIAS] = _f32_bits(s.bias)
+            d[F_LOGISTIC] = int(s.logistic)
+            d[F_MODE] = (2 if s.binary else 1) if s.classifier else 0
+            d[F_FEAT] = feat
+            d[_SLOT_DESC - 1] = SLOT_FOREST
+            slots.append(tables)
+        feat += len(s.features)
+        pos += _SLOT_DESC
     assert pos == n_words
     blob = (torch.cat(parts) if parts else torch.zeros(4, dtype=torch.float32, device=device))
+    trees = np.concatenate(tree_parts) if tree_parts else np.zeros(4, np.int32)
     return PackedPlan(plan=plan, words=torch.as_tensor(words, device=device),
-                      blob=blob.contiguous(), weights=[w for w, _ in slot_w], smem=layout)
+                      blob=blob.contiguous(), blob_floats=off,
+                      trees=torch.as_tensor(trees, device=device), slots=slots, smem=layout)
+
+
+def _f32_bits(v: float) -> int:
+    return struct.unpack("<i", struct.pack("<f", v))[0]
 
 
 # --------------------------------------------------------------------------- plain version
@@ -379,14 +518,56 @@ def mlp_plain(weights: QueryWeights, feats: torch.Tensor, final_softmax: bool,
     return h[out_col]
 
 
+def forest_plain(slot: ForestSlot, tables: ForestTables, feats: torch.Tensor) -> torch.Tensor:
+    """K4 in plain torch ops over feature-major ``feats [d_in, n]``: every
+    tree walked ``max_depth`` steps per row, the leaf weights added in tree
+    order (as the kernel's ``__fadd_rn`` chain, so the sums agree bit for
+    bit), then the regressor's or the classifier's tail. A row holding a
+    non-finite feature sees NaN at each node that tests another feature, as
+    the one-hot product of ``infera_tpu``'s GEMM forest gives (``inf * 0``
+    is NaN). Returns [n] f32."""
+    x = feats.T.contiguous()
+    n = x.shape[0]
+    T, M = slot.n_trees, slot.node.shape[1]
+    nonfin = (~torch.isfinite(x)).sum(dim=1, keepdim=True)
+    cur = torch.zeros((n, T), dtype=torch.int64, device=x.device)
+    tree_off = torch.arange(T, device=x.device)[None, :] * M
+    for _ in range(slot.max_depth):
+        flat = tree_off + cur
+        f = tables.feature[flat]
+        v = torch.gather(x, 1, f.clamp(min=0))
+        v = torch.where(nonfin > (~torch.isfinite(v)).long(), math.nan, v)
+        th = tables.threshold[flat]
+        go = v < th if slot.strict else v <= th
+        nxt = torch.where(go, tables.true_child[flat], tables.false_child[flat])
+        cur = torch.where(f < 0, cur, nxt)
+    leaf_w = tables.weights[tree_off + cur]                     # [n, T, n_out]
+    if not slot.classifier:
+        leaf_w = leaf_w[:, :, slot.out_col:slot.out_col + 1]
+    acc = torch.zeros((n, leaf_w.shape[2]), dtype=torch.float32, device=x.device)
+    for t in range(T):
+        acc = acc + leaf_w[:, t]
+    if not slot.classifier:
+        y = acc[:, 0] + torch.tensor(slot.bias, dtype=torch.float32, device=x.device)
+        return 1.0 / (1.0 + torch.exp(-y)) if slot.logistic else y
+    scores = acc if tables.class_bias is None else acc + tables.class_bias
+    if slot.binary:
+        scores = torch.cat([-scores, scores], dim=1)
+    idx = torch.argmax(scores, dim=1)     # first index; a NaN wins, as jnp.argmax
+    return idx.to(torch.float32) if tables.labels is None else tables.labels[idx]
+
+
 def predictions_plain(packed: PackedPlan, xc: torch.Tensor, n: int) -> list:
-    """Every MLP slot's kept column over rows [0, n), in slot order (a
+    """Every prediction slot's value over rows [0, n), in slot order (a
     feature may read an earlier slot's prediction)."""
     plan = packed.plan
     preds: list = []
-    for m, w in zip(plan.mlps, packed.weights):
-        feats = torch.stack([eval_program(f, plan.consts, xc, n, preds) for f in m.features])
-        preds.append(mlp_plain(w, feats, m.final_softmax, m.out_col))
+    for s, w in zip(plan.preds, packed.slots):
+        feats = torch.stack([eval_program(f, plan.consts, xc, n, preds) for f in s.features])
+        if isinstance(s, MlpSlot):
+            preds.append(mlp_plain(w, feats, s.final_softmax, s.out_col))
+        else:
+            preds.append(forest_plain(s, w, feats))
     return preds
 
 
@@ -455,15 +636,16 @@ def fused_sql_plain(packed: PackedPlan, xc: torch.Tensor, n_valid: int) -> dict:
 
 
 def fused_sql(packed: PackedPlan, xc: torch.Tensor, n_valid: int) -> dict:
-    """K2 over rows [0, n_valid) of the table block ``xc [C, n_pad]`` f32;
-    returns ``fused_sql_plain``'s dict."""
+    """K2 (with K2′ and K4 inside it for the plan's prediction slots) over
+    rows [0, n_valid) of the table block ``xc [C, n_pad]`` f32; returns
+    ``fused_sql_plain``'s dict."""
     if xc.device.type == "cpu":
         return fused_sql_plain(packed, xc, n_valid)
     _kernels.require_cuda(xc, "table block")
     if xc.dtype != torch.float32 or xc.dim() != 2 or not 1 <= n_valid <= xc.shape[1]:
         raise ValueError(f"table block must be f32 [C, n_pad >= {n_valid}], "
                          f"got {xc.dtype} {tuple(xc.shape)}")
-    if packed.words.device != xc.device:
+    if packed.words.device != xc.device or packed.trees.device != xc.device:
         raise ValueError(f"plan on {packed.words.device}, table on {xc.device}")
     smem = packed.smem_bytes
     if smem > SMEM_LIMIT:
@@ -485,8 +667,8 @@ def fused_sql(packed: PackedPlan, xc: torch.Tensor, n_valid: int) -> dict:
     stream = _kernels.stream_handle(dev)
     rc = lib.infera_fused_sql(
         xc.data_ptr(), xc.shape[1], n_valid, packed.words.data_ptr(), packed.blob.data_ptr(),
-        packed.blob.numel(), part_cnt.data_ptr(), part_sum.data_ptr(), part_mm.data_ptr(),
-        part_flags.data_ptr(), n_blocks, smem, stream)
+        packed.blob_floats, packed.trees.data_ptr(), part_cnt.data_ptr(), part_sum.data_ptr(),
+        part_mm.data_ptr(), part_flags.data_ptr(), n_blocks, smem, stream)
     _kernels.check(lib, rc, "fused_sql")
     rc = lib.infera_fused_sql_fold(
         part_cnt.data_ptr(), part_sum.data_ptr(), part_mm.data_ptr(), part_flags.data_ptr(),
@@ -494,10 +676,13 @@ def fused_sql(packed: PackedPlan, xc: torch.Tensor, n_valid: int) -> dict:
         out["sums"].data_ptr(), out["mm"].data_ptr(), out["flags"].data_ptr(), stream)
     _kernels.check(lib, rc, "fused_sql fold")
     fused_sql.launches["bf16" if plan.bf16 else "f32"] += 1
+    if plan.forests:
+        fused_sql.launches["forest"] += 1
     return out
 
 
-fused_sql.launches = {"f32": 0, "bf16": 0}
+# K2 launches by precision; "forest" counts the launches that ran K4 inside
+fused_sql.launches = {"f32": 0, "bf16": 0, "forest": 0}
 
 
 def fused_sql_mode() -> str:

@@ -7,14 +7,17 @@ WHERE filter, optional GROUP BY over up to 4 integer-valued keys
 (mixed-radix combined key), and ``infera_predict`` /
 ``infera_predict_multi_list(...)[k]`` calls in expressions — the whole plan
 runs as ONE launch of kernel K2 (``ops/fused_sql.py``): the table lives on
-the card as one stacked f32 block, every MLP runs inside the kernel (K2′),
-and only the per-group results return to the host.
+the card as one stacked f32 block, every MLP (K2′) and every tree ensemble
+(K4) runs inside the kernel, and only the per-group results return to the
+host.
 
 The planner lowers each expression to a postfix program (``_ProgramLowerer``)
 in place of ``infera_tpu``'s JAX closures. The kernel tier carries the core
 aggregates: count, sum, avg/mean, min, max and the group key. Anything else
-— another aggregate, a window, a model that is no MLP, a plan over the
-shared-memory budget, a key guard that trips — returns None and the host
+— another aggregate, a window, a model that is neither an MLP nor a forest
+the kernel takes (``infera_tpu``'s declines: branch modes, tree sizes,
+post transforms), a plan over the shared-memory budget, a key guard that
+trips — returns None and the host
 executor answers, so semantics never regress. ``infera_tpu``'s XLA tier
 between the two (a torch-op program here) is not in the port yet.
 
@@ -26,6 +29,7 @@ plain version (the tests' hook, as interpret mode is for Pallas).
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
@@ -34,6 +38,8 @@ import torch
 from ..columnar import Column, Table
 from ..columnar import types as T
 from ..device import get_device
+from ..onnx import ml_ops as ML
+from ..onnx.fusion import detect_tree
 from ..ops import fused_sql as FS
 from ..registry import MODELS
 from . import ast as A
@@ -61,6 +67,10 @@ MAX_GROUPS = 1 << 16
 
 class _Unsupported(Exception):
     pass
+
+
+def _decoded(attr):
+    return attr.decode() if isinstance(attr, bytes) else attr
 
 
 # --- shared device-resident table block ----------------------------------
@@ -135,16 +145,17 @@ class _ProgramLowerer:
     ``_PallasLowerer``: the cases of ``lower`` are theirs, and where they
     built a JAX closure this emits instructions. COL args are column keys
     until ``resolve`` maps them to rows of the table block. ``infera_predict``
-    lowers to ``PRED j``: MLP slot j (K2′), run inside the kernel over the
-    model's ``mlp_plan``; one slot per distinct call."""
+    lowers to ``PRED j``: prediction slot j, run inside the kernel, an MLP
+    slot (K2′) over the model's ``mlp_plan`` or a forest slot (K4) over its
+    tree ensemble; one slot per distinct call."""
 
     def __init__(self, table: Table):
         self.table = table
         self.used_columns: dict = {}
         self.models: dict = {}
         self.consts: list = []
-        self.mlps: list = []
-        self._slots: dict = {}  # repr of a predict call -> MLP slot
+        self.preds: list = []   # prediction slots (MLP or forest), PRED j's order
+        self._slots: dict = {}  # repr of a predict call -> slot index
 
     def _column(self, name: str, qualifier):
         key = f"{qualifier}.{name}" if qualifier else name
@@ -233,8 +244,11 @@ class _ProgramLowerer:
         raise _Unsupported(type(expr).__name__)
 
     def _lower_predict(self, expr: A.FuncCall, out_col: int | None = None) -> list:
-        """K2′ slot for infera_predict (out_col None → requires a 1-column
-        output) or an infera_predict_multi_list element (0-based out_col)."""
+        """Prediction slot for infera_predict (out_col None → requires a
+        1-column output) or an infera_predict_multi_list element (0-based
+        out_col): K2′ over the model's ``mlp_plan``, else K4 over a
+        tree-ensemble graph (``fusion.detect_tree``). One slot per distinct
+        call."""
         if (not expr.args or not isinstance(expr.args[0], A.Literal)
                 or not isinstance(expr.args[0].value, str)):
             raise _Unsupported("infera_predict needs a constant model name")
@@ -242,25 +256,109 @@ class _ProgramLowerer:
         model = MODELS.get(model_name)
         if model is None:
             raise _Unsupported(f"model {model_name} not loaded at plan time")
-        precision = getattr(model, "precision", "f32") or "f32"
-        plan = getattr(model, "mlp_plan", None)
-        if plan is None or precision not in ("f32", "bf16"):
-            raise _Unsupported("the kernel plan needs an f32 or bf16 MLP model")
         self.models[model_name] = model
-        params, final_softmax = plan[0], plan[1]
-        oc = self._pick_out_col(out_col, params[-1][0].shape[1])
-        key = (model_name, id(model), oc, repr(expr.args[1:]))
+        key = (model_name, id(model), out_col, repr(expr.args[1:]))
         j = self._slots.get(key)
         if j is None:
-            features = [self.lower(a) for a in expr.args[1:]]
-            if len(features) != params[0][0].shape[0]:
-                raise _Unsupported("feature count mismatch (host path reports it)")
-            self.mlps.append(FS.MlpSlot(params=params, final_softmax=bool(final_softmax),
-                                        out_col=oc, bf16=precision == "bf16",
-                                        features=features))
-            j = len(self.mlps) - 1
+            plan = getattr(model, "mlp_plan", None)
+            if plan is not None:
+                slot = self._lower_mlp(expr, model, plan, out_col)
+            else:
+                tree = detect_tree(model.graph)
+                if tree is None:
+                    raise _Unsupported("the kernel plan needs an MLP or tree-forest model")
+                slot = self._lower_tree(expr, model, tree[0], out_col, is_classifier=tree[1])
+            self.preds.append(slot)
+            j = len(self.preds) - 1
             self._slots[key] = j
         return [(FS.PRED, j)]
+
+    def _lower_mlp(self, expr, model, plan, out_col) -> FS.MlpSlot:
+        precision = getattr(model, "precision", "f32") or "f32"
+        if precision not in ("f32", "bf16"):
+            raise _Unsupported("the kernel plan needs an f32 or bf16 MLP model")
+        params, final_softmax = plan[0], plan[1]
+        oc = self._pick_out_col(out_col, params[-1][0].shape[1])
+        features = [self.lower(a) for a in expr.args[1:]]
+        if len(features) != params[0][0].shape[0]:
+            raise _Unsupported("feature count mismatch (host path reports it)")
+        return FS.MlpSlot(params=params, final_softmax=bool(final_softmax), out_col=oc,
+                          bf16=precision == "bf16", features=features)
+
+    def _lower_tree(self, expr, model, node, out_col, is_classifier=False) -> FS.ForestSlot:
+        """K4 slot: the forest of a TreeEnsembleRegressor or -Classifier,
+        with ``infera_tpu``'s ``_lower_tree`` declines. A classifier keeps
+        its label (argmax-invariant post transforms skip); a regressor its
+        column, AVERAGE folded into the leaf weights, optional LOGISTIC."""
+        if is_classifier:
+            labels_int = node.attr("classlabels_int64s")
+            labels_str = node.attr("classlabels_strings")
+            n_cls = len(labels_int or labels_str or [])
+            if n_cls == 0:
+                raise _Unsupported("classifier without class labels")
+            post = _decoded(node.attr("post_transform", "NONE"))
+            # argmax-invariant transforms only (SOFTMAX_ZERO is not; PROBIT's
+            # erfinv is NaN outside [0, 1], where the host's argmax differs)
+            if post not in (None, "NONE", "SOFTMAX", "LOGISTIC"):
+                raise _Unsupported(f"post_transform {post}")
+            if labels_int is not None and any(abs(int(v)) > (1 << 24) for v in labels_int):
+                raise _Unsupported("class label beyond f32 exactness")
+            return self._lower_tree_tables(
+                expr, model, node, out_col, n_out_attr=n_cls, weights_key="class",
+                classifier=(labels_int, n_cls), logistic=False, agg="SUM")
+        n_targets = int(node.attr("n_targets", 1))
+        agg = _decoded(node.attr("aggregate_function", "SUM"))
+        if agg not in ("SUM", "AVERAGE", None):
+            raise _Unsupported(f"aggregate_function {agg}")
+        post = _decoded(node.attr("post_transform", "NONE"))
+        if post not in (None, "NONE", "LOGISTIC"):
+            raise _Unsupported(f"post_transform {post}")
+        return self._lower_tree_tables(
+            expr, model, node, out_col, n_out_attr=n_targets, weights_key="target",
+            classifier=None, logistic=post == "LOGISTIC", agg=agg)
+
+    def _lower_tree_tables(self, expr, model, node, out_col, *, n_out_attr, weights_key,
+                           classifier, logistic, agg) -> FS.ForestSlot:
+        ishape = model.input_shape
+        d_in = ishape[1] if len(ishape) > 1 and ishape[1] > 0 else None
+        if d_in is None:
+            d_in = len(expr.args) - 1
+        packed = ML._cached_pack(node, n_out_attr, weights_key)
+        tables = packed.kernel_forest(d_in)
+        if tables is None:
+            raise _Unsupported("forest exceeds the strip-packing limits")
+        n_out = packed.weights.shape[2]
+        # the classifier's OUTPUT is one label column
+        oc = self._pick_out_col(out_col, 1 if classifier is not None else n_out)
+        features = [self.lower(a) for a in expr.args[1:]]
+        if len(features) != d_in:
+            raise _Unsupported("feature count mismatch (host path reports it)")
+        bvals = node.attr("base_values")
+        weights = packed.weights
+        bias = 0.0
+        if bvals and classifier is None:
+            bias = float(bvals[oc])
+        if agg == "AVERAGE":
+            # the host divides AFTER the base add (ml_ops._tree_regressor)
+            weights = weights * np.float32(1.0 / packed.n_trees)
+            bias = bias / packed.n_trees
+        slot = FS.ForestSlot(node=tables["node"], weights=weights,
+                             max_depth=tables["max_depth"], strict=tables["strict"],
+                             features=features, out_col=oc, bias=float(np.float32(bias)),
+                             logistic=logistic)
+        if classifier is not None:
+            labels_int, n_cls = classifier
+            slot.classifier = True
+            slot.out_col = 0
+            if bvals:
+                cb = np.asarray(bvals, np.float32).reshape(-1)
+                if cb.size not in (1, n_out):
+                    raise _Unsupported("class base values of another width")
+                slot.class_bias = np.ascontiguousarray(np.broadcast_to(cb, (n_out,)))
+            slot.binary = n_cls == 2 and n_out == 1
+            if labels_int is not None:
+                slot.labels = np.asarray(labels_int, np.float32)
+        return slot
 
     @staticmethod
     def _pick_out_col(out_col, d_out):
@@ -287,14 +385,13 @@ class _ProgramLowerer:
                 raise _Unsupported("expression deeper than the kernel's stack")
             return out
 
-        mlps = [FS.MlpSlot(params=m.params, final_softmax=m.final_softmax,
-                           out_col=m.out_col, bf16=m.bf16,
-                           features=[resolve(f) for f in m.features]) for m in self.mlps]
+        preds = [dataclasses.replace(s, features=[resolve(f) for f in s.features])
+                 for s in self.preds]
         return FS.FusedPlan(
             where=None if where is None else resolve(where),
             keys=[resolve(c) for c in keys], sums=[resolve(c) for c in sums],
             mins=[resolve(c) for c in mins], maxs=[resolve(c) for c in maxs],
-            strides=list(strides), n_groups=n_groups, consts=list(self.consts), mlps=mlps)
+            strides=list(strides), n_groups=n_groups, consts=list(self.consts), preds=preds)
 
 
 def _packed(conn, plan_key, plan: FS.FusedPlan, block_xc) -> FS.PackedPlan:

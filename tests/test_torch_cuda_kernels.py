@@ -6,7 +6,9 @@ These need a CUDA card (H100, sm_90a) and skip without one. On the card:
 cover what the main path does not: one row, ragged tiles, a layer wider than
 one 128-column pass, widths that are no multiple of 4 or 8, and left shifts
 in K3; for K2, every opcode of the programs, the key guards, MLP slots in
-f32 and bf16, and the SQL flagship through Connection.execute."""
+f32 and bf16, and the SQL flagship through Connection.execute; for K4,
+regressors and classifiers over heap and non-heap trees, a NaN feature, and
+tree queries through Connection.execute."""
 
 import numpy as np
 import pytest
@@ -256,7 +258,7 @@ def _mlp_plan(dims, softmax, bf16, oc, seed, G=64):
     consts = []
     return fs.FusedPlan(where=[(fs.COL, 3), _c(consts, 0.0), (fs.GT, 0)], keys=[[(fs.COL, 0)]],
                         sums=[[(fs.PRED, 0)]], mins=[[(fs.PRED, 0)]], maxs=[[(fs.PRED, 0)]],
-                        strides=[1], n_groups=G, consts=consts, mlps=[slot])
+                        strides=[1], n_groups=G, consts=consts, preds=[slot])
 
 
 @pytest.mark.parametrize("bf16", [False, True])
@@ -319,6 +321,213 @@ def test_k2_sql_flagship_on_the_card(cuda, monkeypatch, tmp_path):
         for a, b in zip(rows, host):
             assert a[:2] == b[:2]
             np.testing.assert_allclose(a[2:], b[2:], rtol=1e-6)
+    finally:
+        MODELS.clear()
+        itt.set_device(None)
+
+
+# --------------------------------------------------------------------------- K4
+
+
+def _shuffled_tree_model(model, seed, mode="BRANCH_LEQ"):
+    """The builder's heap-layout forest with node ids permuted per tree (the
+    root stays 0), so children are no longer 2i+1 / 2i+2, and every branch
+    in ``mode``."""
+    from infera_tpu_torch.onnx.proto import Attribute
+
+    node = model.graph.nodes[0]
+    a = {k: v.value for k, v in node.attributes.items()}
+    rng = np.random.default_rng(seed)
+    n_nodes = max(a["nodes_nodeids"]) + 1
+    perm = {t: np.concatenate([[0], 1 + rng.permutation(n_nodes - 1)])
+            for t in set(a["nodes_treeids"])}
+    trees = a["nodes_treeids"]
+    new = {
+        "nodes_nodeids": [int(perm[t][i]) for t, i in zip(trees, a["nodes_nodeids"])],
+        "nodes_truenodeids": [int(perm[t][i]) for t, i in zip(trees, a["nodes_truenodeids"])],
+        "nodes_falsenodeids": [int(perm[t][i]) for t, i in zip(trees, a["nodes_falsenodeids"])],
+        "nodes_modes": [m if m == "LEAF" else mode for m in a["nodes_modes"]],
+    }
+    wkey = "target" if "target_nodeids" in a else "class"
+    new[f"{wkey}_nodeids"] = [int(perm[t][i]) for t, i in
+                              zip(a[f"{wkey}_treeids"], a[f"{wkey}_nodeids"])]
+    for k, v in new.items():
+        node.attributes[k] = Attribute.make(k, v)
+    return model
+
+
+def _forest_slot(kind, d_in, seed):
+    """A forest slot as the planner builds it, reading feature k from block
+    row (1, 2, 3, 4, 5)[k % 5]: row 2 holds NaN in every 997th row."""
+    from infera_tpu_torch.onnx import builder, ml_ops
+
+    if kind.startswith("clf"):
+        # clf2: one score column, expanded to (-s, s) over two labels
+        labels = [5] if kind == "clf2" else [7, 19, 42]
+        model = builder.gbt_classifier_model(n_features=d_in, n_trees=16, depth=5,
+                                             n_classes=len(labels), labels=labels, seed=seed)
+    else:
+        model = builder.gbt_regressor_model(n_features=d_in, n_trees=24, depth=6, seed=seed)
+    if kind in ("reg_shuffled_lt", "clf_shuffled"):
+        model = _shuffled_tree_model(model, seed, "BRANCH_LT" if kind.startswith("reg") else
+                                     "BRANCH_LEQ")
+    node = model.graph.nodes[0]
+    clf = kind.startswith("clf")
+    n_out = len(node.attr("classlabels_int64s")) if clf else 1
+    packed = ml_ops._PackedTrees(node, n_out, "class" if clf else "target")
+    tables = packed.kernel_forest(d_in)
+    assert tables is not None
+    assert packed.heap_layout == (kind not in ("reg_shuffled_lt", "clf_shuffled"))
+    feats = [[(fs.COL, (1, 2, 3, 4, 5)[k % 5])] for k in range(d_in)]
+    slot = fs.ForestSlot(node=tables["node"], weights=packed.weights,
+                         max_depth=tables["max_depth"], strict=tables["strict"], features=feats,
+                         bias=0.5 if kind == "reg" else 0.0, logistic=kind == "reg_logistic")
+    if clf:
+        slot.classifier = True
+        slot.binary = kind == "clf2"
+        slot.labels = np.asarray([5, 11] if slot.binary else node.attr("classlabels_int64s"),
+                                 np.float32)
+        slot.class_bias = np.linspace(-0.1, 0.1, n_out).astype(np.float32)
+    return slot
+
+
+def _forest_plan(slot, G=64):
+    consts = []
+    return fs.FusedPlan(where=[(fs.COL, 3), _c(consts, -4.0), (fs.GT, 0)], keys=[[(fs.COL, 0)]],
+                        sums=[[(fs.PRED, 0)]], mins=[[(fs.PRED, 0)]], maxs=[[(fs.PRED, 0)]],
+                        strides=[1], n_groups=G, consts=consts, preds=[slot])
+
+
+FOREST_KINDS = ["reg", "reg_logistic", "reg_shuffled_lt", "clf", "clf_shuffled", "clf2"]
+
+
+@pytest.mark.parametrize("kind", FOREST_KINDS)
+def test_k4_forest_matches_plain(cuda, kind):
+    """Each row's prediction is the plain version's bit for bit (leaf weights
+    added in the same tree order; a row with NaN in one feature sees NaN at
+    the nodes of the others), but for logistic, whose exp differs from
+    torch's by an ulp or two. So counts, flags, min and max are exact and
+    the f64 sums differ only in their order."""
+    n = 1_000_003
+    packed = fs.pack_plan(_forest_plan(_forest_slot(kind, 7, seed=21)), cuda)
+    xc = _sql_block(n, 12, cuda)
+    before = dict(fs.fused_sql.launches)
+    got = fs.fused_sql(packed, xc, n)
+    torch.cuda.synchronize()
+    assert fs.fused_sql.launches["forest"] == before["forest"] + 1
+    assert fs.fused_sql.launches["f32"] == before["f32"] + 1
+    want = fs.fused_sql_plain(packed, xc, n)
+    if kind == "reg_logistic":
+        _assert_k2_close(got, want, sum_rtol=1e-6, mm_rtol=5e-7)
+    else:
+        _assert_k2_close(got, want, sum_rtol=1e-12)
+
+
+def test_k4_predictions_equal_plain_bit_for_bit(cuda):
+    """The forest's per-row values through a plan whose min and max keep
+    every row: one group per row of a 4096-row block."""
+    n = 4096
+    slot = _forest_slot("reg_shuffled_lt", 7, seed=5)
+    xc = _sql_block(n, 13, cuda)
+    xc[0] = torch.arange(n, device=cuda, dtype=torch.float32)
+    plan = fs.FusedPlan(where=None, keys=[[(fs.COL, 0)]], sums=[], mins=[[(fs.PRED, 0)]],
+                        maxs=[], strides=[1], n_groups=n, consts=[], preds=[slot])
+    packed = fs.pack_plan(plan, cuda)
+    got = fs.fused_sql(packed, xc, n)["mm"][0]
+    want = fs.forest_plain(slot, packed.slots[0], xc[[1, 2, 3, 4, 5, 1, 2]])
+    assert torch.equal(got, want)
+
+
+def test_k4_sums_are_the_same_from_run_to_run(cuda):
+    packed = fs.pack_plan(_forest_plan(_forest_slot("reg", 16, seed=2)), cuda)
+    xc = _sql_block(300_000, 14, cuda)
+    first = fs.fused_sql(packed, xc, 300_000)
+    for _ in range(2):
+        again = fs.fused_sql(packed, xc, 300_000)
+        for k in first:
+            assert torch.equal(first[k], again[k])
+
+
+def test_k4_tree_plan_raises_without_its_library(cuda, monkeypatch, tmp_path):
+    """A tree plan on a CUDA table launches K4 or raises: a library that
+    cannot load is an error, never a quiet run of the plain version."""
+    import infera_tpu_torch as itt
+    from infera_tpu_torch.onnx import builder, proto
+    from infera_tpu_torch.ops import _kernels
+    from infera_tpu_torch.registry import MODELS
+    from infera_tpu_torch.sql import Connection
+
+    def no_library(name):
+        raise RuntimeError(f"nvcc failed for {name}.cu")
+
+    def no_plain(*a, **k):
+        raise AssertionError("the plain version ran on the card")
+
+    packed = fs.pack_plan(_forest_plan(_forest_slot("clf", 7, seed=1)), cuda)
+    xc = _sql_block(10_000, 15, cuda)
+    monkeypatch.setattr(_kernels, "load", no_library)
+    monkeypatch.setattr(fs, "fused_sql_plain", no_plain)
+    monkeypatch.setattr(fs, "forest_plain", no_plain)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        fs.fused_sql(packed, xc, 10_000)
+    monkeypatch.delenv("INFERA_PALLAS_SQL", raising=False)
+    itt.set_device(cuda)
+    MODELS.clear()
+    try:
+        proto.save_model_file(builder.gbt_regressor_model(n_features=4, n_trees=8, depth=4),
+                              tmp_path / "gbt.onnx")
+        itt.load_model("gbt", str(tmp_path / "gbt.onnx"))
+        conn = Connection()
+        conn.execute("create table t as select x % 8 as g, (x % 100)::float / 10.0 as f1, "
+                     "(x % 7)::float as f2, (x % 13)::float as f3, (x % 3)::float as f4 "
+                     "from range(50000) r(x)")
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            conn.execute("select g, avg(infera_predict('gbt', f1, f2, f3, f4)) from t group by g")
+    finally:
+        MODELS.clear()
+        itt.set_device(None)
+
+
+@pytest.mark.parametrize("model", ["gbt", "gbc"])
+def test_k4_sql_tree_query_on_the_card(cuda, monkeypatch, tmp_path, model):
+    """Connection.execute runs a tree query through K2+K4 on CUDA and answers
+    as the host executor does: keys and counts exact, predictions to 1e-5
+    (the host's GEMM forest adds the leaves in another order), labels exact."""
+    import infera_tpu_torch as itt
+    from infera_tpu_torch.onnx import builder, proto
+    from infera_tpu_torch.registry import MODELS
+    from infera_tpu_torch.sql import Connection
+
+    monkeypatch.delenv("INFERA_PALLAS_SQL", raising=False)
+    itt.set_device(cuda)
+    MODELS.clear()
+    try:
+        m = (builder.gbt_regressor_model(n_features=4, n_trees=12, depth=4, seed=7)
+             if model == "gbt" else
+             builder.gbt_classifier_model(n_features=4, n_trees=8, depth=3, n_classes=3,
+                                          labels=[7, 19, 42], seed=3))
+        proto.save_model_file(m, tmp_path / "m.onnx")
+        itt.load_model(model, str(tmp_path / "m.onnx"))
+        conn = Connection()
+        conn.execute("create table big as select x % 64 as g, (x % 100)::float / 10.0 as f1, "
+                     "((x + 3) % 50)::float / 5.0 as f2, ((x * 7) % 30)::float / 3.0 as f3, "
+                     "((x * 11) % 90)::float / 9.0 as f4 from range(100003) r(x)")
+        p = f"infera_predict('{model}', f1, f2, f3, f4)"
+        q = f"select g, count(*) c, avg({p}), min({p}), max({p}) from big group by g order by g"
+        before = fs.fused_sql.launches["forest"]
+        rows = conn.execute(q).rows
+        assert conn._exec_path == "device_plan_cuda"
+        assert fs.fused_sql.launches["forest"] == before + 1
+        monkeypatch.setenv("INFERA_PALLAS_SQL", "0")
+        host = conn.execute(q).rows
+        assert conn._exec_path == "host"
+        assert len(rows) == len(host) == 64
+        for a, b in zip(rows, host):
+            assert a[:2] == b[:2]
+            if model == "gbc":
+                assert a == b
+            else:
+                np.testing.assert_allclose(a[2:], b[2:], rtol=1e-5)
     finally:
         MODELS.clear()
         itt.set_device(None)

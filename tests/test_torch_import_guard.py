@@ -26,6 +26,7 @@ sys.exit(1 if bad else 0)
     "infera_tpu_torch.bench",
     "infera_tpu_torch.ops.fused_query",
     "infera_tpu_torch.ops.fused_sql",
+    "infera_tpu_torch.onnx.ml_ops",
     "infera_tpu_torch.sql",
     "infera_tpu_torch.sql.device_plan",
     "infera_tpu_torch.sql.shell",

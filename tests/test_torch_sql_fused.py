@@ -120,7 +120,7 @@ def test_predict_calls_share_one_mlp_slot(both):
     low = dp._ProgramLowerer(port.catalog.get("big"))
     progs = [low.lower(item.expr.args[0]) for item in sel.items[1:]]
     assert progs[0] == progs[1] == [(fs.PRED, 0)]
-    assert len(low.mlps) == 1
+    assert len(low.preds) == 1
 
 
 @pytest.mark.parametrize("q", [
@@ -286,7 +286,7 @@ def test_smem_budget_of_the_bench_plan():
     biases) at G = 64 with one key, one sum and one max slot."""
     plan = fs.FusedPlan(where=[(fs.COL, 0), (fs.CONST, 0), (fs.GT, 0)], keys=[[(fs.COL, 32)]],
                         sums=[[(fs.PRED, 0)]], mins=[], maxs=[[(fs.PRED, 0)]], strides=[1],
-                        n_groups=64, consts=[0.0], mlps=[_mlp_slot((32, 128, 128, 16))])
+                        n_groups=64, consts=[0.0], preds=[_mlp_slot((32, 128, 128, 16))])
     n_words = 32 + 2 * 36 + 2 * 38 + 1 + 1 + 16
     layout = fs.smem_layout(plan, n_words, (90112 + 1088) // 4)
     assert fs.smem_bytes(plan) == layout["total"]
@@ -295,11 +295,11 @@ def test_smem_budget_of_the_bench_plan():
     assert layout["total"] == expect
     assert fs.smem_fits(plan)
     # two predicts of one model share one copy of the weights
-    plan.mlps.append(_mlp_slot((32, 128, 128, 16)))
-    plan.mlps[1].params = plan.mlps[0].params
+    plan.preds.append(_mlp_slot((32, 128, 128, 16)))
+    plan.preds[1].params = plan.preds[0].params
     assert fs.smem_fits(plan)
     # another model of the same widths does not fit beside it
-    plan.mlps[1] = _mlp_slot((32, 128, 128, 16))
+    plan.preds[1] = _mlp_slot((32, 128, 128, 16))
     assert not fs.smem_fits(plan)
 
 
