@@ -43,7 +43,17 @@ card, builds every kernel of ``infera_tpu_torch/csrc`` with nvcc (sm_90a), and:
    the host executor's rows; K2+K4 is held against its plain version at
    1,048,576 and 1,000,003 rows and timed beside its bound, its plain
    version and a PyTorch chain (the port's GEMM forest and ``index_add_``);
-7. prints the ``{"kernels": [...]}`` line, the card's name and power limit,
+7. the join path, BASELINE config 3: query F (an 8→4 map's outputs over a
+   1,048,576-row source joined back on a permuted key to a 1,048,576-row
+   dimension, 16 groups) and the outer joins G-LEFT, G-FULL and H (a
+   1,048,576-row fact table to a 1,000-row dimension) through
+   ``Connection.execute``, with the launch counts set to 0 just before and
+   read just after. Each must run on ``device_join_plan_cuda`` with exactly
+   one launch of K5 and give the host executor's rows (whose join is the
+   device sort-join); F's counts are also held to numpy. K5 is held against
+   its plain version at 1,048,576 and 1,000,003 rows and timed beside its
+   bound, its plain version and a PyTorch chain;
+8. prints the ``{"kernels": [...]}`` line, the card's name and power limit,
    and last ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero without the ``ok`` line. The script
@@ -207,7 +217,7 @@ def sql_phase(torch, itt, x_rows, peaks, device) -> list:
                "B-bf16": SQL_B.format(m="mlp_sql_bf16", cols=cols), "C": SQL_C}
 
     # ---------------------------------------------------------------- the SQL main path
-    fs.fused_sql.launches = {"f32": 0, "bf16": 0, "forest": 0}
+    fs.fused_sql.launches = dict.fromkeys(fs.fused_sql.launches, 0)
     out, launches = {}, {}
     for key, q in queries.items():
         before = sum(fs.fused_sql.launches.values())
@@ -299,7 +309,7 @@ def sql_phase(torch, itt, x_rows, peaks, device) -> list:
         return cnt, sums, mx
 
     rows = []
-    for (key, q), (xc, packed) in zip(queries.items(), plans):
+    for (key, q), (xc, packed, _) in zip(queries.items(), plans):
         plan = packed.plan
         check((plan.n_groups, len(plan.keys)) == SQL_SHAPE[key][1:],
               f"query {key}: plan of {plan.n_groups} groups, {len(plan.keys)} keys")
@@ -437,7 +447,7 @@ def tree_phase(torch, itt, x_rows, peaks, device) -> list:
     conn.register_table("wide", Table(wide))
     queries = {"D": SQL_D, "E": SQL_E}
 
-    fs.fused_sql.launches = {"f32": 0, "bf16": 0, "forest": 0}
+    fs.fused_sql.launches = dict.fromkeys(fs.fused_sql.launches, 0)
     out, launches = {}, {}
     for key, q in queries.items():
         before = fs.fused_sql.launches["forest"]
@@ -507,7 +517,7 @@ def tree_phase(torch, itt, x_rows, peaks, device) -> list:
         return cnt, sums, ext
 
     rows = []
-    for (key, q), (xc, packed) in zip(queries.items(), plans):
+    for (key, q), (xc, packed, _) in zip(queries.items(), plans):
         plan = packed.plan
         (slot,) = plan.forests
         check((plan.n_groups, len(plan.keys), slot.n_trees) == (64, 1, 64),
@@ -548,6 +558,232 @@ def tree_phase(torch, itt, x_rows, peaks, device) -> list:
               f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
               f"{len(used)} columns, {ops / 1e9:.3f} G operations, {packed.smem_bytes} B of "
               f"shared memory, {packed.trees.numel() * 4} B of forest tables")
+    return rows
+
+
+# config 3 (BASELINE.json): infera_tpu/testing/benchmarks.py bench_config3_join's
+# 8-feature, 4-output map as an ONNX model over a 1,048,576-row source,
+# joined back to a 1,048,576-row dimension (DIM_MAX_ROWS) through SQL
+P_F = "infera_predict_multi_list('m3', x0, x1, x2, x3, x4, x5, x6, x7)[{}]"
+SQL_F = (f"select cat, count(*), avg({P_F.format(1)}), sum({P_F.format(2)} * w), "
+         f"max({P_F.format(4)}) from src join meta on src.id = meta.id "
+         f"where {P_F.format(3)} > 0 group by cat order by cat")
+# infera_tpu/testing/e2e_eval.py eval_outer_join: fact keys 1000..1099 have no
+# dim row; H is tests/test_pallas_sql.py's outer-join shape at the same size
+SQL_G = ("select count(*), count(w), sum(v), sum(coalesce(w, 0.0)) from fact {kind} join dim "
+         "on fact.k = dim.k")
+SQL_H = ("select og, count(*), sum(w), min(w), max(v) from fact left join dim "
+         "on fact.k = dim.k group by og order by og")
+# rows against the host executor: keys, counts, minima and maxima exact (the
+# host's predictions come from K6, whose layer sums in K2''s order); sums and
+# averages rel 1e-5 (f64 sums of f32 values in another order, and the host
+# multiplies P(2) by w in f64)
+JOIN_TOL = {"F": (None, None, 1e-5, 1e-5, None), "G-LEFT": (None, None, 1e-5, 1e-5),
+            "G-FULL": (None, None, 1e-5, 1e-5), "H": (None, None, 1e-5, None, None)}
+JOIN_GROUPS = {"F": 16, "G-LEFT": 1, "G-FULL": 1, "H": 6}
+
+
+def fma_map(x: np.ndarray, w: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """x [n, d] @ w [d, m] + b in f32 as the in-kernel layer sums it: from
+    0, one fused multiply-add per input in input order (the product of two
+    f32 values is exact in f64), then the bias."""
+    acc = np.zeros((x.shape[0], w.shape[1]), np.float32)
+    for k in range(x.shape[1]):
+        acc = (acc.astype(np.float64) + x[:, k:k + 1].astype(np.float64)
+               * w[k].astype(np.float64)).astype(np.float32)
+    return acc + b.astype(np.float32)
+
+
+def join_phase(torch, itt, peaks, device) -> list:
+    """Config 3 on the card: query F (the multi-output map joined back to
+    its source) and the outer joins G-LEFT, G-FULL and H through
+    Connection.execute, each one launch of K5; returns the K5 rows of the
+    kernels line."""
+    import os
+
+    from infera_tpu_torch.columnar import Column, Table
+    from infera_tpu_torch.columnar import types as T
+    from infera_tpu_torch.onnx import builder, proto
+    from infera_tpu_torch.ops import fused_sql as fs
+    from infera_tpu_torch.registry import MODELS
+    from infera_tpu_torch.sql import Connection, device_plan
+
+    n = N_MAIN
+    os.environ.pop("INFERA_PALLAS_SQL", None)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        proto.save_model_file(
+            builder.mlp_model(in_dim=8, hidden=(), out_dim=4, softmax=False, seed=0),
+            f"{d}/m3.onnx")
+        itt.load_model("m3", f"{d}/m3.onnx")
+    rng = np.random.default_rng(0)
+    ids = rng.permutation(n).astype(np.int64)
+    x = rng.standard_normal((n, 8), dtype=np.float32)
+    mid = np.arange(n, dtype=np.int64)
+    w_meta = np.random.default_rng(1).standard_normal(n, dtype=np.float32)
+    conn = Connection()
+    src = {"id": Column(ids, T.BIGINT)}
+    src.update({f"x{k}": Column(np.ascontiguousarray(x[:, k]), T.FLOAT) for k in range(8)})
+    conn.register_table("src", Table(src))
+    conn.register_table("meta", Table({"id": Column(mid, T.BIGINT),
+                                       "w": Column(w_meta, T.FLOAT),
+                                       "cat": Column(mid % 16, T.BIGINT)}))
+    conn.execute(f"create table fact as select x % 1100 as k, (x % 40)::float / 4.0 as v, "
+                 f"x % 6 as og from range({n}) r(x)")
+    conn.execute("create table dim as select x as k, (x * 2)::float as w from range(1000) r(x)")
+    print(f"join tables and model: {time.perf_counter() - t0:.2f} s on the host clock")
+    queries = {"F": SQL_F, "G-LEFT": SQL_G.format(kind="left"),
+               "G-FULL": SQL_G.format(kind="full"), "H": SQL_H}
+
+    # ---------------------------------------------------------------- the join main path
+    fs.fused_sql.launches = dict.fromkeys(fs.fused_sql.launches, 0)
+    out, launches = {}, {}
+    for key, q in queries.items():
+        before = fs.fused_sql.launches["join"]
+        out[key] = conn.execute(q).rows
+        torch.cuda.synchronize()
+        launches[key] = fs.fused_sql.launches["join"] - before
+        check(conn._exec_path == "device_join_plan_cuda", f"query {key} ran on {conn._exec_path}")
+        print(f"query {key}: path {conn._exec_path}, K5 launches {launches[key]}")
+    print(f"join main path: launches {fs.fused_sql.launches}, K5 per query {launches}")
+    for key, k in launches.items():
+        check(k == 1, f"query {key} launched K5 {k} times, not once")
+
+    # ---------------------------------------------------------------- rows vs the host
+    os.environ["INFERA_PALLAS_SQL"] = "0"
+    host = {}
+    for key, q in queries.items():
+        t = time.perf_counter()
+        host[key] = conn.execute(q).rows
+        check(conn._exec_path == "device_join", f"host query {key} ran on {conn._exec_path}")
+        print(f"host executor, query {key}: {(time.perf_counter() - t) * 1e3:.1f} ms on the "
+              f"host clock through the device sort-join")
+    os.environ.pop("INFERA_PALLAS_SQL")
+    for key, rows in out.items():
+        check(len(rows) == len(host[key]) == JOIN_GROUPS[key], f"query {key}: {len(rows)} rows")
+        worst = 0.0
+        for a, b in zip(rows, host[key]):
+            for v, y, rel in zip(a, b, JOIN_TOL[key], strict=True):
+                if rel is None:
+                    check(v == y, f"query {key}: {a} vs host {b}")
+                    continue
+                check(np.isfinite(v) and abs(v - y) <= rel * abs(y) + 1e-12,
+                      f"query {key}: {v} vs host {y}")
+                worst = max(worst, abs(v - y) / max(abs(y), 1e-30))
+        print(f"query {key}: {len(rows)} rows, keys, counts, minima and maxima equal the "
+              f"host's, worst relative difference {worst:.3e}: {rows[:2]}")
+    # F against numpy: the lookup, the f32 map, np.add.at
+    (wt, bias), = MODELS.get("m3").mlp_plan[0]
+    lookup = np.full(n, -1, np.int64)
+    lookup[mid] = np.arange(n)
+    y = fma_map(x, np.asarray(wt, np.float32), np.asarray(bias, np.float32))
+    cnt = np.zeros(16, np.int64)
+    np.add.at(cnt, (mid % 16)[lookup[ids]][y[:, 2] > 0], 1)
+    check([r[1] for r in out["F"]] == cnt.tolist(), f"query F counts {out['F']} vs numpy {cnt}")
+    print(f"query F: counts equal numpy's ({int(cnt.sum())} rows kept)")
+    g_cw = (n // 1100) * 1000 + min(n % 1100, 1000)
+    for key in ("G-LEFT", "G-FULL"):
+        check(out[key][0][:2] == (n, g_cw), f"query {key}: counts {out[key][0][:2]}")
+
+    # ---------------------------------------------------------------- steady time, phases
+    for key, q in queries.items():
+        conn.execute(q)
+        times = []
+        for _ in range(5):
+            t = time.perf_counter()
+            conn.execute(q)
+            times.append((time.perf_counter() - t) * 1e3)
+        med, q25, q75 = (float(v) for v in np.percentile(times, [50, 25, 75]))
+        print(f"query {key} end to end: median {med:.3f} ms of 5 (quartiles {q25:.3f}-"
+              f"{q75:.3f}) on the host clock ({n / med * 1e3:,.0f} fact rows/s); phases "
+              f"{conn._last_phases}")
+
+    # ---------------------------------------------------------------- K5 vs plain, times
+    plans = list(conn._device_plan_cache.values())
+    check(len(plans) == len(queries), f"{len(plans)} plans cached, expected {len(queries)}")
+    w3 = torch.as_tensor(np.asarray(wt, np.float32), device=device)
+    b3 = torch.as_tensor(np.asarray(bias, np.float32), device=device)
+
+    def library(key, xc, rows_f, dim_xc, rows_d, lookup_t):
+        """One PyTorch chain of the same function: the lookup gather,
+        index_select of the dim columns, torch.matmul for the map, then
+        index_add_ and scatter_reduce per group; timed only, the port never
+        calls it."""
+        fk = xc[rows_f["id" if key == "F" else "k"]].long()
+        ridx = lookup_t[fk.clamp(0, len(lookup_t) - 1)]
+        matched = (ridx >= 0) & (fk < len(lookup_t))
+        ridx = ridx.clamp(min=0).long()
+        w = dim_xc[rows_d["w"]].index_select(0, ridx)
+        if key == "F":
+            cat = dim_xc[rows_d["cat"]].index_select(0, ridx).long()
+            p = torch.matmul(xc[[rows_f[f"x{k}"] for k in range(8)]].T, w3) + b3
+            slot = torch.where(matched & (p[:, 2] > 0), cat, torch.full_like(cat, 16))
+            cnt = torch.zeros(17, device=xc.device).index_add_(0, slot, torch.ones_like(w))
+            s1 = torch.zeros(17, device=xc.device).index_add_(0, slot, p[:, 0])
+            s2 = torch.zeros(17, device=xc.device).index_add_(0, slot, p[:, 1] * w)
+            mx = torch.full((17,), -torch.inf, device=xc.device).scatter_reduce(
+                0, slot, p[:, 3], "amax")
+            return cnt, s1, s2, mx
+        wm = torch.where(matched, w, 0.0)
+        v = xc[rows_f["v"]]
+        if key != "H":
+            return (matched.sum(), v.sum(), wm.sum())
+        og = xc[rows_f["og"]].long()
+        m = matched.float()
+        cnt = torch.zeros(6, device=xc.device).index_add_(0, og, torch.ones_like(v))
+        cw = torch.zeros(6, device=xc.device).index_add_(0, og, m)
+        sw = torch.zeros(6, device=xc.device).index_add_(0, og, wm)
+        mn = torch.full((6,), torch.inf, device=xc.device).scatter_reduce(
+            0, og, torch.where(matched, w, torch.inf), "amin")
+        mx = torch.full((6,), -torch.inf, device=xc.device).scatter_reduce(0, og, v, "amax")
+        return cnt, cw, sw, mn, mx
+
+    rows = []
+    for (key, q), (xc, packed, dim_xc) in zip(queries.items(), plans):
+        plan = packed.plan
+        check(plan.join is not None and plan.n_groups >= JOIN_GROUPS[key],
+              f"query {key}: plan of {plan.n_groups} groups, join {plan.join}")
+        err = 0.0
+        for n_valid in (n, N_RAGGED):
+            got = fs.fused_sql(packed, xc, n_valid, dim_xc)
+            want = fs.fused_sql_plain(packed, xc, n_valid, dim_xc)
+            torch.cuda.synchronize()
+            check(torch.equal(got["count"], want["count"]), f"K5 {key} @ {n_valid}: counts")
+            check(torch.equal(got["flags"], want["flags"]), f"K5 {key} @ {n_valid}: flags")
+            check(torch.equal(got["mm"], want["mm"]), f"K5 {key} @ {n_valid}: minima, maxima")
+            # every row's values are the plain version's bit for bit; only the
+            # order of the f64 sums differs
+            torch.testing.assert_close(got["sums"], want["sums"], rtol=1e-12, atol=1e-9)
+            e = float((got["sums"] - want["sums"]).abs().max()) if got["sums"].numel() else 0.0
+            err = max(err, e)
+            print(f"K5 {key} @ {n_valid} rows: counts, flags, minima and maxima equal plain, "
+                  f"sums' max abs err {e:.3e}")
+        fact_name, dim_name = ("src", "meta") if key == "F" else ("fact", "dim")
+        rows_f = _block_rows(conn, fact_name, xc)
+        rows_d = _block_rows(conn, dim_name, dim_xc)
+        kern_times = device_ms(torch, lambda: fs.fused_sql(packed, xc, n, dim_xc))
+        ms, q25, q75 = (float(v) for v in np.percentile(kern_times, [50, 25, 75]))
+        plain_ms = float(np.median(device_ms(
+            torch, lambda: fs.fused_sql_plain(packed, xc, n, dim_xc), runs=5)))
+        library_ms = float(np.median(device_ms(
+            torch, lambda: library(key, xc, rows_f, dim_xc, rows_d, packed.lookup))))
+        progs = plan.slot_programs + [f for p in plan.preds for f in p.features]
+        used_f = {arg for prog in progs for op, arg in prog if op == fs.COL} | {plan.join.fact_key}
+        used_d = {arg for prog in progs for op, arg in prog if op == fs.DIM}
+        nbytes = 4.0 * (len(used_f) * n + packed.lookup.numel() + len(used_d) * plan.join.n_dim)
+        macs = sum(wl.shape[0] * wl.shape[1] for m in plan.mlps for wl, _ in m.params)
+        instr = sum(len(prog) for prog in progs)
+        b_ms, b_by = bound(float(n) * (2.0 * macs + instr), nbytes, "f32", peaks)
+        rows.append({"name": f"K5 fused join plan (query {key})", "route": "cuda",
+                     "source": "infera_tpu_torch/csrc/fused_sql.cu",
+                     "replaces": "infera_tpu/ops/pallas_sql.py:668", "launches": launches[key],
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": library_ms})
+        print(f"K5 {key}: kernel {ms:.4f} ms (quartiles {q25:.4f}-{q75:.4f}), plain "
+              f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+              f"{len(used_f)} fact and {len(used_d)} dim columns, lookup of "
+              f"{packed.lookup.numel()} entries, {nbytes / 1e6:.1f} MB, {packed.smem_bytes} B "
+              f"of shared memory")
     return rows
 
 
@@ -827,6 +1063,7 @@ def main() -> int:
 
     rows += sql_phase(torch, itt, x_rows, peaks, device)
     rows += tree_phase(torch, itt, x_rows, peaks, device)
+    rows += join_phase(torch, itt, peaks, device)
 
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())

@@ -1,10 +1,11 @@
-// K2, K2' and K4: the fused SQL plan over a stacked feature-major table block.
+// K2, K2', K4 and K5: the fused SQL plan over a stacked feature-major table block.
 //
 // Replaces infera_tpu/ops/pallas_sql.py:71 `build_fused_plan_call` (its core
 // slots: count, sum/avg, min/max and the key guard), the in-kernel MLP of
 // infera_tpu/sql/device_plan.py:633 `_lower_mlp` (K2') and the in-kernel
 // forest of infera_tpu/sql/device_plan.py:734 `_lower_tree_tables` (K4), both
-// of which run inside it.
+// of which run inside it, and the fact->dimension join plan of
+// infera_tpu/ops/pallas_sql.py:668 `execute_fused_join_plan` (K5).
 //
 // For every row r < n of xc [C, n_pad] f32:
 //   mask = where(r) != 0                                 (NaN counts as true)
@@ -66,6 +67,28 @@
 // features and the tables in shared memory and walking trees across a warp
 // are the next design.
 //
+// K5: a join plan carries the fact key's block row, the largest dim key and
+// the dim block's shape in its header, and the launch two more device
+// arrays: the dense key lookup (int32, -1 where no dim row holds the key) and
+// the dim table's own block [D][n_dim]. The TPU kernel's XLA prologue built a
+// joined [C, n_pad] block (fact rows, gathered dim rows, the match mask)
+// before the kernel ran; here nothing is built. Once per tile, before the
+// prediction slots, each thread converts its row's fact key toward zero (the
+// planner's +-2^24 guard keeps it exact in f32), looks it up through __ldg
+// and keeps the dim row, or -1, in a [kRows] array in shared memory. The
+// programs then read it: DIM d loads column d of that dim row (row 0 for an
+// unmatched row, as the TPU gathers), MATCHED is 1 or 0, and SEL is a true
+// select (c != 0 ? a : b), so a NaN in an unmatched row's dim row never
+// reaches a sum. An MLP's or a forest's feature may read a dim column too.
+//
+// Bound of K5 on the H100 (config 3: 1,048,576 fact rows joined to a
+// 1,048,576-row dimension, four K2' slots of an 8->4 map): each used fact
+// column, the 4 MiB lookup and each used dim column read once are about 50 MB
+// (0.015 ms at 3.35 TB/s); the operations are a few hundred a row. It is
+// bound by bytes; this first version gathers the lookup and the dim rows at
+// random, one 4-byte load a row each, so it is bound by the latency of those
+// loads and of the interpreter, as K2 is.
+//
 // Cross-block accumulation: blocks run in any order, so each (persistent)
 // block keeps its own accumulators in shared memory, one thread per group
 // adding the tile's rows in row order, and writes them to partials; a second
@@ -88,16 +111,17 @@ static_assert(kRows % kTileRows == 0, "MLP sub-tiles");
 // opcodes: ops/fused_sql.py
 enum Op {
   COL = 0, CONST, PRED, NEG, NOT, ADD, SUB, MUL, DIV, MOD, EQ, NE, LT, LE, GT, GE, AND, OR,
-  BETWEEN, CAST_INT, CAST_FLOAT, ABS, SQRT, FLOOR, CEIL, ROUND, EXP, LOG
+  BETWEEN, CAST_INT, CAST_FLOAT, ABS, SQRT, FLOOR, CEIL, ROUND, EXP, LOG, DIM, MATCHED, SEL
 };
 
 // header words of the plan: ops/fused_sql.py pack_plan
 enum Hdr {
   H_WORDS = 0, H_K, H_S, H_M, H_X, H_WHERE, H_J, H_G, H_NPROG, H_PROGS, H_CODE, H_CONSTS,
-  H_STRIDES, H_PREDS,
-  H_SM_BLOB = 16, H_SM_ACT0, H_SM_ACT1, H_SM_PRED, H_SM_VALS, H_SM_KRAW, H_SM_KSLOT, H_SM_CNT,
-  H_SM_SUMS, H_SM_MM, H_SM_FLAGS, H_SM_TOTAL
+  H_STRIDES, H_PREDS, H_JOIN_KEY, H_JOIN_KMAX,
+  H_SM_BLOB = 16, H_SM_ACT0, H_SM_ACT1, H_SM_PRED, H_SM_VALS, H_SM_KRAW, H_SM_KSLOT, H_SM_RIDX,
+  H_SM_CNT, H_SM_SUMS, H_SM_MM, H_SM_FLAGS, H_SM_TOTAL, H_JOIN_NDIM, H_JOIN_NCOLS
 };
+static_assert(H_SM_TOTAL == 28 && H_JOIN_NDIM == 29, "header layout of ops/fused_sql.py");
 
 // a prediction slot's kind (the descriptor's last word) and a forest slot's
 // descriptor words: ops/fused_sql.py pack_plan
@@ -109,11 +133,21 @@ enum ForestDesc {
 
 __device__ inline float b2f(bool b) { return b ? 1.f : 0.f; }
 
+// What a program reads: the table block x [C][n_pad] and, for a join plan,
+// the dim block [D][n_dim] and the tile's dim rows (-1: no match) in shared
+// memory.
+struct Src {
+  const float* x;
+  long long n_pad;
+  const float* dim;
+  long long n_dim;
+  const int* ridx;
+};
+
 // Program `prog` of the plan on one row; pred points at the tile's
 // predictions [J][kRows] and r is the row's index in the tile.
-__device__ float run_program(const int* __restrict__ plan, int prog,
-                             const float* __restrict__ x, long long n_pad, long long row,
-                             const float* __restrict__ pred, int r) {
+__device__ float run_program(const int* __restrict__ plan, int prog, const Src& src,
+                             long long row, const float* __restrict__ pred, int r) {
   const int* pt = plan + plan[H_PROGS] + 2 * prog;
   const int* code = plan + plan[H_CODE] + 2 * pt[0];
   const int len = pt[1];
@@ -124,9 +158,17 @@ __device__ float run_program(const int* __restrict__ plan, int prog,
     const int op = code[2 * i];
     const int arg = code[2 * i + 1];
     switch (op) {
-      case COL: st[sp++] = __ldg(x + (long long)arg * n_pad + row); break;
+      case COL: st[sp++] = __ldg(src.x + (long long)arg * src.n_pad + row); break;
       case CONST: st[sp++] = consts[arg]; break;
       case PRED: st[sp++] = pred[arg * kRows + r]; break;
+      case DIM: st[sp++] = __ldg(src.dim + (long long)arg * src.n_dim + max(src.ridx[r], 0)); break;
+      case MATCHED: st[sp++] = b2f(src.ridx[r] >= 0); break;
+      case SEL: {
+        const float b = st[--sp];
+        const float a = st[--sp];
+        st[sp - 1] = st[sp - 1] != 0.f ? a : b;  // NaN selects a, as != 0 is its truth
+        break;
+      }
       case NEG: st[sp - 1] = -st[sp - 1]; break;
       case NOT: st[sp - 1] = b2f(st[sp - 1] == 0.f); break;
       case CAST_INT: st[sp - 1] = truncf(st[sp - 1]); break;
@@ -194,8 +236,7 @@ __device__ inline T* at(unsigned char* smem, const int* plan, int which) {
 // MLP slot j (descriptor md) on rows [rbase, rbase + 64) of the tile: its
 // predictions go to pred[j][sub * 64 + r]. A feature may read an earlier slot.
 __device__ void mlp_slot(const int* plan, const int* md, int j, unsigned char* smem,
-                         const float* __restrict__ x, long long n_pad, long long n,
-                         long long rbase, int sub) {
+                         const Src& src, long long n, long long rbase, int sub) {
   float* s_blob = at<float>(smem, plan, H_SM_BLOB);
   float* act0 = at<float>(smem, plan, H_SM_ACT0);
   float* act1 = at<float>(smem, plan, H_SM_ACT1);
@@ -210,8 +251,7 @@ __device__ void mlp_slot(const int* plan, const int* md, int j, unsigned char* s
     const int k = i / kTileRows;
     const int r = i - k * kTileRows;
     const long long row = rbase + r;
-    float v = row < n ? run_program(plan, feat + k, x, n_pad, row, pred, sub * kTileRows + r)
-                      : 0.f;
+    float v = row < n ? run_program(plan, feat + k, src, row, pred, sub * kTileRows + r) : 0.f;
     if (bf16) v = round_bf16(v);
     act0[k * kActStride + r] = v;
   }
@@ -243,8 +283,7 @@ __device__ inline bool is_finite(float v) { return fabsf(v) < INFINITY; }  // fa
 // [c0, c0 + nc) of the leaf each tree of forest fd reaches, tree by tree.
 // nonfin counts the row's non-finite features.
 __device__ __forceinline__ void forest_sums(const int* plan, const int* fd,
-                                            const int* __restrict__ trees,
-                                            const float* __restrict__ x, long long n_pad,
+                                            const int* __restrict__ trees, const Src& src,
                                             long long row, const float* pred, int r, int nonfin,
                                             int c0, int nc, float (&acc)[kOutChunk]) {
   const int T = fd[F_TREES], M = fd[F_NODES], depth = fd[F_DEPTH], n_out = fd[F_NOUT];
@@ -258,7 +297,7 @@ __device__ __forceinline__ void forest_sums(const int* plan, const int* fd,
     for (int level = 0; level < depth; ++level) {
       const int4 nd = __ldg(tree + k);
       if (nd.x < 0) break;  // a leaf
-      float v = run_program(plan, feat + nd.x, x, n_pad, row, pred, r);
+      float v = run_program(plan, feat + nd.x, src, row, pred, r);
       // another feature of the row is non-finite: the one-hot product is NaN
       if (nonfin > (is_finite(v) ? 0 : 1)) v = __int_as_float(0x7fc00000);
       const float th = __int_as_float(nd.y);
@@ -282,8 +321,8 @@ __device__ inline void argmax_step(float v, int c, float& best, int& idx) {
 // Forest slot j (descriptor fd, K4) on the tile's rows, one per thread: its
 // prediction goes to pred[j][r].
 __device__ void forest_slot(const int* plan, const int* fd, int j, float* pred,
-                            const int* __restrict__ trees, const float* __restrict__ x,
-                            long long n_pad, long long n, long long row0) {
+                            const int* __restrict__ trees, const Src& src, long long n,
+                            long long row0) {
   const int r = threadIdx.x;
   const long long row = row0 + r;
   float out = 0.f;
@@ -291,11 +330,11 @@ __device__ void forest_slot(const int* plan, const int* fd, int j, float* pred,
     const int d_in = fd[F_DIN], feat = fd[F_FEAT], mode = fd[F_MODE];
     int nonfin = 0;
     for (int f = 0; f < d_in; ++f)
-      nonfin += is_finite(run_program(plan, feat + f, x, n_pad, row, pred, r)) ? 0 : 1;
+      nonfin += is_finite(run_program(plan, feat + f, src, row, pred, r)) ? 0 : 1;
     if (mode == 0) {
       // regressor: the kept column plus its base, then an optional logistic
       float acc[kOutChunk] = {0.f, 0.f, 0.f, 0.f};
-      forest_sums(plan, fd, trees, x, n_pad, row, pred, r, nonfin, fd[F_OUT_COL], 1, acc);
+      forest_sums(plan, fd, trees, src, row, pred, r, nonfin, fd[F_OUT_COL], 1, acc);
       out = __fadd_rn(acc[0], __int_as_float(fd[F_BIAS]));
       if (fd[F_LOGISTIC]) out = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-out)));
     } else {
@@ -308,7 +347,7 @@ __device__ void forest_slot(const int* plan, const int* fd, int j, float* pred,
       for (int c0 = 0; c0 < n_out; c0 += kOutChunk) {
         const int nc = min(kOutChunk, n_out - c0);
         float acc[kOutChunk] = {0.f, 0.f, 0.f, 0.f};
-        forest_sums(plan, fd, trees, x, n_pad, row, pred, r, nonfin, c0, nc, acc);
+        forest_sums(plan, fd, trees, src, row, pred, r, nonfin, c0, nc, acc);
 #pragma unroll
         for (int i = 0; i < kOutChunk; ++i) {
           if (i >= nc) continue;
@@ -333,7 +372,8 @@ __device__ void forest_slot(const int* plan, const int* fd, int j, float* pred,
 __global__ void __launch_bounds__(kThreads)
 fused_sql_kernel(const float* __restrict__ x, long long n_pad, long long n,
                  const int* __restrict__ gplan, const float* __restrict__ blob, int blob_words16,
-                 const int* __restrict__ trees, long long* __restrict__ part_cnt,
+                 const int* __restrict__ trees, const int* __restrict__ lookup,
+                 const float* __restrict__ dim, long long* __restrict__ part_cnt,
                  double* __restrict__ part_sum, float* __restrict__ part_mm,
                  int* __restrict__ part_flags) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -356,6 +396,10 @@ fused_sql_kernel(const float* __restrict__ x, long long n_pad, long long n,
   double* sums = at<double>(smem, plan, H_SM_SUMS);  // [S][G]
   float* mm = at<float>(smem, plan, H_SM_MM);        // [R][G]
   int* flags = at<int>(smem, plan, H_SM_FLAGS);
+  int* ridx = at<int>(smem, plan, H_SM_RIDX);        // [kRows]: dim row, -1 if none (K5)
+  const int join_key = plan[H_JOIN_KEY];             // fact key's block row, -1: no join
+  const int kmax = plan[H_JOIN_KMAX];
+  const Src src{x, n_pad, dim, join_key >= 0 ? (long long)plan[H_JOIN_NDIM] : 0, ridx};
   for (int g = threadIdx.x; g < G; g += kThreads) {
     cnt[g] = 0;
     for (int s = 0; s < S; ++s) sums[s * G + g] = 0.0;
@@ -369,18 +413,29 @@ fused_sql_kernel(const float* __restrict__ x, long long n_pad, long long n,
   const long long n_tiles = (n + kRows - 1) / kRows;
   for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const long long row0 = tile * kRows;
+    if (join_key >= 0) {
+      // K5's prologue: the row's dim row through the dense key lookup
+      const long long row = row0 + threadIdx.x;
+      int ri = -1;
+      if (row < n) {
+        const int fk = __float2int_rz(__ldg(x + (long long)join_key * n_pad + row));
+        if (fk >= 0 && fk <= kmax) ri = __ldg(lookup + fk);
+      }
+      ridx[threadIdx.x] = ri;
+      __syncthreads();
+    }
     // prediction slots, in order: a feature may read an earlier slot
     for (int j = 0; j < J; ++j) {
       const int* md = plan + plan[H_PREDS] + j * kSlotDesc;
       if (md[kSlotDesc - 1] == SLOT_FOREST) {
-        forest_slot(plan, md, j, pred, trees, x, n_pad, n, row0);
+        forest_slot(plan, md, j, pred, trees, src, n, row0);
         __syncthreads();
         continue;
       }
       for (int sub = 0; sub < kRows / kTileRows; ++sub) {
         const long long rbase = row0 + sub * kTileRows;
         if (rbase >= n) break;  // uniform across the block
-        mlp_slot(plan, md, j, smem, x, n_pad, n, rbase, sub);
+        mlp_slot(plan, md, j, smem, src, n, rbase, sub);
       }
     }
     // slot phase: one row per thread
@@ -388,10 +443,10 @@ fused_sql_kernel(const float* __restrict__ x, long long n_pad, long long n,
     const long long row = row0 + t;
     int slot = -1;
     int fl = 0;
-    if (row < n && (!has_where || run_program(plan, 0, x, n_pad, row, pred, t) != 0.f)) {
+    if (row < n && (!has_where || run_program(plan, 0, src, row, pred, t) != 0.f)) {
       unsigned comb = 0;
       for (int k = 0; k < K; ++k) {
-        const float r = run_program(plan, p_key + k, x, n_pad, row, pred, t);
+        const float r = run_program(plan, p_key + k, src, row, pred, t);
         const int ri = __float2int_rz(r);  // toward zero, saturating, NaN -> 0
         const float rt = __int2float_rn(ri);
         if (r != rt) fl |= 1 << k;
@@ -402,7 +457,7 @@ fused_sql_kernel(const float* __restrict__ x, long long n_pad, long long n,
       int g = (int)comb % G;
       slot = g < 0 ? g + G : g;
       for (int s = 0; s < SMX; ++s)
-        vals[s * kRows + t] = run_program(plan, p_val + s, x, n_pad, row, pred, t);
+        vals[s * kRows + t] = run_program(plan, p_val + s, src, row, pred, t);
     }
     kslot[t] = slot;
     if (fl) atomicOr(flags, fl);
@@ -477,11 +532,14 @@ extern "C" {
 // ops/fused_sql.py pack_plan, which also lays out the shared memory
 // (smem_bytes). blob: the MLP weights, f32 (blob_floats, a multiple of 4, 0
 // without an MLP). trees: the forest slots' tables, int32 words, 16-byte
-// aligned sections. Partials: [n_blocks][G] int64, [n_blocks][S][G] f64,
-// [n_blocks][R][G] f32, [n_blocks] int32. Returns a cudaError_t.
+// aligned sections. lookup and dim: a join plan's key lookup (int32
+// [kmax + 1]) and dim block (f32 [D][n_dim]), null without a join.
+// Partials: [n_blocks][G] int64, [n_blocks][S][G] f64, [n_blocks][R][G] f32,
+// [n_blocks] int32. Returns a cudaError_t.
 int infera_fused_sql(const void* xc, long long n_pad, long long n, const void* plan,
-                     const void* blob, long long blob_floats, const void* trees, void* part_cnt,
-                     void* part_sum, void* part_mm, void* part_flags, int n_blocks, int smem_bytes,
+                     const void* blob, long long blob_floats, const void* trees,
+                     const void* lookup, const void* dim, void* part_cnt, void* part_sum,
+                     void* part_mm, void* part_flags, int n_blocks, int smem_bytes,
                      void* stream) {
   using namespace infera::sql;
   cudaError_t e = cudaFuncSetAttribute(fused_sql_kernel,
@@ -489,7 +547,8 @@ int infera_fused_sql(const void* xc, long long n_pad, long long n, const void* p
   if (e != cudaSuccess) return (int)e;
   fused_sql_kernel<<<n_blocks, infera::kThreads, smem_bytes, (cudaStream_t)stream>>>(
       (const float*)xc, n_pad, n, (const int*)plan, (const float*)blob, (int)(blob_floats / 4),
-      (const int*)trees, (long long*)part_cnt, (double*)part_sum, (float*)part_mm, (int*)part_flags);
+      (const int*)trees, (const int*)lookup, (const float*)dim, (long long*)part_cnt,
+      (double*)part_sum, (float*)part_mm, (int*)part_flags);
   return (int)cudaGetLastError();
 }
 

@@ -1,4 +1,4 @@
-"""K2, K2′ and K4: the fused SQL plan as one CUDA kernel.
+"""K2, K2′, K4 and K5: the fused SQL plan as one CUDA kernel.
 
 Counterpart of ``infera_tpu/ops/pallas_sql.py`` ``build_fused_plan_call``
 (core slots) and of ``sql/device_plan.py`` ``_lower_mlp`` and
@@ -33,6 +33,21 @@ programs run, in slot order (a feature may read an earlier slot):
   over the per-class scores mapped through its labels. ``forest_plain`` is
   the same function in torch ops.
 
+K5 is K2 over a fact→dimension join (``sql/device_join_plan.py``): the plan
+carries a ``JoinSpec`` and the kernel a dense key lookup (int32, -1 where no
+dim row holds the key) and the dim table's own block ``[D, n_dim]``. Once
+per tile, before the prediction slots, each row looks up its dim row
+
+    fk      = int32(xc[fact_key, r])
+    ridx    = (0 <= fk <= kmax) ? lookup[fk] : -1
+    matched = ridx >= 0
+
+and the programs read the join through three opcodes: ``DIM d`` (dim column
+``d`` of the row's dim row, row 0 for an unmatched row, as the TPU gathers),
+``MATCHED`` (1.0 or 0.0) and ``SEL`` (``c != 0 ? a : b``, a true select, so
+that a NaN in an unmatched row's garbage dim row never reaches a sum). The
+joined relation is never built.
+
 ``fused_sql`` launches the kernel for a CUDA table and runs
 ``fused_sql_plain`` for a CPU table; it raises for anything else.
 """
@@ -59,6 +74,7 @@ ADD, SUB, MUL, DIV, MOD = 5, 6, 7, 8, 9
 EQ, NE, LT, LE, GT, GE, AND, OR = 10, 11, 12, 13, 14, 15, 16, 17
 BETWEEN, CAST_INT, CAST_FLOAT = 18, 19, 20
 ABS, SQRT, FLOOR, CEIL, ROUND, EXP, LOG = 21, 22, 23, 24, 25, 26, 27
+DIM, MATCHED, SEL = 28, 29, 30     # K5's join opcodes
 
 BINARY_OPS = {"+": ADD, "-": SUB, "*": MUL, "/": DIV, "%": MOD, "=": EQ, "<>": NE,
               "<": LT, "<=": LE, ">": GT, ">=": GE, "AND": AND, "OR": OR}
@@ -77,9 +93,9 @@ def stack_depth(code) -> int:
     that underflows or leaves other than one value."""
     depth = top = 0
     for op, _arg in code:
-        if op in (COL, CONST, PRED):
+        if op in (COL, CONST, PRED, DIM, MATCHED):
             depth += 1
-        elif op == BETWEEN:
+        elif op in (BETWEEN, SEL):
             depth -= 2
         elif op not in _UNARY:
             depth -= 1
@@ -146,10 +162,24 @@ class ForestSlot:
 
 
 @dataclass
+class JoinSpec:
+    """K5's join prologue: the fact key's row of the table block, the largest
+    dim key (the lookup has ``kmax + 1`` entries) and the dim block's shape
+    ``[n_cols, n_dim]`` (``n_dim`` is the dim table's row count, the block's
+    row stride)."""
+
+    fact_key: int
+    kmax: int
+    n_dim: int
+    n_cols: int
+
+
+@dataclass
 class FusedPlan:
-    """Programs of one fused plan; COL args are block rows. ``preds`` are
-    the prediction slots (``MlpSlot`` or ``ForestSlot``) that ``PRED j``
-    indexes, in the order the kernel runs them."""
+    """Programs of one fused plan; COL args are block rows, DIM args rows of
+    the dim block. ``preds`` are the prediction slots (``MlpSlot`` or
+    ``ForestSlot``) that ``PRED j`` indexes, in the order the kernel runs
+    them; ``join`` makes the plan K5's."""
 
     where: list | None
     keys: list
@@ -160,6 +190,7 @@ class FusedPlan:
     n_groups: int
     consts: list = field(default_factory=list)
     preds: list = field(default_factory=list)
+    join: JoinSpec | None = None
 
     @property
     def slot_programs(self) -> list:
@@ -189,9 +220,11 @@ SLOT_MLP, SLOT_FOREST = 0, 1
 # a forest slot's descriptor words, shared with csrc/fused_sql.cu
 (F_TREES, F_NODES, F_DEPTH, F_NOUT, F_DIN, F_NODE_OFF, F_W_OFF, F_STRICT, F_OUT_COL, F_BIAS,
  F_LOGISTIC, F_MODE, F_CBIAS_OFF, F_FEAT, F_LABEL_OFF) = range(15)
-_SMEM_KEYS = ("blob", "act0", "act1", "pred", "vals", "kraw", "kslot", "cnt", "sums", "mm",
-              "flags", "total")
-H_SMEM = 16          # header words 16..27: byte offsets of _SMEM_KEYS in shared memory
+_SMEM_KEYS = ("blob", "act0", "act1", "pred", "vals", "kraw", "kslot", "ridx", "cnt", "sums",
+              "mm", "flags", "total")
+H_SMEM = 16          # header words 16..28: byte offsets of _SMEM_KEYS in shared memory
+# K5's join descriptor (-1 in H_JOIN_KEY: no join), shared with csrc/fused_sql.cu
+H_JOIN_KEY, H_JOIN_KMAX, H_JOIN_NDIM, H_JOIN_NCOLS = 14, 15, 29, 30
 
 
 def _align16(n: int) -> int:
@@ -222,7 +255,8 @@ class PackedPlan:
     (every forest slot's node records, leaf weights, class base values and
     labels, which K4 reads from device memory), per prediction slot its
     weights for the plain version (``QueryWeights`` or ``ForestTables``),
-    and the kernel's shared-memory layout."""
+    the kernel's shared-memory layout, and a join plan's key lookup (int32
+    ``[kmax + 1]``, None without a join)."""
 
     plan: FusedPlan
     words: torch.Tensor
@@ -231,6 +265,7 @@ class PackedPlan:
     trees: torch.Tensor
     slots: list
     smem: dict
+    lookup: torch.Tensor | None = None
 
     @property
     def smem_bytes(self) -> int:
@@ -241,7 +276,8 @@ def smem_layout(plan: FusedPlan, n_words: int, blob_floats: int) -> dict:
     """Byte offsets of K2's shared memory: the plan words, the MLP weights,
     two 64-row activation tiles at the widest MLP width (only with an MLP),
     the tile's predictions (one row per slot, MLP or forest), slot values,
-    raw keys and group slots, then the block's accumulators (int64 counts,
+    raw keys, group slots and a join's dim row per row of the tile (only
+    with a join), then the block's accumulators (int64 counts,
     f64 sums, f32 min/max rows) and the flag word. ``total`` is the budget
     that must fit one block's 227 KB. A forest's tables stay in device
     memory and take none of it."""
@@ -256,6 +292,7 @@ def smem_layout(plan: FusedPlan, n_words: int, blob_floats: int) -> dict:
         ("vals", 4 * (S + M + X) * SLOT_ROWS),
         ("kraw", 4 * K * SLOT_ROWS),
         ("kslot", 4 * SLOT_ROWS),
+        ("ridx", 4 * SLOT_ROWS if plan.join is not None else 0),
         ("cnt", 8 * G),
         ("sums", 8 * S * G),
         ("mm", 4 * (M + X + 2 * K) * G),
@@ -344,9 +381,14 @@ def _pack_forest(s: ForestSlot, parts: list, start: int, device) -> tuple:
     return offs, pos - start, tables
 
 
-def pack_plan(plan: FusedPlan, device) -> PackedPlan:
+def pack_plan(plan: FusedPlan, device, lookup=None) -> PackedPlan:
     """Move ``plan`` to ``device`` in the kernel's layout (header word
-    offsets are int32 word indices; shared-memory offsets are bytes)."""
+    offsets are int32 word indices; shared-memory offsets are bytes), with
+    a join plan's key lookup (int32 ``[kmax + 1]``)."""
+    if (plan.join is None) != (lookup is None):
+        raise ValueError("a join plan needs its key lookup, and only a join plan takes one")
+    if plan.join is not None and len(lookup) != plan.join.kmax + 1:
+        raise ValueError(f"lookup of {len(lookup)} entries for keys up to {plan.join.kmax}")
     distinct = _distinct_params(plan)
     weights, offsets, parts = [], [], []
     off = 0
@@ -368,6 +410,11 @@ def pack_plan(plan: FusedPlan, device) -> PackedPlan:
     words[H_J], words[H_G], words[H_NPROG] = len(plan.preds), plan.n_groups, len(progs)
     for i, key in enumerate(_SMEM_KEYS):
         words[H_SMEM + i] = layout[key]
+    words[H_JOIN_KEY] = -1
+    if plan.join is not None:
+        j = plan.join
+        words[H_JOIN_KEY], words[H_JOIN_KMAX] = j.fact_key, j.kmax
+        words[H_JOIN_NDIM], words[H_JOIN_NCOLS] = j.n_dim, j.n_cols
     pos = _HEADER
     words[H_PROGS] = pos
     start = 0
@@ -426,9 +473,11 @@ def pack_plan(plan: FusedPlan, device) -> PackedPlan:
     assert pos == n_words
     blob = (torch.cat(parts) if parts else torch.zeros(4, dtype=torch.float32, device=device))
     trees = np.concatenate(tree_parts) if tree_parts else np.zeros(4, np.int32)
+    lk = None if lookup is None else torch.as_tensor(np.asarray(lookup, np.int32), device=device)
     return PackedPlan(plan=plan, words=torch.as_tensor(words, device=device),
                       blob=blob.contiguous(), blob_floats=off,
-                      trees=torch.as_tensor(trees, device=device), slots=slots, smem=layout)
+                      trees=torch.as_tensor(trees, device=device), slots=slots, smem=layout,
+                      lookup=lk)
 
 
 def _f32_bits(v: float) -> int:
@@ -442,15 +491,45 @@ def _truthy(v: torch.Tensor) -> torch.Tensor:
     return v != 0          # NaN is true, as jnp.asarray(v, bool)
 
 
-def eval_program(code, consts, xc: torch.Tensor, n: int, preds: list) -> torch.Tensor:
+@dataclass
+class JoinRows:
+    """K5's prologue over rows [0, n): each row's dim row (0 where it has
+    none, as the kernel reads it), whether it has one, and the dim block."""
+
+    ridx: torch.Tensor
+    matched: torch.Tensor
+    dim: torch.Tensor
+
+
+def join_plain(packed: PackedPlan, xc: torch.Tensor, n: int, dim_xc: torch.Tensor) -> JoinRows:
+    """K5's join prologue in torch ops: the fact key as the kernel converts
+    it (toward zero), its dim row through the dense lookup, the match."""
+    j = packed.plan.join
+    if dim_xc is None or tuple(dim_xc.shape) != (j.n_cols, j.n_dim):
+        raise ValueError(f"a join plan needs its dim block [{j.n_cols}, {j.n_dim}]")
+    fk = key_to_int32(xc[j.fact_key, :n])
+    raw = packed.lookup[fk.clamp(0, j.kmax)]
+    matched = (fk >= 0) & (fk <= j.kmax) & (raw >= 0)
+    return JoinRows(ridx=torch.where(matched, raw, 0).long(), matched=matched, dim=dim_xc)
+
+
+def eval_program(code, consts, xc: torch.Tensor, n: int, preds: list,
+                 join: JoinRows | None = None) -> torch.Tensor:
     """One program over rows [0, n) of the block in plain torch ops: the
     same f32 operations, in the same order, as the kernel's interpreter.
-    Returns a [n] f32 tensor."""
+    ``join`` carries a join plan's prologue. Returns a [n] f32 tensor."""
     st: list = []
     f32 = torch.float32
     for op, arg in code:
         if op == COL:
             st.append(xc[arg, :n])
+        elif op == DIM:
+            st.append(join.dim[arg].index_select(0, join.ridx))
+        elif op == MATCHED:
+            st.append(join.matched.to(f32))
+        elif op == SEL:
+            b, a, c = st.pop(), st.pop(), st.pop()
+            st.append(torch.where(_truthy(c), a, b))
         elif op == CONST:
             st.append(torch.tensor(consts[arg], dtype=f32, device=xc.device))
         elif op == PRED:
@@ -498,17 +577,32 @@ def eval_program(code, consts, xc: torch.Tensor, n: int, preds: list) -> torch.T
     return v.to(f32).expand(n).contiguous() if v.dim() == 0 else v.to(f32)
 
 
+def _dense_fma(wt: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """``wt [d_out, d_in] @ h [d_in, n]`` as the kernel's layer computes it
+    (``csrc/mlp_tile.cuh`` ``dense_f32``): from 0, one ``fmaf`` per input
+    in input order, each rounded once to f32. The product of two f32 values
+    is exact in f64, so each step is the f64 sum rounded to f32."""
+    w64 = wt.double()
+    h64 = h.double()
+    acc = torch.zeros(wt.shape[0], h.shape[1], dtype=torch.float32, device=h.device)
+    for k in range(wt.shape[1]):
+        acc = (acc.double() + w64[:, k:k + 1] * h64[k:k + 1]).float()
+    return acc
+
+
 def mlp_plain(weights: QueryWeights, feats: torch.Tensor, final_softmax: bool,
               out_col: int) -> torch.Tensor:
     """K2′ in plain torch ops over feature-major ``feats [d_in, n]``: the
     layer stack of ``fused_query.fused_mlp_query_columnar_plain`` (bf16 mode
     rounds the features and every ReLU output to bf16), an optional softmax
-    over the classes, then output row ``out_col``. Returns [n] f32."""
+    over the classes, then output row ``out_col``. Each layer's products
+    are summed in the kernel's order (``_dense_fma``), so without a softmax
+    every prediction equals the kernel's bit for bit. Returns [n] f32."""
     bf16 = weights.compute_dtype == torch.bfloat16
     h = feats.to(torch.bfloat16).float() if bf16 else feats
     last = len(weights.layers) - 1
     for i, (wt, b) in enumerate(weights.layers):
-        h = wt.float() @ h + b
+        h = _dense_fma(wt.float(), h) + b
         if i < last:
             h = torch.relu(h)
             if bf16:
@@ -557,13 +651,15 @@ def forest_plain(slot: ForestSlot, tables: ForestTables, feats: torch.Tensor) ->
     return idx.to(torch.float32) if tables.labels is None else tables.labels[idx]
 
 
-def predictions_plain(packed: PackedPlan, xc: torch.Tensor, n: int) -> list:
+def predictions_plain(packed: PackedPlan, xc: torch.Tensor, n: int,
+                      join: JoinRows | None = None) -> list:
     """Every prediction slot's value over rows [0, n), in slot order (a
-    feature may read an earlier slot's prediction)."""
+    feature may read an earlier slot's prediction or a join's dim row)."""
     plan = packed.plan
     preds: list = []
     for s, w in zip(plan.preds, packed.slots):
-        feats = torch.stack([eval_program(f, plan.consts, xc, n, preds) for f in s.features])
+        feats = torch.stack([eval_program(f, plan.consts, xc, n, preds, join)
+                             for f in s.features])
         if isinstance(s, MlpSlot):
             preds.append(mlp_plain(w, feats, s.final_softmax, s.out_col))
         else:
@@ -586,20 +682,22 @@ def _group_min_max(vals: torch.Tensor, slot: torch.Tensor, G: int, is_min: bool)
     return torch.where(nan > 0, torch.full_like(out, math.nan), out)[:G]
 
 
-def fused_sql_plain(packed: PackedPlan, xc: torch.Tensor, n_valid: int) -> dict:
-    """K2's function in plain torch ops. Returns the kernel's result:
-    ``count`` [G] int64, ``sums`` [S, G] f64, ``mm`` [M + X + 2K, G] f32
-    (the min slots, the max slots, then per key the raw-key min and max) and
-    ``flags`` [1] int32 (bit k: key k held a fractional value; bit K: a key
-    with |value| >= 2**24)."""
+def fused_sql_plain(packed: PackedPlan, xc: torch.Tensor, n_valid: int,
+                    dim_xc: torch.Tensor | None = None) -> dict:
+    """K2's (and K5's, with the dim block ``dim_xc``) function in plain torch
+    ops. Returns the kernel's result: ``count`` [G] int64, ``sums`` [S, G]
+    f64, ``mm`` [M + X + 2K, G] f32 (the min slots, the max slots, then per
+    key the raw-key min and max) and ``flags`` [1] int32 (bit k: key k held
+    a fractional value; bit K: a key with |value| >= 2**24)."""
     plan = packed.plan
     G, K = plan.n_groups, len(plan.keys)
     n = n_valid
     dev = xc.device
-    preds = predictions_plain(packed, xc, n)
+    join = None if plan.join is None else join_plain(packed, xc, n, dim_xc)
+    preds = predictions_plain(packed, xc, n, join)
 
     def run(code):
-        return eval_program(code, plan.consts, xc, n, preds)
+        return eval_program(code, plan.consts, xc, n, preds, join)
 
     mask = _truthy(run(plan.where)) if plan.where is not None else \
         torch.ones(n, dtype=torch.bool, device=dev)
@@ -635,18 +733,29 @@ def fused_sql_plain(packed: PackedPlan, xc: torch.Tensor, n_valid: int) -> dict:
 # --------------------------------------------------------------------------- kernel
 
 
-def fused_sql(packed: PackedPlan, xc: torch.Tensor, n_valid: int) -> dict:
-    """K2 (with K2′ and K4 inside it for the plan's prediction slots) over
-    rows [0, n_valid) of the table block ``xc [C, n_pad]`` f32; returns
-    ``fused_sql_plain``'s dict."""
+def fused_sql(packed: PackedPlan, xc: torch.Tensor, n_valid: int,
+              dim_xc: torch.Tensor | None = None) -> dict:
+    """K2 (with K2′ and K4 inside it for the plan's prediction slots, and
+    K5's join prologue for a join plan, whose dim block is ``dim_xc [D,
+    n_dim]`` f32) over rows [0, n_valid) of the table block ``xc [C, n_pad]``
+    f32; returns ``fused_sql_plain``'s dict."""
     if xc.device.type == "cpu":
-        return fused_sql_plain(packed, xc, n_valid)
+        return fused_sql_plain(packed, xc, n_valid, dim_xc)
     _kernels.require_cuda(xc, "table block")
     if xc.dtype != torch.float32 or xc.dim() != 2 or not 1 <= n_valid <= xc.shape[1]:
         raise ValueError(f"table block must be f32 [C, n_pad >= {n_valid}], "
                          f"got {xc.dtype} {tuple(xc.shape)}")
     if packed.words.device != xc.device or packed.trees.device != xc.device:
         raise ValueError(f"plan on {packed.words.device}, table on {xc.device}")
+    join = packed.plan.join
+    if join is not None:
+        _kernels.require_cuda(dim_xc, "dim block")
+        if dim_xc.dtype != torch.float32 or tuple(dim_xc.shape) != (join.n_cols, join.n_dim):
+            raise ValueError(f"dim block must be f32 [{join.n_cols}, {join.n_dim}], "
+                             f"got {dim_xc.dtype} {tuple(dim_xc.shape)}")
+        if dim_xc.device != xc.device or packed.lookup.device != xc.device:
+            raise ValueError(f"dim block on {dim_xc.device}, lookup on "
+                             f"{packed.lookup.device}, table on {xc.device}")
     smem = packed.smem_bytes
     if smem > SMEM_LIMIT:
         raise ValueError(f"plan needs {smem} bytes of shared memory, over {SMEM_LIMIT}")
@@ -667,7 +776,9 @@ def fused_sql(packed: PackedPlan, xc: torch.Tensor, n_valid: int) -> dict:
     stream = _kernels.stream_handle(dev)
     rc = lib.infera_fused_sql(
         xc.data_ptr(), xc.shape[1], n_valid, packed.words.data_ptr(), packed.blob.data_ptr(),
-        packed.blob_floats, packed.trees.data_ptr(), part_cnt.data_ptr(), part_sum.data_ptr(),
+        packed.blob_floats, packed.trees.data_ptr(),
+        None if join is None else packed.lookup.data_ptr(),
+        None if join is None else dim_xc.data_ptr(), part_cnt.data_ptr(), part_sum.data_ptr(),
         part_mm.data_ptr(), part_flags.data_ptr(), n_blocks, smem, stream)
     _kernels.check(lib, rc, "fused_sql")
     rc = lib.infera_fused_sql_fold(
@@ -678,11 +789,14 @@ def fused_sql(packed: PackedPlan, xc: torch.Tensor, n_valid: int) -> dict:
     fused_sql.launches["bf16" if plan.bf16 else "f32"] += 1
     if plan.forests:
         fused_sql.launches["forest"] += 1
+    if join is not None:
+        fused_sql.launches["join"] += 1
     return out
 
 
-# K2 launches by precision; "forest" counts the launches that ran K4 inside
-fused_sql.launches = {"f32": 0, "bf16": 0, "forest": 0}
+# K2 launches by precision; "forest" counts the launches that ran K4 inside,
+# "join" those of a join plan (K5)
+fused_sql.launches = {"f32": 0, "bf16": 0, "forest": 0, "join": 0}
 
 
 def fused_sql_mode() -> str:
@@ -699,15 +813,16 @@ def tier_enabled(device: torch.device) -> bool:
     return mode == "1" or (mode == "auto" and device.type == "cuda")
 
 
-def execute_fused_plan(packed: PackedPlan, xc: torch.Tensor, n_valid: int) -> dict | None:
-    """Run K2 (or its plain version on the CPU) and hand back host arrays in
+def execute_fused_plan(packed: PackedPlan, xc: torch.Tensor, n_valid: int,
+                       dim_xc: torch.Tensor | None = None) -> dict | None:
+    """Run K2 or K5 (or its plain version on the CPU) and hand back host arrays in
     the contract of ``infera_tpu``'s ``execute_fused_plan``: ``count`` [G],
     ``sums`` [(sum f64, 0) per slot], ``mins``/``maxs`` [G] per slot,
     ``kmins``/``kmaxs`` [G] per key, ``fracs`` [bool per key]. None when a
     key reached |value| >= 2**24: past f32's exact integers two keys could
     share a bucket unseen, so the host executor answers."""
     plan = packed.plan
-    res = fused_sql(packed, xc, n_valid)
+    res = fused_sql(packed, xc, n_valid, dim_xc)
     count = res["count"].cpu().numpy()
     sums = res["sums"].cpu().numpy()
     mm = res["mm"].cpu().numpy()

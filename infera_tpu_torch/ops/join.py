@@ -1,7 +1,11 @@
 """Hash join operator.
 
-Host half of ``infera_tpu/ops/join.py``: dict-based build/probe. The
-device sort-join for large numeric keys comes with the port's join tier.
+Port of ``infera_tpu/ops/join.py``. Host path: dict-based build/probe for
+small inputs. Device path (large numeric or VARCHAR keys): the sort-based
+join of ``ops/device_join.py`` in torch ops on the card. Unlike
+``infera_tpu``, an error of the device path raises: the inputs its join
+cannot take, or would answer otherwise than the host join
+(``device_join_eligible``), are checked before the call.
 """
 
 from __future__ import annotations
@@ -11,6 +15,7 @@ import numpy as np
 from ..columnar import Column, Table
 from ..errors import SqlError
 from ..sql import ast as A
+from .device_join import device_join_eligible, device_join_indices
 
 
 def _bare(name: str) -> str:
@@ -64,8 +69,10 @@ def _equi_keys(on: A.Expr, left_names: set, right_names: set) -> list | None:
 
 
 def join_tables(left: Table, right: Table, kind: str, on, using,
-                eval_fn, scope_cls) -> Table:
-    """Join two (already qualified) tables."""
+                eval_fn, scope_cls, on_device_path=None) -> Table:
+    """Join two (already qualified) tables. ``on_device_path`` is called
+    (no args) when the device sort-join serves the join, so the caller can
+    record the execution path."""
     if kind == "CROSS" and on is None and using is None:
         li = np.repeat(np.arange(left.num_rows), right.num_rows)
         ri = np.tile(np.arange(right.num_rows), left.num_rows)
@@ -78,7 +85,7 @@ def join_tables(left: Table, right: Table, kind: str, on, using,
         lkeys = [eval_fn(A.ColumnRef(c), lscope) for c in using]
         rkeys = [eval_fn(A.ColumnRef(c), rscope) for c in using]
         return _hash_join(left, right, lkeys, rkeys, kind, None, eval_fn,
-                          scope_cls)
+                          scope_cls, on_device_path)
 
     left_names = set(left.columns.keys())
     right_names = set(right.columns.keys())
@@ -89,7 +96,7 @@ def join_tables(left: Table, right: Table, kind: str, on, using,
         lkeys = [eval_fn(le, lscope) for le, re_ in pairs]
         rkeys = [eval_fn(re_, rscope) for le, re_ in pairs]
         return _hash_join(left, right, lkeys, rkeys, kind, None, eval_fn,
-                          scope_cls)
+                          scope_cls, on_device_path)
 
     # general theta join: nested-loop over the cross product
     li = np.repeat(np.arange(left.num_rows), right.num_rows)
@@ -112,9 +119,24 @@ def join_tables(left: Table, right: Table, kind: str, on, using,
 
 
 def _hash_join(left: Table, right: Table, lkeys: list, rkeys: list,
-               kind: str, residual, eval_fn, scope_cls) -> Table:
+               kind: str, residual, eval_fn, scope_cls,
+               on_device_path=None) -> Table:
     n_left = left.num_rows
     n_right = right.num_rows
+
+    # device path for large numeric or VARCHAR (dictionary-encoded) keys —
+    # INNER and the outer kinds all ride the sort-join (outer rows come back
+    # as -1 index markers that _combine turns into NULLs). Gate on the LARGE
+    # side: a 1M-fact x 1k-dim join is sort-dominated by the fact side
+    if max(n_left, n_right) >= (1 << 14) and all(
+        (k.sql_type.is_numeric or k.data.dtype == object) and k.validity is None
+        for k in lkeys + rkeys
+    ) and device_join_eligible(lkeys, rkeys, n_left, n_right, kind):
+        li, ri = device_join_indices(lkeys, rkeys, kind)
+        out = _combine(left, right, li, ri, None)
+        if on_device_path is not None:
+            on_device_path()
+        return out
 
     # build on the smaller side (mirror standard hash-join practice)
     build_right = n_right <= n_left

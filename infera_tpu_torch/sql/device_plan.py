@@ -370,17 +370,19 @@ class _ProgramLowerer:
             raise _Unsupported("list index beyond model output width")
         return out_col
 
+    def _resolve(self, op, arg, row_map) -> tuple:
+        """One COL instruction's column key → its row of the table block."""
+        if arg not in row_map:
+            raise _Unsupported(f"column {arg} is not in the table block")
+        return op, row_map[arg]
+
     def fused_plan(self, where, keys, sums, mins, maxs, strides, n_groups,
-                   row_map) -> FS.FusedPlan:
-        """The kernel's plan, COL keys resolved to rows of the table block."""
+                   row_map, join=None) -> FS.FusedPlan:
+        """The kernel's plan, COL keys resolved to rows of the table block;
+        ``join`` (a ``FusedPlan.join``) makes it a join plan."""
         def resolve(code):
-            out = []
-            for op, arg in code:
-                if op == FS.COL:
-                    if arg not in row_map:
-                        raise _Unsupported(f"column {arg} is not in the table block")
-                    arg = row_map[arg]
-                out.append((op, arg))
+            out = [self._resolve(op, arg, row_map) if op == FS.COL else (op, arg)
+                   for op, arg in code]
             if FS.stack_depth(out) > FS.MAX_STACK:
                 raise _Unsupported("expression deeper than the kernel's stack")
             return out
@@ -391,21 +393,25 @@ class _ProgramLowerer:
             where=None if where is None else resolve(where),
             keys=[resolve(c) for c in keys], sums=[resolve(c) for c in sums],
             mins=[resolve(c) for c in mins], maxs=[resolve(c) for c in maxs],
-            strides=list(strides), n_groups=n_groups, consts=list(self.consts), preds=preds)
+            strides=list(strides), n_groups=n_groups, consts=list(self.consts), preds=preds,
+            join=join)
 
 
-def _packed(conn, plan_key, plan: FS.FusedPlan, block_xc) -> FS.PackedPlan:
-    """The plan on the block's device, cached per connection by plan key."""
+def _packed(conn, plan_key, plan: FS.FusedPlan, block_xc, lookup=None,
+            dim_xc=None) -> FS.PackedPlan:
+    """The plan (with a join plan's key lookup) on the block's device,
+    cached per connection by plan key as (block, packed plan, dim block or
+    None)."""
     cache = getattr(conn, "_device_plan_cache", None)
     if cache is None:
         cache = {}
         conn._device_plan_cache = cache
     ent = cache.get(plan_key)
     if ent is None:
-        ent = (block_xc, FS.pack_plan(plan, block_xc.device))
+        ent = (block_xc, FS.pack_plan(plan, block_xc.device, lookup), dim_xc)
         if len(cache) >= 16:
             cache.pop(next(iter(cache)))
-        cache[plan_key] = ent  # the VALUE pins the block its rows address
+        cache[plan_key] = ent  # the VALUE pins the blocks its rows address
     return ent[1]
 
 
@@ -542,7 +548,8 @@ def _group_keys_int32_safe(lowerer, group_by) -> bool:
                 key = lowerer._column(e.name, e.table)
             except _Unsupported:
                 return False
-            col = lowerer.table.columns[key]
+            col = (lowerer.col_for_key(key) if hasattr(lowerer, "col_for_key")
+                   else lowerer.table.columns[key])
             d = col.data
             if d.dtype.kind in "iu" and d.dtype.itemsize > 4 and d.size:
                 rng = getattr(col, "_int_range", None)
@@ -574,9 +581,24 @@ def _finalize_agg(pname, payload, res, group_count):
     Returns (values [G], sql_type, badmask | None) — badmask marks groups
     whose result is undefined (avg or min of 0 rows); the caller falls back
     to the host path when a LIVE group is bad. The branches of the core
-    slots of ``infera_tpu``'s ``_finalize_agg``."""
-    if pname in ("count", "count_star"):
+    slots of ``infera_tpu``'s ``_finalize_agg``, with the outer join's
+    matched-validity forms."""
+    if pname in ("count", "count_star", "count_matched"):
         return np.asarray(res).astype(np.int64), T.BIGINT, None
+    if pname in ("min", "max") and isinstance(res, tuple):
+        # outer-join matched-validity min/max: (values, non-NULL count); a
+        # LIVE group with zero valid rows renders NULL → host path
+        v, cntv = res
+        return np.asarray(v).astype(np.float64), T.DOUBLE, np.asarray(cntv, np.float64) == 0
+    if pname in ("sum", "avg", "mean") and isinstance(res, tuple) and len(res) == 3:
+        # outer-join matched-validity sum/avg: (sum, comp, non-NULL count);
+        # avg divides by that count, not by the group's rows
+        s64 = np.asarray(res[0], np.float64) + np.asarray(res[1], np.float64)
+        c = np.asarray(res[2], np.float64)
+        bad = c == 0
+        if pname == "sum":
+            return s64, T.DOUBLE, bad
+        return s64 / np.where(bad, 1.0, c), T.DOUBLE, bad
     empty = np.asarray(group_count) == 0
     if pname in ("sum", "avg", "mean"):
         # (sum, comp) pair, folded in f64 (exact)

@@ -10,12 +10,16 @@ expressions (constant NULL model name → NULL prediction,
 test_edge_cases.test), volatile infera_* functions re-evaluated at every call
 site, and DuckDB-style value rendering for the test harness.
 
-The one device tier it calls is ``device_plan.try_execute_on_device``: an
-aggregate over one scanned table runs as kernel K2 on CUDA
-(``_exec_path == "device_plan_cuda"``). Every other query, and every plan
-that tier declines, runs on the host operators (numpy). The join,
-window-fusion, streaming, shuffle and mesh tiers of ``infera_tpu`` come in
-later slices of the port.
+Two device tiers: ``device_join_plan.try_execute_join_on_device`` runs a
+fact→dimension join with its aggregates as kernel K5 on CUDA
+(``_exec_path == "device_join_plan_cuda"``), before any join materializes;
+``device_plan.try_execute_on_device`` runs an aggregate over one scanned
+table as kernel K2 (``"device_plan_cuda"``). Every other query, and every
+plan those tiers decline, runs on the host operators (numpy), where a join
+over large keys takes the sort-join of ``ops/device_join.py`` in torch ops
+(``"device_join"``). The window-fusion, streaming, shuffle and mesh tiers
+of ``infera_tpu``, and its XLA join program, come in later slices of the
+port.
 """
 
 from __future__ import annotations
@@ -423,6 +427,13 @@ class Connection:
                 )
             except SqlError:
                 pass
+        elif isinstance(sel.from_, A.Join):
+            from .device_join_plan import try_execute_join_on_device
+
+            try:
+                device = bool(try_execute_join_on_device(self, sel, analyze_only=True))
+            except SqlError:
+                pass
         lines.append(f"{pad}PROJECT [{len(sel.items)} exprs]"
                      + (" (DISTINCT)" if sel.distinct else ""))
         if has_agg:
@@ -432,7 +443,9 @@ class Connection:
                 lines.append(
                     f"{pad}  GROUPING SETS [{len(gs)} sets → UNION ALL]")
             lines.append(f"{pad}  AGGREGATE [group keys: {keys}]"
-                         + (" ← fused device plan (kernel K2)"
+                         + ((" ← fused device plan (kernel K5)"
+                             if isinstance(sel.from_, A.Join)
+                             else " ← fused device plan (kernel K2)")
                             if device else " ← host/hybrid operators"))
         if sel.order_by:
             lines.append(f"{pad}  ORDER BY [{len(sel.order_by)} keys]")
@@ -551,6 +564,31 @@ class Connection:
     def _execute_select(self, sel: A.Select) -> Table:
         if getattr(sel, "group_sets", None):
             return self._execute_grouping_sets(sel)
+        # 1a. fused join plan — BEFORE the host join materializes: a
+        # fact-to-dimension join + aggregates runs as kernel K5 with a dense
+        # key lookup inside it (BASELINE config 3)
+        if isinstance(sel.from_, A.Join):
+            from .device_join_plan import try_execute_join_on_device
+
+            fused = try_execute_join_on_device(self, sel)
+            if fused is not None:
+                try:
+                    if sel.order_by:
+                        fused = self._order_by(
+                            fused, sel.order_by, Scope(fused),
+                            head=_head_rows(sel))
+                except SqlError:
+                    fused = None  # ORDER BY outside the output → host path
+                    self._exec_path = "host"
+                if fused is not None:
+                    if sel.offset is not None or sel.limit is not None:
+                        start = sel.offset or 0
+                        stop = (start + sel.limit if sel.limit is not None
+                                else fused.num_rows)
+                        fused = fused.slice(start, stop)
+                    self._exec_path = "device_join_plan_cuda"
+                    return fused
+
         # 1. FROM
         if sel.from_ is not None:
             scope = Scope(self._execute_from(sel.from_))
@@ -647,9 +685,14 @@ class Connection:
 
             left = self._execute_from(ref.left)
             right = self._execute_from(ref.right)
+
+            def _mark_device_join():
+                self._exec_path = "device_join"
+
             return join_tables(
                 left, right, ref.kind, ref.on, ref.using,
                 eval_fn=self._eval, scope_cls=Scope,
+                on_device_path=_mark_device_join,
             )
         raise SqlError(f"unsupported FROM clause {type(ref).__name__}")
 

@@ -8,7 +8,10 @@ one 128-column pass, widths that are no multiple of 4 or 8, and left shifts
 in K3; for K2, every opcode of the programs, the key guards, MLP slots in
 f32 and bf16, and the SQL flagship through Connection.execute; for K4,
 regressors and classifiers over heap and non-heap trees, a NaN feature, and
-tree queries through Connection.execute."""
+tree queries through Connection.execute; for K5, a permuted 1:1 key, keys
+with no dim row, negative keys, outer masking over NaN dim values, an MLP
+over dim columns, ragged row counts, the no-fallback rule and join queries
+through Connection.execute."""
 
 import numpy as np
 import pytest
@@ -530,4 +533,170 @@ def test_k4_sql_tree_query_on_the_card(cuda, monkeypatch, tmp_path, model):
                 np.testing.assert_allclose(a[2:], b[2:], rtol=1e-5)
     finally:
         MODELS.clear()
+        itt.set_device(None)
+
+
+# --------------------------------------------------------------------------- K5
+
+
+def _join_inputs(n, kind, seed, cuda):
+    """(table block, dim block [3, n_dim], lookup) of a fact→dim join. The
+    fact key is block row 6. ``permuted``: a 1:1 permuted key over n dim
+    rows. ``holes``: 5,000 dim keys drawn from [0, 8000), fact keys in
+    [-50, 9000): negative keys, keys past the largest dim key and keys with
+    no dim row; there dim row 0 holds NaN in column 1 and no fact row has its
+    key, so only unmatched rows, which read dim row 0, meet that NaN."""
+    rng = np.random.default_rng(seed)
+    if kind == "permuted":
+        n_dim = n
+        dkeys = rng.permutation(n_dim)
+        fk = rng.permutation(n).astype(np.float32)
+    else:
+        n_dim = 5000
+        dkeys = rng.choice(8000, n_dim, replace=False)
+        fk = rng.integers(-50, 9000, n)
+        fk[fk == dkeys[0]] = -7
+        fk = fk.astype(np.float32)
+    lookup = np.full(int(dkeys.max()) + 1, -1, np.int32)
+    lookup[dkeys] = np.arange(n_dim, dtype=np.int32)
+    dim = np.empty((3, n_dim), np.float32)
+    dim[0] = rng.standard_normal(n_dim)
+    dim[1] = rng.standard_normal(n_dim)
+    if kind == "holes":
+        dim[1, 0] = np.nan
+    dim[2] = rng.integers(0, 40, n_dim)
+    xc = torch.cat([_sql_block(n, seed, cuda), torch.as_tensor(fk, device=cuda)[None]])
+    return xc, torch.as_tensor(dim, device=cuda), lookup
+
+
+def _join_plan(shape, lookup, n_dim, G=64):
+    consts = []
+    col = [(fs.COL, i) for i in range(7)]
+    dim = [(fs.DIM, i) for i in range(3)]
+    m = (fs.MATCHED, 0)
+    sel = (fs.SEL, 0)
+    spec = fs.JoinSpec(fact_key=6, kmax=len(lookup) - 1, n_dim=n_dim, n_cols=3)
+    if shape == "inner":
+        return fs.FusedPlan(
+            where=[m, col[1], _c(consts, -1.0), (fs.GT, 0), (fs.AND, 0)], keys=[[dim[2]]],
+            sums=[[dim[0]], [col[1], dim[0], (fs.MUL, 0)], [dim[1], (fs.ABS, 0)]],
+            mins=[[dim[1]]], maxs=[[dim[0]], [col[3]]], strides=[1], n_groups=G,
+            consts=consts, join=spec)
+    if shape == "outer":
+        return fs.FusedPlan(
+            where=None, keys=[[col[0]]],
+            sums=[[m], [m, dim[1], _c(consts, 0.0), sel], [col[1]],
+                  [m, dim[0], col[3], sel]],
+            mins=[[m, dim[1], _c(consts, np.inf), sel]],
+            maxs=[[m, dim[0], _c(consts, -np.inf), sel]], strides=[1], n_groups=G,
+            consts=consts, join=spec)
+    # an MLP slot whose features read dim columns (K2' inside K5)
+    slot = fs.MlpSlot(params=_params((4, 32, 1), seed=9), final_softmax=False, out_col=0,
+                      bf16=False, features=[[dim[0]], [col[1]], [dim[2]], [col[3]]])
+    return fs.FusedPlan(where=[m], keys=[[col[0]]], sums=[[(fs.PRED, 0)]],
+                        mins=[[(fs.PRED, 0)]], maxs=[[(fs.PRED, 0)]], strides=[1], n_groups=G,
+                        consts=consts, preds=[slot], join=spec)
+
+
+@pytest.mark.parametrize("shape", ["inner", "outer", "mlp"])
+@pytest.mark.parametrize("kind,n", [("permuted", 1_000_003), ("holes", 1_000_003),
+                                    ("holes", 257), ("permuted", 1)])
+def test_k5_join_matches_plain(cuda, kind, n, shape):
+    """Each row's dim row, match and dim values are the plain version's bit
+    for bit, and so is every program over them (the MLP's layers sum in the
+    kernel's order): counts, flags, minima and maxima (NaN included) are
+    exact and the f64 sums differ only in their order. The NaN that
+    unmatched rows read never reaches an outer join's selected sums."""
+    xc, dim, lookup = _join_inputs(n, kind, seed=n % 97, cuda=cuda)
+    packed = fs.pack_plan(_join_plan(shape, lookup, dim.shape[1]), cuda, lookup)
+    before = dict(fs.fused_sql.launches)
+    got = fs.fused_sql(packed, xc, n, dim)
+    torch.cuda.synchronize()
+    assert fs.fused_sql.launches["join"] == before["join"] + 1
+    assert fs.fused_sql.launches["f32"] == before["f32"] + 1
+    want = fs.fused_sql_plain(packed, xc, n, dim)
+    _assert_k2_close(got, want, sum_rtol=1e-12)
+    if shape == "outer":
+        assert bool(torch.isfinite(got["sums"]).all())
+        assert int(got["count"].sum()) == n
+        if kind == "holes" and n > 1:
+            assert 0 < float(got["sums"][0].sum()) < n   # some rows matched, some not
+
+
+def test_k5_join_plan_raises_without_its_library(cuda, monkeypatch):
+    """A join plan on a CUDA table launches K5 or raises: a library that
+    cannot load reaches Connection.execute, and the plain version never runs
+    on the card."""
+    import infera_tpu_torch as itt
+    from infera_tpu_torch.ops import _kernels
+    from infera_tpu_torch.sql import Connection
+
+    def no_library(name):
+        raise RuntimeError(f"nvcc failed for {name}.cu")
+
+    def no_plain(*a, **k):
+        raise AssertionError("the plain version ran on the card")
+
+    xc, dim, lookup = _join_inputs(10_000, "holes", seed=3, cuda=cuda)
+    packed = fs.pack_plan(_join_plan("outer", lookup, dim.shape[1]), cuda, lookup)
+    monkeypatch.setattr(_kernels, "load", no_library)
+    monkeypatch.setattr(fs, "fused_sql_plain", no_plain)
+    monkeypatch.setattr(fs, "join_plain", no_plain)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        fs.fused_sql(packed, xc, 10_000, dim)
+    monkeypatch.delenv("INFERA_PALLAS_SQL", raising=False)
+    itt.set_device(cuda)
+    try:
+        conn = Connection()
+        conn.execute("create table f as select x % 1100 as k, (x % 40)::float / 4.0 as v "
+                     "from range(50000) r(x)")
+        conn.execute("create table d as select x as k, (x * 2)::float as w from range(1000) r(x)")
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            conn.execute("select count(*), count(w), sum(v), sum(coalesce(w, 0.0)) "
+                         "from f left join d on f.k = d.k")
+    finally:
+        itt.set_device(None)
+
+
+JOIN_QUERIES = [
+    "select count(*), count(w), sum(v), sum(coalesce(w, 0.0)) from f left join d on f.k = d.k",
+    "select count(*), count(w), sum(v), sum(coalesce(w, 0.0)) from f full join d on f.k = d.k",
+    "select og, count(*), sum(w), min(w), max(v) from f left join d on f.k = d.k "
+    "group by og order by og",
+    "select cat, count(*), avg(v * w), max(w) from f join d on f.k = d.k where v > 2.0 "
+    "group by cat order by cat",
+]
+
+
+@pytest.mark.parametrize("q", JOIN_QUERIES)
+def test_k5_sql_join_on_the_card(cuda, monkeypatch, q):
+    """Connection.execute runs a fact→dim join through one launch of K5 and
+    answers as the host executor does, whose join is the device sort-join:
+    keys, counts, minima and maxima exact, sums to 1e-6."""
+    import infera_tpu_torch as itt
+    from infera_tpu_torch.sql import Connection
+
+    monkeypatch.delenv("INFERA_PALLAS_SQL", raising=False)
+    itt.set_device(cuda)
+    try:
+        conn = Connection()
+        conn.execute("create table f as select x % 1100 as k, (x % 40)::float / 4.0 as v, "
+                     "x % 6 as og from range(100003) r(x)")
+        conn.execute("create table d as select x as k, (x * 2)::float as w, x % 5 as cat "
+                     "from range(1200) r(x) where x % 7 <> 3")
+        before = fs.fused_sql.launches["join"]
+        rows = conn.execute(q).rows
+        assert conn._exec_path == "device_join_plan_cuda"
+        assert fs.fused_sql.launches["join"] == before + 1
+        monkeypatch.setenv("INFERA_PALLAS_SQL", "0")
+        host = conn.execute(q).rows
+        assert conn._exec_path == "device_join"
+        assert len(rows) == len(host)
+        for a, b in zip(rows, host):
+            for x, y in zip(a, b):
+                if isinstance(y, float) and not float(y).is_integer():
+                    assert x == pytest.approx(y, rel=1e-6)
+                else:
+                    assert x == y
+    finally:
         itt.set_device(None)

@@ -29,12 +29,14 @@ sys.exit(1 if bad else 0)
     "infera_tpu_torch.onnx.ml_ops",
     "infera_tpu_torch.sql",
     "infera_tpu_torch.sql.device_plan",
+    "infera_tpu_torch.sql.device_join_plan",
     "infera_tpu_torch.sql.shell",
     "infera_tpu_torch.sql.csv_io",
     "infera_tpu_torch.columnar.diskfile",
     "infera_tpu_torch.columnar.pandas_io",
     "infera_tpu_torch.ops.window",
     "infera_tpu_torch.ops.join",
+    "infera_tpu_torch.ops.device_join",
     "infera_tpu_torch.observability",
     "infera_tpu_torch.testing.sqllogic",
     "chip_smoke",
