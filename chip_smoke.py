@@ -53,7 +53,18 @@ card, builds every kernel of ``infera_tpu_torch/csrc`` with nvcc (sm_90a), and:
    device sort-join); F's counts are also held to numpy. K5 is held against
    its plain version at 1,048,576 and 1,000,003 rows and timed beside its
    bound, its plain version and a PyTorch chain;
-8. prints the ``{"kernels": [...]}`` line, the card's name and power limit,
+8. the aggregate tail (K2 b–e): queries I (variance, count_if, bool_and/or,
+   product and an exact int64 average beside a 4→32→1 MLP), J (COUNT/SUM/
+   AVG(DISTINCT) and MODE), K (arg_max over the config-2 MLP's prediction,
+   arg_min, arg_max over ties) and L (exact int64 sum, avg, min and max of a
+   BIGINT near ±2^44) over 1,048,576 rows through ``Connection.execute``,
+   with the launch counts set to 0 just before and read just after. Each
+   must run on ``device_plan_cuda`` as one K2 launch once its probes are
+   cached and give the host executor's rows; each plan is held against its
+   plain version at 1,048,576 and 1,000,003 rows and timed beside its
+   bound, its plain version and a PyTorch chain; the SUM(BIGINT) overflow
+   must raise the host's message;
+9. prints the ``{"kernels": [...]}`` line, the card's name and power limit,
    and last ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero without the ``ok`` line. The script
@@ -309,7 +320,7 @@ def sql_phase(torch, itt, x_rows, peaks, device) -> list:
         return cnt, sums, mx
 
     rows = []
-    for (key, q), (xc, packed, _) in zip(queries.items(), plans):
+    for (key, q), (xc, packed, _, _) in zip(queries.items(), plans):
         plan = packed.plan
         check((plan.n_groups, len(plan.keys)) == SQL_SHAPE[key][1:],
               f"query {key}: plan of {plan.n_groups} groups, {len(plan.keys)} keys")
@@ -517,7 +528,7 @@ def tree_phase(torch, itt, x_rows, peaks, device) -> list:
         return cnt, sums, ext
 
     rows = []
-    for (key, q), (xc, packed, _) in zip(queries.items(), plans):
+    for (key, q), (xc, packed, _, _) in zip(queries.items(), plans):
         plan = packed.plan
         (slot,) = plan.forests
         check((plan.n_groups, len(plan.keys), slot.n_trees) == (64, 1, 64),
@@ -739,7 +750,7 @@ def join_phase(torch, itt, peaks, device) -> list:
         return cnt, cw, sw, mn, mx
 
     rows = []
-    for (key, q), (xc, packed, dim_xc) in zip(queries.items(), plans):
+    for (key, q), (xc, packed, dim_xc, _) in zip(queries.items(), plans):
         plan = packed.plan
         check(plan.join is not None and plan.n_groups >= JOIN_GROUPS[key],
               f"query {key}: plan of {plan.n_groups} groups, join {plan.join}")
@@ -784,6 +795,291 @@ def join_phase(torch, itt, peaks, device) -> list:
               f"{len(used_f)} fact and {len(used_d)} dim columns, lookup of "
               f"{packed.lookup.numel()} entries, {nbytes / 1e6:.1f} MB, {packed.smem_bytes} B "
               f"of shared memory")
+    return rows
+
+
+# the aggregate tail (K2 b–e, infera_tpu's slot families of
+# tests/test_pallas_sql.py:188-275,472-500) over 1,048,576 rows: mv's largest
+# count is unique in every group; v is a BIGINT near +-2**44, past f32 and
+# past f64's exact sums per group
+TAIL_TABLE = ("create table tail as select x % 64 as g, x % 5 as h, x as id, x % 500 as k500, "
+              "((x % 12) * (x % 5)) % 9 as mv, "
+              "(case when x % 3 = 0 then -1 else 1 end) * (17592186044421 + x * 7) as v, "
+              "(x % 100)::float / 10.0 as f1, ((x + 3) % 50)::float / 5.0 as f2, "
+              "((x * 7) % 30)::float / 3.0 as f3, ((x * 11) % 90)::float / 9.0 as f4 "
+              "from range({n}) r(x)")
+P_T = "infera_predict('mt', f1, f2, f3, f4)"
+P_K = "infera_predict_multi_list('mk', {cols})[1]"
+SQL_I = (f"select g, stddev(f1), var_pop({P_T}), count_if({P_T} > 0.0), bool_and(f1 >= 0.0), "
+         f"bool_or(f2 > 9.0), product(1.0 + f3 / 1000.0), avg(h) from tail group by g order by g")
+SQL_J = ("select g, count(distinct h), sum(distinct k500), avg(distinct k500), mode(mv), "
+         "count(*) from tail group by g order by g")
+SQL_K = (f"select g, arg_max(id, {P_K}), arg_min(id, c0), arg_max(id, h) from wide "
+         f"group by g order by g")
+SQL_L = ("select g, sum(v), avg(v), min(v), max(v) from tail where f1 > 1.0 "
+         "group by g order by g")
+# rows against the host executor: per column None for exact (keys, counts,
+# integers, DISTINCT results, modes, arg values, int64 sums and extremes) or
+# the relative tolerance: 1e-3 for the variance family and the product (the
+# reference's own tail tests; the f32 block and log2 sums), 1e-12 for an
+# average (an exact int64 total over a count, where the host sums in f64)
+TAIL_TOL = {"I": (None, 1e-3, 1e-3, None, None, None, 1e-3, 1e-12),
+            "J": (None, None, None, 1e-12, None, None), "K": (None, None, None, None),
+            "L": (None, None, 1e-12, None, None)}
+# the family each query exercises: (row name, TPU kernel it replaces, the
+# launch counter of fused_sql that counts it)
+TAIL_KERNELS = {"I": ("K2 b sum-slot families", "infera_tpu/sql/device_plan.py:951", "int_sum"),
+                "J": ("K2 c DISTINCT/MODE counts", "infera_tpu/ops/pallas_sql.py:264",
+                      "distinct"),
+                "K": ("K2 d arg_min/arg_max", "infera_tpu/ops/pallas_sql.py:294", "arg"),
+                "L": ("K2 e exact int64 min/max", "infera_tpu/ops/pallas_sql.py:324",
+                      "int_minmax")}
+
+
+def compare_rows(key, rows, host, tols) -> float:
+    """Rows against the host's, per column exact or within its relative
+    tolerance; returns the largest relative difference seen."""
+    check(len(rows) == len(host), f"query {key}: {len(rows)} rows vs host {len(host)}")
+    worst = 0.0
+    for a, b in zip(rows, host):
+        for x, y, rel in zip(a, b, tols, strict=True):
+            if rel is None:
+                check(x == y, f"query {key}: {a} vs host {b}")
+                continue
+            check(np.isfinite(x) and abs(x - y) <= rel * abs(y) + 1e-12,
+                  f"query {key}: {x} vs host {y}")
+            worst = max(worst, abs(x - y) / max(abs(y), 1e-30))
+    return worst
+
+
+def tail_phase(torch, itt, x_rows, peaks, device) -> list:
+    """The aggregate tail on the card: queries I–L through
+    Connection.execute, each one K2 launch; returns the K2 b–e rows of the
+    kernels line."""
+    import os
+
+    from infera_tpu_torch.columnar import Column, Table
+    from infera_tpu_torch.columnar import types as T
+    from infera_tpu_torch.errors import SqlError
+    from infera_tpu_torch.onnx import builder, proto
+    from infera_tpu_torch.ops import fused_sql as fs
+    from infera_tpu_torch.registry import MODELS
+    from infera_tpu_torch.sql import Connection
+
+    n = N_MAIN
+    os.environ.pop("INFERA_PALLAS_SQL", None)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        # the flagship's widths without its one-class softmax, which is 1.0
+        # on every row: here the prediction varies
+        proto.save_model_file(builder.mlp_model(in_dim=4, hidden=(32,), out_dim=1, softmax=False),
+                              f"{d}/mt.onnx")
+        proto.save_model_file(
+            builder.mlp_model(in_dim=32, hidden=(128, 128), out_dim=16, softmax=True),
+            f"{d}/mk.onnx")
+        itt.load_model("mt", f"{d}/mt.onnx")
+        itt.load_model("mk", f"{d}/mk.onnx")
+    conn = Connection()
+    conn.execute(TAIL_TABLE.format(n=n))
+    wide = {f"c{k}": Column(np.ascontiguousarray(x_rows[:, k]), T.FLOAT) for k in range(32)}
+    ids = np.arange(n, dtype=np.int64)
+    wide.update(g=Column(ids % 64, T.BIGINT), h=Column(ids % 5, T.BIGINT),
+                id=Column(ids, T.BIGINT))
+    conn.register_table("wide", Table(wide))
+    print(f"tail tables and models: {time.perf_counter() - t0:.2f} s on the host clock")
+    cols = ", ".join(f"c{k}" for k in range(32))
+    queries = {"I": SQL_I, "J": SQL_J, "K": SQL_K.format(cols=cols), "L": SQL_L}
+
+    # ---------------------------------------------------------------- the tail's main path
+    fs.fused_sql.launches = dict.fromkeys(fs.fused_sql.launches, 0)
+    out, first = {}, {}
+    for key, q in queries.items():
+        before = fs.fused_sql.launches["f32"]
+        out[key] = conn.execute(q).rows
+        torch.cuda.synchronize()
+        first[key] = fs.fused_sql.launches["f32"] - before
+        check(conn._exec_path == "device_plan_cuda", f"query {key} ran on {conn._exec_path}")
+    main_launches = dict(fs.fused_sql.launches)
+    plans = list(conn._device_plan_cache.values())
+    check(len(plans) == len(queries), f"{len(plans)} plans cached, expected {len(queries)}")
+    print(f"tail main path: launches {main_launches}; K2 per query, its probes included: {first}")
+    for key, (_name, _src, counter) in TAIL_KERNELS.items():
+        check(main_launches[counter] > 0, f"{counter} was not launched by query {key}")
+    for key, q in queries.items():
+        before = fs.fused_sql.launches["f32"]
+        conn.execute(q)
+        torch.cuda.synchronize()
+        k = fs.fused_sql.launches["f32"] - before
+        check(conn._exec_path == "device_plan_cuda" and k == 1,
+              f"query {key} again: {conn._exec_path}, {k} K2 launches")
+    print("tail queries again, their probes cached: one K2 launch each")
+
+    # ---------------------------------------------------------------- rows vs the host
+    os.environ["INFERA_PALLAS_SQL"] = "0"
+    host = {}
+    for key, q in queries.items():
+        t = time.perf_counter()
+        host[key] = conn.execute(q).rows
+        check(conn._exec_path == "host", f"host query {key} ran on {conn._exec_path}")
+        print(f"host executor, query {key}: {(time.perf_counter() - t) * 1e3:.1f} ms on the "
+              f"host clock")
+    os.environ.pop("INFERA_PALLAS_SQL")
+    for key, rows in out.items():
+        check(len(rows) == 64, f"query {key}: {len(rows)} groups")
+        worst = compare_rows(key, rows, host[key], TAIL_TOL[key])
+        print(f"query {key}: 64 groups equal the host's (integers, DISTINCT results, modes, arg "
+              f"values, int64 sums and extremes exact), worst relative difference {worst:.3e}: "
+              f"{rows[0]}")
+
+    # ---------------------------------------------------------------- SUM(BIGINT) overflow
+    # 16,384 rows of 2**49: the sum of |v| reaches 2**63, past the 2**62 rule
+    conn.execute("create table ov as select x % 2 as g, 562949953421312 as v "
+                 "from range(16384) r(x)")
+    q_ov = "select g, sum(v) from ov group by g"
+    messages = {}
+    for mode in ("auto", "0"):
+        os.environ["INFERA_PALLAS_SQL"] = mode
+        before = fs.fused_sql.launches["int_sum"]
+        try:
+            conn.execute(q_ov)
+            messages[mode] = None
+        except SqlError as e:
+            messages[mode] = (str(e), fs.fused_sql.launches["int_sum"] - before)
+    os.environ.pop("INFERA_PALLAS_SQL")
+    check(messages["auto"] is not None and messages["auto"][1] == 1,
+          f"SUM(BIGINT) overflow on the kernel tier: {messages['auto']}")
+    check(messages["0"] is not None and messages["auto"][0] == messages["0"][0],
+          f"overflow messages differ: {messages}")
+    print(f"SUM(BIGINT) overflow: K2 raised the host's message {messages['0'][0]!r}")
+
+    # ---------------------------------------------------------------- steady time, phases
+    for key, q in queries.items():
+        conn.execute(q)
+        times = []
+        for _ in range(5):
+            t = time.perf_counter()
+            conn.execute(q)
+            times.append((time.perf_counter() - t) * 1e3)
+        med, q25, q75 = (float(v) for v in np.percentile(times, [50, 25, 75]))
+        print(f"query {key} end to end: median {med:.3f} ms of 5 (quartiles {q25:.3f}-"
+              f"{q75:.3f}) on the host clock ({n / med * 1e3:,.0f} rows/s); phases "
+              f"{conn._last_phases}")
+
+    # ---------------------------------------------------------------- K2 b-e vs plain, times
+    mlp = {name: [(torch.as_tensor(w, device=device), torch.as_tensor(b, device=device))
+                  for w, b in MODELS.get(name).mlp_plan[0]] for name in ("mt", "mk")}
+
+    def run_mlp(name, f, softmax):
+        h = f
+        for i, (w, b) in enumerate(mlp[name]):
+            h = torch.addmm(b, h, w)
+            if i < len(mlp[name]) - 1:
+                h = torch.relu(h)
+        return torch.softmax(h, dim=1) if softmax else h
+
+    def arg_chain(v, g, rows, is_min, G=64):
+        """arg_min/arg_max as two scatter_reduce calls: the extreme per
+        group, then the smallest row id reaching it."""
+        ext = torch.full((G,), torch.inf if is_min else -torch.inf, device=v.device)
+        ext = ext.scatter_reduce(0, g, v, "amin" if is_min else "amax")
+        at = torch.where(v == ext[g], rows, torch.full_like(rows, 1 << 40))
+        return torch.full((G,), 1 << 40, device=v.device).scatter_reduce(0, g, at, "amin")
+
+    def library(key, xc, rm, xi):
+        """One PyTorch chain of the same function (addmm, index_add_,
+        scatter_reduce, bincount); timed only, the port never calls it."""
+        g = xc[rm["g"]].long()
+        G = 64
+        if key == "I":
+            f1, f2, f3 = xc[rm["f1"]], xc[rm["f2"]], xc[rm["f3"]]
+            p = run_mlp("mt", xc[[rm[c] for c in ("f1", "f2", "f3", "f4")]].T, False)[:, 0]
+            d = f1 - 3.0
+            q = 1.0 + f3 / 1000.0
+            vals = [d, d * d, p, p * p, (p > 0).float(), (q < 0).float(), (q == 0).float(),
+                    torch.log2(q.abs())]
+            sums = [torch.zeros(G, dtype=torch.float64, device=xc.device).index_add_(
+                0, g, v.double()) for v in vals]
+            band = torch.ones(G, device=xc.device).scatter_reduce(0, g, (f1 >= 0).float(), "amin")
+            bor = torch.zeros(G, device=xc.device).scatter_reduce(0, g, (f2 > 9).float(), "amax")
+            return sums, band, bor, torch.zeros(G, dtype=torch.int64, device=xc.device) \
+                .index_add_(0, g, xi[0])
+        if key == "J":
+            outs = []
+            for col, v_dom in (("h", 8), ("k500", 512), ("mv", 16)):
+                m = torch.bincount(g * v_dom + xc[rm[col]].long(), minlength=G * v_dom)
+                outs.append(m.view(G, v_dom).argmax(dim=1) if col == "mv" else (m > 0).sum())
+            return outs
+        if key == "K":
+            rows = torch.arange(xc.shape[1], device=xc.device)
+            p = run_mlp("mk", xc[[rm[f"c{k}"] for k in range(32)]].T, True)[:, 0]
+            return (arg_chain(p, g, rows, False), arg_chain(xc[rm["c0"]], g, rows, True),
+                    arg_chain(xc[rm["h"]], g, rows, False))
+        sel = xc[rm["f1"]] > 1.0
+        slot = torch.where(sel, g, torch.full_like(g, G))
+        v = xi[0]
+        i64 = torch.iinfo(torch.int64)
+        return (torch.zeros(G + 1, dtype=torch.int64, device=xc.device).index_add_(0, slot, v),
+                torch.zeros(G + 1, dtype=torch.float64, device=xc.device).index_add_(
+                    0, slot, v.double().abs()),
+                torch.full((G + 1,), i64.max, device=xc.device).scatter_reduce(0, slot, v, "amin"),
+                torch.full((G + 1,), i64.min, device=xc.device).scatter_reduce(0, slot, v, "amax"))
+
+    rows = []
+    for (key, q), (xc, packed, _, xi) in zip(queries.items(), plans):
+        plan = packed.plan
+        log2_rows = [i for i, code in enumerate(plan.sums) if (fs.LOG2, 0) in code]
+        other = [i for i in range(len(plan.sums)) if i not in log2_rows]
+        err, err_log2 = 0.0, 0.0
+        for n_valid in (n, N_RAGGED):
+            got = fs.fused_sql(packed, xc, n_valid, int_xc=xi)
+            want = fs.fused_sql_plain(packed, xc, n_valid, int_xc=xi)
+            torch.cuda.synchronize()
+            for k in ("count", "flags", "ints", "args", "dist", "mm"):
+                check(torch.equal(got[k], want[k]), f"K2 {key} @ {n_valid}: {k} differ from plain")
+            # every row's values are the plain version's bit for bit; only the
+            # order of the f64 sums differs. CUDA's log2f and torch.log2 may
+            # differ in a value's last bit: the product's log2 row to 1e-6
+            torch.testing.assert_close(got["sums"][other], want["sums"][other], rtol=1e-12,
+                                       atol=1e-9)
+            torch.testing.assert_close(got["sums"][log2_rows], want["sums"][log2_rows],
+                                       rtol=1e-6, atol=1e-9)
+            torch.testing.assert_close(got["iest"], want["iest"], rtol=1e-12, atol=0)
+            diff = [float((got[k] - want[k]).abs().max()) for k in ("iest",) if got[k].numel()]
+            diff += [float((got["sums"][other] - want["sums"][other]).abs().max())] \
+                if other else []
+            err = max([err] + diff)
+            rel = max([0.0] + [float(((got[k] - want[k]).abs() / want[k].abs().clamp(min=1e-300))
+                                     .max()) for k in ("sums", "iest") if got[k].numel()])
+            if log2_rows:
+                err_log2 = max(err_log2, float((got["sums"][log2_rows]
+                                                - want["sums"][log2_rows]).abs().max()))
+            print(f"K2 {key} @ {n_valid} rows: counts, flags, int slots, arg words, DISTINCT "
+                  f"counts, minima and maxima equal plain; sums' max abs err {err:.3e} (relative "
+                  f"{rel:.3e})"
+                  + (f", log2 rows {err_log2:.3e}" if log2_rows else ""))
+        rm = _block_rows(conn, "wide" if key == "K" else "tail", xc)
+        kern_times = device_ms(torch, lambda: fs.fused_sql(packed, xc, n, int_xc=xi))
+        ms, q25, q75 = (float(v) for v in np.percentile(kern_times, [50, 25, 75]))
+        plain_ms = float(np.median(device_ms(
+            torch, lambda: fs.fused_sql_plain(packed, xc, n, int_xc=xi), runs=5)))
+        library_ms = float(np.median(device_ms(torch, lambda: library(key, xc, rm, xi))))
+        progs = plan.slot_programs + [f for p in plan.preds for f in p.features]
+        used = {arg for prog in progs for op, arg in prog if op == fs.COL}
+        nbytes = 4.0 * len(used) * n + 8.0 * len({r for r, _k in plan.ints}) * n
+        macs = sum(w.shape[0] * w.shape[1] for m in plan.mlps for w, _ in m.params)
+        instr = sum(len(prog) for prog in progs)
+        b_ms, b_by = bound(float(n) * (2.0 * macs + instr), nbytes, "f32", peaks)
+        name, replaces, counter = TAIL_KERNELS[key]
+        rows.append({"name": f"{name} (query {key})", "route": "cuda",
+                     "source": "infera_tpu_torch/csrc/fused_sql.cu", "replaces": replaces,
+                     "launches": main_launches[counter], "max_abs_err": max(err, err_log2),
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": library_ms})
+        print(f"{name} (query {key}): kernel {ms:.4f} ms (quartiles {q25:.4f}-{q75:.4f}), plain "
+              f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+              f"{len(used)} f32 and {len(plan.ints)} int columns read, {nbytes / 1e6:.1f} MB, "
+              f"{instr} program instructions a row, {2.0 * macs * n / 1e9:.2f} G MLP "
+              f"operations, {packed.smem_bytes} B of shared memory")
     return rows
 
 
@@ -1064,6 +1360,7 @@ def main() -> int:
     rows += sql_phase(torch, itt, x_rows, peaks, device)
     rows += tree_phase(torch, itt, x_rows, peaks, device)
     rows += join_phase(torch, itt, peaks, device)
+    rows += tail_phase(torch, itt, x_rows, peaks, device)
 
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())

@@ -89,6 +89,41 @@
 // random, one 4-byte load a row each, so it is bound by the latency of those
 // loads and of the interpreter, as K2 is.
 //
+// K2 b-e, the aggregate tail of infera_tpu/ops/pallas_sql.py (:264-363) and
+// of the sum-slot families of infera_tpu/sql/device_plan.py (:951-1045). The
+// TPU kernel had f32 alone, so it carried int64 columns as eight byte-limb
+// rows summed in Neumaier pairs (b), compared int64 extremes as four 16-bit
+// words in a lexicographic cascade (e), counted DISTINCT values with one-hot
+// MXU matmuls per 128-value bank (c), and kept arg_min/arg_max as (value,
+// row) lane pairs with NaN at 2^30 (d). The H100 has int64 and f64, so:
+//  b. an int sum slot reads its row of the int64 block xi [I][n] into shared
+//     memory per tile; the group's thread adds it as unsigned long long (wrap
+//     modulo 2^64 is exact whatever the order; signed overflow would be
+//     undefined) and adds |v| in f64 to the slot's estimate row, which the
+//     host holds to the SUM(BIGINT) overflow rule. var, count_if, product
+//     and bool_and/or are programs on the sum, min and max slots.
+//  c. a DISTINCT/MODE slot's value, when it is an integer in [0, v_dom), adds
+//     1 to cell [group][value] of its int32 counts in device memory with
+//     atomicAdd (G x v_dom reaches 1 MiB, over a block's shared memory;
+//     integer adds commute, so the counts are exact and the same every run);
+//     any other selected value sets the slot's flag bit. The fold of the
+//     counts (distinct count and sum, or the mode) is torch ops on the host.
+//  d. an arg slot keeps per group one 64-bit word: the order-preserving
+//     32-bit key of the f32 value (-0.0 read as +0.0, as the host's np.less
+//     ties them) above 24 bits of row id (2^24 - 1 - id for a max), reduced
+//     by min or max, so the smallest row id wins a tie; a NaN sets the slot's
+//     flag bit (the host's order lets a NaN win only as its group's first
+//     row, so the host answers).
+//  e. an int min or max slot keeps an int64 extreme per group.
+// The per-block accumulators live in shared memory beside the core slots and
+// are folded in block order like them.
+//
+// Bound of K2 b-e on the H100 (1,048,576 rows): each reads one or two
+// columns (4 or 8 bytes a row) and does a few operations a row, so each is
+// bound by bytes (about 0.002-0.01 ms at 3.35 TB/s); this first version
+// spends its time in the interpreter, the one-thread-per-group reduction
+// and, for c, the atomics on a few hot cells.
+//
 // Cross-block accumulation: blocks run in any order, so each (persistent)
 // block keeps its own accumulators in shared memory, one thread per group
 // adding the tile's rows in row order, and writes them to partials; a second
@@ -96,6 +131,7 @@
 // bit for bit from run to run at one grid size.
 #include "mlp_tile.cuh"
 
+#include <limits.h>
 #include <math.h>
 
 namespace infera {
@@ -111,17 +147,47 @@ static_assert(kRows % kTileRows == 0, "MLP sub-tiles");
 // opcodes: ops/fused_sql.py
 enum Op {
   COL = 0, CONST, PRED, NEG, NOT, ADD, SUB, MUL, DIV, MOD, EQ, NE, LT, LE, GT, GE, AND, OR,
-  BETWEEN, CAST_INT, CAST_FLOAT, ABS, SQRT, FLOOR, CEIL, ROUND, EXP, LOG, DIM, MATCHED, SEL
+  BETWEEN, CAST_INT, CAST_FLOAT, ABS, SQRT, FLOOR, CEIL, ROUND, EXP, LOG, DIM, MATCHED, SEL,
+  LOG2
 };
 
 // header words of the plan: ops/fused_sql.py pack_plan
 enum Hdr {
   H_WORDS = 0, H_K, H_S, H_M, H_X, H_WHERE, H_J, H_G, H_NPROG, H_PROGS, H_CODE, H_CONSTS,
-  H_STRIDES, H_PREDS, H_JOIN_KEY, H_JOIN_KMAX,
-  H_SM_BLOB = 16, H_SM_ACT0, H_SM_ACT1, H_SM_PRED, H_SM_VALS, H_SM_KRAW, H_SM_KSLOT, H_SM_RIDX,
-  H_SM_CNT, H_SM_SUMS, H_SM_MM, H_SM_FLAGS, H_SM_TOTAL, H_JOIN_NDIM, H_JOIN_NCOLS
+  H_STRIDES, H_PREDS, H_JOIN_KEY, H_JOIN_KMAX, H_JOIN_NDIM, H_JOIN_NCOLS, H_I, H_IS, H_D, H_A,
+  H_TAIL,
+  H_SM_BLOB = 24, H_SM_ACT0, H_SM_ACT1, H_SM_PRED, H_SM_VALS, H_SM_KRAW, H_SM_KSLOT, H_SM_RIDX,
+  H_SM_CNT, H_SM_SUMS, H_SM_MM, H_SM_FLAGS, H_SM_IVALS, H_SM_AVALS, H_SM_IACC, H_SM_IEST,
+  H_SM_AACC, H_SM_TOTAL
 };
-static_assert(H_SM_TOTAL == 28 && H_JOIN_NDIM == 29, "header layout of ops/fused_sql.py");
+static_assert(H_TAIL == 22 && H_SM_TOTAL == 41, "header layout of ops/fused_sql.py");
+
+// the tail's slots (ops/fused_sql.py pack_plan): kTailDesc words each at
+// plan[H_TAIL], int slots {block row, kind, estimate row or -1}, then
+// DISTINCT/MODE slots {v_dom, first element of its counts}, then arg slots
+// {is_min}
+constexpr int kTailDesc = 4;
+enum IntKind { KIND_SUM = 0, KIND_MIN, KIND_MAX };
+constexpr int kRowBits = 24;                                   // ROW_BITS
+constexpr unsigned long long kArgEmptyMin = 1ull << 62;        // ARG_EMPTY_MIN
+constexpr unsigned long long kRowMask = (1ull << kRowBits) - 1;
+
+// K2 d's word of a row: the f32 value's order key above its row id
+__device__ inline unsigned long long arg_word(float v, long long row, bool is_min) {
+  const unsigned u = __float_as_uint(v == 0.f ? 0.f : v);  // -0.0 ties +0.0
+  const unsigned key = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  const unsigned long long low = is_min ? (unsigned long long)row : kRowMask - row;
+  return ((unsigned long long)key << kRowBits) | low;
+}
+
+__device__ inline long long int_fold(long long acc, long long v, int kind) {
+  if (kind == KIND_SUM) return (long long)((unsigned long long)acc + (unsigned long long)v);
+  return kind == KIND_MIN ? (v < acc ? v : acc) : (v > acc ? v : acc);
+}
+
+__device__ inline long long int_start(int kind) {
+  return kind == KIND_SUM ? 0 : (kind == KIND_MIN ? LLONG_MAX : LLONG_MIN);
+}
 
 // a prediction slot's kind (the descriptor's last word) and a forest slot's
 // descriptor words: ops/fused_sql.py pack_plan
@@ -180,6 +246,7 @@ __device__ float run_program(const int* __restrict__ plan, int prog, const Src& 
       case ROUND: st[sp - 1] = rintf(st[sp - 1]); break;
       case EXP: st[sp - 1] = expf(st[sp - 1]); break;
       case LOG: st[sp - 1] = logf(st[sp - 1]); break;
+      case LOG2: st[sp - 1] = log2f(st[sp - 1]); break;
       case BETWEEN: {
         const float hi = st[--sp];
         const float lo = st[--sp];
@@ -373,9 +440,11 @@ __global__ void __launch_bounds__(kThreads)
 fused_sql_kernel(const float* __restrict__ x, long long n_pad, long long n,
                  const int* __restrict__ gplan, const float* __restrict__ blob, int blob_words16,
                  const int* __restrict__ trees, const int* __restrict__ lookup,
-                 const float* __restrict__ dim, long long* __restrict__ part_cnt,
+                 const float* __restrict__ dim, const long long* __restrict__ xi,
+                 long long xi_stride, int* __restrict__ dmat, long long* __restrict__ part_cnt,
                  double* __restrict__ part_sum, float* __restrict__ part_mm,
-                 int* __restrict__ part_flags) {
+                 long long* __restrict__ part_int, double* __restrict__ part_iest,
+                 unsigned long long* __restrict__ part_arg, int* __restrict__ part_flags) {
   extern __shared__ __align__(16) unsigned char smem[];
   int* plan = reinterpret_cast<int*>(smem);
   const int n_words = __ldg(gplan + H_WORDS);
@@ -386,6 +455,10 @@ fused_sql_kernel(const float* __restrict__ x, long long n_pad, long long n,
   const int has_where = plan[H_WHERE];
   const int R = M + X + 2 * K;
   const int SMX = S + M + X;
+  const int I = plan[H_I], IS = plan[H_IS], D = plan[H_D], A = plan[H_A];
+  const int* idesc = plan + plan[H_TAIL];           // int slots
+  const int* ddesc = idesc + kTailDesc * I;         // DISTINCT/MODE slots
+  const int* adesc = ddesc + kTailDesc * D;         // arg slots
   const int* strides = plan + plan[H_STRIDES];
   if (blob_words16 > 0) copy_words16(at<float>(smem, plan, H_SM_BLOB), blob, blob_words16);
   float* pred = at<float>(smem, plan, H_SM_PRED);
@@ -397,6 +470,11 @@ fused_sql_kernel(const float* __restrict__ x, long long n_pad, long long n,
   float* mm = at<float>(smem, plan, H_SM_MM);        // [R][G]
   int* flags = at<int>(smem, plan, H_SM_FLAGS);
   int* ridx = at<int>(smem, plan, H_SM_RIDX);        // [kRows]: dim row, -1 if none (K5)
+  long long* ivals = at<long long>(smem, plan, H_SM_IVALS);  // [I][kRows]
+  unsigned long long* avals = at<unsigned long long>(smem, plan, H_SM_AVALS);  // [A][kRows]
+  long long* iacc = at<long long>(smem, plan, H_SM_IACC);    // [I][G]
+  double* iest = at<double>(smem, plan, H_SM_IEST);          // [IS][G]
+  unsigned long long* aacc = at<unsigned long long>(smem, plan, H_SM_AACC);  // [A][G]
   const int join_key = plan[H_JOIN_KEY];             // fact key's block row, -1: no join
   const int kmax = plan[H_JOIN_KMAX];
   const Src src{x, n_pad, dim, join_key >= 0 ? (long long)plan[H_JOIN_NDIM] : 0, ridx};
@@ -404,12 +482,17 @@ fused_sql_kernel(const float* __restrict__ x, long long n_pad, long long n,
     cnt[g] = 0;
     for (int s = 0; s < S; ++s) sums[s * G + g] = 0.0;
     for (int c = 0; c < R; ++c) mm[c * G + g] = mm_is_min(c, M, X, K) ? INFINITY : -INFINITY;
+    for (int i = 0; i < I; ++i) iacc[i * G + g] = int_start(idesc[kTailDesc * i + 1]);
+    for (int i = 0; i < IS; ++i) iest[i * G + g] = 0.0;
+    for (int a = 0; a < A; ++a) aacc[a * G + g] = adesc[kTailDesc * a] ? kArgEmptyMin : 0ull;
   }
   if (threadIdx.x == 0) *flags = 0;
   __syncthreads();
 
   const int p_key = has_where;
   const int p_val = p_key + K;
+  const int p_dist = p_val + SMX;
+  const int p_arg = p_dist + D;
   const long long n_tiles = (n + kRows - 1) / kRows;
   for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const long long row0 = tile * kRows;
@@ -458,6 +541,31 @@ fused_sql_kernel(const float* __restrict__ x, long long n_pad, long long n,
       slot = g < 0 ? g + G : g;
       for (int s = 0; s < SMX; ++s)
         vals[s * kRows + t] = run_program(plan, p_val + s, src, row, pred, t);
+      for (int d = 0; d < D; ++d) {
+        // K2 c: the value's count in its group, if it is an integer in [0, v_dom)
+        const int* dd = ddesc + kTailDesc * d;
+        const float v = run_program(plan, p_dist + d, src, row, pred, t);
+        const float vt = truncf(v);
+        if (v == vt && v >= 0.f && v < (float)dd[0])
+          atomicAdd(dmat + dd[1] + (long long)slot * dd[0] + (int)vt, 1);
+        else
+          fl |= 1 << (K + 1 + d);
+      }
+      for (int a = 0; a < A; ++a) {
+        // K2 d: the row's word; a NaN flags the slot and takes no part
+        const bool is_min = adesc[kTailDesc * a] != 0;
+        const float v = run_program(plan, p_arg + a, src, row, pred, t);
+        unsigned long long w;
+        if (v != v) {
+          fl |= 1 << (K + 1 + D + a);
+          w = is_min ? kArgEmptyMin : 0ull;
+        } else {
+          w = arg_word(v, row, is_min);
+        }
+        avals[a * kRows + t] = w;
+      }
+      for (int i = 0; i < I; ++i)  // K2 b, e: the row's int64 value
+        ivals[i * kRows + t] = __ldg(xi + (long long)idesc[kTailDesc * i] * xi_stride + row);
     }
     kslot[t] = slot;
     if (fl) atomicOr(flags, fl);
@@ -477,6 +585,23 @@ fused_sql_kernel(const float* __restrict__ x, long long n_pad, long long n,
           mm[(M + X + K + k) * G + g] = fmaxf(mm[(M + X + K + k) * G + g], v);
         }
       }
+      // the int and arg slots in a pass of their own, which a plan without
+      // them skips: the loop above runs on one thread for one group
+      if (I + A == 0) continue;
+      for (int r = 0; r < kRows; ++r) {
+        if (kslot[r] != g) continue;
+        for (int i = 0; i < I; ++i) {
+          const int* id = idesc + kTailDesc * i;
+          const long long v = ivals[i * kRows + r];
+          iacc[i * G + g] = int_fold(iacc[i * G + g], v, id[1]);
+          if (id[1] == KIND_SUM) iest[id[2] * G + g] += fabs((double)v);
+        }
+        for (int a = 0; a < A; ++a) {
+          const unsigned long long w = avals[a * kRows + r];
+          unsigned long long& acc = aacc[a * G + g];
+          if (adesc[kTailDesc * a] ? w < acc : w > acc) acc = w;
+        }
+      }
     }
     __syncthreads();
   }
@@ -484,39 +609,86 @@ fused_sql_kernel(const float* __restrict__ x, long long n_pad, long long n,
     part_cnt[(long long)blockIdx.x * G + g] = cnt[g];
     for (int s = 0; s < S; ++s) part_sum[((long long)blockIdx.x * S + s) * G + g] = sums[s * G + g];
     for (int c = 0; c < R; ++c) part_mm[((long long)blockIdx.x * R + c) * G + g] = mm[c * G + g];
+    for (int i = 0; i < I; ++i)
+      part_int[((long long)blockIdx.x * I + i) * G + g] = iacc[i * G + g];
+    for (int i = 0; i < IS; ++i)
+      part_iest[((long long)blockIdx.x * IS + i) * G + g] = iest[i * G + g];
+    for (int a = 0; a < A; ++a)
+      part_arg[((long long)blockIdx.x * A + a) * G + g] = aacc[a * G + g];
   }
   if (threadIdx.x == 0) part_flags[blockIdx.x] = *flags;
 }
 
 // One thread per output element adds the blocks' partials in block order.
-__global__ void fused_sql_fold(const long long* __restrict__ part_cnt,
+// The sections of the output, in order: G counts, S x G sums, R x G min/max
+// rows, I x G int slots, IS x G estimates, A x G arg words, the flag word.
+__global__ void fused_sql_fold(const int* __restrict__ plan,
+                               const long long* __restrict__ part_cnt,
                                const double* __restrict__ part_sum,
                                const float* __restrict__ part_mm,
+                               const long long* __restrict__ part_int,
+                               const double* __restrict__ part_iest,
+                               const unsigned long long* __restrict__ part_arg,
                                const int* __restrict__ part_flags, int n_blocks, int G, int S,
-                               int M, int X, int K, long long* __restrict__ cnt,
+                               int R, int I, int IS, int A, long long* __restrict__ cnt,
                                double* __restrict__ sums, float* __restrict__ mm,
-                               int* __restrict__ flags) {
-  const int R = M + X + 2 * K;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+                               long long* __restrict__ ints, double* __restrict__ iest,
+                               unsigned long long* __restrict__ args, int* __restrict__ flags) {
+  const int M = plan[H_M], X = plan[H_X], K = plan[H_K];
+  const int* idesc = plan + plan[H_TAIL];
+  const int* adesc = idesc + kTailDesc * (I + plan[H_D]);
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i < G) {
     long long c = 0;
     for (int b = 0; b < n_blocks; ++b) c += part_cnt[(long long)b * G + i];
     cnt[i] = c;
-  } else if (i < G + S * G) {
-    const int j = i - G;
+    return;
+  }
+  i -= G;
+  if (i < (long long)S * G) {
     double s = 0.0;
-    for (int b = 0; b < n_blocks; ++b) s += part_sum[(long long)b * S * G + j];
-    sums[j] = s;
-  } else if (i < G + S * G + R * G) {
-    const int j = i - G - S * G;
-    const bool is_min = mm_is_min(j / G, M, X, K);
+    for (int b = 0; b < n_blocks; ++b) s += part_sum[(long long)b * S * G + i];
+    sums[i] = s;
+    return;
+  }
+  i -= (long long)S * G;
+  if (i < (long long)R * G) {
+    const bool is_min = mm_is_min((int)(i / G), M, X, K);
     float v = is_min ? INFINITY : -INFINITY;
     for (int b = 0; b < n_blocks; ++b) {
-      const float p = part_mm[(long long)b * R * G + j];
+      const float p = part_mm[(long long)b * R * G + i];
       v = is_min ? min_nan(v, p) : max_nan(v, p);
     }
-    mm[j] = v;
-  } else if (i == G + S * G + R * G) {
+    mm[i] = v;
+    return;
+  }
+  i -= (long long)R * G;
+  if (i < (long long)I * G) {
+    const int kind = idesc[kTailDesc * (int)(i / G) + 1];
+    long long v = int_start(kind);
+    for (int b = 0; b < n_blocks; ++b) v = int_fold(v, part_int[(long long)b * I * G + i], kind);
+    ints[i] = v;
+    return;
+  }
+  i -= (long long)I * G;
+  if (i < (long long)IS * G) {
+    double s = 0.0;
+    for (int b = 0; b < n_blocks; ++b) s += part_iest[(long long)b * IS * G + i];
+    iest[i] = s;
+    return;
+  }
+  i -= (long long)IS * G;
+  if (i < (long long)A * G) {
+    const bool is_min = adesc[kTailDesc * (int)(i / G)] != 0;
+    unsigned long long w = is_min ? kArgEmptyMin : 0ull;
+    for (int b = 0; b < n_blocks; ++b) {
+      const unsigned long long p = part_arg[(long long)b * A * G + i];
+      if (is_min ? p < w : p > w) w = p;
+    }
+    args[i] = w;
+    return;
+  }
+  if (i == (long long)A * G) {
     int f = 0;
     for (int b = 0; b < n_blocks; ++b) f |= part_flags[b];
     flags[0] = f;
@@ -533,37 +705,48 @@ extern "C" {
 // (smem_bytes). blob: the MLP weights, f32 (blob_floats, a multiple of 4, 0
 // without an MLP). trees: the forest slots' tables, int32 words, 16-byte
 // aligned sections. lookup and dim: a join plan's key lookup (int32
-// [kmax + 1]) and dim block (f32 [D][n_dim]), null without a join.
+// [kmax + 1]) and dim block (f32 [D][n_dim]), null without a join. xi: the
+// int64 block the int slots read ([rows][xi_stride]), null without int
+// slots. dmat: the DISTINCT/MODE counts, int32, zeroed by the caller.
 // Partials: [n_blocks][G] int64, [n_blocks][S][G] f64, [n_blocks][R][G] f32,
+// [n_blocks][I][G] int64, [n_blocks][IS][G] f64, [n_blocks][A][G] uint64,
 // [n_blocks] int32. Returns a cudaError_t.
 int infera_fused_sql(const void* xc, long long n_pad, long long n, const void* plan,
                      const void* blob, long long blob_floats, const void* trees,
-                     const void* lookup, const void* dim, void* part_cnt, void* part_sum,
-                     void* part_mm, void* part_flags, int n_blocks, int smem_bytes,
-                     void* stream) {
+                     const void* lookup, const void* dim, const void* xi, long long xi_stride,
+                     void* dmat, void* part_cnt, void* part_sum, void* part_mm, void* part_int,
+                     void* part_iest, void* part_arg, void* part_flags, int n_blocks,
+                     int smem_bytes, void* stream) {
   using namespace infera::sql;
   cudaError_t e = cudaFuncSetAttribute(fused_sql_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (e != cudaSuccess) return (int)e;
   fused_sql_kernel<<<n_blocks, infera::kThreads, smem_bytes, (cudaStream_t)stream>>>(
       (const float*)xc, n_pad, n, (const int*)plan, (const float*)blob, (int)(blob_floats / 4),
-      (const int*)trees, (const int*)lookup, (const float*)dim, (long long*)part_cnt,
-      (double*)part_sum, (float*)part_mm, (int*)part_flags);
+      (const int*)trees, (const int*)lookup, (const float*)dim, (const long long*)xi, xi_stride,
+      (int*)dmat, (long long*)part_cnt, (double*)part_sum, (float*)part_mm,
+      (long long*)part_int, (double*)part_iest, (unsigned long long*)part_arg,
+      (int*)part_flags);
   return (int)cudaGetLastError();
 }
 
 // The fold of the partials into [G] int64 counts, [S][G] f64 sums, [R][G]
-// f32 min/max rows and the [1] int32 flag word; launched after
-// infera_fused_sql on the same stream.
-int infera_fused_sql_fold(const void* part_cnt, const void* part_sum, const void* part_mm,
-                          const void* part_flags, int n_blocks, int G, int S, int M, int X, int K,
-                          void* cnt, void* sums, void* mm, void* flags, void* stream) {
+// f32 min/max rows, [I][G] int64 int slots, [IS][G] f64 estimates, [A][G]
+// uint64 arg words and the [1] int32 flag word; launched after
+// infera_fused_sql on the same stream, with the same plan words.
+int infera_fused_sql_fold(const void* plan, const void* part_cnt, const void* part_sum,
+                          const void* part_mm, const void* part_int, const void* part_iest,
+                          const void* part_arg, const void* part_flags, int n_blocks, int G,
+                          int S, int R, int I, int IS, int A, void* cnt, void* sums, void* mm,
+                          void* ints, void* iest, void* args, void* flags, void* stream) {
   using namespace infera::sql;
-  const int total = G + S * G + (M + X + 2 * K) * G + 1;
-  fused_sql_fold<<<(total + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
-      (const long long*)part_cnt, (const double*)part_sum, (const float*)part_mm,
-      (const int*)part_flags, n_blocks, G, S, M, X, K, (long long*)cnt, (double*)sums,
-      (float*)mm, (int*)flags);
+  const long long total = (long long)G * (1 + S + R + I + IS + A) + 1;
+  fused_sql_fold<<<(unsigned)((total + 255) / 256), 256, 0, (cudaStream_t)stream>>>(
+      (const int*)plan, (const long long*)part_cnt, (const double*)part_sum,
+      (const float*)part_mm, (const long long*)part_int, (const double*)part_iest,
+      (const unsigned long long*)part_arg, (const int*)part_flags, n_blocks, G, S, R, I, IS, A,
+      (long long*)cnt, (double*)sums, (float*)mm, (long long*)ints, (double*)iest,
+      (unsigned long long*)args, (int*)flags);
   return (int)cudaGetLastError();
 }
 

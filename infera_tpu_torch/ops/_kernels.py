@@ -41,9 +41,10 @@ _SIGNATURES = {
                                           _I, _I, _P],
     },
     "fused_sql": {
-        "infera_fused_sql": [_P, _LL, _LL, _P, _P, _LL, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                             _P],
-        "infera_fused_sql_fold": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+        "infera_fused_sql": [_P, _LL, _LL, _P, _P, _LL, _P, _P, _P, _P, _LL, _P, _P, _P, _P,
+                             _P, _P, _P, _P, _I, _I, _P],
+        "infera_fused_sql_fold": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                  _P, _P, _P, _P, _P, _P, _P, _P],
     },
 }
 

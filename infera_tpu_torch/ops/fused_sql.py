@@ -48,6 +48,26 @@ and the programs read the join through three opcodes: ``DIM d`` (dim column
 that a NaN in an unmatched row's garbage dim row never reaches a sum). The
 joined relation is never built.
 
+The aggregate tail (``infera_tpu``'s slot families b–e) adds three slot
+lists to the plan, each over the selected rows of a group:
+
+- ``ints`` (K2 b, e): an exact int64 sum (added modulo 2**64, with an f64
+  sum of ``|v|`` beside it for the overflow rule), min or max of a row of
+  the int64 block ``xi [I, n]``, the integer columns the f32 block cannot
+  hold exactly;
+- ``dists`` (K2 c): a count per (group, value) for a program whose value is
+  an integer in ``[0, v_dom)``, kept in an int32 matrix ``[G, v_dom]`` in
+  device memory; any other selected value sets the slot's invalid flag.
+  COUNT/SUM/AVG(DISTINCT) and MODE fold the matrix (``execute_fused_plan``);
+- ``args`` (K2 d): per group the smallest row id at the extreme of a
+  program, as one 64-bit word: an order-preserving 32-bit key of the f32
+  value (``-0.0`` read as ``+0.0``) above 24 bits of row id (``2**24 - 1 -
+  id`` for a max, so that the smallest id wins a tie either way). A selected
+  NaN sets the slot's NaN flag and the host answers.
+
+The variance, count_if, bool_and/or and product families need no slot of
+their own: the planner lowers them onto sum, min and max slots.
+
 ``fused_sql`` launches the kernel for a CUDA table and runs
 ``fused_sql_plain`` for a CPU table; it raises for anything else.
 """
@@ -75,17 +95,21 @@ EQ, NE, LT, LE, GT, GE, AND, OR = 10, 11, 12, 13, 14, 15, 16, 17
 BETWEEN, CAST_INT, CAST_FLOAT = 18, 19, 20
 ABS, SQRT, FLOOR, CEIL, ROUND, EXP, LOG = 21, 22, 23, 24, 25, 26, 27
 DIM, MATCHED, SEL = 28, 29, 30     # K5's join opcodes
+LOG2 = 31                          # the product slot's log2|v| (jnp.log2)
 
 BINARY_OPS = {"+": ADD, "-": SUB, "*": MUL, "/": DIV, "%": MOD, "=": EQ, "<>": NE,
               "<": LT, "<=": LE, ">": GT, ">=": GE, "AND": AND, "OR": OR}
 SCALAR_OPS = {"abs": ABS, "sqrt": SQRT, "floor": FLOOR, "ceil": CEIL, "round": ROUND,
               "exp": EXP, "log": LOG}
-_UNARY = {NEG, NOT, CAST_INT, CAST_FLOAT, ABS, SQRT, FLOOR, CEIL, ROUND, EXP, LOG}
+_UNARY = {NEG, NOT, CAST_INT, CAST_FLOAT, ABS, SQRT, FLOOR, CEIL, ROUND, EXP, LOG, LOG2}
 
 MAX_STACK = 16       # evaluation stack of one program, in registers
 MAX_GROUPS = 512     # group slots of one plan (as PALLAS_MAX_GROUPS)
 SLOT_ROWS = 256      # rows of a tile: one per thread in the slot phase
 F32_EXACT = float(1 << 24)
+INT_KINDS = ("sum", "min", "max")   # an int slot's kind, by its code
+ROW_BITS = 24        # row ids of an arg word (try_execute_on_device keeps n < 2**24)
+ARG_EMPTY_MIN = 1 << 62   # an empty arg_min group's word; an arg_max group's is 0
 
 
 def stack_depth(code) -> int:
@@ -179,7 +203,9 @@ class FusedPlan:
     """Programs of one fused plan; COL args are block rows, DIM args rows of
     the dim block. ``preds`` are the prediction slots (``MlpSlot`` or
     ``ForestSlot``) that ``PRED j`` indexes, in the order the kernel runs
-    them; ``join`` makes the plan K5's."""
+    them; ``join`` makes the plan K5's. The tail's slots: ``ints``
+    (int-block row, kind in ``INT_KINDS``), ``dists`` (program, v_dom,
+    "dist" or "mode") and ``args`` (program, is_min)."""
 
     where: list | None
     keys: list
@@ -191,11 +217,28 @@ class FusedPlan:
     consts: list = field(default_factory=list)
     preds: list = field(default_factory=list)
     join: JoinSpec | None = None
+    ints: list = field(default_factory=list)
+    dists: list = field(default_factory=list)
+    args: list = field(default_factory=list)
 
     @property
     def slot_programs(self) -> list:
         return ([] if self.where is None else [self.where]) + self.keys + self.sums \
-            + self.mins + self.maxs
+            + self.mins + self.maxs + [d[0] for d in self.dists] + [a[0] for a in self.args]
+
+    @property
+    def int_sums(self) -> list:
+        """Indices into ``ints`` of the sum slots, which carry an estimate."""
+        return [i for i, (_row, kind) in enumerate(self.ints) if kind == "sum"]
+
+    @property
+    def dist_offsets(self) -> list:
+        """Each DISTINCT/MODE slot's first element in the flat count buffer."""
+        offs, off = [], 0
+        for _code, v_dom, _kind in self.dists:
+            offs.append(off)
+            off += self.n_groups * v_dom
+        return offs + [off]
 
     @property
     def mlps(self) -> list:
@@ -212,19 +255,24 @@ class FusedPlan:
 
 # --------------------------------------------------------------------------- packing
 
-_HEADER = 32
 _SLOT_DESC = 16      # words of a prediction slot's descriptor; the last says its kind
 SLOT_MLP, SLOT_FOREST = 0, 1
+_TAIL_DESC = 4       # words of an int, DISTINCT/MODE or arg slot's descriptor
+# header words, shared with csrc/fused_sql.cu; K5's join descriptor is
+# H_JOIN_* (-1 in H_JOIN_KEY: no join); H_TAIL points at the tail slots'
+# descriptors: per int slot (block row, kind, estimate row or -1), per
+# DISTINCT/MODE slot (v_dom, first element of its counts), per arg slot
+# (is_min)
 (H_WORDS, H_K, H_S, H_M, H_X, H_WHERE, H_J, H_G, H_NPROG, H_PROGS, H_CODE, H_CONSTS,
- H_STRIDES, H_PREDS) = range(14)
+ H_STRIDES, H_PREDS, H_JOIN_KEY, H_JOIN_KMAX, H_JOIN_NDIM, H_JOIN_NCOLS, H_I, H_IS, H_D, H_A,
+ H_TAIL) = range(23)
 # a forest slot's descriptor words, shared with csrc/fused_sql.cu
 (F_TREES, F_NODES, F_DEPTH, F_NOUT, F_DIN, F_NODE_OFF, F_W_OFF, F_STRICT, F_OUT_COL, F_BIAS,
  F_LOGISTIC, F_MODE, F_CBIAS_OFF, F_FEAT, F_LABEL_OFF) = range(15)
 _SMEM_KEYS = ("blob", "act0", "act1", "pred", "vals", "kraw", "kslot", "ridx", "cnt", "sums",
-              "mm", "flags", "total")
-H_SMEM = 16          # header words 16..28: byte offsets of _SMEM_KEYS in shared memory
-# K5's join descriptor (-1 in H_JOIN_KEY: no join), shared with csrc/fused_sql.cu
-H_JOIN_KEY, H_JOIN_KMAX, H_JOIN_NDIM, H_JOIN_NCOLS = 14, 15, 29, 30
+              "mm", "flags", "ivals", "avals", "iacc", "iest", "aacc", "total")
+H_SMEM = 24          # header words 24..41: byte offsets of _SMEM_KEYS in shared memory
+_HEADER = 48
 
 
 def _align16(n: int) -> int:
@@ -278,11 +326,14 @@ def smem_layout(plan: FusedPlan, n_words: int, blob_floats: int) -> dict:
     the tile's predictions (one row per slot, MLP or forest), slot values,
     raw keys, group slots and a join's dim row per row of the tile (only
     with a join), then the block's accumulators (int64 counts,
-    f64 sums, f32 min/max rows) and the flag word. ``total`` is the budget
-    that must fit one block's 227 KB. A forest's tables stay in device
-    memory and take none of it."""
+    f64 sums, f32 min/max rows), the flag word, the tile's int64 values and
+    arg words, and the int slots' and arg slots' per-group accumulators
+    (int64, f64 estimates, 64-bit words). ``total`` is the budget that must
+    fit one block's 227 KB. A forest's tables and the DISTINCT counts stay
+    in device memory and take none of it."""
     K, S, M, X = len(plan.keys), len(plan.sums), len(plan.mins), len(plan.maxs)
     G, J = plan.n_groups, len(plan.preds)
+    I, A = len(plan.ints), len(plan.args)
     widest = max((pad8(d) for m in plan.mlps for d in m.dims), default=0)
     sizes = [
         ("blob", 4 * blob_floats),
@@ -297,6 +348,11 @@ def smem_layout(plan: FusedPlan, n_words: int, blob_floats: int) -> dict:
         ("sums", 8 * S * G),
         ("mm", 4 * (M + X + 2 * K) * G),
         ("flags", 4),
+        ("ivals", 8 * I * SLOT_ROWS),
+        ("avals", 8 * A * SLOT_ROWS),
+        ("iacc", 8 * I * G),
+        ("iest", 8 * len(plan.int_sums) * G),
+        ("aacc", 8 * A * G),
     ]
     off = _align16(4 * n_words)
     layout = {}
@@ -316,9 +372,12 @@ def smem_bytes(plan: FusedPlan) -> int:
 
 def smem_fits(plan: FusedPlan) -> bool:
     """Hopper budget check of a plan, beside K6's ``fused_mlp.smem_fits``: a
-    plan over one block's 227 KB, or with an MLP deeper than the kernel's
-    layer limit, stays on the host executor."""
+    plan over one block's 227 KB, with an MLP deeper than the kernel's
+    layer limit, or with more DISTINCT/MODE and arg slots than its flag
+    word has bits, stays on the host executor."""
     if any(not 1 <= len(m.dims) - 1 <= MAX_LAYERS for m in plan.mlps):
+        return False
+    if len(plan.keys) + 1 + len(plan.dists) + len(plan.args) > 31:
         return False
     return smem_bytes(plan) <= SMEM_LIMIT
 
@@ -348,7 +407,8 @@ def _sizes(plan: FusedPlan) -> tuple:
     progs = _programs(plan)
     n_code = sum(len(p) for p in progs)
     n_words = (_HEADER + 2 * len(progs) + 2 * n_code + len(plan.consts) + len(plan.keys)
-               + _SLOT_DESC * len(plan.preds))
+               + _SLOT_DESC * len(plan.preds)
+               + _TAIL_DESC * (len(plan.ints) + len(plan.dists) + len(plan.args)))
     blob = sum(_blob_floats(p) for p, _ in _distinct_params(plan))
     return n_words, blob
 
@@ -408,6 +468,8 @@ def pack_plan(plan: FusedPlan, device, lookup=None) -> PackedPlan:
     words[H_M], words[H_X] = len(plan.mins), len(plan.maxs)
     words[H_WHERE] = int(plan.where is not None)
     words[H_J], words[H_G], words[H_NPROG] = len(plan.preds), plan.n_groups, len(progs)
+    words[H_I], words[H_IS] = len(plan.ints), len(plan.int_sums)
+    words[H_D], words[H_A] = len(plan.dists), len(plan.args)
     for i, key in enumerate(_SMEM_KEYS):
         words[H_SMEM + i] = layout[key]
     words[H_JOIN_KEY] = -1
@@ -470,6 +532,17 @@ def pack_plan(plan: FusedPlan, device, lookup=None) -> PackedPlan:
             slots.append(tables)
         feat += len(s.features)
         pos += _SLOT_DESC
+    words[H_TAIL] = pos
+    int_sums = plan.int_sums
+    for i, (row, kind) in enumerate(plan.ints):
+        words[pos:pos + 3] = row, INT_KINDS.index(kind), int_sums.index(i) if i in int_sums else -1
+        pos += _TAIL_DESC
+    for (_code, v_dom, _kind), first in zip(plan.dists, plan.dist_offsets):
+        words[pos:pos + 2] = v_dom, first
+        pos += _TAIL_DESC
+    for _code, is_min in plan.args:
+        words[pos] = int(is_min)
+        pos += _TAIL_DESC
     assert pos == n_words
     blob = (torch.cat(parts) if parts else torch.zeros(4, dtype=torch.float32, device=device))
     trees = np.concatenate(tree_parts) if tree_parts else np.zeros(4, np.int32)
@@ -546,7 +619,7 @@ def eval_program(code, consts, xc: torch.Tensor, n: int, preds: list,
                 r = a
             else:
                 r = {ABS: torch.abs, SQRT: torch.sqrt, FLOOR: torch.floor, CEIL: torch.ceil,
-                     ROUND: torch.round, EXP: torch.exp, LOG: torch.log}[op](a)
+                     ROUND: torch.round, EXP: torch.exp, LOG: torch.log, LOG2: torch.log2}[op](a)
             st.append(r)
         elif op == BETWEEN:
             hi, lo, v = st.pop(), st.pop(), st.pop()
@@ -608,7 +681,13 @@ def mlp_plain(weights: QueryWeights, feats: torch.Tensor, final_softmax: bool,
             if bf16:
                 h = h.to(torch.bfloat16).float()
     if final_softmax:
-        h = torch.softmax(h, dim=0)
+        # the kernel's softmax (``mlp_slot``): exp(x - max), summed over
+        # the classes in class order, one f32 rounding a step
+        e = torch.exp(h - h.max(dim=0).values)
+        s = e[0]
+        for c in range(1, e.shape[0]):
+            s = s + e[c]
+        return e[out_col] / s
     return h[out_col]
 
 
@@ -673,6 +752,17 @@ def key_to_int32(r: torch.Tensor) -> torch.Tensor:
     return torch.nan_to_num(r.double(), nan=0.0).trunc().clamp(-2**31, 2**31 - 1).to(torch.int64)
 
 
+def arg_words(v: torch.Tensor, rows: torch.Tensor, is_min: bool) -> torch.Tensor:
+    """K2 d's 64-bit word of each row (int64): the f32 value's order key
+    (``-0.0`` read as ``+0.0``; the sign bit flips a positive value, every
+    bit of a negative one) above ``ROW_BITS`` bits of its row id, the id
+    mirrored for a max so that the smallest id wins a tie."""
+    bits = torch.where(v == 0, torch.zeros_like(v), v).view(torch.int32).long() & 0xFFFFFFFF
+    key = torch.where(bits >= 1 << 31, bits ^ 0xFFFFFFFF, bits | 1 << 31)
+    low = rows if is_min else (1 << ROW_BITS) - 1 - rows
+    return key << ROW_BITS | low
+
+
 def _group_min_max(vals: torch.Tensor, slot: torch.Tensor, G: int, is_min: bool):
     fill = math.inf if is_min else -math.inf
     out = torch.full((G + 1,), fill, dtype=torch.float32, device=vals.device)
@@ -683,12 +773,21 @@ def _group_min_max(vals: torch.Tensor, slot: torch.Tensor, G: int, is_min: bool)
 
 
 def fused_sql_plain(packed: PackedPlan, xc: torch.Tensor, n_valid: int,
-                    dim_xc: torch.Tensor | None = None) -> dict:
+                    dim_xc: torch.Tensor | None = None,
+                    int_xc: torch.Tensor | None = None) -> dict:
     """K2's (and K5's, with the dim block ``dim_xc``) function in plain torch
-    ops. Returns the kernel's result: ``count`` [G] int64, ``sums`` [S, G]
-    f64, ``mm`` [M + X + 2K, G] f32 (the min slots, the max slots, then per
-    key the raw-key min and max) and ``flags`` [1] int32 (bit k: key k held
-    a fractional value; bit K: a key with |value| >= 2**24)."""
+    ops, the int slots over rows of the int64 block ``int_xc``. Returns the
+    kernel's result: ``count`` [G] int64, ``sums`` [S, G] f64, ``mm`` [M +
+    X + 2K, G] f32 (the min slots, the max slots, then per key the raw-key
+    min and max), ``ints`` [I, G] int64 (sums modulo 2**64, minima, maxima;
+    an empty group's min or max stays at the int64 extreme), ``iest`` [IS,
+    G] f64 (per int sum slot the sum of ``|v|``), ``args`` [A, G] int64
+    (arg words; an empty group keeps ``ARG_EMPTY_MIN`` or 0), ``dist`` the
+    DISTINCT/MODE counts, int32, each slot's [G, v_dom] flat at its
+    ``dist_offsets`` entry, and ``flags`` [1] int32 (bit k: key k held a
+    fractional value; bit K: a key with |value| >= 2**24; bit K+1+d:
+    DISTINCT/MODE slot d met a value outside its domain; bit K+1+D+a: arg
+    slot a met a NaN)."""
     plan = packed.plan
     G, K = plan.n_groups, len(plan.keys)
     n = n_valid
@@ -726,7 +825,46 @@ def fused_sql_plain(packed: PackedPlan, xc: torch.Tensor, n_valid: int,
     rows += [_group_min_max(rt, slot, G, True) for rt in kraw]
     rows += [_group_min_max(rt, slot, G, False) for rt in kraw]
     mm = torch.stack(rows) if rows else torch.zeros((0, G), dtype=torch.float32, device=dev)
-    return {"count": count, "sums": sums[:, :G], "mm": mm,
+
+    # K2 b, e: exact int64 sums (and sums of |v|), minima and maxima
+    i64 = torch.int64
+    ints = torch.zeros((len(plan.ints), G + 1), dtype=i64, device=dev)
+    iest = torch.zeros((len(plan.int_sums), G + 1), dtype=torch.float64, device=dev)
+    for i, (row, kind) in enumerate(plan.ints):
+        v = int_xc[row, :n]
+        if kind == "sum":
+            ints[i].index_add_(0, slot, v)
+            iest[plan.int_sums.index(i)].index_add_(0, slot, v.double().abs())
+        else:
+            info = torch.iinfo(i64)
+            ints[i].fill_(info.max if kind == "min" else info.min)
+            ints[i].scatter_reduce_(0, slot, v, "amin" if kind == "min" else "amax")
+    # K2 c: counts per (group, value) over the values in [0, v_dom)
+    dist = []
+    for d, (code, v_dom, _kind) in enumerate(plan.dists):
+        v = run(code)
+        vt = torch.trunc(v)
+        ok = (v == vt) & (v >= 0) & (v < v_dom)
+        if bool((mask & ~ok).any()):
+            flags |= 1 << (K + 1 + d)
+        sel = mask & ok
+        cells = slot[sel] * v_dom + vt[sel].long()
+        dist.append(torch.bincount(cells, minlength=G * v_dom).to(torch.int32))
+    # K2 d: the smallest row id at each group's extreme
+    args = torch.zeros((len(plan.args), G + 1), dtype=i64, device=dev)
+    rows_id = torch.arange(n, dtype=i64, device=dev)
+    for a, (code, is_min) in enumerate(plan.args):
+        v = run(code)
+        nan = torch.isnan(v)
+        if bool((mask & nan).any()):
+            flags |= 1 << (K + 1 + len(plan.dists) + a)
+        fill = ARG_EMPTY_MIN if is_min else 0
+        w = torch.where(nan, fill, arg_words(v, rows_id, is_min))
+        args[a].fill_(fill)
+        args[a].scatter_reduce_(0, slot, w, "amin" if is_min else "amax")
+    return {"count": count, "sums": sums[:, :G], "mm": mm, "ints": ints[:, :G],
+            "iest": iest[:, :G], "args": args[:, :G],
+            "dist": torch.cat(dist) if dist else torch.zeros(0, dtype=torch.int32, device=dev),
             "flags": torch.tensor([flags], dtype=torch.int32, device=dev)}
 
 
@@ -734,20 +872,22 @@ def fused_sql_plain(packed: PackedPlan, xc: torch.Tensor, n_valid: int,
 
 
 def fused_sql(packed: PackedPlan, xc: torch.Tensor, n_valid: int,
-              dim_xc: torch.Tensor | None = None) -> dict:
+              dim_xc: torch.Tensor | None = None, int_xc: torch.Tensor | None = None) -> dict:
     """K2 (with K2′ and K4 inside it for the plan's prediction slots, and
     K5's join prologue for a join plan, whose dim block is ``dim_xc [D,
     n_dim]`` f32) over rows [0, n_valid) of the table block ``xc [C, n_pad]``
-    f32; returns ``fused_sql_plain``'s dict."""
+    f32, the int slots over rows of the int64 block ``int_xc [I, n]``;
+    returns ``fused_sql_plain``'s dict."""
     if xc.device.type == "cpu":
-        return fused_sql_plain(packed, xc, n_valid, dim_xc)
+        return fused_sql_plain(packed, xc, n_valid, dim_xc, int_xc)
     _kernels.require_cuda(xc, "table block")
     if xc.dtype != torch.float32 or xc.dim() != 2 or not 1 <= n_valid <= xc.shape[1]:
         raise ValueError(f"table block must be f32 [C, n_pad >= {n_valid}], "
                          f"got {xc.dtype} {tuple(xc.shape)}")
     if packed.words.device != xc.device or packed.trees.device != xc.device:
         raise ValueError(f"plan on {packed.words.device}, table on {xc.device}")
-    join = packed.plan.join
+    plan = packed.plan
+    join = plan.join
     if join is not None:
         _kernels.require_cuda(dim_xc, "dim block")
         if dim_xc.dtype != torch.float32 or tuple(dim_xc.shape) != (join.n_cols, join.n_dim):
@@ -756,47 +896,69 @@ def fused_sql(packed: PackedPlan, xc: torch.Tensor, n_valid: int,
         if dim_xc.device != xc.device or packed.lookup.device != xc.device:
             raise ValueError(f"dim block on {dim_xc.device}, lookup on "
                              f"{packed.lookup.device}, table on {xc.device}")
+    if plan.ints:
+        _kernels.require_cuda(int_xc, "int block")
+        rows = 1 + max(row for row, _kind in plan.ints)
+        if (int_xc.dtype != torch.int64 or int_xc.dim() != 2 or int_xc.shape[0] < rows
+                or int_xc.shape[1] < n_valid or int_xc.device != xc.device):
+            raise ValueError(f"int block must be int64 [>= {rows}, >= {n_valid}] on "
+                             f"{xc.device}, got {int_xc.dtype} {tuple(int_xc.shape)}")
     smem = packed.smem_bytes
     if smem > SMEM_LIMIT:
         raise ValueError(f"plan needs {smem} bytes of shared memory, over {SMEM_LIMIT}")
-    plan = packed.plan
     G, S = plan.n_groups, len(plan.sums)
     R = len(plan.mins) + len(plan.maxs) + 2 * len(plan.keys)
+    I, IS, A = len(plan.ints), len(plan.int_sums), len(plan.args)
     dev = xc.device
     n_blocks = _kernels.grid_blocks(dev, -(-n_valid // SLOT_ROWS), smem)
-    part_cnt = torch.empty((n_blocks, G), dtype=torch.int64, device=dev)
-    part_sum = torch.empty((n_blocks, S, G), dtype=torch.float64, device=dev)
-    part_mm = torch.empty((n_blocks, R, G), dtype=torch.float32, device=dev)
-    part_flags = torch.empty(n_blocks, dtype=torch.int32, device=dev)
-    out = {"count": torch.empty(G, dtype=torch.int64, device=dev),
-           "sums": torch.empty((S, G), dtype=torch.float64, device=dev),
+    i64, f64 = torch.int64, torch.float64
+    part = {"count": torch.empty((n_blocks, G), dtype=i64, device=dev),
+            "sums": torch.empty((n_blocks, S, G), dtype=f64, device=dev),
+            "mm": torch.empty((n_blocks, R, G), dtype=torch.float32, device=dev),
+            "ints": torch.empty((n_blocks, I, G), dtype=i64, device=dev),
+            "iest": torch.empty((n_blocks, IS, G), dtype=f64, device=dev),
+            "args": torch.empty((n_blocks, A, G), dtype=i64, device=dev),
+            "flags": torch.empty(n_blocks, dtype=torch.int32, device=dev)}
+    out = {"count": torch.empty(G, dtype=i64, device=dev),
+           "sums": torch.empty((S, G), dtype=f64, device=dev),
            "mm": torch.empty((R, G), dtype=torch.float32, device=dev),
+           "ints": torch.empty((I, G), dtype=i64, device=dev),
+           "iest": torch.empty((IS, G), dtype=f64, device=dev),
+           "args": torch.empty((A, G), dtype=i64, device=dev),
+           # the kernel adds to the counts with atomics: they start at 0
+           "dist": torch.zeros(plan.dist_offsets[-1], dtype=torch.int32, device=dev),
            "flags": torch.empty(1, dtype=torch.int32, device=dev)}
+    keys = ("count", "sums", "mm", "ints", "iest", "args", "flags")
     lib = _kernels.load("fused_sql")
     stream = _kernels.stream_handle(dev)
     rc = lib.infera_fused_sql(
         xc.data_ptr(), xc.shape[1], n_valid, packed.words.data_ptr(), packed.blob.data_ptr(),
         packed.blob_floats, packed.trees.data_ptr(),
         None if join is None else packed.lookup.data_ptr(),
-        None if join is None else dim_xc.data_ptr(), part_cnt.data_ptr(), part_sum.data_ptr(),
-        part_mm.data_ptr(), part_flags.data_ptr(), n_blocks, smem, stream)
+        None if join is None else dim_xc.data_ptr(),
+        int_xc.data_ptr() if I else None, int_xc.shape[1] if I else 0,
+        out["dist"].data_ptr(), *(part[k].data_ptr() for k in keys), n_blocks, smem, stream)
     _kernels.check(lib, rc, "fused_sql")
     rc = lib.infera_fused_sql_fold(
-        part_cnt.data_ptr(), part_sum.data_ptr(), part_mm.data_ptr(), part_flags.data_ptr(),
-        n_blocks, G, S, len(plan.mins), len(plan.maxs), len(plan.keys), out["count"].data_ptr(),
-        out["sums"].data_ptr(), out["mm"].data_ptr(), out["flags"].data_ptr(), stream)
+        packed.words.data_ptr(), *(part[k].data_ptr() for k in keys), n_blocks, G, S, R, I, IS,
+        A, *(out[k].data_ptr() for k in keys), stream)
     _kernels.check(lib, rc, "fused_sql fold")
-    fused_sql.launches["bf16" if plan.bf16 else "f32"] += 1
-    if plan.forests:
-        fused_sql.launches["forest"] += 1
-    if join is not None:
-        fused_sql.launches["join"] += 1
+    counts = fused_sql.launches
+    counts["bf16" if plan.bf16 else "f32"] += 1
+    for key, on in (("forest", plan.forests), ("join", join is not None),
+                     ("int_sum", IS), ("distinct", plan.dists), ("arg", A),
+                     ("int_minmax", I - IS)):
+        if on:
+            counts[key] += 1
     return out
 
 
 # K2 launches by precision; "forest" counts the launches that ran K4 inside,
-# "join" those of a join plan (K5)
-fused_sql.launches = {"f32": 0, "bf16": 0, "forest": 0, "join": 0}
+# "join" those of a join plan (K5), and the tail's keys those of a plan with
+# int sum slots (K2 b), DISTINCT/MODE slots (c), arg slots (d) and int
+# min/max slots (e)
+fused_sql.launches = {"f32": 0, "bf16": 0, "forest": 0, "join": 0, "int_sum": 0,
+                      "distinct": 0, "arg": 0, "int_minmax": 0}
 
 
 def fused_sql_mode() -> str:
@@ -813,24 +975,66 @@ def tier_enabled(device: torch.device) -> bool:
     return mode == "1" or (mode == "auto" and device.type == "cuda")
 
 
+def fold_dists(plan: FusedPlan, dist: torch.Tensor) -> list:
+    """The DISTINCT/MODE counts folded per slot, in torch ops on their
+    device (``infera_tpu``'s ``_fold_call``): a "dist" slot gives (distinct
+    count, sum of the distinct values) per group, int64; a "mode" slot
+    (the value of the largest count, that count, how many values share
+    it), the value the smallest one reaching it."""
+    G = plan.n_groups
+    out = []
+    for (_code, v_dom, kind), off in zip(plan.dists, plan.dist_offsets):
+        m = dist[off:off + G * v_dom].view(G, v_dom).long()
+        if kind == "mode":
+            top = m.max(dim=1).values
+            at = m == top[:, None]
+            out.append((at.long().argmax(dim=1), top, at.sum(dim=1)))
+        else:
+            pres = (m > 0).long()
+            values = torch.arange(v_dom, dtype=torch.int64, device=m.device)
+            out.append((pres.sum(dim=1), (pres * values).sum(dim=1)))
+    return out
+
+
+def arg_rows(plan: FusedPlan, args: torch.Tensor) -> torch.Tensor:
+    """Each arg slot's winning row id per group from its words [A, G]; -1
+    for an empty group."""
+    low = args & ((1 << ROW_BITS) - 1)
+    is_min = torch.tensor([m for _c, m in plan.args], dtype=torch.bool, device=args.device)
+    rid = torch.where(is_min[:, None], low, (1 << ROW_BITS) - 1 - low)
+    empty = args == torch.where(is_min, ARG_EMPTY_MIN, 0)[:, None]
+    return torch.where(empty, -1, rid)
+
+
 def execute_fused_plan(packed: PackedPlan, xc: torch.Tensor, n_valid: int,
-                       dim_xc: torch.Tensor | None = None) -> dict | None:
+                       dim_xc: torch.Tensor | None = None,
+                       int_xc: torch.Tensor | None = None) -> dict | None:
     """Run K2 or K5 (or its plain version on the CPU) and hand back host arrays in
     the contract of ``infera_tpu``'s ``execute_fused_plan``: ``count`` [G],
     ``sums`` [(sum f64, 0) per slot], ``mins``/``maxs`` [G] per slot,
-    ``kmins``/``kmaxs`` [G] per key, ``fracs`` [bool per key]. None when a
-    key reached |value| >= 2**24: past f32's exact integers two keys could
-    share a bucket unseen, so the host executor answers."""
+    ``kmins``/``kmaxs`` [G] per key, ``fracs`` [bool per key]; for the tail,
+    in the port's native types: ``ints`` [G] int64 per int slot, ``iests``
+    per int slot the f64 sum of ``|v|`` (None for a min or max), ``dists``
+    per DISTINCT/MODE slot ``fold_dists``'s arrays plus its invalid flag,
+    and ``argrids`` [G] int64 per arg slot (-1: empty). None when a key
+    reached |value| >= 2**24 (past f32's exact integers two keys could share
+    a bucket unseen) or an arg slot met a NaN (the host's order lets a NaN
+    win only as its group's first row): the host executor answers."""
     plan = packed.plan
-    res = fused_sql(packed, xc, n_valid, dim_xc)
+    res = fused_sql(packed, xc, n_valid, dim_xc, int_xc)
+    flags = int(res["flags"].cpu()[0])
+    K, M, X, D = len(plan.keys), len(plan.mins), len(plan.maxs), len(plan.dists)
+    if flags >> K & 1 or flags >> (K + 1 + D) & ((1 << len(plan.args)) - 1):
+        return None
     count = res["count"].cpu().numpy()
     sums = res["sums"].cpu().numpy()
     mm = res["mm"].cpu().numpy()
-    flags = int(res["flags"].cpu()[0])
-    K, M, X = len(plan.keys), len(plan.mins), len(plan.maxs)
-    if flags >> K & 1:
-        return None
+    ints = res["ints"].cpu().numpy()
+    iest = res["iest"].cpu().numpy()
+    dists = [tuple(a.cpu().numpy() for a in f) for f in fold_dists(plan, res["dist"])]
+    rids = arg_rows(plan, res["args"]).cpu().numpy() if plan.args else []
     zeros = np.zeros(plan.n_groups, np.float64)
+    est_of = {i: iest[j] for j, i in enumerate(plan.int_sums)}
     return {
         "count": count,
         "sums": [(sums[i], zeros) for i in range(len(plan.sums))],
@@ -839,4 +1043,8 @@ def execute_fused_plan(packed: PackedPlan, xc: torch.Tensor, n_valid: int,
         "kmins": [mm[M + X + i] for i in range(K)],
         "kmaxs": [mm[M + X + K + i] for i in range(K)],
         "fracs": [bool(flags >> i & 1) for i in range(K)],
+        "ints": [ints[i] for i in range(len(plan.ints))],
+        "iests": [est_of.get(i) for i in range(len(plan.ints))],
+        "dists": [f + (bool(flags >> (K + 1 + d) & 1),) for d, f in enumerate(dists)],
+        "argrids": [rids[a] for a in range(len(plan.args))],
     }

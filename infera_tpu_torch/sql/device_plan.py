@@ -12,14 +12,20 @@ the card as one stacked f32 block, every MLP (K2′) and every tree ensemble
 host.
 
 The planner lowers each expression to a postfix program (``_ProgramLowerer``)
-in place of ``infera_tpu``'s JAX closures. The kernel tier carries the core
-aggregates: count, sum, avg/mean, min, max and the group key. Anything else
-— another aggregate, a window, a model that is neither an MLP nor a forest
-the kernel takes (``infera_tpu``'s declines: branch modes, tree sizes,
-post transforms), a plan over the shared-memory budget, a key guard that
-trips — returns None and the host
-executor answers, so semantics never regress. ``infera_tpu``'s XLA tier
-between the two (a torch-op program here) is not in the port yet.
+in place of ``infera_tpu``'s JAX closures. The kernel tier carries every
+aggregate ``infera_tpu``'s Pallas tier carries (``_KERNEL_AGGS``): count,
+sum, avg/mean, min, max and the group key on K2's core slots, and the
+aggregate tail (slot families b–e): the variance family, count_if,
+bool_and/or and product lowered onto the sum, min and max slots; exact
+int64 sum/avg/min/max over a plain integer column (the int64 block,
+``get_int_block``); COUNT/SUM/AVG(DISTINCT) and MODE over a probed small
+integer domain; arg_min/arg_max. Anything else — median, quantiles,
+approx_count_distinct, a tied MODE, a window, a model that is neither an
+MLP nor a forest the kernel takes (``infera_tpu``'s declines: branch modes,
+tree sizes, post transforms), a plan over the shared-memory budget, a key
+guard that trips — returns None and the host executor answers, so
+semantics never regress. ``infera_tpu``'s XLA tier between the two (a
+torch-op program here) is not in the port yet.
 
 Path selection reads ``INFERA_PALLAS_SQL`` as ``infera_tpu`` does
 (``ops/fused_sql.fused_sql_mode``): unset, the tier is on when the device is
@@ -38,11 +44,13 @@ import torch
 from ..columnar import Column, Table
 from ..columnar import types as T
 from ..device import get_device
+from ..errors import SqlError
 from ..onnx import ml_ops as ML
 from ..onnx.fusion import detect_tree
 from ..ops import fused_sql as FS
 from ..registry import MODELS
 from . import ast as A
+from . import int_agg
 
 # row count below which fusion isn't worth the launch
 MIN_DEVICE_ROWS = 1 << 14
@@ -56,10 +64,32 @@ _AGG_NAMES = {"count", "sum", "avg", "mean", "min", "max",
               "arg_min", "arg_max", "min_by", "max_by",
               "approx_count_distinct"}
 
-# the aggregates K2's core slots carry; the rest (infera_tpu's slot
-# families b-e: var, count_if, bool_and/or, product, exact int64 sums and
-# extremes, DISTINCT, mode, arg_min/arg_max, ...) answer on the host
-_CORE_AGGS = frozenset({"count", "count_star", "sum", "avg", "mean", "min", "max"})
+# quantile family: name -> continuous interpolation? (planned by
+# infera_tpu for its XLA program; the port's host executor answers them)
+_QUANTILE_FAMILY = {"quantile_cont": True, "percentile_cont": True,
+                    "quantile_disc": False, "quantile": False,
+                    "percentile_disc": False}
+
+# variance family: (ddof, apply_sqrt) — shifted (sum, sum of squares) slots
+_VAR_FAMILY = {
+    "stddev": (1, True), "stddev_samp": (1, True), "stddev_pop": (0, True),
+    "var_samp": (1, False), "variance": (1, False), "var_pop": (0, False),
+}
+
+# the agg_plans entries K2 carries (infera_tpu's _PALLAS_OK_AGGS): the core
+# slots, then the tail's families b–e
+_KERNEL_AGGS = frozenset(
+    {"key", "count", "count_star", "sum", "avg", "mean", "min", "max",
+     "var", "cif", "band", "bor", "prod", "isum", "iavg",
+     "dcount", "dsum", "davg", "argmn", "argmx", "imin", "imax",
+     "mode"})
+_INT_AGGS = {"isum": "sum", "iavg": "sum", "imin": "min", "imax": "max"}
+
+# DISTINCT/MODE value domains K2 takes (infera_tpu's four 128-value banks)
+PALLAS_MAX_DIST_DOMAIN = 512
+# block rows of one plan (infera_tpu's PALLAS_MAX_COLS); an int64 column
+# counts 8, as infera_tpu stacks it as eight byte-limb rows
+PALLAS_MAX_COLS = 64
 
 # group-count cap of the mixed-radix key (static shape requirement)
 MAX_GROUPS = 1 << 16
@@ -137,6 +167,35 @@ def get_table_block(table, device):
         ent = (tuple(arrs), xc)  # the VALUE pins the source arrays
         _TABLE_BLOCK_CACHE[bkey] = ent
     return ent[1], row_map
+
+
+# {(source array ids, n, device): (pinned arrays, int64 block)} — the integer
+# columns an int slot reads, beside _TABLE_BLOCK_CACHE and with its rules
+_INT_BLOCK_CACHE: dict = {}
+
+
+def get_int_block(table, device, keys: list) -> torch.Tensor:
+    """[len(keys), n] int64 tensor on ``device`` of the table's integer
+    columns ``keys``, in that order, cached process-wide (the source arrays
+    pinned in the cache value against id reuse). The f32 table block leaves
+    out integers beyond ±2**24 (``_block_eligible``): exactly the columns
+    whose sums, minima and maxima need exact int64."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    arrs = [table.columns[k].data for k in keys]
+    n = table.num_rows
+    bkey = (tuple(id(a) for a in arrs), n, str(device))
+    ent = _INT_BLOCK_CACHE.get(bkey)
+    if ent is None:
+        host = np.empty((len(arrs), n), np.int64)
+        for i, a in enumerate(arrs):
+            host[i] = a
+        if len(_INT_BLOCK_CACHE) >= 4:
+            _INT_BLOCK_CACHE.pop(next(iter(_INT_BLOCK_CACHE)))
+        ent = (tuple(arrs), torch.from_numpy(host).to(device))  # the VALUE pins the arrays
+        _INT_BLOCK_CACHE[bkey] = ent
+    return ent[1]
 
 
 class _ProgramLowerer:
@@ -377,9 +436,10 @@ class _ProgramLowerer:
         return op, row_map[arg]
 
     def fused_plan(self, where, keys, sums, mins, maxs, strides, n_groups,
-                   row_map, join=None) -> FS.FusedPlan:
+                   row_map, join=None, ints=(), dists=(), args=()) -> FS.FusedPlan:
         """The kernel's plan, COL keys resolved to rows of the table block;
-        ``join`` (a ``FusedPlan.join``) makes it a join plan."""
+        ``join`` (a ``FusedPlan.join``) makes it a join plan; ``ints``,
+        ``dists`` and ``args`` are the tail's slots (``FS.FusedPlan``)."""
         def resolve(code):
             out = [self._resolve(op, arg, row_map) if op == FS.COL else (op, arg)
                    for op, arg in code]
@@ -394,21 +454,23 @@ class _ProgramLowerer:
             keys=[resolve(c) for c in keys], sums=[resolve(c) for c in sums],
             mins=[resolve(c) for c in mins], maxs=[resolve(c) for c in maxs],
             strides=list(strides), n_groups=n_groups, consts=list(self.consts), preds=preds,
-            join=join)
+            join=join, ints=list(ints),
+            dists=[(resolve(c), v_dom, kind) for c, v_dom, kind in dists],
+            args=[(resolve(c), is_min) for c, is_min in args])
 
 
 def _packed(conn, plan_key, plan: FS.FusedPlan, block_xc, lookup=None,
-            dim_xc=None) -> FS.PackedPlan:
+            dim_xc=None, int_xc=None) -> FS.PackedPlan:
     """The plan (with a join plan's key lookup) on the block's device,
     cached per connection by plan key as (block, packed plan, dim block or
-    None)."""
+    None, int block or None)."""
     cache = getattr(conn, "_device_plan_cache", None)
     if cache is None:
         cache = {}
         conn._device_plan_cache = cache
     ent = cache.get(plan_key)
     if ent is None:
-        ent = (block_xc, FS.pack_plan(plan, block_xc.device, lookup), dim_xc)
+        ent = (block_xc, FS.pack_plan(plan, block_xc.device, lookup), dim_xc, int_xc)
         if len(cache) >= 16:
             cache.pop(next(iter(cache)))
         cache[plan_key] = ent  # the VALUE pins the blocks its rows address
@@ -416,46 +478,92 @@ def _packed(conn, plan_key, plan: FS.FusedPlan, block_xc, lookup=None,
 
 
 def _try_cuda_fused(conn, sel, table, n, n_groups, strides, agg_plans, items_plan,
-                    having_aggs, plan_key, block):
-    """Lower the fused plan onto K2's core slots and run it. Returns the
-    _assemble_result 5-tuple, or None when the plan does not fit the kernel
-    (group count, shared-memory budget) or the magnitude guard trips: the
-    host executor then answers. A kernel that fails to build or launch
-    raises."""
+                    having_aggs, plan_key, block, dist_domains):
+    """Lower the fused plan onto K2's slots, as ``infera_tpu``'s
+    ``_try_pallas_fused`` lowers it onto its Pallas kernel, and run it.
+    Returns the _assemble_result 5-tuple, or None when the plan does not fit
+    the kernel (an aggregate outside ``_KERNEL_AGGS``, group count, value
+    domain, column cap, shared-memory budget), a guard trips or a MODE ties
+    in a live group: the host executor then answers. A kernel that fails to
+    build or launch raises."""
     if not 1 <= n_groups <= FS.MAX_GROUPS:
+        return None
+    if any(p[0] not in _KERNEL_AGGS for p in agg_plans):
         return None
     low = _ProgramLowerer(table)
     sums: list = []
     mins: list = []
     maxs: list = []
+    ints: list = []   # (int-block row, kind)
+    dists: list = []  # (program, v_dom, "dist" | "mode")
+    args: list = []   # (program, is_min)
+    int_keys = sorted({payload for pname, payload in agg_plans if pname in _INT_AGGS})
     slot_map: list = []  # per agg_plans entry
     nodes = [node for _k, node in items_plan] + list(having_aggs)
     try:
         where = low.lower(sel.where) if sel.where is not None else None
         keys = [low.lower(g) for g in sel.group_by]
-        for (pname, payload), node in zip(agg_plans, nodes):
+        zero = low._const(0.0)
+        for ai, ((pname, payload), node) in enumerate(zip(agg_plans, nodes)):
             if pname == "key":
                 slot_map.append(("key", payload))
             elif pname in ("count", "count_star"):
                 # device-eligible columns carry no NULLs → count(expr)
                 # counts exactly the selected rows
                 slot_map.append(("count", None))
-            elif pname in ("sum", "avg", "mean"):
-                sums.append(low.lower(node.args[0]))
-                slot_map.append((pname, len(sums) - 1))
-            elif pname == "min":
-                mins.append(low.lower(node.args[0]))
-                slot_map.append(("min", len(mins) - 1))
+            elif pname in _INT_AGGS:
+                # exact int64 over a plain integer column: the int block
+                ints.append((int_keys.index(payload), _INT_AGGS[pname]))
+                slot_map.append((pname, len(ints) - 1))
+            elif pname == "var":
+                # shifted sum and sum of squares, in f32 as the TPU closures
+                centred = low.lower(node.args[0]) + low._const(float(payload[3])) \
+                    + [(FS.SUB, 0)]
+                sums += [centred, centred + centred + [(FS.MUL, 0)]]
+                slot_map.append(("var", len(sums) - 2))
+            elif pname in ("dcount", "dsum", "davg", "mode"):
+                v_dom = dist_domains.get(ai)
+                if v_dom is None or v_dom > PALLAS_MAX_DIST_DOMAIN:
+                    return None
+                dists.append((low.lower(node.args[0]), v_dom,
+                              "mode" if pname == "mode" else "dist"))
+                slot_map.append((pname, len(dists) - 1))
+            elif pname in ("argmn", "argmx"):
+                # the winning row id in the kernel; the host gathers the arg
+                args.append((low.lower(node.args[1]), pname == "argmn"))
+                slot_map.append((pname, len(args) - 1))
             else:
-                maxs.append(low.lower(node.args[0]))
-                slot_map.append(("max", len(maxs) - 1))
+                v = low.lower(node.args[0])
+                truth = v + zero + [(FS.NE, 0)]  # NaN is true, as jnp.asarray(v, bool)
+                if pname in ("sum", "avg", "mean"):
+                    sums.append(v)
+                    slot_map.append((pname, len(sums) - 1))
+                elif pname == "cif":
+                    sums.append(truth)
+                    slot_map.append(("cif", len(sums) - 1))
+                elif pname == "prod":
+                    # negatives, zeros, and sum of log2|v| over the others
+                    sums += [v + zero + [(FS.LT, 0)], v + zero + [(FS.EQ, 0)],
+                             truth + v + [(FS.ABS, 0), (FS.LOG2, 0)] + zero + [(FS.SEL, 0)]]
+                    slot_map.append(("prod", len(sums) - 3))
+                elif pname in ("min", "band"):
+                    mins.append(truth if pname == "band" else v)
+                    slot_map.append((pname, len(mins) - 1))
+                else:
+                    maxs.append(truth if pname == "bor" else v)
+                    slot_map.append((pname, len(maxs) - 1))
+        if len(low.used_columns) + 8 * len(int_keys) > PALLAS_MAX_COLS:
+            return None
         xc, row_map = block
-        plan = low.fused_plan(where, keys, sums, mins, maxs, strides, n_groups, row_map)
+        plan = low.fused_plan(where, keys, sums, mins, maxs, strides, n_groups, row_map,
+                              ints=ints, dists=dists, args=args)
     except _Unsupported:
         return None
     if not FS.smem_fits(plan):
         return None
-    res = FS.execute_fused_plan(_packed(conn, plan_key, plan, xc), xc, n)
+    int_xc = get_int_block(table, xc.device, int_keys) if int_keys else None
+    packed = _packed(conn, plan_key, plan, xc, int_xc=int_xc)
+    res = FS.execute_fused_plan(packed, xc, n, int_xc=int_xc)
     if res is None:
         return None
     results: list = []
@@ -464,12 +572,35 @@ def _try_cuda_fused(conn, sel, table, n, n_groups, strides, agg_plans, items_pla
             results.append(np.asarray(res["kmaxs"][si]))
         elif spec == "count":
             results.append(res["count"])
-        elif spec in ("sum", "avg", "mean"):
+        elif spec in ("sum", "avg", "mean", "cif"):
             results.append(res["sums"][si])  # (f64 sum, 0) pair
-        elif spec == "min":
+        elif spec == "var":
+            results.append((res["sums"][si][0], res["sums"][si + 1][0]))
+        elif spec == "prod":
+            results.append((res["sums"][si][0], res["sums"][si + 1][0]) + res["sums"][si + 2])
+        elif spec in ("min", "band"):
             results.append(np.asarray(res["mins"][si]))
-        else:
+        elif spec in ("max", "bor"):
             results.append(np.asarray(res["maxs"][si]))
+        elif spec in ("isum", "iavg"):
+            results.append((res["ints"][si], res["iests"][si]))
+        elif spec in ("imin", "imax"):
+            results.append(res["ints"][si])
+        elif spec in ("argmn", "argmx"):
+            results.append((res["argrids"][si],))
+        elif spec == "mode":
+            # unique max only: a tie needs the host's first-occurrence
+            # tie-break (infera_tpu's XLA program); a dead group (count 0)
+            # "ties" at 0 and is ignored
+            mval, mcount, ties, bad = res["dists"][si]
+            if bool(((ties > 1) & (res["count"] > 0)).any()):
+                return None
+            results.append((mval, mcount, bad))
+        elif spec == "dcount":
+            dcount, _dsum, bad = res["dists"][si]
+            results.append((dcount, bad))
+        else:  # dsum / davg
+            results.append(res["dists"][si])
     return (results, res["count"], res["kmins"], res["kmaxs"], res["fracs"])
 
 
@@ -579,12 +710,76 @@ def _finalize_agg(pname, payload, res, group_count):
     """Fold one device aggregate's raw output into final host values.
 
     Returns (values [G], sql_type, badmask | None) — badmask marks groups
-    whose result is undefined (avg or min of 0 rows); the caller falls back
-    to the host path when a LIVE group is bad. The branches of the core
-    slots of ``infera_tpu``'s ``_finalize_agg``, with the outer join's
-    matched-validity forms."""
+    whose result is undefined (var with count <= ddof, avg or min of 0
+    rows); the caller falls back to the host path when a LIVE group is bad.
+    Returns None for host fallback (DISTINCT/MODE invalid flag, iavg
+    overflow); raises SqlError for genuine SUM(BIGINT) overflow, the host's
+    own rule. The branches of ``infera_tpu``'s ``_finalize_agg`` on the
+    port's native results (int64 in place of byte limbs and 16-bit words),
+    with the outer join's matched-validity forms."""
+    empty = np.asarray(group_count) == 0
     if pname in ("count", "count_star", "count_matched"):
         return np.asarray(res).astype(np.int64), T.BIGINT, None
+    if pname == "cif":
+        s64 = np.asarray(res[0], np.float64) + np.asarray(res[1], np.float64)
+        return np.rint(s64).astype(np.int64), T.BIGINT, None
+    if pname in ("band", "bor"):
+        # the and/or distinction lives in the min-vs-max slot upstream
+        return np.asarray(res, np.float64) >= 0.5, T.BOOLEAN, empty
+    if pname == "prod":
+        neg, zero, ls, lc = (np.asarray(a, np.float64) for a in res)
+        sign = np.where(np.rint(neg).astype(np.int64) % 2 == 1, -1.0, 1.0)
+        with np.errstate(over="ignore"):
+            # sign * 0.0 keeps IEEE's signed zero, as the host's product
+            vals = np.where(zero > 0.5, sign * 0.0, sign * np.exp2(ls + lc))
+        return vals, T.DOUBLE, empty
+    if pname in ("argmn", "argmx"):
+        _code, acol = payload
+        rid = np.asarray(res[0]).astype(np.int64)
+        bad = (rid < 0) | (rid >= len(acol.data))
+        vals = np.empty(len(rid), dtype=object)
+        for i, r in enumerate(rid):
+            vals[i] = acol.value(int(r)) if not bad[i] else None
+        return vals, acol.sql_type, bad
+    if pname in ("isum", "iavg"):
+        total, est = np.asarray(res[0], np.int64), np.asarray(res[1], np.float64)
+        if pname == "isum":
+            if (est >= 2.0**62).any():
+                raise SqlError("Out of Range Error: overflow in SUM(BIGINT)")
+            return total, T.BIGINT, empty
+        if (est >= 2.0**62).any():
+            return None  # exact int64 sum impossible → host path
+        c = np.asarray(group_count, np.float64)
+        return total.astype(np.float64) / np.where(c == 0, 1.0, c), T.DOUBLE, empty
+    if pname in ("imin", "imax"):
+        return np.asarray(res, np.int64), T.BIGINT, empty
+    if pname == "var":
+        _code, ddof, sq, _shift = payload
+        s = np.asarray(res[0], np.float64)
+        s2 = np.asarray(res[1], np.float64)
+        c = np.asarray(group_count, np.float64)
+        bad = c <= ddof
+        var = (s2 - s * s / np.where(c == 0, 1.0, c)) / np.where(bad, 1.0, c - ddof)
+        var = np.maximum(var, 0.0)
+        return (np.sqrt(var) if sq else var), T.DOUBLE, bad
+    if pname == "mode":
+        mode_v, mcount, bad = res
+        if bad:
+            return None  # fractional / out-of-domain values → host
+        return np.asarray(mode_v, np.int64), T.BIGINT, np.asarray(mcount) == 0
+    if pname == "dcount":
+        dcount, bad = res
+        if bad:
+            return None  # fractional / negative / out-of-domain values
+        return np.asarray(dcount, np.int64), T.BIGINT, None
+    if pname in ("dsum", "davg"):
+        dcount, total, bad = res
+        if bad:
+            return None
+        if pname == "dsum":
+            return np.asarray(total, np.int64), T.BIGINT, empty
+        c = np.asarray(dcount, np.float64)
+        return np.asarray(total, np.float64) / np.where(c == 0, 1.0, c), T.DOUBLE, c == 0
     if pname in ("min", "max") and isinstance(res, tuple):
         # outer-join matched-validity min/max: (values, non-NULL count); a
         # LIVE group with zero valid rows renders NULL → host path
@@ -599,7 +794,6 @@ def _finalize_agg(pname, payload, res, group_count):
         if pname == "sum":
             return s64, T.DOUBLE, bad
         return s64 / np.where(bad, 1.0, c), T.DOUBLE, bad
-    empty = np.asarray(group_count) == 0
     if pname in ("sum", "avg", "mean"):
         # (sum, comp) pair, folded in f64 (exact)
         v = np.asarray(res[0], np.float64) + np.asarray(res[1], np.float64)
@@ -637,7 +831,10 @@ def _assemble_result(sel: A.Select, items_plan, agg_plans, having_plan,
         if pname == "key":
             finals.append(None)
             continue
-        vals, styp, badmask = _finalize_agg(pname, payload, res, group_count)
+        fin = _finalize_agg(pname, payload, res, group_count)
+        if fin is None:
+            return None
+        vals, styp, badmask = fin
         if badmask is not None and bool((badmask & live).any()):
             return None  # NULL-producing group → host path renders it
         finals.append((vals, styp))
@@ -680,7 +877,12 @@ def _assemble_result(sel: A.Select, items_plan, agg_plans, having_plan,
         vals = vals[live]
         if hmask is not None:
             vals = vals[hmask]
-        out_cols[name] = Column(vals, styp)
+        if vals.dtype == object:
+            # arg_min/arg_max values gathered on the host can be any type
+            # (strings, NULLs): from_values carries their validity
+            out_cols[name] = Column.from_values(list(vals), styp)
+        else:
+            out_cols[name] = Column(vals, styp)
     return Table(out_cols)
 
 
@@ -773,21 +975,166 @@ def try_execute_on_device(conn, sel: A.Select, table: Table,
         walk(expr)
         return ok
 
+    def _f32_safe(expr: A.Expr) -> bool:
+        """Like _float_only, but additionally admits integer columns whose
+        probed value range fits f32 exactly (|v| <= 2^24) — var/stddev over
+        small-int columns lose nothing to the f32 carrier."""
+        ok = True
+
+        def walk(e):
+            nonlocal ok
+            if isinstance(e, A.ColumnRef):
+                try:
+                    key = lowerer._column(e.name, e.table)
+                except _Unsupported:
+                    ok = False
+                    return
+                col = table.columns[key]
+                t = col.sql_type
+                if t.is_float or t.name == "DECIMAL":
+                    return
+                d = col.data
+                if d.dtype.kind in "iu" and d.size:
+                    rng = getattr(col, "_int_range", None)
+                    if rng is None:
+                        rng = (int(d.min()), int(d.max()))
+                        col._int_range = rng
+                    if rng[0] >= -(1 << 24) and rng[1] <= (1 << 24):
+                        return
+                ok = False
+                return
+            if isinstance(e, A.FuncCall):
+                if e.name.lower() == "infera_predict":
+                    return
+                for a in e.args:
+                    if isinstance(a, A.Expr):
+                        walk(a)
+                return
+            for attr in ("operand", "left", "right", "low", "high"):
+                child = getattr(e, attr, None)
+                if isinstance(child, A.Expr):
+                    walk(child)
+
+        walk(expr)
+        return ok
+
+    def _f64_refs_f32_exact(expr: A.Expr) -> bool:
+        """Every f64 column the expression reads outside a prediction holds
+        only f32-exact values (cached on the column as ``_f32_exact``, as
+        infera_tpu's HLL planner caches it). The block carries f64 columns
+        as f32, so two rows whose order values differ below f32 precision
+        would tie in an arg slot (the smaller row id wins) where the host
+        tells them apart (R6). A prediction is f32 on both paths."""
+        if isinstance(expr, A.FuncCall):
+            if expr.name.lower() in ("infera_predict", "list_extract"):
+                return True
+            return all(_f64_refs_f32_exact(a) for a in expr.args if isinstance(a, A.Expr))
+        if isinstance(expr, A.ColumnRef):
+            col = table.columns[lowerer._column(expr.name, expr.table)]
+            d = col.data
+            if d.dtype.kind == "f" and d.dtype.itemsize > 4 and d.size:
+                exact = getattr(col, "_f32_exact", None)
+                if exact is None:
+                    exact = bool(np.all(d.astype(np.float32).astype(np.float64) == d))
+                    col._f32_exact = exact
+                return exact
+            return True
+        return all(_f64_refs_f32_exact(c) for c in
+                   (getattr(expr, a, None) for a in ("operand", "left", "right", "low", "high"))
+                   if isinstance(c, A.Expr))
+
+    n = table.num_rows
+
     def _plan_one_agg(node):
-        """One aggregate call -> agg_plans entry (name, program), or None
-        (host path) for an aggregate outside K2's core slots."""
+        """One aggregate call -> agg_plans entry, or None (host path); the
+        planner of infera_tpu's ``_plan_one_agg``.
+
+        Entry shapes: (name, program) float aggs; ("count_star", None);
+        ("isum"|"iavg"|"imin"|"imax", col_key) exact int64 over a plain
+        integer column (the int block); ("var", (program, ddof, sqrt,
+        shift)) variance family via shifted (sum, sum^2) slots;
+        ("dcount"|"dsum"|"davg"|"mode", program) DISTINCT and MODE via the
+        [G, V] counts (V probed after analyze_only); ("argmn"|"argmx",
+        (program, arg column)). Median, quantiles and approx_count_distinct
+        run in infera_tpu's XLA program, which the port does not have: the
+        host answers them."""
         name = node.name.lower()
         if node.is_star or not node.args:
             if name != "count" or node.distinct:
                 return None
             return ("count_star", None)
         arg = node.args[0]
-        if node.distinct and name not in ("min", "max"):
-            return None  # min/max are distinct-insensitive — plain min/max
-        if name not in _CORE_AGGS:
+        if node.distinct:
+            if name == "count":
+                return ("dcount", lowerer.lower(arg))
+            if name in ("sum", "avg", "mean"):
+                return ("dsum" if name == "sum" else "davg", lowerer.lower(arg))
+            if name not in ("min", "max"):
+                return None  # DISTINCT var/stddev stays on the host path
+            # min/max are distinct-insensitive — plan as plain min/max
+        if name == "mode":
+            # counts-matrix mode over a probed small-int domain, unique max
+            # only; domain probed below with the DISTINCT machinery
+            return ("mode", lowerer.lower(arg))
+        if name == "median" or name in _QUANTILE_FAMILY or name == "approx_count_distinct":
             return None
-        # integer inputs (exact int64 sums and extremes: infera_tpu's limb
-        # slots, P6 of the port) stay on the host; a window does not lower
+        if name in _VAR_FAMILY:
+            if not _f32_safe(arg):
+                return None
+            code = lowerer.lower(arg)
+            # shift by a sample mean for conditioning: var is shift-
+            # invariant, and |x - mean| << |x| keeps s^2 - s*s/c from
+            # cancelling
+            shift = 0.0
+            if isinstance(arg, A.ColumnRef):
+                col = table.columns[lowerer._column(arg.name, arg.table)]
+                shift = getattr(col, "_var_shift", None)
+                if shift is None:
+                    head = col.data[:4096]
+                    shift = float(head.astype(np.float64).mean()) if len(head) else 0.0
+                    col._var_shift = shift
+            ddof, sq = _VAR_FAMILY[name]
+            return ("var", (code, ddof, sq, np.float32(shift)))
+        if name in ("count_if", "countif"):
+            return ("cif", lowerer.lower(arg))
+        if name in ("bool_and", "bool_or"):
+            return ("band" if name == "bool_and" else "bor", lowerer.lower(arg))
+        if name == "product":
+            # sign count + log2-sum decomposition; FLOAT columns only (an
+            # integer product user expects bit-exact 24.0, which the log
+            # path renders as 23.999998 — host path)
+            if not _float_only(arg):
+                return None
+            return ("prod", lowerer.lower(arg))
+        if name in ("arg_min", "arg_max", "min_by", "max_by"):
+            # value of args[0] at the extreme of args[1]: the kernel finds
+            # the winning ROW ID, the host gathers the arg — so the returned
+            # column may be ANY type incl. strings
+            if len(node.args) != 2 or not isinstance(node.args[0], A.ColumnRef):
+                return None
+            order = node.args[1]
+            if not _f32_safe(order) or not _f64_refs_f32_exact(order):
+                return None
+            ref = node.args[0]
+            acol = None
+            for k, c in table.columns.items():
+                if k.split(".")[-1].lower() == ref.name.lower():
+                    acol = c
+                    break
+            if acol is None:
+                return None
+            is_min = name in ("arg_min", "min_by")
+            return ("argmn" if is_min else "argmx", (lowerer.lower(order), acol))
+        # exact int64: sum/avg/min/max over a plain no-NULL integer column
+        # (a window never lowers: the kernel tier has none)
+        if name in ("sum", "avg", "mean", "min", "max") and isinstance(arg, A.ColumnRef):
+            key = lowerer._column(arg.name, arg.table)
+            col = table.columns[key]
+            if col.validity is None and (col.sql_type.is_integer or col.data.dtype.kind in "iu"):
+                if name in ("sum", "avg", "mean") and n > int_agg.MAX_LIMB_ROWS:
+                    return None  # infera_tpu's 8-bit-limb exactness bound
+                return ({"sum": "isum", "avg": "iavg", "mean": "iavg",
+                         "min": "imin", "max": "imax"}[name], key)
         if name != "count" and not _float_only(arg):
             return None
         return (name, lowerer.lower(arg))
@@ -820,7 +1167,6 @@ def try_execute_on_device(conn, sel: A.Select, table: Table,
 
     if analyze_only:
         return True
-    n = table.num_rows
     phases["plan_ms"] = _ms(t0)
     t0 = time.perf_counter()
     block = get_table_block(table, device)
@@ -830,24 +1176,33 @@ def try_execute_on_device(conn, sel: A.Select, table: Table,
     phases["upload_ms"] = _ms(t0)
     t0 = time.perf_counter()
 
-    # --- key probes (cached): one max per key expression over the block,
-    # as torch ops on the device, for the adaptive group-key radices
+    # --- value probes (cached): one max per key expression and DISTINCT/
+    # MODE argument over the block, each a K2 launch, for the adaptive
+    # group-key radices and value domains
     kmax_cache = getattr(conn, "_device_plan_kmax_cache", None)
     if kmax_cache is None:
         kmax_cache = {}
         conn._device_plan_kmax_cache = kmax_cache
 
     def _probe_max(tag, code):
-        """max(int32(program), 0) over the table, cached per (tag, block)."""
+        """max(int32(program), 0) over every row of the table, cached per
+        (tag, block), or None when its plan does not fit the kernel. One K2
+        launch (on the CPU, its plain version) of a one-group plan whose max
+        slot reads the program with NaN as 0, as key_to_int32 reads it; the
+        conversion toward zero is monotone, so int32 of the max is the max
+        of int32. The plan keeps only the prediction slots the program
+        reads (and the earlier ones their features may read)."""
         probe_key = (tag, id(xc))
         got = kmax_cache.get(probe_key)
         if got is None:
-            plan = lowerer.fused_plan(None, [code], [], [], [], [1], 1, row_map)
-            # the MLPs run only for a key that reads a prediction
-            preds = (FS.predictions_plain(FS.pack_plan(plan, device), xc, n)
-                     if any(op == FS.PRED for op, _ in plan.keys[0]) else [])
-            v = FS.eval_program(plan.keys[0], plan.consts, xc, n, preds)
-            got = (xc, int(FS.key_to_int32(v).clamp(min=0).max()))
+            prog = code + code + [(FS.NE, 0)] + lowerer._const(0.0) + code + [(FS.SEL, 0)]
+            plan = lowerer.fused_plan(None, [], [], [], [prog], [], 1, row_map)
+            last = max((arg for op, arg in prog if op == FS.PRED), default=-1)
+            plan = dataclasses.replace(plan, preds=plan.preds[:last + 1])
+            if not FS.smem_fits(plan):
+                return None
+            top = FS.fused_sql(FS.pack_plan(plan, xc.device), xc, n)["mm"][0]
+            got = (xc, int(FS.key_to_int32(top).clamp(min=0)[0]))
             if len(kmax_cache) >= 64:
                 kmax_cache.pop(next(iter(kmax_cache)))
             kmax_cache[probe_key] = got  # the VALUE pins the block
@@ -865,7 +1220,9 @@ def try_execute_on_device(conn, sel: A.Select, table: Table,
             radices = []
             for gi, kp in enumerate(key_progs):
                 kmax = _probe_max(repr(sel.group_by[gi]), kp)
-                radices.append(max(kmax, 0) + 1)
+                if kmax is None:
+                    return None
+                radices.append(kmax + 1)
         except _Unsupported:
             return None
         domain = 1
@@ -878,6 +1235,30 @@ def try_execute_on_device(conn, sel: A.Select, table: Table,
         n_groups = 8
         while n_groups < domain and n_groups < MAX_GROUPS:
             n_groups <<= 1
+
+    # --- DISTINCT value domains: probe max(expr), pick V = next pow2; the
+    # counts matrix is [n_groups, V] so cap the product; negative or
+    # fractional values are caught in the kernel by the invalid flag (guard
+    # -> host), oversized domains are rejected here
+    dist_domains: dict = {}
+    for ai, (pname, code) in enumerate(agg_plans):
+        if pname not in ("dcount", "dsum", "davg", "mode"):
+            continue
+        try:
+            vmax = _probe_max((f"dist{ai}", repr(sel)), code)
+        except _Unsupported:
+            return None
+        if vmax is None:
+            return None
+        v_dom = 8
+        while v_dom <= vmax:
+            v_dom <<= 1
+        if pname in ("dsum", "davg") and v_dom > int_agg.MAX_DISTINCT_SUM_DOMAIN:
+            return None  # infera_tpu's limb-matmul exactness bound
+        mats = 2 if pname == "mode" else 1  # infera_tpu's mode carries two
+        if n_groups * v_dom * mats > int_agg.MAX_PRESENCE_ELEMS:
+            return None
+        dist_domains[ai] = v_dom
     phases["probe_ms"] = _ms(t0)
     t0 = time.perf_counter()
 
@@ -888,10 +1269,11 @@ def try_execute_on_device(conn, sel: A.Select, table: Table,
         tuple(sorted((name, id(m)) for name, m in lowerer.models.items())),
         n,
         n_groups,
+        tuple(sorted(dist_domains.items())),
         id(xc),
     )
     out = _try_cuda_fused(conn, sel, table, n, n_groups, strides, agg_plans, items_plan,
-                          having_aggs, plan_key, block)
+                          having_aggs, plan_key, block, dist_domains)
     phases["exec_ms"] = _ms(t0)
     if out is None:
         return None

@@ -11,6 +11,9 @@ regressors and classifiers over heap and non-heap trees, a NaN feature, and
 tree queries through Connection.execute; for K5, a permuted 1:1 key, keys
 with no dim row, negative keys, outer masking over NaN dim values, an MLP
 over dim columns, ragged row counts, the no-fallback rule and join queries
+through Connection.execute; for K2 b–e (the aggregate tail), every tail
+slot against plain at the main path's row counts, the run-to-run equality of
+their partials, the group-key probe as a K2 launch, and the tail's queries
 through Connection.execute."""
 
 import numpy as np
@@ -316,7 +319,8 @@ def test_k2_sql_flagship_on_the_card(cuda, monkeypatch, tmp_path):
         before = fs.fused_sql.launches["f32"]
         rows = conn.execute(q).rows
         assert conn._exec_path == "device_plan_cuda"
-        assert fs.fused_sql.launches["f32"] == before + 1
+        # the group-key probe, then the plan
+        assert fs.fused_sql.launches["f32"] == before + 2
         monkeypatch.setenv("INFERA_PALLAS_SQL", "0")
         host = conn.execute(q).rows
         assert conn._exec_path == "host"
@@ -696,6 +700,182 @@ def test_k5_sql_join_on_the_card(cuda, monkeypatch, q):
             for x, y in zip(a, b):
                 if isinstance(y, float) and not float(y).is_integer():
                     assert x == pytest.approx(y, rel=1e-6)
+                else:
+                    assert x == y
+    finally:
+        itt.set_device(None)
+
+
+# --------------------------------------------------------------------------- K2 b-e
+
+
+def _tail_inputs(n, seed, cuda):
+    """The f32 block of _sql_block and an int64 block: 0 values near
+    +-2**50, 1 values across int64's range (sums of them wrap modulo
+    2**64 on both sides), 2 a small-integer column."""
+    xc = _sql_block(n, seed, cuda)
+    rng = np.random.default_rng(seed)
+    xi = np.empty((3, n), np.int64)
+    xi[0] = rng.integers(-(1 << 50), 1 << 50, n)
+    xi[1] = rng.integers(np.iinfo(np.int64).min, np.iinfo(np.int64).max, n, endpoint=True)
+    xi[2] = rng.integers(-9, 9, n)
+    return xc, torch.as_tensor(xi, device=cuda)
+
+
+def _tail_plan(G=64, bad_values=False, nan_order=False):
+    """Every tail slot: var, count_if, product (with LOG2) and bool_and/or on
+    the core slots, int sum/min/max, a DISTINCT and a MODE slot, and
+    arg_min/arg_max over ties (halves) and over distinct values."""
+    consts = []
+    zero = _c(consts, 0.0)
+    v = [(fs.COL, 3)]
+    centred = v + [_c(consts, 0.25), (fs.SUB, 0)]
+    sums = [centred, centred + centred + [(fs.MUL, 0)], v + [zero, (fs.NE, 0)],
+            v + [zero, (fs.LT, 0)], v + [zero, (fs.EQ, 0)],
+            v + [zero, (fs.NE, 0)] + v + [(fs.ABS, 0), (fs.LOG2, 0), zero, (fs.SEL, 0)]]
+    dist_col = [(fs.COL, 3)] if bad_values else [(fs.COL, 0), _c(consts, 7.0), (fs.MOD, 0)]
+    order = [(fs.COL, 2)] if nan_order else [(fs.COL, 1)]
+    return fs.FusedPlan(
+        where=[(fs.COL, 5), _c(consts, 0.3), (fs.GT, 0)], keys=[[(fs.COL, 0)]], sums=sums,
+        mins=[v + [zero, (fs.NE, 0)]], maxs=[[(fs.COL, 1), _c(consts, 2.0), (fs.GT, 0)]],
+        strides=[1], n_groups=G, consts=consts,
+        ints=[(0, "sum"), (1, "min"), (1, "max"), (2, "sum"), (0, "max")],
+        dists=[(dist_col, 8, "dist"), ([(fs.COL, 0)], 64, "mode")],
+        args=[([(fs.COL, 4)], True), ([(fs.COL, 4)], False), (order, True), (order, False)])
+
+
+def _assert_tail_equal(got, want):
+    """Integers exact (counts, int slots, arg words, DISTINCT counts,
+    flags); min/max rows exact; the f64 sums to 1e-12 (only their order
+    differs), but the log2 row to 1e-6: CUDA's log2f and torch's log2 may
+    differ in the last bit of a value."""
+    for k in ("count", "flags", "ints", "args", "dist", "mm"):
+        assert torch.equal(got[k], want[k]), k
+    torch.testing.assert_close(got["sums"][:5], want["sums"][:5], rtol=1e-12, atol=1e-9)
+    torch.testing.assert_close(got["sums"][5:], want["sums"][5:], rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(got["iest"], want["iest"], rtol=1e-12, atol=0)
+
+
+@pytest.mark.parametrize("n", [1, 257, 1_000_003, 1_048_576])
+def test_k2_tail_matches_plain(cuda, n):
+    xc, xi = _tail_inputs(n, seed=n % 89, cuda=cuda)
+    packed = fs.pack_plan(_tail_plan(), cuda)
+    before = dict(fs.fused_sql.launches)
+    got = fs.fused_sql(packed, xc, n, int_xc=xi)
+    torch.cuda.synchronize()
+    for key in ("f32", "int_sum", "distinct", "arg", "int_minmax"):
+        assert fs.fused_sql.launches[key] == before[key] + 1, key
+    want = fs.fused_sql_plain(packed, xc, n, int_xc=xi)
+    _assert_tail_equal(got, want)
+    assert int(got["flags"][0]) == 0
+
+
+# flag bits with one key: K + 1 + d for DISTINCT/MODE slot d, K + 1 + D + a
+# for arg slot a (the last two arg slots read the NaN column)
+@pytest.mark.parametrize("bad_values,nan_order,flags", [(True, False, 1 << 2),
+                                                        (False, True, 1 << 6 | 1 << 7)])
+def test_k2_tail_flags(cuda, bad_values, nan_order, flags):
+    """A DISTINCT value outside its domain and a selected NaN order value set
+    their slot's flag bit, as in the plain version."""
+    n = 100_003
+    xc, xi = _tail_inputs(n, seed=4, cuda=cuda)
+    packed = fs.pack_plan(_tail_plan(bad_values=bad_values, nan_order=nan_order), cuda)
+    got = fs.fused_sql(packed, xc, n, int_xc=xi)
+    _assert_tail_equal(got, fs.fused_sql_plain(packed, xc, n, int_xc=xi))
+    assert int(got["flags"][0]) == flags
+
+
+def test_k2_tail_is_the_same_from_run_to_run(cuda):
+    n = 1_048_576
+    xc, xi = _tail_inputs(n, seed=5, cuda=cuda)
+    packed = fs.pack_plan(_tail_plan(G=512), cuda)
+    first = fs.fused_sql(packed, xc, n, int_xc=xi)
+    for _ in range(2):
+        again = fs.fused_sql(packed, xc, n, int_xc=xi)
+        for k in first:
+            assert torch.equal(first[k], again[k]), k
+
+
+def test_k2_group_key_probe_is_a_launch(cuda, monkeypatch, tmp_path):
+    """A GROUP BY over a prediction sizes its key through K2 on the card:
+    the plain version never runs there."""
+    import infera_tpu_torch as itt
+    from infera_tpu_torch.onnx import builder, proto
+    from infera_tpu_torch.registry import MODELS
+    from infera_tpu_torch.sql import Connection
+
+    def no_plain(*a, **k):
+        raise AssertionError("the plain version ran on the card")
+
+    monkeypatch.delenv("INFERA_PALLAS_SQL", raising=False)
+    itt.set_device(cuda)
+    MODELS.clear()
+    try:
+        proto.save_model_file(builder.mlp_model(in_dim=2, hidden=(8,), out_dim=1, softmax=False),
+                              tmp_path / "m.onnx")
+        itt.load_model("m", str(tmp_path / "m.onnx"))
+        conn = Connection()
+        conn.execute("create table t as select (x % 10)::float as a, (x % 7)::float as b "
+                     "from range(100003) r(x)")
+        q = ("select round(abs(infera_predict('m', a, b))) k, count(*) from t "
+             "group by round(abs(infera_predict('m', a, b))) order by k")
+        with monkeypatch.context() as m:
+            m.setattr(fs, "predictions_plain", no_plain)
+            m.setattr(fs, "fused_sql_plain", no_plain)
+            before = fs.fused_sql.launches["f32"]
+            rows = conn.execute(q).rows
+            assert conn._exec_path == "device_plan_cuda"
+            assert fs.fused_sql.launches["f32"] == before + 2   # the probe, then the plan
+        monkeypatch.setenv("INFERA_PALLAS_SQL", "0")
+        assert rows == conn.execute(q).rows
+    finally:
+        MODELS.clear()
+        itt.set_device(None)
+
+
+TAIL_TABLE = ("create table tail as select x % 64 as g, x % 5 as h, x as id, x % 500 as k500, "
+              "((x % 12) * (x % 5)) % 9 as mv, "
+              "(case when x % 3 = 0 then -1 else 1 end) * (17592186044421 + x * 7) as v, "
+              "((x * 13) % 97)::float as o, (x % 100)::float / 10.0 as f1, "
+              "((x + 3) % 50)::float / 5.0 as f2, ((x * 7) % 30)::float / 3.0 as f3 "
+              "from range(100003) r(x)")
+TAIL_QUERIES = [
+    "select g, stddev(f1), var_pop(f2), count_if(f1 > 4.0), bool_and(f1 >= 0.0), "
+    "bool_or(f2 > 9.0), product(1.0 + f3 / 1000.0), avg(h) from tail group by g order by g",
+    "select g, count(distinct h), sum(distinct k500), avg(distinct k500), mode(mv), count(*) "
+    "from tail group by g order by g",
+    "select g, arg_max(id, o), arg_min(id, o), arg_max(id, h) from tail group by g order by g",
+    "select g, sum(v), avg(v), min(v), max(v) from tail where f1 > 1.0 group by g order by g",
+]
+
+
+@pytest.mark.parametrize("q", TAIL_QUERIES)
+def test_k2_tail_sql_on_the_card(cuda, monkeypatch, q):
+    """Connection.execute runs each family of the tail as one K2 launch (once
+    its probes are cached) and answers as the host executor does: integers,
+    DISTINCT values, modes and arg values exact, the rest to 1e-3 (the
+    tolerance of the reference's tail tests)."""
+    import infera_tpu_torch as itt
+    from infera_tpu_torch.sql import Connection
+
+    monkeypatch.delenv("INFERA_PALLAS_SQL", raising=False)
+    itt.set_device(cuda)
+    try:
+        conn = Connection()
+        conn.execute(TAIL_TABLE)
+        conn.execute(q)
+        before = fs.fused_sql.launches["f32"]
+        rows = conn.execute(q).rows
+        assert conn._exec_path == "device_plan_cuda"
+        assert fs.fused_sql.launches["f32"] == before + 1
+        monkeypatch.setenv("INFERA_PALLAS_SQL", "0")
+        host = conn.execute(q).rows
+        assert conn._exec_path == "host"
+        assert len(rows) == len(host) == 64
+        for a, b in zip(rows, host):
+            for x, y in zip(a, b):
+                if isinstance(y, float):
+                    assert x == pytest.approx(y, rel=1e-3)
                 else:
                     assert x == y
     finally:

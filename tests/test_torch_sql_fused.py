@@ -124,12 +124,14 @@ def test_predict_calls_share_one_mlp_slot(both):
 
 
 @pytest.mark.parametrize("q", [
-    "select g, var_pop(f1) from big group by g order by g",     # P6 slot family
-    "select g, sum(h) from big group by g order by g",          # exact int64 sum
-    "select g, count(distinct h) from big group by g order by g",
+    "select g, median(f1) from big group by g order by g",      # infera_tpu's XLA program
+    "select g, quantile_cont(f2, 0.75) from big group by g order by g",
+    "select g, approx_count_distinct(f3) from big group by g order by g",
     "select f1, count(*) from big group by f1 order by f1",     # fractional key
 ])
 def test_outside_the_core_slots_the_host_answers(both, monkeypatch, q):
+    """What the kernel tier declines (the tail's families run in it:
+    tests/test_torch_sql_tail.py) the host executor answers."""
     port, ref, _ = both
     rows = port.execute(q).rows
     assert port._exec_path == "host"
@@ -287,7 +289,7 @@ def test_smem_budget_of_the_bench_plan():
     plan = fs.FusedPlan(where=[(fs.COL, 0), (fs.CONST, 0), (fs.GT, 0)], keys=[[(fs.COL, 32)]],
                         sums=[[(fs.PRED, 0)]], mins=[], maxs=[[(fs.PRED, 0)]], strides=[1],
                         n_groups=64, consts=[0.0], preds=[_mlp_slot((32, 128, 128, 16))])
-    n_words = 32 + 2 * 36 + 2 * 38 + 1 + 1 + 16
+    n_words = fs._HEADER + 2 * 36 + 2 * 38 + 1 + 1 + 16
     layout = fs.smem_layout(plan, n_words, (90112 + 1088) // 4)
     assert fs.smem_bytes(plan) == layout["total"]
     expect = (-(-4 * n_words // 16) * 16 + 91200 + 2 * 4 * 128 * fm.ACT_STRIDE + 1024

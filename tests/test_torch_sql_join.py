@@ -371,7 +371,7 @@ def test_join_plan_carries_the_join_opcodes(both, monkeypatch):
     port._device_plan_cache = {}
     monkeypatch.setenv("INFERA_PALLAS_SQL", "1")
     port.execute("select count(w), sum(w), min(w) from ofact left join odim on ofact.k = odim.k")
-    (_, packed, dim_xc), = port._device_plan_cache.values()
+    (_, packed, dim_xc, _), = port._device_plan_cache.values()
     plan = packed.plan
     assert plan.where is None and plan.join is not None
     assert plan.sums[0] == [(fs.MATCHED, 0)] and len(plan.sums) == 2
