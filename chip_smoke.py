@@ -64,7 +64,19 @@ card, builds every kernel of ``infera_tpu_torch/csrc`` with nvcc (sm_90a), and:
    plain version at 1,048,576 and 1,000,003 rows and timed beside its
    bound, its plain version and a PyTorch chain; the SUM(BIGINT) overflow
    must raise the host's message;
-9. prints the ``{"kernels": [...]}`` line, the card's name and power limit,
+9. the rest of the bench form and the int8 policy: with the launch counts of
+   K7a (f32, bf16) and K7b set to 0 just before and read just after,
+   ``infera_tpu_torch.bench.bench_cuda`` runs all eight impls over its
+   1,048,576-row table (K7a over a row-major table in f32, in bf16 over a
+   bf16 table and over an f32 one; K7b over an int8 table), then
+   ``load_model(..., precision="int8")`` of the 32-128-128-16 softmax MLP
+   and ``predict`` of 1,048,576 seeded rows, which must run the fused int8
+   chain, stay within the int8 bound of the f32 model and equal the same
+   chain run on the CPU to 1e-5. K7a and K7b are held against their plain
+   versions at 1,048,576 and 1,000,003 rows (K7b also against the numpy
+   integer emulation) and timed beside their bounds, plain versions and
+   PyTorch chains; int8 ``predict`` is timed on the host clock beside f32's;
+10. prints the ``{"kernels": [...]}`` line, the card's name and power limit,
    and last ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero without the ``ok`` line. The script
@@ -173,7 +185,24 @@ def emulate_int8_shift(qparams, xq: np.ndarray):
     return np.bincount(pred[sel], minlength=h.shape[0]).astype(np.int64)
 
 
-SQL_A = ("select g, count(*) c, avg(infera_predict('m', f1, f2, f3, f4)) p, sum(f1) s "
+def emulate_int8_static(qparams, xq: np.ndarray):
+    """The integer pipeline of ``quantize_mlp_static`` (K7b) in numpy over
+    an int8 table [d0, N]: exact int8 products (f64 BLAS, |y| < 2**53), then
+    each layer's f32 multiply and add as two roundings; hidden layers
+    requantize with ``np.rint`` (half to even). Returns counts [C] int64."""
+    q = xq.astype(np.float64)
+    n_layers = len(qparams)
+    for i, (wq, comb, bq) in enumerate(qparams):
+        y = (wq.astype(np.float64) @ q).astype(np.float32)
+        t = y * np.asarray(comb, np.float32) + np.asarray(bq, np.float32)
+        if i < n_layers - 1:
+            q = np.clip(np.rint(t), 0, 127).astype(np.float64)
+    pred = np.argmax(t, axis=0)
+    sel = t[0] > 0
+    return np.bincount(pred[sel], minlength=t.shape[0]).astype(np.int64)
+
+
+SQL_A = ("select g, count(*) c,avg(infera_predict('m', f1, f2, f3, f4)) p, sum(f1) s "
          "from big where f2 > 1.0 group by g order by g")
 SQL_B = ("select g, count(*), avg(infera_predict_multi_list('{m}', {cols})[1]), "
          "max(infera_predict_multi_list('{m}', {cols})[1]) from wide where c0 > 0 "
@@ -1083,6 +1112,207 @@ def tail_phase(torch, itt, x_rows, peaks, device) -> list:
     return rows
 
 
+def bench_phase(torch, itt, params, x_rows, x_dev, peaks, device, f32_predict_ms) -> list:
+    """The bench form's K7a and K7b and the engine's int8 policy; returns
+    their rows of the kernels line."""
+    from infera_tpu_torch.bench import bench_cuda
+    from infera_tpu_torch.onnx import builder, proto
+    from infera_tpu_torch.onnx.executor import compile_model_file
+    from infera_tpu_torch.ops.fused_query import (
+        fused_mlp_query,
+        fused_mlp_query_columnar_int8,
+        fused_mlp_query_columnar_int8_plain,
+        fused_mlp_query_plain,
+        params_from_numpy,
+        qparams_static_from_numpy,
+        quantize_mlp_static,
+    )
+    from infera_tpu_torch.registry import MODELS
+
+    n = N_MAIN
+    xc = x_dev.T.contiguous()
+    x_cal = np.random.default_rng(7).standard_normal((1 << 14, 32)).astype(np.float32)
+    qparams, s0 = quantize_mlp_static(params, x_cal)
+    xq = torch.clamp(torch.round(xc / float(s0)), -127, 127).to(torch.int8)
+    w_f32 = params_from_numpy(params, device, torch.float32)
+    w_bf16 = params_from_numpy(params, device, torch.bfloat16)
+    w_s = qparams_static_from_numpy(qparams, device)
+    x_bf16 = x_dev.to(torch.bfloat16)
+
+    # ---------------------------------------------------------------- the main path
+    counters = {"K7a-f32": lambda: fused_mlp_query.launches["f32"],
+                "K7a-bf16": lambda: fused_mlp_query.launches["bf16"],
+                "K7b": lambda: fused_mlp_query_columnar_int8.launches}
+    fused_mlp_query.launches = {"f32": 0, "bf16": 0}
+    fused_mlp_query_columnar_int8.launches = 0
+    t0 = time.perf_counter()
+    best = bench_cuda(params, n, iters=20)
+    torch.cuda.synchronize()
+    launches = {k: read() for k, read in counters.items()}
+    print(f"bench impls @ {n} rows, ms per call: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in best["ms_by_impl"].items())
+          + f"; fastest {best['impl']}")
+    check(len(best["ms_by_impl"]) == 8, f"bench ran {list(best['ms_by_impl'])}")
+
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/mlp.onnx"
+        proto.save_model_file(
+            builder.mlp_model(in_dim=32, hidden=(128, 128), out_dim=16, softmax=True), path)
+        itt.load_model("mlp_int8", path, "int8")
+        cpu_model = compile_model_file(path, "mlp_int8_cpu", "int8", torch.device("cpu"))
+    pred8 = itt.predict("mlp_int8", x_rows)
+    torch.cuda.synchronize()
+    print(f"bench-form main path: {time.perf_counter() - t0:.2f} s on the host clock; "
+          f"launches {launches}")
+    for k, c in launches.items():
+        check(c > 0, f"kernel {k} was not launched on the main path")
+    model8 = MODELS.get("mlp_int8")
+    check(len(model8._int8_fused_cache) == 1, "int8 predict did not run the fused int8 chain")
+    got8 = pred8.data.reshape(n, 16)
+    check(np.isfinite(got8).all() and pred8.cols == 16, "int8 predict: shape or values")
+    ref32 = itt.predict("mlp", x_rows).data.reshape(n, 16)
+    rel = float(np.abs(got8 - ref32).mean() / np.abs(ref32).mean())
+    # tests/test_quantization.py's bound for int8 against f32
+    check(rel < 0.08, f"int8 predict: mean abs error {rel:.4f} of the f32 output's mean")
+    # the same chain on the CPU, on the card's calibrated scales
+    cpu_model._int8_calibrated = True
+    for nd_cpu, nd in zip(cpu_model.mlp_plan[2], model8.mlp_plan[2], strict=True):
+        nd_cpu._infera_act_scale = nd._infera_act_scale
+    want8 = cpu_model.run(x_rows)[0].numpy()
+    check(len(cpu_model._int8_fused_cache) == 1, "the CPU model did not run the fused chain")
+    np.testing.assert_allclose(got8, want8, rtol=1e-5, atol=1e-5)
+    err8 = float(np.abs(got8 - want8).max())
+    print(f"engine int8 predict @ {n} rows: fused int8 chain, mean abs error {rel:.4f} of "
+          f"the f32 output's mean, max abs diff {err8:.3e} against the chain on the CPU; "
+          f"scales {[nd._infera_act_scale for nd in model8.mlp_plan[2]]}")
+
+    # ---------------------------------------------------------------- kernels vs plain
+    def compare(key, got, want, n_rows):
+        gc, gs = (t.cpu().numpy() for t in got)
+        wc, ws = (t.cpu().numpy() for t in want)
+        diff = int(np.abs(gc - wc).sum())
+        kept = int(wc.sum())
+        if key == "K7a-f32":
+            # f32 sums in another order can flip an argmax near a tie or the
+            # sign of score0 near 0: a few rows of a million
+            check(diff <= 4, f"{key} @ {n_rows}: counts differ by {diff} rows")
+            np.testing.assert_allclose(gs, ws, rtol=1e-4)
+        elif key.startswith("K7a-bf16"):
+            # the bf16 rounding of a ReLU output can go the other way when
+            # the f32 sum before it differs in its last bit
+            check(diff <= 1e-3 * kept, f"{key} @ {n_rows}: counts differ by {diff} of {kept}")
+            np.testing.assert_allclose(gs, ws, rtol=2e-2, atol=1e-2)
+        else:
+            # integer layers are exact, the epilogues are the same two
+            # roundings on both sides; only the f64 sum order differs
+            check(diff == 0, f"{key} @ {n_rows}: counts differ by {diff} rows")
+            np.testing.assert_allclose(gs, ws, rtol=1e-5)
+        err = float(np.abs(gs - ws).max())
+        print(f"{key} @ {n_rows} rows: kept {kept}, count diff {diff}, max abs sum err {err:.3e}")
+        return err
+
+    cases = {
+        "K7a-f32": (w_f32, x_dev, fused_mlp_query, fused_mlp_query_plain),
+        "K7a-bf16": (w_bf16, x_bf16, fused_mlp_query, fused_mlp_query_plain),
+        "K7a-bf16 (f32 table)": (w_bf16, x_dev, fused_mlp_query, fused_mlp_query_plain),
+        "K7b": (w_s, xq, fused_mlp_query_columnar_int8, fused_mlp_query_columnar_int8_plain),
+    }
+    max_err = {}
+    for key, (w, table, kern, plain) in cases.items():
+        rag = table[:N_RAGGED] if table.dtype != torch.int8 else table[:, :N_RAGGED].contiguous()
+        errs = []
+        for t, n_rows in ((table, n), (rag, N_RAGGED)):
+            got = kern(w, t)
+            errs.append(compare(key, got, plain(w, t), n_rows))
+            if key == "K7b":
+                emu = emulate_int8_static(qparams, t.cpu().numpy())
+                d = int(np.abs(got[0].cpu().numpy() - emu).sum())
+                check(d == 0, f"K7b @ {n_rows}: counts differ from the emulation by {d}")
+                print(f"K7b @ {n_rows} rows: counts equal the numpy integer emulation")
+        max_err[key.split(" ")[0]] = max(max_err.get(key.split(" ")[0], 0.0), *errs)
+    # bf16 mode rounds an f32 table at load exactly as the bf16 table holds it
+    for a, b in zip(fused_mlp_query(w_bf16, x_dev), fused_mlp_query(w_bf16, x_bf16)):
+        check(torch.equal(a, b), "K7a bf16: an f32 table and its bf16 copy disagree")
+
+    # ---------------------------------------------------------------- times
+    tw = [(torch.as_tensor(w, device=device), torch.as_tensor(b, device=device))
+          for w, b in params]
+    tw_bf16 = [(w.to(torch.bfloat16), b.to(torch.bfloat16)) for w, b in tw]
+
+    def library_rows(x, weights):
+        """Row-major addmm chain, then argmax, the filter and index_add_."""
+        h = x
+        for i, (w, b) in enumerate(weights):
+            h = torch.addmm(b, h, w)
+            if i < len(weights) - 1:
+                h = torch.relu(h)
+        h = h.float()
+        pred = h.argmax(dim=1)
+        sel = (h[:, 0] > 0).float()
+        counts = torch.zeros(h.shape[1], device=h.device).index_add_(0, pred, sel)
+        sums = torch.zeros(h.shape[1], device=h.device).index_add_(0, pred, h[:, 0] * sel)
+        return counts, sums
+
+    # K7b's yardstick: cuBLASLt int8 products (torch._int_mm needs more than
+    # 16 rows in its first operand, so the last layer's weights are padded
+    # to 32 rows) with the f32 epilogues as torch ops
+    lq = []
+    for i, (wq, comb, bq) in enumerate(w_s.layers):
+        if i == len(w_s.layers) - 1:
+            wq = torch.nn.functional.pad(wq, (0, 0, 0, 32 - wq.shape[0]))
+        lq.append((wq.contiguous(), comb, bq))
+
+    def library_int8(q):
+        for i, (wq, comb, bq) in enumerate(lq):
+            y = torch._int_mm(wq, q)[: comb.shape[0]].float()
+            t = y * comb + bq
+            if i < len(lq) - 1:
+                q = torch.clamp(torch.round(t), 0, 127).to(torch.int8)
+        pred = t.argmax(dim=0)
+        sel = (t[0] > 0).float()
+        counts = torch.zeros(t.shape[0], device=t.device).index_add_(0, pred, sel)
+        sums = torch.zeros(t.shape[0], device=t.device).index_add_(0, pred, t[0] * sel)
+        return counts, sums
+
+    macs = sum(w.shape[0] * w.shape[1] for w, _ in params)
+    ops = 2.0 * n * macs
+    timed = {
+        "K7a-f32": ("f32", n * 32 * 4, lambda: fused_mlp_query(w_f32, x_dev),
+                    lambda: fused_mlp_query_plain(w_f32, x_dev),
+                    lambda: library_rows(x_dev, tw)),
+        "K7a-bf16": ("bf16", n * 32 * 2, lambda: fused_mlp_query(w_bf16, x_bf16),
+                     lambda: fused_mlp_query_plain(w_bf16, x_bf16),
+                     lambda: library_rows(x_bf16, tw_bf16)),
+        "K7b": ("int8", n * 32, lambda: fused_mlp_query_columnar_int8(w_s, xq),
+                lambda: fused_mlp_query_columnar_int8_plain(w_s, xq), lambda: library_int8(xq)),
+    }
+    meta = {
+        "K7a-f32": ("fused_mlp_query (f32)", "infera_tpu/ops/pallas_query.py:33"),
+        "K7a-bf16": ("fused_mlp_query (bf16)", "infera_tpu/ops/pallas_query.py:33"),
+        "K7b": ("fused_mlp_query_columnar_int8", "infera_tpu/ops/pallas_query.py:223"),
+    }
+    rows = []
+    for key, (op_type, nbytes, kern, plain, lib) in timed.items():
+        kern_times = device_ms(torch, kern)
+        ms, q25, q75 = (float(v) for v in np.percentile(kern_times, [50, 25, 75]))
+        plain_ms = float(np.median(device_ms(torch, plain)))
+        library_ms = float(np.median(device_ms(torch, lib)))
+        b_ms, b_by = bound(ops, nbytes, op_type, peaks)
+        kname, replaces = meta[key]
+        rows.append({"name": f"{key} {kname}", "route": "cuda",
+                     "source": "infera_tpu_torch/csrc/fused_query.cu", "replaces": replaces,
+                     "launches": launches[key], "max_abs_err": max_err[key], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": library_ms})
+        print(f"{key}: kernel {ms:.4f} ms (quartiles {q25:.4f}-{q75:.4f}), plain {plain_ms:.4f} ms, "
+              f"library {library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+
+    int8_ms = host_ms(torch, lambda: itt.predict("mlp_int8", x_rows))
+    print(f"engine predict @ {n} rows on the host clock: int8 {int8_ms:.3f} ms "
+          f"({n / int8_ms * 1e3:,.0f} rows/s), f32 {f32_predict_ms:.3f} ms")
+    return rows
+
+
 def _block_rows(conn, name, xc):
     """{column: row} of the table's block on the card (the plan's block)."""
     from infera_tpu_torch.sql import device_plan
@@ -1357,6 +1587,7 @@ def main() -> int:
           f"{N_MAIN / parts['predict'] * 1e3:,.0f} rows/s; copy in {parts['h2d']:.3f} ms, "
           f"K6 {parts['k6']:.3f} ms, copy out {parts['d2h']:.3f} ms")
 
+    rows += bench_phase(torch, itt, params, x_rows, x_dev, peaks, device, parts["predict"])
     rows += sql_phase(torch, itt, x_rows, peaks, device)
     rows += tree_phase(torch, itt, x_rows, peaks, device)
     rows += join_phase(torch, itt, peaks, device)

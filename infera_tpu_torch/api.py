@@ -44,8 +44,9 @@ def load_model(name: str, path_or_url: str, precision: str = "f32") -> None:
 
     URLs are detected by the same 'starts with "http"' rule (lib.rs:47) and
     resolved through the disk cache. Raises InferaError on failure.
-    ``precision``: "f32" (default, reference parity) or "bf16"; "int8" is
-    not supported by the torch backend yet.
+    ``precision``: "f32" (default, reference parity), "bf16", or "int8"
+    (static calibration on the first predict); ``get_model_info`` names a
+    precision other than "f32".
     """
     if path_or_url.startswith("http"):
         local_path = str(cache.handle_remote_model(path_or_url))

@@ -2,15 +2,23 @@
 
 Counterpart of the repo's ``bench.py`` for the port. The workload is the same
 query: an MLP classifier (32 -> 128 -> 128 -> 16) over a 1,048,576-row
-feature-major table, then argmax, the filter ``score0 > 0`` and a per-class
-count and sum. The implementations, in ``bench.py``'s order with ``pallas_``
-renamed ``cuda_``:
+table, then argmax, the filter ``score0 > 0`` and a per-class count and sum.
+The implementations, in ``bench.py``'s order with ``pallas_`` renamed
+``cuda_``:
 
 - ``torch``: the query as a chain of PyTorch ops on the card (the
   counterpart of ``xla``);
-- ``cuda_col_bf16_io``: K1 in bf16 over a bf16 table;
-- ``cuda_col_int8_shift``: K3 over an int8 table;
+- ``cuda_col_bf16_io``: K1 in bf16 over a feature-major bf16 table;
+- ``cuda_col_int8_shift``: K3 over a feature-major int8 table;
+- ``cuda_col_int8``: K7b over a feature-major int8 table (static
+  calibration, f32 requantization epilogues);
+- ``cuda_bf16_io``: K7a in bf16 over a row-major bf16 table;
+- ``cuda_bf16``: K7a in bf16 over a row-major f32 table, rounded at load;
+- ``cuda_f32``: K7a in f32 over a row-major f32 table;
 - ``cuda_col_f32``: K1 in f32 (the parity kernel).
+
+Both int8 impls calibrate on the same host sample (``default_rng(7)``,
+16,384 rows).
 
 Device times come from CUDA events over ``--iters`` back-to-back calls. The
 baseline is the same query in PyTorch on the host CPU with a pinned thread
@@ -33,11 +41,15 @@ import numpy as np
 import torch
 
 from .ops.fused_query import (
+    fused_mlp_query,
     fused_mlp_query_columnar,
+    fused_mlp_query_columnar_int8,
     fused_mlp_query_columnar_int8_shift,
     params_from_numpy,
     qparams_from_numpy,
+    qparams_static_from_numpy,
     quantize_mlp_shift,
+    quantize_mlp_static,
 )
 
 IN_DIM, HIDDEN, OUT_DIM = 32, (128, 128), 16
@@ -93,10 +105,13 @@ def device_ms(fn, arg, iters: int) -> float:
 
 
 def bench_cuda(params, rows: int, iters: int) -> dict:
+    """Time every implementation; returns the fastest one's numbers and
+    ``ms_by_impl``, each implementation's ms per call."""
     device = torch.device("cuda")
     print(f"device: {torch.cuda.get_device_name(0)}", file=sys.stderr)
     x = np.random.default_rng(1).standard_normal((rows, IN_DIM)).astype(np.float32)
-    xc = torch.as_tensor(np.ascontiguousarray(x.T), device=device)
+    x_dev = torch.as_tensor(x, device=device)
+    xc = x_dev.T.contiguous()
     model_flops = 2 * rows * sum(w.shape[0] * w.shape[1] for w, _ in params)
 
     tparams = [(torch.as_tensor(np.ascontiguousarray(w.T), device=device),
@@ -120,11 +135,22 @@ def bench_cuda(params, rows: int, iters: int) -> dict:
                       lambda a: fused_mlp_query_columnar_int8_shift(w_q, a), xq))
     else:
         print("int8-shift calibration REFUSED (class-flip gate)", file=sys.stderr)
-    impls.append(("cuda_col_f32", lambda a: fused_mlp_query_columnar(w_f32, a), xc))
+    qparams, s0_static = quantize_mlp_static(params, x_host)
+    xq_static = torch.clamp(torch.round(xc / float(s0_static)), -127, 127).to(torch.int8)
+    w_static = qparams_static_from_numpy(qparams, device)
+    impls += [
+        ("cuda_col_int8", lambda a: fused_mlp_query_columnar_int8(w_static, a), xq_static),
+        ("cuda_bf16_io", lambda a: fused_mlp_query(w_bf16, a), x_dev.to(torch.bfloat16)),
+        ("cuda_bf16", lambda a: fused_mlp_query(w_bf16, a), x_dev),
+        ("cuda_f32", lambda a: fused_mlp_query(w_f32, a), x_dev),
+        ("cuda_col_f32", lambda a: fused_mlp_query_columnar(w_f32, a), xc),
+    ]
 
     best = None
+    times = {}
     for name, fn, inp in impls:
         ms = device_ms(fn, inp, iters)
+        times[name] = ms
         dt = ms / 1e3
         rps = rows / dt
         bytes_in = inp.numel() * inp.element_size()
@@ -135,6 +161,7 @@ def bench_cuda(params, rows: int, iters: int) -> dict:
         if best is None or rps > best["rows_per_s"]:
             best = {"impl": name, "rows_per_s": rps, "mfu": round(mfu, 4),
                     "hbm_frac": round(hbm, 4)}
+    best["ms_by_impl"] = times
     return best
 
 

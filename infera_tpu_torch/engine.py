@@ -45,8 +45,10 @@ class InferenceResult:
 
 def load_model(name: str, path: str, precision: str = "f32") -> None:
     """Parse an ONNX file, move its weights to the device and register it
-    (engine.rs:48-82). ``precision``: "f32" (reference-parity default) or
-    "bf16"; "int8" is not supported by the torch backend yet."""
+    (engine.rs:48-82). ``precision``: "f32" (reference-parity default),
+    "bf16", or "int8" (static per-channel weights, activation scales
+    calibrated on the first predict's first 4,096 rows; an MLP runs the fused
+    int8 chain)."""
     compiled = compile_model_file(path, name, precision, get_device())
     MODELS.insert(name, compiled)
     log.info(f"loaded model '{name}' from {path} "

@@ -4,13 +4,16 @@ Counterpart of ``infera_tpu/onnx/executor.py``. The graph runs node by node
 on tensors of the model's device; there is no per-shape compile cache,
 because PyTorch runs eagerly. Initializers move to the device once, when the
 model is loaded. A graph that matches the fused-MLP pattern carries an
-``mlp_plan`` and runs through kernel K6 (``fusion.maybe_run_fused``).
+``mlp_plan`` and runs through kernel K6 (``fusion.maybe_run_fused``) at f32,
+or through the fused int8 chain (``fusion.maybe_run_int8_fused``) at int8
+once the first call has calibrated the activation scales.
 
-Not in this slice: ``run_data_parallel``, the int8 policy and its static
-calibration (``calibrate_int8``).
+Not in this slice: ``run_data_parallel``.
 """
 
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import torch
@@ -25,10 +28,18 @@ VALID_PRECISIONS = ("f32", "bf16", "int8")
 
 class _Ctx:
     """Per-run context handed to op impls: the model's matmul precision
-    policy (f32 parity / bf16)."""
+    policy (f32 parity / bf16 / int8), its static initializers as numpy
+    arrays, and whether this run is the int8 calibrating pass."""
 
-    def __init__(self, matmul_precision: str = "f32"):
+    def __init__(self, matmul_precision: str = "f32", static: dict | None = None,
+                 calibrating: bool = False):
         self.matmul_precision = matmul_precision
+        self._static = static or {}
+        self.calibrating = calibrating
+
+    def static(self, name: str):
+        """The initializer ``name`` as numpy, or None for a computed value."""
+        return self._static.get(name)
 
 
 def _toposort(graph: proto.Graph) -> list:
@@ -91,8 +102,6 @@ class CompiledOnnxModel:
             raise OnnxError(
                 f"unsupported precision '{precision}' "
                 f"(expected one of {', '.join(VALID_PRECISIONS)})")
-        if precision == "int8":
-            raise OnnxError("precision 'int8' is not supported by the torch backend yet")
         self.precision = precision
         self.name = name
         self.model = model
@@ -113,6 +122,13 @@ class CompiledOnnxModel:
             name: _to_tensor(t.array, self.device)
             for name, t in self.graph.initializers.items()
         }
+        # the int8 policy quantizes static weights on the host, as infera_tpu
+        self._static = ({name: np.asarray(t.array) for name, t in self.graph.initializers.items()}
+                        if precision == "int8" else {})
+        self._lock = threading.Lock()
+        self._calibrating = False
+        self._int8_calibrated = False
+        self._int8_fused_cache: dict = {}
         out0 = self.graph.outputs[0] if self.graph.outputs else None
         if out0 is not None and out0.has_shape and out0.shape:
             self.output_shape = [int(d) if d and d > 0 else -1 for d in out0.shape]
@@ -134,7 +150,7 @@ class CompiledOnnxModel:
         values: dict = dict(self._initializers)
         for vi, arr in zip(self.runtime_inputs, args):
             values[vi.name] = arr
-        _run_nodes(self.nodes, values, _Ctx(self.precision))
+        _run_nodes(self.nodes, values, _Ctx(self.precision, self._static, self._calibrating))
         outs = []
         for v in self.graph.outputs:
             if v.name not in values:
@@ -155,10 +171,48 @@ class CompiledOnnxModel:
         except Exception as e:  # pragma: no cover - surfaced as OnnxError
             raise OnnxError(f"shape inference failed for '{self.name}': {e}")
 
+    def calibrate_int8(self, sample_arrays) -> None:
+        """Record static per-tensor activation scales from a calibration
+        sample: one f32 pass through the graph stores max|activation| / 127
+        on each int8 matmul node, after which int8 inference quantizes with
+        those constants (``infera_tpu``'s ``calibrate_int8``). At most the
+        first 4,096 rows calibrate. A sample the graph refuses leaves the
+        scales unset (the dynamic per-row path stays in use); the call that
+        follows raises the graph's error."""
+        if self.precision != "int8" or self._int8_calibrated:
+            return
+        with self._lock:
+            if self._int8_calibrated:
+                return
+            sample = []
+            for a in sample_arrays:
+                t = _to_tensor(a, self.device)
+                if t.dim() and t.shape[0] > 4096:
+                    t = t[:4096]  # a slice calibrates as well as the batch
+                sample.append(t)
+            self._calibrating = True
+            try:
+                self._run_graph(*sample)
+            except (OnnxError, RuntimeError, ValueError, IndexError):
+                pass
+            finally:
+                self._calibrating = False
+            self._int8_calibrated = True
+
     def run(self, *arrays) -> list:
         """Run the model on tensors or numpy arrays; returns tensors on the
-        model's device."""
+        model's device. An int8 model calibrates on its first call, then runs
+        the fused int8 chain when the graph matched the MLP pattern."""
         tensors = [_to_tensor(a, self.device) for a in arrays]
+        if self.precision == "int8":
+            if not self._int8_calibrated:
+                self.calibrate_int8(tensors)
+            if len(tensors) == 1 and self.mlp_plan is not None:
+                from .fusion import maybe_run_int8_fused
+
+                fused = maybe_run_int8_fused(self, tensors[0])
+                if fused is not None:
+                    return [fused]
         if len(tensors) == 1 and self.mlp_weights is not None:
             from .fusion import maybe_run_fused
 

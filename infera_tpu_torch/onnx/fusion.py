@@ -1,5 +1,5 @@
 """Graph pattern fusion: recognize MLP-shaped ONNX graphs and run them
-through the fused MLP kernel K6.
+through the fused MLP kernel K6 (f32) or the fused int8 chain (int8).
 
 Counterpart of ``infera_tpu/onnx/fusion.py``. Detection walks the graph for
 the exact chain
@@ -11,7 +11,9 @@ Path selection: a matched f32 model whose widths fit K6's shared-memory
 budget always runs K6 on CUDA (its plain version on the CPU). There is no
 timed kernel-vs-graph probe: a probe could quietly hide the kernel.
 ``INFERA_PALLAS_MLP=0`` selects the op-by-op graph path; a model above the
-budget takes that path too.
+budget takes that path too. An int8 model runs ``maybe_run_int8_fused``
+once its activation scales are calibrated; ``infera_tpu`` computes that chain
+in XLA, outside any Pallas kernel, and the port in torch ops.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 
 from ..ops.fused_mlp import fused_mlp, mlp_weights, smem_fits
 from . import proto
+from .ops import _quantize_weight_int8, int8_matmul, int8_weight_tensors
 
 
 def detect_mlp(graph: proto.Graph):
@@ -160,3 +163,66 @@ def maybe_run_fused(model, x):
     if x.dim() != 2 or x.shape[1] != weights.dims[0] or x.dtype != torch.float32:
         return None
     return fused_mlp(weights, x.contiguous(), final_softmax=model.mlp_plan[1])
+
+
+def _int8_chain(nodes, params, scales, final_softmax, device):
+    """The fused int8 forward of ``infera_tpu``'s ``maybe_run_int8_fused``
+    with its constants on ``device``: hidden activations stay int8 between
+    layers, each requantized in its layer's epilogue as
+    q = clip(rint(max(y * comb + bq, 0)), 0, 127) with
+    comb = w_scale * (s_i / s_{i+1}) and bq = b / s_{i+1} (f32, computed in
+    numpy as ``infera_tpu`` computes them, so they are bit-equal)."""
+    n_layers = len(params)
+    inv0 = float(np.float32(1.0 / scales[0]))
+    layers = []
+    for i, (nd, (w, b)) in enumerate(zip(nodes, params)):
+        w_q, _ = int8_weight_tensors(nd, w, device)
+        w_scale = _quantize_weight_int8(nd, w)[1]
+        if i < n_layers - 1:
+            comb = np.asarray(w_scale * np.float32(scales[i] / scales[i + 1]), np.float32)
+            bias = np.asarray(b / np.float32(scales[i + 1]), np.float32)
+        else:
+            comb = np.asarray(w_scale * np.float32(scales[i]), np.float32)
+            bias = np.asarray(b, np.float32)
+        layers.append((w_q, torch.as_tensor(comb, device=device),
+                       torch.as_tensor(bias, device=device)))
+
+    def forward(x):
+        q = torch.clamp(torch.round(x * inv0), -127, 127).to(torch.int8)
+        for i, (w_q, comb, bias) in enumerate(layers):
+            # a multiply, then an add: two roundings, as K7b's epilogue (XLA
+            # on the CPU contracts them into one FMA: an ulp apart)
+            t = int8_matmul(q, w_q) * comb + bias
+            if i < n_layers - 1:
+                # ReLU and requantize in one epilogue, written as int8
+                q = torch.clamp(torch.round(torch.clamp_min(t, 0.0)), 0, 127).to(torch.int8)
+        return torch.softmax(t, dim=-1) if final_softmax else t
+
+    return forward
+
+
+def maybe_run_int8_fused(model, x):
+    """Run ``x`` through the fused int8 MLP chain: hidden activations stay
+    int8 between layers instead of round-tripping through f32. Needs the
+    calibrated per-tensor activation scales. Returns the output tensor, or
+    None when there is no plan, ``x`` has the wrong shape, or a node is
+    uncalibrated (the caller runs the graph's per-layer path).
+
+    The chain's constants are cached on the model under the input shape and
+    the scales: a re-calibration with new scales must not reuse old ones."""
+    plan = model.mlp_plan
+    if plan is None or len(plan) < 3:
+        return None
+    params, final_softmax, nodes = plan
+    if x.dim() != 2 or x.shape[1] != params[0][0].shape[0]:
+        return None
+    scales = [getattr(nd, "_infera_act_scale", None) for nd in nodes]
+    if any(not s for s in scales):
+        return None
+    cache = model._int8_fused_cache
+    key = (tuple(x.shape), tuple(float(s) for s in scales))
+    fn = cache.get(key)
+    if fn is None:
+        fn = _int8_chain(nodes, params, scales, final_softmax, x.device)
+        cache[key] = fn
+    return fn(x.float())

@@ -37,8 +37,12 @@ _SIGNATURES = {
     "fused_query": {
         "infera_fused_query_f32": [_P, _I, _I, _LL, _P, _LL, _P, _I, _I, _P, _P, _P, _P,
                                    _I, _I, _P],
+        "infera_fused_query_rows": [_P, _I, _I, _LL, _P, _LL, _P, _I, _I, _P, _P, _P, _P,
+                                    _I, _I, _P],
         "infera_fused_query_int8_shift": [_P, _LL, _P, _LL, _P, _I, _I, _I, _P, _P, _P, _P,
                                           _I, _I, _P],
+        "infera_fused_query_int8_static": [_P, _LL, _P, _LL, _P, _I, _I, _P, _P, _P, _P,
+                                           _I, _I, _P],
     },
     "fused_sql": {
         "infera_fused_sql": [_P, _LL, _LL, _P, _P, _LL, _P, _P, _P, _P, _LL, _P, _P, _P, _P,

@@ -1,8 +1,9 @@
 """Hash aggregate (GROUP BY) operator.
 
-Host half of ``infera_tpu/ops/aggregate.py``: numpy unique-based grouping,
+Counterpart of ``infera_tpu/ops/aggregate.py``: numpy unique-based grouping,
 complete SQL semantics (NULL groups, aggregates over expressions, HAVING).
-The sort-based device group-by comes with the port's device tier.
+Large numeric tables assign their group ids on the device by sorting
+(``ops/device_groupby.py``), as ``infera_tpu`` does.
 """
 
 from __future__ import annotations
@@ -13,6 +14,9 @@ from ..columnar import Column, Table, infer_sql_type
 from ..columnar import types as T
 from ..errors import SqlError
 from ..sql import ast as A
+
+# rows above which numeric GROUP BY keys use the device sort path
+DEVICE_GROUPBY_THRESHOLD = 1 << 15
 
 # --- aggregate function catalog -------------------------------------------
 
@@ -539,10 +543,20 @@ def group_aggregate(sel, scope, eval_fn, scope_cls) -> Table:
     conn_eval = eval_fn  # (expr, scope) -> Column
     n_rows = scope.num_rows
 
-    # 1. group keys — the host dict path (group output order is unspecified
-    # in SQL); the device sort-based path comes with the port's device tier
+    # 1. group keys — device sort-based path for large all-numeric keys,
+    # host dict path otherwise (group output order is unspecified in SQL)
     key_cols = [conn_eval(e, scope) for e in sel.group_by]
-    groups, firsts = group_ids_host(key_cols, n_rows)
+    if (
+        key_cols
+        and n_rows >= DEVICE_GROUPBY_THRESHOLD
+        and all((k.sql_type.is_numeric or k.data.dtype == object)
+                and k.validity is None for k in key_cols)
+    ):
+        from .device_groupby import group_ids_device
+
+        groups, firsts = group_ids_device(key_cols, n_rows)
+    else:
+        groups, firsts = group_ids_host(key_cols, n_rows)
     if sel.group_by:
         n_groups = len(firsts)
     else:

@@ -1,22 +1,28 @@
-"""K1 and K3: the fused inference query as one kernel each.
+"""K1, K3, K7a and K7b: the fused inference query as one kernel each.
 
-Counterpart of ``infera_tpu/ops/pallas_query.py``. Over a feature-major table
-``x [d0, N]`` (stacked columns) the query
+Counterpart of ``infera_tpu/ops/pallas_query.py``. Over a table of N rows the
+query
 
     scan -> ReLU MLP -> argmax over classes (first index on ties)
     -> keep rows with score0 > 0 -> per class: count and sum of score0
 
 runs in ``csrc/fused_query.cu``:
 
-- K1, ``fused_mlp_query_columnar``: f32, or bf16 operands (the input and every
-  ReLU output rounded to bf16) with f32 accumulation; biases, ReLU and the
-  tail in f32.
-- K3, ``fused_mlp_query_columnar_int8_shift``: int8 x int8 -> int32 layers;
-  hidden layers requantize with integer shifts,
+- K1, ``fused_mlp_query_columnar``: a feature-major table ``x [d0, N]``
+  (stacked columns) in f32, or bf16 operands (the input and every ReLU output
+  rounded to bf16) with f32 accumulation; biases, ReLU and the tail in f32.
+- K7a, ``fused_mlp_query``: K1's function over a row-major table
+  ``x [N, d0]``.
+- K3, ``fused_mlp_query_columnar_int8_shift``: an int8 table ``[d0, N]``,
+  int8 x int8 -> int32 layers; hidden layers requantize with integer shifts,
   ``q = clip(((y << sl) + bias_pre) >> sr, 0, 127)``; the last layer computes
   ``y * comb + bias`` in f32. Its weights come from ``quantize_mlp_shift``.
+- K7b, ``fused_mlp_query_columnar_int8``: K3 with the static-calibration
+  epilogue ``t = f32(y) * comb + bq`` (two roundings); hidden layers
+  requantize as ``q = clip(rint(t), 0, 127)`` (ReLU folded into the clip), the
+  last layer keeps ``t``. Its weights come from ``quantize_mlp_static``.
 
-Both return ``(counts [C] int64, sums [C] f32)``: the counts stay integers,
+All return ``(counts [C] int64, sums [C] f32)``: the counts stay integers,
 where the TPU kernel returned them as f32. Each wrapper launches its kernel
 for a CUDA tensor and runs its plain version for a CPU tensor; it raises for
 anything else. Any N >= 1 is accepted: the kernel masks the ragged last tile.
@@ -99,30 +105,64 @@ def _pack_int8_words(wq: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(words.T).view(np.int32)
 
 
+def _int8_blob(wqs, epilogue_rows, device) -> tuple:
+    """(dims, blob) of an int8 kernel from each layer's weights wq int8
+    [dout, din] and three epilogue rows: the packed weights of every layer,
+    then per layer its epilogue rows as int32 words [3][pad8(dout)]."""
+    weight_words = [_pack_int8_words(wq).reshape(-1) for wq in wqs]
+    epilogues = []
+    for wq, rows in zip(wqs, epilogue_rows):
+        epi = np.zeros((3, pad8(wq.shape[0])), np.int32)
+        for r, row in enumerate(rows):
+            epi[r, :wq.shape[0]] = row
+        epilogues.append(epi.reshape(-1))
+    dims = (wqs[0].shape[1],) + tuple(wq.shape[0] for wq in wqs)
+    return dims, torch.as_tensor(np.concatenate(weight_words + epilogues), device=device)
+
+
 def qparams_from_numpy(qparams, device) -> ShiftWeights:
     """Carry ``quantize_mlp_shift``'s qparams to ``device``."""
     n_layers = len(qparams)
     layers = []
-    weight_words = []
-    epilogues = []
+    rows = []
     for li, (wq, a1, a2, a3) in enumerate(qparams):
         last = li == n_layers - 1
         wq = np.asarray(wq, np.int8)
-        dout = wq.shape[0]
         a1 = np.asarray(a1, np.float32 if last else np.int32).reshape(-1, 1)
         a2 = np.asarray(a2, np.int32).reshape(-1, 1)
         a3 = np.asarray(a3, np.float32 if last else np.int32).reshape(-1, 1)
         layers.append(tuple(torch.as_tensor(a, device=device) for a in (wq, a1, a2, a3)))
-        weight_words.append(_pack_int8_words(wq).reshape(-1))
-        epi = np.zeros((3, pad8(dout)), np.int32)
-        epi[0, :dout] = a1.reshape(-1).view(np.int32)   # sl, or comb's float bits
-        epi[1, :dout] = 0 if last else a2.reshape(-1)   # sr
-        epi[2, :dout] = a3.reshape(-1).view(np.int32)   # bias_pre, or bias's float bits
-        epilogues.append(epi.reshape(-1))
-    dims = (layers[0][0].shape[1],) + tuple(layer[0].shape[0] for layer in layers)
-    blob = torch.as_tensor(np.concatenate(weight_words + epilogues), device=device)
+        rows.append((a1.reshape(-1).view(np.int32),      # sl, or comb's float bits
+                     0 if last else a2.reshape(-1),      # sr
+                     a3.reshape(-1).view(np.int32)))     # bias_pre, or bias's float bits
+    dims, blob = _int8_blob([np.asarray(qp[0], np.int8) for qp in qparams], rows, device)
     need_sl = tuple(bool(np.asarray(qp[1]).max() > 0) for qp in qparams[:-1]) + (False,)
     return ShiftWeights(dims=dims, layers=layers, blob=blob, need_sl=need_sl)
+
+
+@dataclass(frozen=True)
+class StaticInt8Weights:
+    """K7b's weights on one device: ``layers`` holds ``quantize_mlp_static``'s
+    qparams as tensors, [(wqT int8 [dout, din], comb f32 [dout, 1], bq f32
+    [dout, 1]), ...], and ``blob`` the int32 words of the kernel's layout
+    (K3's, with the epilogue rows (comb, 0, bq) as float bits)."""
+
+    dims: tuple
+    layers: list
+    blob: torch.Tensor
+
+
+def qparams_static_from_numpy(qparams, device) -> StaticInt8Weights:
+    """Carry ``quantize_mlp_static``'s qparams to ``device``."""
+    layers = []
+    rows = []
+    for wq, comb, bq in qparams:
+        arrs = (np.asarray(wq, np.int8), np.asarray(comb, np.float32).reshape(-1, 1),
+                np.asarray(bq, np.float32).reshape(-1, 1))
+        layers.append(tuple(torch.as_tensor(a, device=device) for a in arrs))
+        rows.append((arrs[1].reshape(-1).view(np.int32), 0, arrs[2].reshape(-1).view(np.int32)))
+    dims, blob = _int8_blob([np.asarray(qp[0], np.int8) for qp in qparams], rows, device)
+    return StaticInt8Weights(dims=dims, layers=layers, blob=blob)
 
 
 # --------------------------------------------------------------------------- plain versions
@@ -175,6 +215,28 @@ def fused_mlp_query_columnar_int8_shift_plain(weights: ShiftWeights, xq: torch.T
     return query_tail_plain(h)
 
 
+def fused_mlp_query_plain(weights: QueryWeights, x: torch.Tensor):
+    """K7a's function in plain PyTorch: K1's over the transposed table."""
+    return fused_mlp_query_columnar_plain(weights, x.T)
+
+
+def fused_mlp_query_columnar_int8_plain(weights: StaticInt8Weights, xq: torch.Tensor):
+    """K7b's function in plain PyTorch. The int8 products are summed in f64,
+    exact, and are exact in f32 too (|y| <= 127 * 127 * din < 2**24); the
+    epilogue is a separate f32 multiply and add, then ``torch.round``, which
+    rounds half to even as ``jnp.rint`` does."""
+    q = xq
+    last = len(weights.layers) - 1
+    h = None
+    for i, (wq, comb, bq) in enumerate(weights.layers):
+        t = (wq.double() @ q.double()).float() * comb + bq
+        if i < last:
+            q = torch.clamp(torch.round(t), 0, 127)
+        else:
+            h = t
+    return query_tail_plain(h)
+
+
 # --------------------------------------------------------------------------- kernels
 
 
@@ -185,11 +247,13 @@ def _partials(n_blocks: int, n_classes: int, device):
             torch.empty(n_classes, dtype=torch.float32, device=device))
 
 
-def _check_table(x: torch.Tensor, dtypes, d0: int, blob: torch.Tensor, dims) -> None:
+def _check_table(x: torch.Tensor, dtypes, d0: int, blob: torch.Tensor, dims,
+                 row_major: bool = False) -> None:
     _kernels.require_cuda(x, "table")
-    if x.dtype not in dtypes or x.dim() != 2 or x.shape[0] != d0 or x.shape[1] < 1:
-        raise ValueError(f"table must be [{d0}, N >= 1] of {dtypes}, "
-                         f"got {x.dtype} {tuple(x.shape)}")
+    want = f"[N >= 1, {d0}]" if row_major else f"[{d0}, N >= 1]"
+    feat, rows = (1, 0) if row_major else (0, 1)
+    if x.dtype not in dtypes or x.dim() != 2 or x.shape[feat] != d0 or x.shape[rows] < 1:
+        raise ValueError(f"table must be {want} of {dtypes}, got {x.dtype} {tuple(x.shape)}")
     if blob.device != x.device:
         raise ValueError(f"weights on {blob.device}, table on {x.device}")
     if not 1 <= len(dims) - 1 <= MAX_LAYERS:
@@ -204,17 +268,43 @@ def query_smem_bytes(dims) -> int:
     return 4 * blob + _tail_bytes(dims[-1]) + 8 * widest * ACT_STRIDE
 
 
+def rows_query_smem_bytes(dims) -> int:
+    """Shared memory of K7a: K1's, and the staging tile a row-major 64-row
+    tile is read into before its transposition, [64][d0 | 1] f32."""
+    return query_smem_bytes(dims) + 4 * TILE_ROWS * (dims[0] | 1)
+
+
 def _int8_widest4(dims) -> int:
     return max([_div4(dims[0])] + [pad8(d) // 4 for d in dims[1:-1]])
 
 
 def int8_smem_bytes(dims) -> int:
-    """Shared memory of K3: packed weights and epilogue constants, the tail's
-    scratch, two packed activation tiles and the f32 scores of the tile."""
+    """Shared memory of K3 and of K7b (whose blob has K3's layout): packed
+    weights and epilogue constants, the tail's scratch, two packed
+    activation tiles and the f32 scores of the tile."""
     blob = sum(_div4(dims[i]) * pad8(dims[i + 1]) + 3 * pad8(dims[i + 1])
                for i in range(len(dims) - 1))
     return (4 * blob + _tail_bytes(dims[-1]) + 8 * _int8_widest4(dims) * ACT_STRIDE
             + 4 * pad8(dims[-1]) * ACT_STRIDE)
+
+
+def _launch_f32(entry: str, weights: QueryWeights, x: torch.Tensor, n: int, smem: int):
+    """Launch K1 or K7a (C entry ``entry``) over a checked table of ``n``
+    rows; returns (counts, sums) and the compute dtype's name."""
+    dims = weights.dims
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"MLP {dims} exceeds the kernel's shared-memory budget")
+    n_blocks = _kernels.grid_blocks(x.device, -(-n // TILE_ROWS), smem)
+    part_cnt, part_sum, counts, sums = _partials(n_blocks, dims[-1], x.device)
+    compute = _COMPUTE[weights.compute_dtype]
+    lib = _kernels.load("fused_query")
+    rc = getattr(lib, entry)(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), int(compute == "bf16"), n,
+        weights.blob.data_ptr(), weights.blob.numel(), _kernels.int_array(dims),
+        len(dims) - 1, max(pad8(d) for d in dims), part_cnt.data_ptr(), part_sum.data_ptr(),
+        counts.data_ptr(), sums.data_ptr(), n_blocks, smem, _kernels.stream_handle(x.device))
+    _kernels.check(lib, rc, entry)
+    return (counts, sums), compute
 
 
 def fused_mlp_query_columnar(weights: QueryWeights, xc: torch.Tensor):
@@ -224,25 +314,49 @@ def fused_mlp_query_columnar(weights: QueryWeights, xc: torch.Tensor):
         return fused_mlp_query_columnar_plain(weights, xc)
     dims = weights.dims
     _check_table(xc, (torch.float32, torch.bfloat16), dims[0], weights.blob, dims)
-    smem = query_smem_bytes(dims)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"MLP {dims} exceeds the kernel's shared-memory budget")
-    n = xc.shape[1]
-    n_blocks = _kernels.grid_blocks(xc.device, -(-n // TILE_ROWS), smem)
-    part_cnt, part_sum, counts, sums = _partials(n_blocks, dims[-1], xc.device)
-    compute = _COMPUTE[weights.compute_dtype]
-    lib = _kernels.load("fused_query")
-    rc = lib.infera_fused_query_f32(
-        xc.data_ptr(), int(xc.dtype == torch.bfloat16), int(compute == "bf16"), n,
-        weights.blob.data_ptr(), weights.blob.numel(), _kernels.int_array(dims),
-        len(dims) - 1, max(pad8(d) for d in dims), part_cnt.data_ptr(), part_sum.data_ptr(),
-        counts.data_ptr(), sums.data_ptr(), n_blocks, smem, _kernels.stream_handle(xc.device))
-    _kernels.check(lib, rc, "fused_mlp_query_columnar")
+    out, compute = _launch_f32("infera_fused_query_f32", weights, xc, xc.shape[1],
+                               query_smem_bytes(dims))
     fused_mlp_query_columnar.launches[compute] += 1
-    return counts, sums
+    return out
 
 
 fused_mlp_query_columnar.launches = {"f32": 0, "bf16": 0}
+
+
+def fused_mlp_query(weights: QueryWeights, x: torch.Tensor):
+    """K7a over the row-major table ``x [N, d0]`` (f32 or bf16); ``weights``
+    from ``params_from_numpy`` fix the compute dtype. Returns (counts, sums)."""
+    if x.device.type == "cpu":
+        return fused_mlp_query_plain(weights, x)
+    dims = weights.dims
+    _check_table(x, (torch.float32, torch.bfloat16), dims[0], weights.blob, dims, row_major=True)
+    out, compute = _launch_f32("infera_fused_query_rows", weights, x, x.shape[0],
+                               rows_query_smem_bytes(dims))
+    fused_mlp_query.launches[compute] += 1
+    return out
+
+
+fused_mlp_query.launches = {"f32": 0, "bf16": 0}
+
+
+def _launch_int8(entry: str, weights, xq: torch.Tensor, *extra):
+    """Launch K3 or K7b (C entry ``entry``, with K3's ``extra`` arguments)
+    over a checked int8 table; returns (counts, sums)."""
+    dims = weights.dims
+    smem = int8_smem_bytes(dims)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"MLP {dims} exceeds the kernel's shared-memory budget")
+    n = xq.shape[1]
+    n_blocks = _kernels.grid_blocks(xq.device, -(-n // TILE_ROWS), smem)
+    part_cnt, part_sum, counts, sums = _partials(n_blocks, dims[-1], xq.device)
+    lib = _kernels.load("fused_query")
+    rc = getattr(lib, entry)(
+        xq.data_ptr(), n, weights.blob.data_ptr(), weights.blob.numel(),
+        _kernels.int_array(dims), len(dims) - 1, _int8_widest4(dims), *extra,
+        part_cnt.data_ptr(), part_sum.data_ptr(), counts.data_ptr(), sums.data_ptr(),
+        n_blocks, smem, _kernels.stream_handle(xq.device))
+    _kernels.check(lib, rc, entry)
+    return counts, sums
 
 
 def fused_mlp_query_columnar_int8_shift(weights: ShiftWeights, xq: torch.Tensor):
@@ -250,30 +364,71 @@ def fused_mlp_query_columnar_int8_shift(weights: ShiftWeights, xq: torch.Tensor)
     ``qparams_from_numpy``. Returns (counts, sums)."""
     if xq.device.type == "cpu":
         return fused_mlp_query_columnar_int8_shift_plain(weights, xq)
-    dims = weights.dims
-    _check_table(xq, (torch.int8,), dims[0], weights.blob, dims)
-    smem = int8_smem_bytes(dims)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"MLP {dims} exceeds the kernel's shared-memory budget")
-    n = xq.shape[1]
-    n_blocks = _kernels.grid_blocks(xq.device, -(-n // TILE_ROWS), smem)
-    part_cnt, part_sum, counts, sums = _partials(n_blocks, dims[-1], xq.device)
+    _check_table(xq, (torch.int8,), weights.dims[0], weights.blob, weights.dims)
     need_sl_mask = sum(1 << i for i, flag in enumerate(weights.need_sl) if flag)
-    lib = _kernels.load("fused_query")
-    rc = lib.infera_fused_query_int8_shift(
-        xq.data_ptr(), n, weights.blob.data_ptr(), weights.blob.numel(),
-        _kernels.int_array(dims), len(dims) - 1, _int8_widest4(dims), need_sl_mask,
-        part_cnt.data_ptr(), part_sum.data_ptr(), counts.data_ptr(), sums.data_ptr(),
-        n_blocks, smem, _kernels.stream_handle(xq.device))
-    _kernels.check(lib, rc, "fused_mlp_query_columnar_int8_shift")
+    out = _launch_int8("infera_fused_query_int8_shift", weights, xq, need_sl_mask)
     fused_mlp_query_columnar_int8_shift.launches += 1
-    return counts, sums
+    return out
 
 
 fused_mlp_query_columnar_int8_shift.launches = 0
 
+# K7b converts each layer's int32 sum to f32; that is exact while
+# 127 * 127 * din < 2**24
+MAX_STATIC_DIN = 1040
+
+
+def fused_mlp_query_columnar_int8(weights: StaticInt8Weights, xq: torch.Tensor):
+    """K7b over the int8 table ``xq [d0, N]``; ``weights`` from
+    ``qparams_static_from_numpy``. Returns (counts, sums)."""
+    if xq.device.type == "cpu":
+        return fused_mlp_query_columnar_int8_plain(weights, xq)
+    dims = weights.dims
+    _check_table(xq, (torch.int8,), dims[0], weights.blob, dims)
+    if max(dims[:-1]) > MAX_STATIC_DIN:
+        raise ValueError(f"MLP {dims}: a layer input wider than {MAX_STATIC_DIN} would not "
+                         f"convert its int32 sums to f32 exactly")
+    out = _launch_int8("infera_fused_query_int8_static", weights, xq)
+    fused_mlp_query_columnar_int8.launches += 1
+    return out
+
+
+fused_mlp_query_columnar_int8.launches = 0
+
 
 # --------------------------------------------------------------------------- calibration
+
+
+def quantize_mlp_static(params, x_sample):
+    """Static int8 calibration for K7b, copied from
+    ``infera_tpu.ops.pallas_query.quantize_mlp_static`` (numpy):
+    per-output-channel weight scales, per-layer activation scales from one
+    f32 forward over the sample. Returns (qparams, s0) where qparams =
+    [(wqT int8 [dout, din], comb [dout, 1], bq [dout, 1]), ...] with the
+    requantization folded into each layer's epilogue, and s0 is the input
+    scale (the table quantizes as rint(x / s0))."""
+    acts = [np.abs(x_sample).max() / 127.0]
+    h = x_sample
+    for i, (w, b) in enumerate(params):
+        h = h @ w + b
+        if i < len(params) - 1:
+            h = np.maximum(h, 0.0)
+            acts.append(np.abs(h).max() / 127.0)
+    qparams = []
+    for i, (w, b) in enumerate(params):
+        w_scale = np.maximum(np.abs(w).max(axis=0), 1e-12) / 127.0
+        wq = np.clip(np.rint(w / w_scale), -127, 127).astype(np.int8)
+        last = i == len(params) - 1
+        if last:
+            comb = (w_scale * acts[i]).astype(np.float32)
+            bq = b.astype(np.float32)
+        else:
+            comb = (w_scale * acts[i] / acts[i + 1]).astype(np.float32)
+            bq = (b / acts[i + 1]).astype(np.float32)
+        qparams.append((np.ascontiguousarray(wq.T),
+                        comb.reshape(-1, 1), bq.reshape(-1, 1)))
+    return qparams, np.float32(acts[0])
+
 
 
 def quantize_mlp_shift(params, x_sample, max_flip_rate=0.05):

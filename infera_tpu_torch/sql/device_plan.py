@@ -1043,6 +1043,18 @@ def try_execute_on_device(conn, sel: A.Select, table: Table,
                    (getattr(expr, a, None) for a in ("operand", "left", "right", "low", "high"))
                    if isinstance(c, A.Expr))
 
+    def _order_is_exact_on_card(expr: A.Expr) -> bool:
+        """An arg slot's order value is a column, a prediction or the
+        negation of one. K2 evaluates a computed order expression in f32
+        where the host evaluates it in f64, so rows whose values differ
+        below f32 precision would tie on the card and the smallest row id
+        would win (R8); a negation is exact in both."""
+        if isinstance(expr, A.Unary) and expr.op == "-":
+            return _order_is_exact_on_card(expr.operand)
+        if isinstance(expr, A.FuncCall):
+            return expr.name.lower() in ("infera_predict", "list_extract")
+        return isinstance(expr, A.ColumnRef)
+
     n = table.num_rows
 
     def _plan_one_agg(node):
@@ -1113,7 +1125,8 @@ def try_execute_on_device(conn, sel: A.Select, table: Table,
             if len(node.args) != 2 or not isinstance(node.args[0], A.ColumnRef):
                 return None
             order = node.args[1]
-            if not _f32_safe(order) or not _f64_refs_f32_exact(order):
+            if (not _order_is_exact_on_card(order) or not _f32_safe(order)
+                    or not _f64_refs_f32_exact(order)):
                 return None
             ref = node.args[0]
             acol = None

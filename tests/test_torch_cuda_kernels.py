@@ -5,7 +5,9 @@ These need a CUDA card (H100, sm_90a) and skip without one. On the card:
 (the file imports no JAX, so it runs where JAX is not installed). The shapes
 cover what the main path does not: one row, ragged tiles, a layer wider than
 one 128-column pass, widths that are no multiple of 4 or 8, and left shifts
-in K3; for K2, every opcode of the programs, the key guards, MLP slots in
+in K3; K7a over row-major f32 and bf16 tables and K7b with its f32
+epilogues, at a tile multiple and ragged row counts, and the engine's int8
+chain against the CPU's; for K2, every opcode of the programs, the key guards, MLP slots in
 f32 and bf16, and the SQL flagship through Connection.execute; for K4,
 regressors and classifiers over heap and non-heap trees, a NaN feature, and
 tree queries through Connection.execute; for K5, a permuted 1:1 key, keys
@@ -143,6 +145,92 @@ def test_k3_matches_plain_exactly(cuda, dims, n, seed):
     # and add on both sides: counts are bit-exact
     torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
     torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dims,n", [((32, 64, 64, 16), 5000), ((32, 128, 128, 16), 4096),
+                                    ((30, 200, 7), 65), ((32, 16), 1), ((5, 3), 63)])
+@pytest.mark.parametrize("compute,table", [(torch.float32, torch.float32),
+                                           (torch.bfloat16, torch.bfloat16),
+                                           (torch.bfloat16, torch.float32)])
+def test_k7a_matches_plain(cuda, dims, n, compute, table):
+    """K7a over a row-major table: f32, bf16 over a bf16 table, and bf16 over
+    an f32 table rounded at load."""
+    weights = fq.params_from_numpy(_params(dims, seed=n + 1), cuda, compute)
+    x = _rows(n, dims[0], 3, cuda).to(table)
+    before = fq.fused_mlp_query.launches[fq._COMPUTE[compute]]
+    got = fq.fused_mlp_query(weights, x)
+    torch.cuda.synchronize()
+    assert fq.fused_mlp_query.launches[fq._COMPUTE[compute]] == before + 1
+    f32 = compute == torch.float32
+    _query_close(got, fq.fused_mlp_query_plain(weights, x),
+                 count_tol=1 if f32 else max(1, n // 500), rtol=1e-4 if f32 else 2e-2)
+
+
+def test_k7a_equals_k1_on_the_transposed_table(cuda):
+    """The same tile, read row-major and transposed in shared memory, goes
+    through the same layer stack and tail: bit-equal to K1."""
+    for dtype in (torch.float32, torch.bfloat16):
+        weights = fq.params_from_numpy(_params((32, 128, 128, 16), seed=8), cuda, dtype)
+        x = _rows(100_003, 32, 9, cuda).to(dtype)
+        rows = fq.fused_mlp_query(weights, x)
+        cols = fq.fused_mlp_query_columnar(weights, x.T.contiguous())
+        for a, b in zip(rows, cols):
+            assert torch.equal(a, b)
+
+
+def _static_qparams(dims, seed, n):
+    params = _params(dims, seed)
+    x = np.random.default_rng(seed + 1).standard_normal((n, dims[0])).astype(np.float32)
+    qparams, s0 = fq.quantize_mlp_static(params, x[:4096])
+    xq = np.clip(np.rint(x / s0), -127, 127).astype(np.int8).T.copy()
+    return qparams, xq
+
+
+@pytest.mark.parametrize("dims,n,seed", [((32, 128, 128, 16), 4096, 14),
+                                         ((32, 64, 48, 16), 4099, 15), ((30, 20, 6), 64, 16),
+                                         ((9, 130, 3), 1, 17)])
+def test_k7b_matches_plain_exactly(cuda, dims, n, seed):
+    qparams, xq_np = _static_qparams(dims, seed, n)
+    weights = fq.qparams_static_from_numpy(qparams, cuda)
+    xq = torch.as_tensor(xq_np, device=cuda)
+    before = fq.fused_mlp_query_columnar_int8.launches
+    got = fq.fused_mlp_query_columnar_int8(weights, xq)
+    torch.cuda.synchronize()
+    assert fq.fused_mlp_query_columnar_int8.launches == before + 1
+    want = fq.fused_mlp_query_columnar_int8_plain(weights, xq)
+    # exact integer layers and the same two-rounding f32 epilogues with
+    # rint on both sides: counts are bit-exact
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-5)
+
+
+def test_k7b_refuses_an_input_too_wide_for_exact_f32(cuda):
+    rng = np.random.default_rng(18)
+    qparams = [(rng.integers(-127, 128, (8, 1041)).astype(np.int8),
+                np.full((8, 1), 1e-3, np.float32), np.zeros((8, 1), np.float32))]
+    weights = fq.qparams_static_from_numpy(qparams, cuda)
+    with pytest.raises(ValueError, match="1040"):
+        fq.fused_mlp_query_columnar_int8(weights, torch.zeros((1041, 64), dtype=torch.int8,
+                                                               device=cuda))
+
+
+def test_int8_engine_chain_on_the_card(cuda, tmp_path):
+    """Engine int8 predict on the card runs the fused chain through
+    torch._int_mm and equals the same chain on the CPU on the same scales."""
+    from infera_tpu_torch.onnx import builder, proto
+    from infera_tpu_torch.onnx.executor import compile_model_file
+
+    path = str(tmp_path / "m.onnx")
+    proto.save_model_file(builder.mlp_model(in_dim=32, hidden=(128, 128), out_dim=16), path)
+    gpu = compile_model_file(path, "g", "int8", cuda)
+    cpu = compile_model_file(path, "c", "int8", torch.device("cpu"))
+    x = np.random.default_rng(19).standard_normal((5000, 32)).astype(np.float32)
+    got = gpu.run(x)[0]
+    assert got.is_cuda and len(gpu._int8_fused_cache) == 1
+    cpu._int8_calibrated = True
+    for a, b in zip(cpu.mlp_plan[2], gpu.mlp_plan[2]):
+        a._infera_act_scale = b._infera_act_scale
+    torch.testing.assert_close(got.cpu(), cpu.run(x)[0], rtol=1e-5, atol=1e-5)
 
 
 def test_query_sums_are_the_same_from_run_to_run(cuda):

@@ -216,10 +216,17 @@ def test_version_names_the_torch_backend():
     assert got["onnx_backend"] == "torch-cuda"
 
 
-def test_int8_precision_is_refused(model_files, registries):
-    with pytest.raises(itt.InferaError, match="int8"):
-        itt.load_model("mlp", str(model_files / "mlp.onnx"), "int8")
-    assert not itt.is_model_loaded("mlp")
+def test_int8_precision_loads_and_predicts(model_files, registries):
+    """int8 loads; predict calibrates on its first call, runs the fused int8
+    chain, and answers as infera_tpu does (512 rows: no bucket padding)."""
+    _load_both(model_files, "mlp", "int8")
+    assert itt.get_model_info("mlp") == it.get_model_info("mlp")
+    assert itt.get_model_info("mlp").endswith('"precision":"int8"}')
+    x = np.random.default_rng(9).standard_normal((512, 32)).astype(np.float32)
+    got, want = itt.predict("mlp", x), it.predict("mlp", x)
+    assert (got.rows, got.cols) == (want.rows, want.cols) == (512, 16)
+    assert PORT_MODELS.get("mlp")._int8_fused_cache
+    np.testing.assert_allclose(got.data, np.asarray(want.data), rtol=1e-5, atol=1e-5)
 
 
 def test_weights_move_to_the_device_at_load(model_files, registries):

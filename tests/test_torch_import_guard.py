@@ -37,6 +37,8 @@ sys.exit(1 if bad else 0)
     "infera_tpu_torch.ops.window",
     "infera_tpu_torch.ops.join",
     "infera_tpu_torch.ops.device_join",
+    "infera_tpu_torch.ops.device_groupby",
+    "infera_tpu_torch.onnx.fusion",
     "infera_tpu_torch.observability",
     "infera_tpu_torch.testing.sqllogic",
     "chip_smoke",

@@ -383,13 +383,14 @@ def _edge_table(port, ref):
     "select g, arg_min(id, z), arg_max(id, z), arg_min(id, z2), arg_max(id, z2) from e "
     "group by g order by g",
     "select g, arg_min(id, big), arg_max(id, big), arg_min(id, -big) from e group by g order by g",
-    "select g, arg_min(id, dx), arg_max(id, dx * 2.0) from e group by g order by g",
+    "select g, arg_min(id, dx), arg_max(id, -dx) from e group by g order by g",
 ])
 def test_arg_edge_cases_in_the_kernel(both, monkeypatch, q):
     """-0.0 ties +0.0 (the first row wins, as the host's np.less has it);
     values past 2**30, where infera_tpu's arg slots fill with 2**30 and
     answer rows of other groups (R1), are held to the host; an f64 column
-    whose values are f32-exact runs in the kernel."""
+    whose values are f32-exact runs in the kernel, and so does its
+    negation."""
     port, ref = both
     _edge_table(port, ref)
     rows = port.execute(q).rows
@@ -412,6 +413,26 @@ def test_arg_edge_cases_held_to_the_host(both, monkeypatch, col):
     ref_rows = ref.execute(q).rows
     assert ref._exec_path == "device_plan_pallas"
     assert ref_rows != rows
+    monkeypatch.setattr(ref_dp, "try_execute_on_device", lambda *a, **k: None)
+    assert ref.execute(q).rows == rows
+
+
+def test_arg_over_a_computed_order_is_held_to_the_host(both, monkeypatch):
+    """R8: K2 would evaluate ``1.0 + h * 1e-9`` in f32, where every row
+    rounds to 1.0 and ties (rows 0-3 win); the host evaluates it in f64. So
+    the arg slot declines the expression and the host's rows come back, as
+    in infera_tpu without its device tiers."""
+    port, ref = both
+    n = 32_768
+    for conn in (port, ref):
+        conn.execute(f"create table r8 as select x % 4 as g, ((x * 7) % 5)::double as h, "
+                     f"x as id from range({n}) r(x)")
+    q = ("select g, arg_min(id, 1.0 + h * 1e-9), arg_max(id, 1.0 + h * 1e-9) from r8 "
+         "group by g order by g")
+    rows = port.execute(q).rows
+    assert port._exec_path == "host"
+    assert rows == [(0, 0, 12), (1, 5, 17), (2, 10, 2), (3, 15, 7)]
+    assert rows == _host_rows(port, q, monkeypatch)
     monkeypatch.setattr(ref_dp, "try_execute_on_device", lambda *a, **k: None)
     assert ref.execute(q).rows == rows
 
