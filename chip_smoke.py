@@ -76,7 +76,19 @@ card, builds every kernel of ``infera_tpu_torch/csrc`` with nvcc (sm_90a), and:
    versions at 1,048,576 and 1,000,003 rows (K7b also against the numpy
    integer emulation) and timed beside their bounds, plain versions and
    PyTorch chains; int8 ``predict`` is timed on the host clock beside f32's;
-10. prints the ``{"kernels": [...]}`` line, the card's name and power limit,
+10. the profiling path: with the launch counts of K8a and K8b set to 0 just
+   before and read just after, the seven experiments of
+   ``infera_tpu_torch.testing.profile_query`` (iters, rows, empty, tiles,
+   chain, variants, col) at their default sizes, printing their JSON lines;
+   the timer check (a 4096² bf16 matmul) must read at least 0.9 × the card's
+   floor. K8a and K8b's five stages are held against their plain versions at
+   1,048,576 and 1,000,003 rows, K8a against K8b scan and K8b full against
+   K7a bf16; two ``observability.trace`` windows (5 steady executions of
+   query A inside ``annotate``, 20 K7a bf16 calls) print their five longest
+   device operations and the device's idle share; K8a and K8b are timed
+   beside their bounds, plain versions and PyTorch chains, and K7a bf16's
+   time is split by stage;
+11. prints the ``{"kernels": [...]}`` line, the card's name and power limit,
    and last ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero without the ``ok`` line. The script
@@ -1112,6 +1124,28 @@ def tail_phase(torch, itt, x_rows, peaks, device) -> list:
     return rows
 
 
+def library_chain(torch, x, weights):
+    """The row-major MLP as an addmm chain (ReLU between layers) in the
+    weights' dtype; the logits in f32."""
+    h = x
+    for i, (w, b) in enumerate(weights):
+        h = torch.addmm(b, h, w)
+        if i < len(weights) - 1:
+            h = torch.relu(h)
+    return h.float()
+
+
+def library_rows(torch, x, weights):
+    """K7a's function as a PyTorch chain: the addmm chain, then argmax, the
+    filter and index_add_."""
+    h = library_chain(torch, x, weights)
+    pred = h.argmax(dim=1)
+    sel = (h[:, 0] > 0).float()
+    counts = torch.zeros(h.shape[1], device=h.device).index_add_(0, pred, sel)
+    sums = torch.zeros(h.shape[1], device=h.device).index_add_(0, pred, h[:, 0] * sel)
+    return counts, sums
+
+
 def bench_phase(torch, itt, params, x_rows, x_dev, peaks, device, f32_predict_ms) -> list:
     """The bench form's K7a and K7b and the engine's int8 policy; returns
     their rows of the kernels line."""
@@ -1239,20 +1273,6 @@ def bench_phase(torch, itt, params, x_rows, x_dev, peaks, device, f32_predict_ms
           for w, b in params]
     tw_bf16 = [(w.to(torch.bfloat16), b.to(torch.bfloat16)) for w, b in tw]
 
-    def library_rows(x, weights):
-        """Row-major addmm chain, then argmax, the filter and index_add_."""
-        h = x
-        for i, (w, b) in enumerate(weights):
-            h = torch.addmm(b, h, w)
-            if i < len(weights) - 1:
-                h = torch.relu(h)
-        h = h.float()
-        pred = h.argmax(dim=1)
-        sel = (h[:, 0] > 0).float()
-        counts = torch.zeros(h.shape[1], device=h.device).index_add_(0, pred, sel)
-        sums = torch.zeros(h.shape[1], device=h.device).index_add_(0, pred, h[:, 0] * sel)
-        return counts, sums
-
     # K7b's yardstick: cuBLASLt int8 products (torch._int_mm needs more than
     # 16 rows in its first operand, so the last layer's weights are padded
     # to 32 rows) with the f32 epilogues as torch ops
@@ -1279,10 +1299,10 @@ def bench_phase(torch, itt, params, x_rows, x_dev, peaks, device, f32_predict_ms
     timed = {
         "K7a-f32": ("f32", n * 32 * 4, lambda: fused_mlp_query(w_f32, x_dev),
                     lambda: fused_mlp_query_plain(w_f32, x_dev),
-                    lambda: library_rows(x_dev, tw)),
+                    lambda: library_rows(torch, x_dev, tw)),
         "K7a-bf16": ("bf16", n * 32 * 2, lambda: fused_mlp_query(w_bf16, x_bf16),
                      lambda: fused_mlp_query_plain(w_bf16, x_bf16),
-                     lambda: library_rows(x_bf16, tw_bf16)),
+                     lambda: library_rows(torch, x_bf16, tw_bf16)),
         "K7b": ("int8", n * 32, lambda: fused_mlp_query_columnar_int8(w_s, xq),
                 lambda: fused_mlp_query_columnar_int8_plain(w_s, xq), lambda: library_int8(xq)),
     }
@@ -1310,6 +1330,199 @@ def bench_phase(torch, itt, params, x_rows, x_dev, peaks, device, f32_predict_ms
     int8_ms = host_ms(torch, lambda: itt.predict("mlp_int8", x_rows))
     print(f"engine predict @ {n} rows on the host clock: int8 {int8_ms:.3f} ms "
           f"({n / int8_ms * 1e3:,.0f} rows/s), f32 {f32_predict_ms:.3f} ms")
+    return rows
+
+
+def trace_report(pq, name, prof, log_dir, spans):
+    """Print a trace window's five longest device operations and the
+    device's idle share, and check the trace file and its annotate spans.
+    Returns the top operations, or None when the trace holds no CUDA
+    activity."""
+    import glob
+
+    files = glob.glob(f"{log_dir}/*.pt.trace.json")
+    check(len(files) == 1, f"trace {name}: {len(files)} trace files in {log_dir}")
+    summary = pq.trace_device_summary(files[0])
+    for span, count in spans.items():
+        check(summary["spans"].get(span, 0) == count,
+              f"trace {name}: spans {summary['spans']}, {count} '{span}' annotated")
+    top = pq.top_device_ops(prof)
+    if summary["device_events"] == 0 and not top:
+        print(f"trace {name}: the trace holds no CUDA activity (torch.profiler recorded no "
+              f"device event); window {summary['window_us'] / 1e3:.3f} ms, spans "
+              f"{summary['spans']}")
+        return None
+    print(f"trace {name}: window {summary['window_us'] / 1e3:.3f} ms, device busy "
+          f"{summary['device_busy_us'] / 1e3:.3f} ms ({summary['device_events']} device "
+          f"events), idle share {summary['idle_share']:.4f}; spans {summary['spans']}")
+    for op, calls, ms in top:
+        print(f"  {ms:10.4f} ms  {calls:5d} calls  {op[:110]}")
+    return top
+
+
+def profile_phase(torch, itt, x_dev, peaks, device) -> list:
+    """The profiling path: the seven experiments of
+    ``infera_tpu_torch.testing.profile_query`` with K8a's and K8b's launch
+    counts set to 0 just before and read just after; K8a and K8b against
+    their plain versions and K8b full against K7a bf16; two traces; returns
+    the K8 rows of the kernels line."""
+    from infera_tpu_torch import observability as obs
+    from infera_tpu_torch.onnx import builder, proto
+    from infera_tpu_torch.ops.fused_query import fused_mlp_query, mlp_scores_plain
+    from infera_tpu_torch.sql import Connection
+    from infera_tpu_torch.testing import profile_query as pq
+
+    n = N_MAIN
+    # ---------------------------------------------------------------- the main path
+    pq.empty_grid_scan.launches = 0
+    pq.query_stage.launches = dict.fromkeys(pq.VARIANTS, 0)
+    t0 = time.perf_counter()
+    lines = {name: exp(device=device) for name, exp in pq.EXPS.items()}
+    torch.cuda.synchronize()
+    launches = {"K8a": pq.empty_grid_scan.launches,
+                **{f"K8b {v}": c for v, c in pq.query_stage.launches.items()}}
+    print(f"profiling experiments: {time.perf_counter() - t0:.2f} s on the host clock; "
+          f"launches {launches}")
+    for k, c in launches.items():
+        check(c > 0, f"kernel {k} was not launched on the main path")
+    calib = lines["variants"][0]
+    check(calib["ms_per_iter"] >= 0.9 * calib["expected_ms_floor"],
+          f"timer check: a {pq.CALIB_N}^2 bf16 matmul read {calib['ms_per_iter']:.4f} ms, under "
+          f"0.9 x the card's floor {calib['expected_ms_floor']:.4f} ms: the timer is wrong")
+    for name in ("iters", "rows", "empty", "variants"):
+        check(all("error" not in line for line in lines[name]), f"experiment {name}: {lines[name]}")
+
+    # ---------------------------------------------------------------- kernels vs plain
+    sw = pq.stage_weights(pq._params(), device)
+    x_bf16 = x_dev.to(torch.bfloat16)
+    max_err = dict.fromkeys(["K8a", *pq.VARIANTS], 0.0)
+    for n_rows in (n, N_RAGGED):
+        x = x_bf16[:n_rows]
+        got = pq.empty_grid_scan(x)
+        want = pq.empty_grid_scan_plain(x)
+        # tile sums in f32 on both sides, in another order
+        scale = x.float().abs().sum(0)
+        err = (got - want).abs()
+        check(bool((err <= 1e-6 * scale).all()), f"K8a @ {n_rows}: {float(err.max()):.3e}")
+        max_err["K8a"] = max(max_err["K8a"], float(err.max()))
+        outs = {v: pq.query_stage(sw, x, v) for v in pq.VARIANTS}
+        check(torch.equal(outs["scan"][:32], got) and not bool(outs["scan"][32:].any()),
+              f"K8a and K8b scan differ @ {n_rows}")
+        for v in pq.VARIANTS:
+            g, p = outs[v], pq.query_stage_plain(sw, x, v)
+            if v in ("scan", "mm1", "mm_all"):
+                # the layers' f32 sums in another order (the plain version's
+                # matmul), then the tiles' sums in another order
+                if v == "scan":
+                    c, tol = 32, 1e-6 * scale
+                else:
+                    h = mlp_scores_plain(sw.first if v == "mm1" else sw.full, x.T)
+                    c, tol = h.shape[0], 1e-4 * h.abs().double().sum(1).float()
+                e = (g[:c] - p[:c]).abs()
+                check(bool((e <= tol).all()) and not bool(g[c:].any()),
+                      f"K8b {v} @ {n_rows}: {float(e.max()):.3e}")
+            else:
+                check(torch.equal(g[:16], p[:16]),
+                      f"K8b {v} @ {n_rows}: counts {g[:16].tolist()} vs plain {p[:16].tolist()}")
+                torch.testing.assert_close(g[16:32], p[16:32], rtol=1e-5, atol=0.0)
+                e = (g - p).abs()
+            max_err[v] = max(max_err[v], float(e.max()))
+        counts7, sums7 = fused_mlp_query(sw.full, x)
+        full = outs["full"]
+        check(torch.equal(full[:16].long(), counts7),
+              f"K8b full @ {n_rows}: counts {full[:16].tolist()} vs K7a bf16 {counts7.tolist()}")
+        torch.testing.assert_close(full[16:32], sums7, rtol=1e-5, atol=0.0)
+        print(f"K8a, K8b @ {n_rows} rows: equal to plain (max abs err K8a {max_err['K8a']:.3e}, "
+              f"mm1 {max_err['mm1']:.3e}, mm_all {max_err['mm_all']:.3e}; tail_nomax and full "
+              f"counts exact); K8a == scan; full's counts == K7a bf16's, its sums "
+              f"{'bit-equal' if torch.equal(full[16:32], sums7) else 'within rtol 1e-5'}")
+
+    # ---------------------------------------------------------------- two traces
+    conn = Connection()
+    conn.execute("create table big as select x % 64 as g, x % 5 as h, "
+                 "(x % 100)::float / 10.0 as f1, "
+                 "((x + 3) % 50)::float / 5.0 as f2, ((x * 7) % 30)::float / 3.0 as f3, "
+                 f"((x * 11) % 90)::float / 9.0 as f4 from range({n}) r(x)")
+    with tempfile.TemporaryDirectory() as d:
+        proto.save_model_file(builder.mlp_model(in_dim=4, hidden=(32,), out_dim=1), f"{d}/m.onnx")
+        itt.load_model("m", f"{d}/m.onnx")
+        conn.execute(SQL_A)
+        torch.cuda.synchronize()
+        check(conn._exec_path == "device_plan_cuda", f"query A ran on {conn._exec_path}")
+        with obs.trace(f"{d}/query_a") as prof:
+            for _ in range(5):
+                with obs.annotate("query A"):
+                    conn.execute(SQL_A)
+            torch.cuda.synchronize()
+        trace_report(pq, "query A (5 steady executions)", prof, f"{d}/query_a", {"query A": 5})
+        fused_mlp_query(sw.full, x_bf16)
+        torch.cuda.synchronize()
+        with obs.trace(f"{d}/k7a") as prof:
+            for _ in range(20):
+                fused_mlp_query(sw.full, x_bf16)
+            torch.cuda.synchronize()
+        top = trace_report(pq, "K7a bf16 (20 calls)", prof, f"{d}/k7a", {})
+        if top is not None:
+            check("query_f32_kernel" in top[0][0] and top[0][1] == 20,
+                  f"trace K7a bf16: the longest device operation is {top[0]}")
+
+    # ---------------------------------------------------------------- times
+    params = pq._params()
+    tw = [(torch.as_tensor(w, device=device).to(torch.bfloat16),
+           torch.as_tensor(b, device=device).to(torch.bfloat16)) for w, b in params]
+    macs = sum(w.shape[0] * w.shape[1] for w, _ in params)
+
+    def library(v):
+        """One PyTorch chain of the stage; timed only, the port never calls it."""
+        if v == "scan":
+            return torch.sum(x_bf16, 0, dtype=torch.float32)
+        h = library_chain(torch, x_bf16, tw[:1] if v == "mm1" else tw)
+        if v in ("mm1", "mm_all"):
+            return h.sum(0)
+        if v == "full":
+            return library_rows(torch, x_bf16, tw)
+        hit = (h == h.amax(1, keepdim=True)) & (h[:, :1] > 0)
+        return hit.sum(0), (hit * h[:, :1]).sum(0)
+
+    timed = {"K8a": ("scan", lambda: pq.empty_grid_scan(x_bf16),
+                     lambda: pq.empty_grid_scan_plain(x_bf16))}
+    for v in pq.VARIANTS:
+        timed[v] = (v, lambda v=v: pq.query_stage(sw, x_bf16, v),
+                    lambda v=v: pq.query_stage_plain(sw, x_bf16, v))
+    rows, stage_ms = [], {}
+    for key, (stage, kern, plain) in timed.items():
+        kern_times = device_ms(torch, kern)
+        ms, q25, q75 = (float(v) for v in np.percentile(kern_times, [50, 25, 75]))
+        plain_ms = float(np.median(device_ms(torch, plain)))
+        library_ms = float(np.median(device_ms(torch, lambda: library(stage))))
+        # a row: one f32 add a value (scan), two bf16 operations a multiply-add
+        ops = {"scan": 32, "mm1": 2 * 32 * 128}.get(stage, 2 * macs)
+        b_ms, b_by = bound(float(n) * ops, n * 32 * 2, "f32" if stage == "scan" else "bf16",
+                           peaks)
+        if key == "K8a":
+            name, replaces = "K8a empty_grid_scan", "infera_tpu/testing/profile_query.py:118"
+            n_launch = launches["K8a"]
+        else:
+            name, replaces = f"K8b query_stage ({key})", "infera_tpu/testing/profile_query.py:222"
+            n_launch = launches[f"K8b {key}"]
+            stage_ms[key] = ms
+        rows.append({"name": name, "route": "cuda",
+                     "source": "infera_tpu_torch/csrc/profile_query.cu", "replaces": replaces,
+                     "launches": n_launch, "max_abs_err": max_err[key], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": library_ms})
+        print(f"{name}: kernel {ms:.4f} ms (quartiles {q25:.4f}-{q75:.4f}), plain "
+              f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    k7a_ms = float(np.median(device_ms(torch, lambda: fused_mlp_query(sw.full, x_bf16))))
+    # each stage adds one part of K7a to the one before; the tail without
+    # argmax is another tail on the same layers
+    steps = [("scan", "load"), ("mm1", "layer 1"), ("mm_all", "layers 2-3"),
+             ("full", "argmax tail"), ("tail_nomax", "max-compare tail")]
+    prev = {"scan": None, "mm1": "scan", "mm_all": "mm1", "full": "mm_all",
+            "tail_nomax": "mm_all"}
+    print(f"K7a bf16 @ {n} rows: {k7a_ms:.4f} ms in this phase; by stage: " + ", ".join(
+        f"{part} {stage_ms[v] - (stage_ms[prev[v]] if prev[v] else 0.0):.4f}"
+        for v, part in steps) + " ms")
     return rows
 
 
@@ -1592,6 +1805,7 @@ def main() -> int:
     rows += tree_phase(torch, itt, x_rows, peaks, device)
     rows += join_phase(torch, itt, peaks, device)
     rows += tail_phase(torch, itt, x_rows, peaks, device)
+    rows += profile_phase(torch, itt, x_dev, peaks, device)
 
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())

@@ -39,86 +39,11 @@
 // its own counts (int64) and sums (f64, summed in row order) and writes them to
 // partials [n_blocks, C]; a second kernel folds the partials in block order.
 // No float atomics, so the sums are the same from run to run.
-#include "mlp_tile.cuh"
+#include "query_tile.cuh"
 
 namespace infera {
 
-struct TailScratch {
-  long long* blk_cnt;  // [pad8(C)]
-  double* blk_sum;     // [pad8(C)]
-  int* pred;           // [kTileRows]: class of a kept row, -1 otherwise
-  float* val;          // [kTileRows]: score0
-};
-
-__device__ inline TailScratch carve_tail(unsigned char* p, int C) {
-  TailScratch t;
-  t.blk_cnt = reinterpret_cast<long long*>(p);
-  t.blk_sum = reinterpret_cast<double*>(t.blk_cnt + pad8(C));
-  t.pred = reinterpret_cast<int*>(t.blk_sum + pad8(C));
-  t.val = reinterpret_cast<float*>(t.pred + kTileRows);
-  return t;
-}
-
-__host__ __device__ inline int tail_bytes(int C) {
-  return pad8(C) * 16 + kTileRows * 8;
-}
-
-__device__ inline void tail_init(TailScratch t, int C) {
-  for (int c = threadIdx.x; c < C; c += kThreads) {
-    t.blk_cnt[c] = 0;
-    t.blk_sum[c] = 0.0;
-  }
-}
-
-// h: [C][kActStride] f32 scores of one tile. Ends with a barrier.
-__device__ inline void tail_tile(TailScratch t, const float* h, int C, long long row0,
-                                 long long n) {
-  if (threadIdx.x < kTileRows) {
-    const int r = threadIdx.x;
-    const float v0 = h[r];
-    int pred = -1;
-    if (row0 + r < n && v0 > 0.f) {
-      float best = v0;
-      pred = 0;
-      for (int c = 1; c < C; ++c) {
-        const float v = h[c * kActStride + r];
-        if (v > best) {
-          best = v;
-          pred = c;
-        }
-      }
-    }
-    t.pred[r] = pred;
-    t.val[r] = v0;
-  }
-  __syncthreads();
-  for (int c = threadIdx.x; c < C; c += kThreads) {
-    long long cnt = 0;
-    double sum = 0.0;
-    for (int r = 0; r < kTileRows; ++r) {
-      if (t.pred[r] == c) {
-        ++cnt;
-        sum += (double)t.val[r];
-      }
-    }
-    t.blk_cnt[c] += cnt;
-    t.blk_sum[c] += sum;
-  }
-  __syncthreads();
-}
-
-__device__ inline void tail_store(TailScratch t, int C, long long* part_cnt, double* part_sum) {
-  for (int c = threadIdx.x; c < C; c += kThreads) {
-    part_cnt[(long long)blockIdx.x * C + c] = t.blk_cnt[c];
-    part_sum[(long long)blockIdx.x * C + c] = t.blk_sum[c];
-  }
-}
-
 // ---------------------------------------------------------------- K1, K7a (f32, bf16)
-
-// Row stride of K7a's staging tile [kTileRows][stage_stride(d0)]: odd, so the
-// transposing read (consecutive rows on consecutive threads) hits 32 banks.
-__host__ __device__ inline int stage_stride(int d0) { return d0 | 1; }
 
 template <typename TIn, bool kBf16, bool kRowMajor>
 __global__ void __launch_bounds__(kThreads)
@@ -137,26 +62,11 @@ query_f32_kernel(const TIn* __restrict__ x, long long n, const float* __restrict
   __syncthreads();
 
   const int d0 = d.dim[0];
-  const int ss = stage_stride(d0);
   const long long n_tiles = (n + kTileRows - 1) / kTileRows;
   for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const long long row0 = tile * kTileRows;
     if (kRowMajor) {
-      // the tile's rows are one contiguous run of rows * d0 elements
-      const int rows = (int)min((long long)kTileRows, n - row0);
-      const TIn* src = x + row0 * d0;
-      for (int i = threadIdx.x; i < rows * d0; i += kThreads) {
-        const int r = i / d0;
-        stage[r * ss + (i - r * d0)] = load_f32(src + i);
-      }
-      __syncthreads();
-      for (int i = threadIdx.x; i < kTileRows * d0; i += kThreads) {
-        const int k = i / kTileRows;
-        const int r = i - k * kTileRows;
-        float v = r < rows ? stage[r * ss + k] : 0.f;
-        if (kBf16) v = round_bf16(v);
-        act0[k * kActStride + r] = v;
-      }
+      load_rows_tile<TIn, kBf16>(x, n, row0, d0, stage, act0);
     } else {
       for (int i = threadIdx.x; i < kTileRows * d0; i += kThreads) {
         const int k = i / kTileRows;

@@ -1,4 +1,5 @@
-// Shared pieces of the fused-MLP kernels (fused_mlp.cu, fused_query.cu).
+// Shared pieces of the fused-MLP kernels (fused_mlp.cu, fused_query.cu, fused_sql.cu,
+// profile_query.cu).
 //
 // A block of kThreads threads owns a tile of kTileRows table rows and runs the
 // whole layer stack on it while the activations stay in shared memory. The

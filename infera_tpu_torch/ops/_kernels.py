@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface under ``infera_tpu_torch/_build/`` and loaded
-with ``ctypes``. A library is built at its first use, or again when a source
-is newer than it; ``build_all`` starts one ``nvcc`` per source, all at once.
+library with a plain C interface under ``infera_tpu_torch/_build/`` (or the
+directory given to ``set_build_dir``) and loaded with ``ctypes``. A library is
+built at its first use, or again when a source is newer than it;
+``build_all`` starts one ``nvcc`` per source, all at once.
 Nothing here runs at import: the CPU tests import every module.
 """
 
@@ -22,7 +23,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "_build"
-SOURCES = ("fused_mlp", "fused_query", "fused_sql")
+SOURCES = ("fused_mlp", "fused_query", "fused_sql", "profile_query")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -50,10 +51,22 @@ _SIGNATURES = {
         "infera_fused_sql_fold": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                   _P, _P, _P, _P, _P, _P, _P, _P],
     },
+    "profile_query": {
+        "infera_profile_stage": [_I, _P, _LL, _P, _LL, _P, _I, _I, _P, _P, _I, _I, _P],
+    },
 }
 
 _lock = threading.Lock()
 _libs: dict = {}
+
+
+def set_build_dir(path) -> Path:
+    """Build and load the libraries under ``path`` from now on (libraries
+    already loaded stay loaded); returns it."""
+    global BUILD
+    with _lock:
+        BUILD = Path(path)
+    return BUILD
 
 
 def _nvcc() -> str:
@@ -78,7 +91,7 @@ def _stale(name: str) -> bool:
 
 
 def _start(name: str) -> tuple:
-    BUILD.mkdir(exist_ok=True)
+    BUILD.mkdir(parents=True, exist_ok=True)
     tmp = BUILD / f"lib{name}.{os.getpid()}.so"
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
            "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

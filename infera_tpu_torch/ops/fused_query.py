@@ -181,9 +181,10 @@ def query_tail_plain(h: torch.Tensor):
     return counts, sums.float()
 
 
-def fused_mlp_query_columnar_plain(weights: QueryWeights, xc: torch.Tensor):
-    """K1's function in plain PyTorch. bf16 mode multiplies bf16-rounded
-    operands in f32, which is exact, and accumulates in f32."""
+def mlp_scores_plain(weights: QueryWeights, xc: torch.Tensor) -> torch.Tensor:
+    """The layer stack of K1 in plain PyTorch over ``xc [d0, N]``: the scores
+    [C, N] f32. bf16 mode multiplies bf16-rounded operands in f32, which is
+    exact, and accumulates in f32."""
     bf16 = weights.compute_dtype == torch.bfloat16
     h = xc.to(weights.compute_dtype).float()
     last = len(weights.layers) - 1
@@ -193,7 +194,12 @@ def fused_mlp_query_columnar_plain(weights: QueryWeights, xc: torch.Tensor):
             h = torch.relu(h)
             if bf16:
                 h = h.to(torch.bfloat16).float()
-    return query_tail_plain(h)
+    return h
+
+
+def fused_mlp_query_columnar_plain(weights: QueryWeights, xc: torch.Tensor):
+    """K1's function in plain PyTorch."""
+    return query_tail_plain(mlp_scores_plain(weights, xc))
 
 
 def fused_mlp_query_columnar_int8_shift_plain(weights: ShiftWeights, xq: torch.Tensor):

@@ -16,7 +16,9 @@ over dim columns, ragged row counts, the no-fallback rule and join queries
 through Connection.execute; for K2 b–e (the aggregate tail), every tail
 slot against plain at the main path's row counts, the run-to-run equality of
 their partials, the group-key probe as a K2 launch, and the tail's queries
-through Connection.execute."""
+through Connection.execute; for K8a and K8b (the profiling kernels), ragged
+row counts, another MLP's widths and an odd table width, K8a against K8b's
+scan and K8b's full stage against K7a bf16."""
 
 import numpy as np
 import pytest
@@ -25,6 +27,7 @@ import torch
 from infera_tpu_torch.ops import fused_mlp as fm
 from infera_tpu_torch.ops import fused_query as fq
 from infera_tpu_torch.ops import fused_sql as fs
+from infera_tpu_torch.testing import profile_query as pq
 
 pytestmark = pytest.mark.cuda
 
@@ -968,3 +971,75 @@ def test_k2_tail_sql_on_the_card(cuda, monkeypatch, q):
                     assert x == y
     finally:
         itt.set_device(None)
+
+
+# --------------------------------------------------------------------------- K8a, K8b
+
+
+@pytest.mark.parametrize("n,d0", [(1, 32), (63, 32), (4099, 30), (1_000_003, 32)])
+def test_k8a_matches_plain(cuda, n, d0):
+    x = _rows(n, d0, 21, cuda).to(torch.bfloat16)
+    before = pq.empty_grid_scan.launches
+    got = pq.empty_grid_scan(x)
+    torch.cuda.synchronize()
+    assert pq.empty_grid_scan.launches == before + 1
+    # f32 tile sums on both sides, in another order
+    err = (got - pq.empty_grid_scan_plain(x)).abs()
+    assert bool((err <= 1e-6 * x.float().abs().sum(0)).all()), float(err.max())
+    assert torch.equal(got, pq.empty_grid_scan(x))    # no atomics: the same bits again
+
+
+@pytest.mark.parametrize("variant", pq.VARIANTS)
+@pytest.mark.parametrize("dims,n", [((32, 128, 128, 16), 1_000_003), ((30, 64, 48, 10), 4161),
+                                    ((32, 128, 128, 16), 65)])
+def test_k8b_matches_plain(cuda, variant, dims, n):
+    weights = pq.stage_weights(_params(dims, seed=23), cuda)
+    x = _rows(n, dims[0], 24, cuda).to(torch.bfloat16)
+    before = pq.query_stage.launches[variant]
+    got = pq.query_stage(weights, x, variant)
+    torch.cuda.synchronize()
+    assert pq.query_stage.launches[variant] == before + 1
+    want = pq.query_stage_plain(weights, x, variant)
+    if variant in ("scan", "mm1", "mm_all"):
+        # f32 sums in another order: the plain version's matmul, the tiles
+        if variant == "scan":
+            c, tol = dims[0], 1e-6 * x.float().abs().sum(0)
+        else:
+            h = fq.mlp_scores_plain(weights.first if variant == "mm1" else weights.full, x.T)
+            c, tol = h.shape[0], 1e-4 * h.abs().double().sum(1).float()
+        assert bool(((got[:c] - want[:c]).abs() <= tol).all())
+        assert not bool(got[c:].any())
+    else:
+        c = dims[-1]
+        assert torch.equal(got[:c], want[:c])
+        torch.testing.assert_close(got[c:2 * c], want[c:2 * c], rtol=1e-5, atol=0.0)
+        assert not bool(got[2 * c:].any())
+
+
+def test_k8a_equals_k8b_scan(cuda):
+    x = _rows(100_003, 32, 25, cuda).to(torch.bfloat16)
+    scan = pq.query_stage(pq.stage_weights(pq._params(), cuda), x, "scan")
+    assert torch.equal(scan[:32], pq.empty_grid_scan(x))
+
+
+@pytest.mark.parametrize("n", [4096, 1_000_003])
+def test_k8b_full_equals_k7a_bf16(cuda, n):
+    """The full stage runs K7a's load, layers, tail and fold on K7a's grid:
+    its counts are K7a bf16's and its sums K7a's bits."""
+    weights = pq.stage_weights(pq._params(), cuda)
+    x = _rows(n, 32, 26, cuda).to(torch.bfloat16)
+    full = pq.query_stage(weights, x, "full")
+    counts, sums = fq.fused_mlp_query(weights.full, x)
+    assert torch.equal(full[:16].long(), counts)
+    assert torch.equal(full[16:32], sums)
+
+
+def test_k8_refuses_what_it_does_not_take(cuda):
+    weights = pq.stage_weights(pq._params(), cuda)
+    x = _rows(100, 32, 27, cuda)
+    with pytest.raises(ValueError):
+        pq.empty_grid_scan(x)                              # f32, not bf16
+    with pytest.raises(ValueError):
+        pq.query_stage(weights, x.to(torch.bfloat16)[:, :31].contiguous(), "full")
+    with pytest.raises(ValueError):
+        pq.query_stage(weights, x.to(torch.bfloat16), "argmax")

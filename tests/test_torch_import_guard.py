@@ -41,6 +41,8 @@ sys.exit(1 if bad else 0)
     "infera_tpu_torch.onnx.fusion",
     "infera_tpu_torch.observability",
     "infera_tpu_torch.testing.sqllogic",
+    "infera_tpu_torch.testing.profile_query",
+    "infera_tpu_torch.testing.benchmarks",
     "chip_smoke",
 ])
 def test_fresh_import_pulls_in_no_jax(module):
