@@ -76,6 +76,10 @@ card, builds every kernel of ``infera_tpu_torch/csrc`` with nvcc (sm_90a), and:
    versions at 1,048,576 and 1,000,003 rows (K7b also against the numpy
    integer emulation) and timed beside their bounds, plain versions and
    PyTorch chains; int8 ``predict`` is timed on the host clock beside f32's;
+   After each K2/K5 plan's times (queries A–C, F–H, I–L) it prints the
+   plan's split: the main kernel and the fold alone (CUDA events), the
+   call's host part, ptxas's registers and stack, the resident blocks an SM
+   and the grid, which must not exceed them;
 10. the profiling path: with the launch counts of K8a and K8b set to 0 just
    before and read just after, the seven experiments of
    ``infera_tpu_torch.testing.profile_query`` (iters, rows, empty, tiles,
@@ -86,8 +90,9 @@ card, builds every kernel of ``infera_tpu_torch/csrc`` with nvcc (sm_90a), and:
    K7a bf16; two ``observability.trace`` windows (5 steady executions of
    query A inside ``annotate``, 20 K7a bf16 calls) print their five longest
    device operations and the device's idle share; K8a and K8b are timed
-   beside their bounds, plain versions and PyTorch chains, and K7a bf16's
-   time is split by stage;
+   beside their bounds, plain versions and PyTorch chains (K8a with its
+   ring's buffers and bytes in flight), and K7a bf16's time is split by
+   stage;
 11. prints the ``{"kernels": [...]}`` line, the card's name and power limit,
    and last ``{"ok": true, "device": {...}}``.
 
@@ -176,6 +181,27 @@ def host_ms(torch, fn, runs: int = 7) -> float:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def sql_split(torch, key, packed, xc, n, dim_xc=None, int_xc=None) -> None:
+    """Print where one K2/K5 call of a plan spends its time: the main kernel
+    and the fold alone (CUDA events around each launch, median of 25), the
+    call's host part, ptxas's registers and stack of the kernel, its
+    resident blocks an SM at the plan's shared memory and the grid, which
+    must not exceed the blocks resident on the card."""
+    from infera_tpu_torch.ops import _kernels
+    from infera_tpu_torch.testing.ab_kernels import split_by_events
+
+    s = split_by_events(torch, packed, xc, n, dim_xc, int_xc)
+    sms = torch.cuda.get_device_properties(xc.device).multi_processor_count
+    check(s["grid"] <= sms * s["resident"],
+          f"K2 {key}: grid {s['grid']} over {sms} x {s['resident']} resident blocks")
+    regs, stack = _kernels.ptxas_usage("fused_sql", "fused_sql_kernel")
+    print(f"K2/K5 {key} split: kernel {s['kernel_ms']:.4f} ms, fold {s['fold_ms']:.4f} ms "
+          f"(CUDA events, median of 25 launches each), host part {s['host_ms']:.4f} ms; ptxas "
+          f"{regs} registers, {stack} B stack; {s['resident']} blocks resident a SM at "
+          f"{packed.smem_bytes} B of shared memory, grid {s['grid']} blocks; lead table "
+          f"{'in use' if packed.smem['lead'] >= 0 else 'none'}")
 
 
 def emulate_int8_shift(qparams, xq: np.ndarray):
@@ -409,6 +435,7 @@ def sql_phase(torch, itt, x_rows, peaks, device) -> list:
               f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
               f"{len(used)} columns, {n_sel} selected rows, {2.0 * n_sel * macs / 1e9:.2f} G "
               f"MLP operations, {packed.smem_bytes} B of shared memory")
+        sql_split(torch, key, packed, xc, n)
     return rows
 
 
@@ -836,6 +863,7 @@ def join_phase(torch, itt, peaks, device) -> list:
               f"{len(used_f)} fact and {len(used_d)} dim columns, lookup of "
               f"{packed.lookup.numel()} entries, {nbytes / 1e6:.1f} MB, {packed.smem_bytes} B "
               f"of shared memory")
+        sql_split(torch, key, packed, xc, n, dim_xc)
     return rows
 
 
@@ -1121,6 +1149,7 @@ def tail_phase(torch, itt, x_rows, peaks, device) -> list:
               f"{len(used)} f32 and {len(plan.ints)} int columns read, {nbytes / 1e6:.1f} MB, "
               f"{instr} program instructions a row, {2.0 * macs * n / 1e9:.2f} G MLP "
               f"operations, {packed.smem_bytes} B of shared memory")
+        sql_split(torch, key, packed, xc, n, int_xc=xi)
     return rows
 
 
@@ -1368,6 +1397,7 @@ def profile_phase(torch, itt, x_dev, peaks, device) -> list:
     the K8 rows of the kernels line."""
     from infera_tpu_torch import observability as obs
     from infera_tpu_torch.onnx import builder, proto
+    from infera_tpu_torch.ops import fused_query as fq
     from infera_tpu_torch.ops.fused_query import fused_mlp_query, mlp_scores_plain
     from infera_tpu_torch.sql import Connection
     from infera_tpu_torch.testing import profile_query as pq
@@ -1513,6 +1543,13 @@ def profile_phase(torch, itt, x_dev, peaks, device) -> list:
                      "library_ms": library_ms})
         print(f"{name}: kernel {ms:.4f} ms (quartiles {q25:.4f}-{q75:.4f}), plain "
               f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        if key == "K8a":
+            stages = pq.ring_stages((32,))
+            tile = 64 * 32 * 2
+            print(f"K8a ring: {stages} buffers of {64 * fq.ring_stride(32, 2)} B, "
+                  f"{(stages - 1) * tile} B of the table in flight a block ahead of the tile "
+                  f"it transposes, {pq._k7a_blocks(x_bf16, pq.PROFILE_DIMS)} blocks (K7a's "
+                  f"grid; K7a bf16's ring {fq.ring_stages(pq.PROFILE_DIMS, 2)} buffers)")
     k7a_ms = float(np.median(device_ms(torch, lambda: fused_mlp_query(sw.full, x_bf16))))
     # each stage adds one part of K7a to the one before; the tail without
     # argmax is another tail on the same layers

@@ -24,15 +24,17 @@
 // Design: as fused_mlp.cu, the layer stack runs on a 64-row tile in shared
 // memory with the weights resident per persistent block, and the table is
 // read once. A feature-major table is read one row per thread and feature, so
-// neighbouring threads read neighbouring addresses; K7a's 64-row tile is one
-// contiguous run of 64 * d0 elements, read linearly into a staging tile with an
-// odd row stride and then transposed into the feature-major activation tile
-// (both shared-memory passes free of bank conflicts). bf16 mode rounds its
-// operands to bf16 exactly where the TPU kernel does and multiplies them on the
-// f32 cores (a bf16 x bf16 product is exact in f32); K3 and K7b use __dp4a (4
-// int8 products per instruction). None uses the tensor cores yet, so all are
-// far from their bounds: wgmma, TMA and warp specialisation are the next
-// design.
+// neighbouring threads read neighbouring addresses. K7a's 64-row tile is one
+// contiguous run of 64 * d0 elements, copied ahead into a ring of buffers in
+// shared memory (cp.async, about 20 KB in flight on each SM while the block
+// computes the tile before) and transposed by the thread that copied each
+// word into the feature-major activation tile (query_tile.cuh). bf16 mode
+// rounds its operands to bf16 exactly where the TPU kernel does and
+// multiplies them on the f32 cores (a bf16 x bf16 product is exact in f32);
+// K3 and K7b use __dp4a (4 int8 products per instruction). None uses the
+// tensor cores yet, so all are far from their bounds, and K7a's layers, not
+// its load, set its pace (K8b splits it by stage): wgmma and warp
+// specialisation are the next design.
 //
 // Cross-tile accumulation: the TPU grid runs in order and keeps the per-class
 // accumulators resident. Here blocks run in any order, so every block keeps
@@ -48,25 +50,29 @@ namespace infera {
 template <typename TIn, bool kBf16, bool kRowMajor>
 __global__ void __launch_bounds__(kThreads)
 query_f32_kernel(const TIn* __restrict__ x, long long n, const float* __restrict__ blob,
-                 int blob_words16, MlpDims d, int widest, long long* __restrict__ part_cnt,
-                 double* __restrict__ part_sum) {
+                 int blob_words16, MlpDims d, int widest, int stages,
+                 long long* __restrict__ part_cnt, double* __restrict__ part_sum) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int C = d.dim[d.n_layers];
   float* s_blob = reinterpret_cast<float*>(smem_raw);
   TailScratch t = carve_tail(smem_raw + 16 * blob_words16, C);
   float* act0 = reinterpret_cast<float*>(smem_raw + 16 * blob_words16 + tail_bytes(C));
   float* act1 = act0 + widest * kActStride;
-  float* stage = act1 + widest * kActStride;  // K7a only
-  copy_words16(s_blob, blob, blob_words16);
-  tail_init(t, C);
-  __syncthreads();
-
   const int d0 = d.dim[0];
   const long long n_tiles = (n + kTileRows - 1) / kTileRows;
-  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+  // K7a only: the ring of row-major tiles (query_tile.cuh)
+  const RowRing<TIn> ring{x, n, d0, stages,
+                          reinterpret_cast<unsigned char*>(act1 + widest * kActStride), n_tiles};
+  copy_words16(s_blob, blob, blob_words16);
+  tail_init(t, C);
+  if (kRowMajor) ring_start(ring);
+  __syncthreads();
+
+  int j = 0;  // this block's tile count
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++j) {
     const long long row0 = tile * kTileRows;
     if (kRowMajor) {
-      load_rows_tile<TIn, kBf16>(x, n, row0, d0, stage, act0);
+      load_rows_tile<TIn, kBf16>(ring, j, row0, act0);
     } else {
       for (int i = threadIdx.x; i < kTileRows * d0; i += kThreads) {
         const int k = i / kTileRows;
@@ -266,12 +272,12 @@ inline cudaError_t set_smem(Kernel k, int smem_bytes) {
 
 template <typename TIn, bool kBf16, bool kRowMajor>
 cudaError_t launch_query_f32(const void* x, long long n, const void* blob, long long blob_floats,
-                             MlpDims d, int widest, void* part_cnt, void* part_sum,
+                             MlpDims d, int widest, int stages, void* part_cnt, void* part_sum,
                              int n_blocks, int smem_bytes, cudaStream_t stream) {
   cudaError_t e = set_smem(query_f32_kernel<TIn, kBf16, kRowMajor>, smem_bytes);
   if (e != cudaSuccess) return e;
   query_f32_kernel<TIn, kBf16, kRowMajor><<<n_blocks, kThreads, smem_bytes, stream>>>(
-      (const TIn*)x, n, (const float*)blob, (int)(blob_floats / 4), d, widest,
+      (const TIn*)x, n, (const float*)blob, (int)(blob_floats / 4), d, widest, stages,
       (long long*)part_cnt, (double*)part_sum);
   return cudaGetLastError();
 }
@@ -286,27 +292,27 @@ inline cudaError_t fold(const void* part_cnt, const void* part_sum, int n_blocks
 
 template <bool kRowMajor>
 int query_f32(const void* x, int x_bf16, int compute_bf16, long long n, const void* blob,
-              long long blob_floats, const int* dims, int n_layers, int widest, void* part_cnt,
-              void* part_sum, void* counts, void* sums, int n_blocks, int smem_bytes,
-              void* stream) {
+              long long blob_floats, const int* dims, int n_layers, int widest, int stages,
+              void* part_cnt, void* part_sum, void* counts, void* sums, int n_blocks,
+              int smem_bytes, void* stream) {
   const MlpDims d = make_dims(dims, n_layers);
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e;
   if (x_bf16) {
     e = compute_bf16
             ? launch_query_f32<__nv_bfloat16, true, kRowMajor>(x, n, blob, blob_floats, d, widest,
-                                                               part_cnt, part_sum, n_blocks,
-                                                               smem_bytes, s)
+                                                               stages, part_cnt, part_sum,
+                                                               n_blocks, smem_bytes, s)
             : launch_query_f32<__nv_bfloat16, false, kRowMajor>(x, n, blob, blob_floats, d,
-                                                                widest, part_cnt, part_sum,
-                                                                n_blocks, smem_bytes, s);
+                                                                widest, stages, part_cnt,
+                                                                part_sum, n_blocks, smem_bytes, s);
   } else {
     e = compute_bf16
-            ? launch_query_f32<float, true, kRowMajor>(x, n, blob, blob_floats, d, widest,
+            ? launch_query_f32<float, true, kRowMajor>(x, n, blob, blob_floats, d, widest, stages,
                                                        part_cnt, part_sum, n_blocks, smem_bytes, s)
             : launch_query_f32<float, false, kRowMajor>(x, n, blob, blob_floats, d, widest,
-                                                        part_cnt, part_sum, n_blocks, smem_bytes,
-                                                        s);
+                                                        stages, part_cnt, part_sum, n_blocks,
+                                                        smem_bytes, s);
   }
   if (e != cudaSuccess) return (int)e;
   return (int)fold(part_cnt, part_sum, n_blocks, d.dim[n_layers], counts, sums, s);
@@ -341,19 +347,21 @@ int infera_fused_query_f32(const void* x, int x_bf16, int compute_bf16, long lon
                            int widest, void* part_cnt, void* part_sum, void* counts, void* sums,
                            int n_blocks, int smem_bytes, void* stream) {
   return infera::query_f32<false>(x, x_bf16, compute_bf16, n, blob, blob_floats, dims, n_layers,
-                                  widest, part_cnt, part_sum, counts, sums, n_blocks, smem_bytes,
-                                  stream);
+                                  widest, 0, part_cnt, part_sum, counts, sums, n_blocks,
+                                  smem_bytes, stream);
 }
 
-// K7a: K1 over a row-major table x [n, d0]; the same arguments.
+// K7a: K1 over a row-major table x [n, d0]; the same arguments, and the
+// ring's buffers (`stages`, each [64][ring_stride(d0)] bytes after the
+// activation tiles; 0: the scalar load).
 int infera_fused_query_rows(const void* x, int x_bf16, int compute_bf16, long long n,
                             const void* blob, long long blob_floats, const int* dims,
-                            int n_layers, int widest, void* part_cnt, void* part_sum,
-                            void* counts, void* sums, int n_blocks, int smem_bytes,
-                            void* stream) {
+                            int n_layers, int widest, int stages, void* part_cnt,
+                            void* part_sum, void* counts, void* sums, int n_blocks,
+                            int smem_bytes, void* stream) {
   return infera::query_f32<true>(x, x_bf16, compute_bf16, n, blob, blob_floats, dims, n_layers,
-                                 widest, part_cnt, part_sum, counts, sums, n_blocks, smem_bytes,
-                                 stream);
+                                 widest, stages, part_cnt, part_sum, counts, sums, n_blocks,
+                                 smem_bytes, stream);
 }
 
 // K3. xq: [d0, n] int8. blob: int32 words as laid out in mlp_tile.cuh. Bit l

@@ -37,10 +37,10 @@
 // so it is bound by bytes (~0.006 ms at 3.35 TB/s); with the bench MLP
 // (32-128-128-16 softmax) it is bound by f32 operations (47.2 G operations
 // over all rows, ~0.70 ms at 67 TFLOP/s, half that where the WHERE keeps half
-// the rows; at the bf16 tensor-core rate the 33 columns' bytes bound it). This first
-// version runs the layers on the f32 CUDA cores (mlp_tile.cuh), interprets
-// programs with a switch, and reduces groups with one thread per group, so it
-// is far from either bound; wgmma for the MLP is the next design.
+// the rows; at the bf16 tensor-core rate the 33 columns' bytes bound it). It
+// runs the layers on the f32 CUDA cores (mlp_tile.cuh) and interprets
+// programs with a switch, so it is far from either bound; wgmma for the MLP
+// is the next design.
 //
 // K4: each `infera_predict` of a tree ensemble is a forest slot. The TPU
 // kernel ran the forest as strip-packed one-hot and ancestry matmuls for the
@@ -85,9 +85,9 @@
 // 1,048,576-row dimension, four K2' slots of an 8->4 map): each used fact
 // column, the 4 MiB lookup and each used dim column read once are about 50 MB
 // (0.015 ms at 3.35 TB/s); the operations are a few hundred a row. It is
-// bound by bytes; this first version gathers the lookup and the dim rows at
-// random, one 4-byte load a row each, so it is bound by the latency of those
-// loads and of the interpreter, as K2 is.
+// bound by bytes; the kernel gathers the lookup and the dim rows at random,
+// one 4-byte load a row each, so it is bound by the latency of those loads
+// and of the interpreter, as K2 is.
 //
 // K2 b-e, the aggregate tail of infera_tpu/ops/pallas_sql.py (:264-363) and
 // of the sum-slot families of infera_tpu/sql/device_plan.py (:951-1045). The
@@ -97,7 +97,7 @@
 // MXU matmuls per 128-value bank (c), and kept arg_min/arg_max as (value,
 // row) lane pairs with NaN at 2^30 (d). The H100 has int64 and f64, so:
 //  b. an int sum slot reads its row of the int64 block xi [I][n] into shared
-//     memory per tile; the group's thread adds it as unsigned long long (wrap
+//     memory per tile; the reduction adds it as unsigned long long (wrap
 //     modulo 2^64 is exact whatever the order; signed overflow would be
 //     undefined) and adds |v| in f64 to the slot's estimate row, which the
 //     host holds to the SUM(BIGINT) overflow rule. var, count_if, product
@@ -120,15 +120,30 @@
 //
 // Bound of K2 b-e on the H100 (1,048,576 rows): each reads one or two
 // columns (4 or 8 bytes a row) and does a few operations a row, so each is
-// bound by bytes (about 0.002-0.01 ms at 3.35 TB/s); this first version
-// spends its time in the interpreter, the one-thread-per-group reduction
-// and, for c, the atomics on a few hot cells.
+// bound by bytes (about 0.002-0.01 ms at 3.35 TB/s); the kernel spends its
+// time in the interpreter (its stack lives in local memory) and the
+// latency of the programs' loads, and, for c, in the atomics on a few hot
+// cells.
 //
-// Cross-block accumulation: blocks run in any order, so each (persistent)
-// block keeps its own accumulators in shared memory, one thread per group
-// adding the tile's rows in row order, and writes them to partials; a second
-// kernel folds the partials in block order. No atomics on values: sums repeat
-// bit for bit from run to run at one grid size.
+// The tile's reduction (warp_fold, combine_by_group below). The TPU kernel
+// accumulated a tile as a masked one-hot sum over 128 lanes; here each warp
+// folds its 32 rows per group (__match_any_sync; the lowest lane of a group
+// folds its peers' values in lane order, or a fixed xor-shuffle tree where
+// all the warp's selected rows share one group, as in every one-group plan),
+// writing the fold over the group's own rows, and then one thread per
+// (column, group) adds the 8 warps' folds in warp order. The serial depth of
+// a tile is a warp's largest group (at most 32 steps) and 8 adds, not the
+// 256 rows a group's thread once scanned.
+//
+// Grid and cross-block accumulation: blocks run in any order, so each
+// persistent block keeps its own accumulators in shared memory and writes
+// them to partials; a second kernel folds them, one warp per output element,
+// each lane over the blocks in block order, then a fixed shuffle tree. The
+// grid is the blocks resident on the card at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor at the plan's shared
+// memory), so no block waits for a second wave; __launch_bounds__ asks for 3
+// blocks an SM. No atomics on values: sums repeat bit for bit from run to
+// run at one grid size.
 #include "mlp_tile.cuh"
 
 #include <limits.h>
@@ -158,9 +173,9 @@ enum Hdr {
   H_TAIL,
   H_SM_BLOB = 24, H_SM_ACT0, H_SM_ACT1, H_SM_PRED, H_SM_VALS, H_SM_KRAW, H_SM_KSLOT, H_SM_RIDX,
   H_SM_CNT, H_SM_SUMS, H_SM_MM, H_SM_FLAGS, H_SM_IVALS, H_SM_AVALS, H_SM_IACC, H_SM_IEST,
-  H_SM_AACC, H_SM_TOTAL
+  H_SM_AACC, H_SM_LEAD, H_SM_TOTAL
 };
-static_assert(H_TAIL == 22 && H_SM_TOTAL == 41, "header layout of ops/fused_sql.py");
+static_assert(H_TAIL == 22 && H_SM_TOTAL == 42, "header layout of ops/fused_sql.py");
 
 // the tail's slots (ops/fused_sql.py pack_plan): kTailDesc words each at
 // plan[H_TAIL], int slots {block row, kind, estimate row or -1}, then
@@ -436,7 +451,301 @@ __device__ void forest_slot(const int* plan, const int* fd, int j, float* pred,
   pred[j * kRows + r] = out;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// ------------------------------------------------------------ the tile's reduction
+//
+// After the slot phase every selected row t of the tile holds its values in
+// shared memory (vals, kraw, ivals, avals) and its group in a register (-1:
+// not selected). warp_fold: within each warp, __match_any_sync gives the
+// lanes of each group; the lowest of them, the group's leader, folds their
+// values in lane order and writes the fold back over the rows of the group,
+// so the fold needs no memory of its own: a row that is its group's only
+// row keeps its value; otherwise an f64 sum is split over the words of the
+// leader's row (low) and of the group's second row t2 (high), a raw key's
+// minimum stays at the leader's row and its maximum goes to t2, and an int
+// sum's f64 estimate goes to t2's int64 word. A warp whose selected rows
+// all share one group (every warp of a one-group plan) folds with a fixed
+// __shfl_xor_sync tree instead. kslot[t] says what row t holds: -1, or for
+// a leader group | count << 16 | lane of t2 << 22. The leaders also enter
+// their lane in lead[warp][group]. combine_by_group then adds the 8 warps'
+// folds of each (column, group) in warp order, one thread per pair; a
+// plan with no room for lead takes combine_by_column, one thread per
+// column over every leader in warp order. No two threads write one
+// accumulator, and no value is added with an atomic: the sums repeat bit
+// for bit from run to run.
+
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ inline int lead_info(int g, int count, int lane2) {
+  return g | (count << 16) | (lane2 << 22);
+}
+
+__device__ inline void put_f64(float* row, int t, int t2, double v) {
+  int* w = reinterpret_cast<int*>(row);
+  w[t] = __double2loint(v);
+  w[t2] = __double2hiint(v);
+}
+
+__device__ inline double get_f64(const float* row, int t, int t2, int count) {
+  if (count == 1) return (double)row[t];
+  const int* w = reinterpret_cast<const int*>(row);
+  return __hiloint2double(w[t2], w[t]);
+}
+
+template <typename T>
+__device__ inline T xor_tree(T v, int op) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const T u = __shfl_xor_sync(kFull, v, o);
+    switch (op) {
+      case 0: v = v + u; break;                        // f64 or wrapping sum
+      case 1: v = u < v ? u : v; break;                // integer min
+      default: v = u > v ? u : v; break;               // integer max
+    }
+  }
+  return v;
+}
+
+__device__ inline float xor_tree_mm(float v, int op) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float u = __shfl_xor_sync(kFull, v, o);
+    switch (op) {
+      case 0: v = min_nan(v, u); break;
+      case 1: v = max_nan(v, u); break;
+      case 2: v = fminf(v, u); break;
+      default: v = fmaxf(v, u); break;
+    }
+  }
+  return v;
+}
+
+__device__ void warp_fold(const int* plan, int slot, float* vals, float* kraw, long long* ivals,
+                          unsigned long long* avals, int* kslot, unsigned char* lead) {
+  const int K = plan[H_K], S = plan[H_S], M = plan[H_M], X = plan[H_X], G = plan[H_G];
+  const int I = plan[H_I], A = plan[H_A];
+  const int* idesc = plan + plan[H_TAIL];
+  const int* adesc = idesc + kTailDesc * (I + plan[H_D]);
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int base = t - lane;
+  const unsigned sel = __ballot_sync(kFull, slot >= 0);
+  const unsigned peers = __match_any_sync(kFull, slot);
+  kslot[t] = -1;
+  if (sel == 0) return;  // uniform across the warp
+  const int first = __ffs(sel) - 1;
+  if (__shfl_sync(kFull, peers, first) == sel) {
+    // one group: fixed xor trees over the warp, unselected lanes neutral
+    const bool on = slot >= 0;
+    const int count = __popc(sel);
+    const int l2 = count > 1 ? __ffs(sel & (sel - 1)) - 1 : first;
+    const int t0 = base + first, t2 = base + l2;
+    for (int s = 0; s < S; ++s) {
+      const double v = xor_tree(on ? (double)vals[s * kRows + t] : 0.0, 0);
+      if (lane == first && count > 1) put_f64(vals + s * kRows, t0, t2, v);
+    }
+    for (int c = 0; c < M + X; ++c) {
+      float* row = vals + (S + c) * kRows;
+      const bool mn = c < M;
+      const float v = xor_tree_mm(on ? row[t] : (mn ? INFINITY : -INFINITY), mn ? 0 : 1);
+      if (lane == first) row[t0] = v;
+    }
+    for (int k = 0; k < K; ++k) {
+      float* row = kraw + k * kRows;
+      const float lo = xor_tree_mm(on ? row[t] : INFINITY, 2);
+      const float hi = xor_tree_mm(on ? row[t] : -INFINITY, 3);
+      if (lane == first) {
+        row[t0] = lo;
+        row[t2] = hi;
+      }
+    }
+    for (int i = 0; i < I; ++i) {
+      long long* row = ivals + i * kRows;
+      const int kind = idesc[kTailDesc * i + 1];
+      const long long v = on ? row[t] : int_start(kind);
+      long long f;
+      if (kind == KIND_SUM) {
+        f = (long long)xor_tree((unsigned long long)v, 0);
+        const double e = xor_tree(on ? fabs((double)v) : 0.0, 0);
+        if (lane == first && count > 1) row[t2] = __double_as_longlong(e);
+      } else {
+        f = xor_tree(v, kind == KIND_MIN ? 1 : 2);
+      }
+      if (lane == first) row[t0] = f;
+    }
+    for (int a = 0; a < A; ++a) {
+      unsigned long long* row = avals + a * kRows;
+      const bool is_min = adesc[kTailDesc * a] != 0;
+      const unsigned long long v = xor_tree(on ? row[t] : (is_min ? ~0ull : 0ull), is_min ? 1 : 2);
+      if (lane == first) row[t0] = v;
+    }
+    __syncwarp();
+    if (lane == first) {
+      kslot[t0] = lead_info(slot, count, l2);
+      if (lead != nullptr) lead[(t >> 5) * G + slot] = (unsigned char)lane;
+    }
+    return;
+  }
+  if (slot < 0 || (peers & ((1u << lane) - 1)) != 0) return;  // not a leader
+  // the leader folds its group's rows in lane order
+  const int count = __popc(peers);
+  kslot[t] = lead_info(slot, count, count > 1 ? __ffs(peers & (peers - 1)) - 1 : lane);
+  if (lead != nullptr) lead[(t >> 5) * G + slot] = (unsigned char)lane;
+  if (count == 1) return;  // its row is its fold
+  const int t2 = base + __ffs(peers & (peers - 1)) - 1;
+  for (int s = 0; s < S; ++s) {
+    const float* row = vals + s * kRows;
+    double acc = 0.0;
+    for (unsigned m = peers; m; m &= m - 1) acc += (double)row[base + __ffs(m) - 1];
+    put_f64(vals + s * kRows, t, t2, acc);
+  }
+  for (int c = 0; c < M + X; ++c) {
+    float* row = vals + (S + c) * kRows;
+    float acc = row[t];
+    for (unsigned m = peers & (peers - 1); m; m &= m - 1) {
+      const float v = row[base + __ffs(m) - 1];
+      acc = c < M ? min_nan(acc, v) : max_nan(acc, v);
+    }
+    row[t] = acc;
+  }
+  for (int k = 0; k < K; ++k) {
+    float* row = kraw + k * kRows;
+    float lo = row[t], hi = row[t];
+    for (unsigned m = peers & (peers - 1); m; m &= m - 1) {
+      const float v = row[base + __ffs(m) - 1];
+      lo = fminf(lo, v);
+      hi = fmaxf(hi, v);
+    }
+    row[t] = lo;
+    row[t2] = hi;
+  }
+  for (int i = 0; i < I; ++i) {
+    long long* row = ivals + i * kRows;
+    const int kind = idesc[kTailDesc * i + 1];
+    long long acc = row[t];
+    double est = fabs((double)acc);
+    for (unsigned m = peers & (peers - 1); m; m &= m - 1) {
+      const long long v = row[base + __ffs(m) - 1];
+      acc = int_fold(acc, v, kind);
+      est += fabs((double)v);
+    }
+    row[t] = acc;
+    if (kind == KIND_SUM) row[t2] = __double_as_longlong(est);
+  }
+  for (int a = 0; a < A; ++a) {
+    unsigned long long* row = avals + a * kRows;
+    const bool is_min = adesc[kTailDesc * a] != 0;
+    unsigned long long acc = row[t];
+    for (unsigned m = peers & (peers - 1); m; m &= m - 1) {
+      const unsigned long long w = row[base + __ffs(m) - 1];
+      if (is_min ? w < acc : w > acc) acc = w;
+    }
+    row[t] = acc;
+  }
+}
+
+// Column c of the fold at leader row t (kslot info `info`) into group g's
+// accumulator. Columns: 0 the count, then S sums, M + X min/max slots, K
+// raw-key minima, K raw-key maxima, I int slots (with an int sum's
+// estimate), A arg slots.
+__device__ inline void add_column(const int* plan, int c, int t, int info, const float* vals,
+                                  const float* kraw, const long long* ivals,
+                                  const unsigned long long* avals, long long* cnt, double* sums,
+                                  float* mm, long long* iacc, double* iest,
+                                  unsigned long long* aacc) {
+  const int K = plan[H_K], S = plan[H_S], M = plan[H_M], X = plan[H_X], G = plan[H_G];
+  const int I = plan[H_I];
+  const int g = info & 0xffff;
+  const int count = (info >> 16) & 63;
+  const int t2 = (t & ~31) + ((info >> 22) & 31);
+  if (c == 0) {
+    cnt[g] += count;
+    return;
+  }
+  c -= 1;
+  if (c < S) {
+    sums[c * G + g] += get_f64(vals + c * kRows, t, t2, count);
+    return;
+  }
+  c -= S;
+  if (c < M + X) {
+    float& acc = mm[c * G + g];
+    const float v = vals[(S + c) * kRows + t];
+    acc = c < M ? min_nan(acc, v) : max_nan(acc, v);
+    return;
+  }
+  c -= M + X;
+  if (c < 2 * K) {
+    const int k = c < K ? c : c - K;
+    const float v = kraw[k * kRows + (c < K ? t : t2)];
+    float& acc = mm[(M + X + c) * G + g];
+    acc = c < K ? fminf(acc, v) : fmaxf(acc, v);
+    return;
+  }
+  c -= 2 * K;
+  const int* idesc = plan + plan[H_TAIL];
+  if (c < I) {
+    const int* id = idesc + kTailDesc * c;
+    const long long* row = ivals + c * kRows;
+    iacc[c * G + g] = int_fold(iacc[c * G + g], row[t], id[1]);
+    if (id[1] == KIND_SUM)
+      iest[id[2] * G + g] += count == 1 ? fabs((double)row[t]) : __longlong_as_double(row[t2]);
+    return;
+  }
+  c -= I;
+  const int* adesc = idesc + kTailDesc * (I + plan[H_D]);
+  const unsigned long long w = avals[c * kRows + t];
+  unsigned long long& acc = aacc[c * G + g];
+  if (adesc[kTailDesc * c] ? w < acc : w > acc) acc = w;
+}
+
+__device__ inline int n_columns(const int* plan) {
+  return 1 + plan[H_S] + plan[H_M] + plan[H_X] + 2 * plan[H_K] + plan[H_I] + plan[H_A];
+}
+
+// One thread per (column, group): the 8 warps' folds of the group in warp
+// order, each found through lead (a stale byte names a row whose kslot
+// is not this group's leader, and is passed over).
+__device__ void combine_by_group(const int* plan, const float* vals, const float* kraw,
+                                 const long long* ivals, const unsigned long long* avals,
+                                 const int* kslot, const unsigned char* lead, long long* cnt,
+                                 double* sums, float* mm, long long* iacc, double* iest,
+                                 unsigned long long* aacc) {
+  const int G = plan[H_G];
+  const int items = n_columns(plan) * G;
+  for (int it = threadIdx.x; it < items; it += kThreads) {
+    const int c = it / G;
+    const int g = it - c * G;
+    for (int w = 0; w < kWarps; ++w) {
+      const int t = 32 * w + (lead[w * G + g] & 31);
+      const int info = kslot[t];
+      if (info < 0 || (info & 0xffff) != g) continue;
+      add_column(plan, c, t, info, vals, kraw, ivals, avals, cnt, sums, mm, iacc, iest, aacc);
+    }
+  }
+}
+
+// One thread per column: every leader of the tile in warp order.
+__device__ void combine_by_column(const int* plan, const float* vals, const float* kraw,
+                                  const long long* ivals, const unsigned long long* avals,
+                                  const int* kslot, long long* cnt, double* sums, float* mm,
+                                  long long* iacc, double* iest, unsigned long long* aacc) {
+  const int cols = n_columns(plan);
+  for (int c = threadIdx.x; c < cols; c += kThreads) {
+    for (int t = 0; t < kRows; ++t) {
+      const int info = kslot[t];
+      if (info >= 0)
+        add_column(plan, c, t, info, vals, kraw, ivals, avals, cnt, sums, mm, iacc, iest, aacc);
+    }
+  }
+}
+
+// 3 blocks an SM: ptxas keeps the kernel in 80 registers without a spill
+// (left free it took 104, 2 blocks an SM; at 4 blocks, 64 registers, it
+// spills), so 24 warps an SM hide the latency of the programs' loads
+constexpr int kMinBlocks = 3;
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 fused_sql_kernel(const float* __restrict__ x, long long n_pad, long long n,
                  const int* __restrict__ gplan, const float* __restrict__ blob, int blob_words16,
                  const int* __restrict__ trees, const int* __restrict__ lookup,
@@ -464,7 +773,7 @@ fused_sql_kernel(const float* __restrict__ x, long long n_pad, long long n,
   float* pred = at<float>(smem, plan, H_SM_PRED);
   float* vals = at<float>(smem, plan, H_SM_VALS);    // [S + M + X][kRows]
   float* kraw = at<float>(smem, plan, H_SM_KRAW);    // [K][kRows]
-  int* kslot = at<int>(smem, plan, H_SM_KSLOT);      // [kRows]: group, -1 if not selected
+  int* kslot = at<int>(smem, plan, H_SM_KSLOT);      // [kRows]: a leader's fold (warp_fold)
   long long* cnt = at<long long>(smem, plan, H_SM_CNT);
   double* sums = at<double>(smem, plan, H_SM_SUMS);  // [S][G]
   float* mm = at<float>(smem, plan, H_SM_MM);        // [R][G]
@@ -475,6 +784,9 @@ fused_sql_kernel(const float* __restrict__ x, long long n_pad, long long n,
   long long* iacc = at<long long>(smem, plan, H_SM_IACC);    // [I][G]
   double* iest = at<double>(smem, plan, H_SM_IEST);          // [IS][G]
   unsigned long long* aacc = at<unsigned long long>(smem, plan, H_SM_AACC);  // [A][G]
+  // [kWarps][G]: each warp's leader lane of a group; over the tile's dead
+  // MLP and prediction rows, or absent (-1) where a plan has no room for it
+  unsigned char* lead = plan[H_SM_LEAD] >= 0 ? smem + plan[H_SM_LEAD] : nullptr;
   const int join_key = plan[H_JOIN_KEY];             // fact key's block row, -1: no join
   const int kmax = plan[H_JOIN_KMAX];
   const Src src{x, n_pad, dim, join_key >= 0 ? (long long)plan[H_JOIN_NDIM] : 0, ridx};
@@ -567,42 +879,18 @@ fused_sql_kernel(const float* __restrict__ x, long long n_pad, long long n,
       for (int i = 0; i < I; ++i)  // K2 b, e: the row's int64 value
         ivals[i * kRows + t] = __ldg(xi + (long long)idesc[kTailDesc * i] * xi_stride + row);
     }
-    kslot[t] = slot;
     if (fl) atomicOr(flags, fl);
     __syncthreads();
-    // reduction: one thread per group, rows in order
-    for (int g = threadIdx.x; g < G; g += kThreads) {
-      for (int r = 0; r < kRows; ++r) {
-        if (kslot[r] != g) continue;
-        cnt[g] += 1;
-        for (int s = 0; s < S; ++s) sums[s * G + g] += (double)vals[s * kRows + r];
-        for (int c = 0; c < M; ++c) mm[c * G + g] = min_nan(mm[c * G + g], vals[(S + c) * kRows + r]);
-        for (int c = 0; c < X; ++c)
-          mm[(M + c) * G + g] = max_nan(mm[(M + c) * G + g], vals[(S + M + c) * kRows + r]);
-        for (int k = 0; k < K; ++k) {
-          const float v = kraw[k * kRows + r];
-          mm[(M + X + k) * G + g] = fminf(mm[(M + X + k) * G + g], v);
-          mm[(M + X + K + k) * G + g] = fmaxf(mm[(M + X + K + k) * G + g], v);
-        }
-      }
-      // the int and arg slots in a pass of their own, which a plan without
-      // them skips: the loop above runs on one thread for one group
-      if (I + A == 0) continue;
-      for (int r = 0; r < kRows; ++r) {
-        if (kslot[r] != g) continue;
-        for (int i = 0; i < I; ++i) {
-          const int* id = idesc + kTailDesc * i;
-          const long long v = ivals[i * kRows + r];
-          iacc[i * G + g] = int_fold(iacc[i * G + g], v, id[1]);
-          if (id[1] == KIND_SUM) iest[id[2] * G + g] += fabs((double)v);
-        }
-        for (int a = 0; a < A; ++a) {
-          const unsigned long long w = avals[a * kRows + r];
-          unsigned long long& acc = aacc[a * G + g];
-          if (adesc[kTailDesc * a] ? w < acc : w > acc) acc = w;
-        }
-      }
-    }
+    // the tile's reduction: each warp folds its rows per group in lane
+    // order, then the warps' folds enter the block's accumulators in warp
+    // order (warp_fold, combine)
+    warp_fold(plan, slot, vals, kraw, ivals, avals, kslot, lead);
+    __syncthreads();
+    if (lead != nullptr)
+      combine_by_group(plan, vals, kraw, ivals, avals, kslot, lead, cnt, sums, mm, iacc, iest,
+                       aacc);
+    else
+      combine_by_column(plan, vals, kraw, ivals, avals, kslot, cnt, sums, mm, iacc, iest, aacc);
     __syncthreads();
   }
   for (int g = threadIdx.x; g < G; g += kThreads) {
@@ -619,9 +907,11 @@ fused_sql_kernel(const float* __restrict__ x, long long n_pad, long long n,
   if (threadIdx.x == 0) part_flags[blockIdx.x] = *flags;
 }
 
-// One thread per output element adds the blocks' partials in block order.
-// The sections of the output, in order: G counts, S x G sums, R x G min/max
-// rows, I x G int slots, IS x G estimates, A x G arg words, the flag word.
+// One warp per output element: lane l adds the partials of blocks l, l +
+// 32, ... in block order, then a fixed __shfl_xor_sync tree adds the 32
+// lanes, so the fold repeats bit for bit. The sections of the output, in
+// order: G counts, S x G sums, R x G min/max rows, I x G int slots, IS x G
+// estimates, A x G arg words, the flag word.
 __global__ void fused_sql_fold(const int* __restrict__ plan,
                                const long long* __restrict__ part_cnt,
                                const double* __restrict__ part_sum,
@@ -637,117 +927,162 @@ __global__ void fused_sql_fold(const int* __restrict__ plan,
   const int M = plan[H_M], X = plan[H_X], K = plan[H_K];
   const int* idesc = plan + plan[H_TAIL];
   const int* adesc = idesc + kTailDesc * (I + plan[H_D]);
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;  // uniform in a warp
   if (i < G) {
     long long c = 0;
-    for (int b = 0; b < n_blocks; ++b) c += part_cnt[(long long)b * G + i];
-    cnt[i] = c;
+    for (int b = lane; b < n_blocks; b += 32) c += part_cnt[(long long)b * G + i];
+    c = xor_tree(c, 0);
+    if (lane == 0) cnt[i] = c;
     return;
   }
   i -= G;
   if (i < (long long)S * G) {
     double s = 0.0;
-    for (int b = 0; b < n_blocks; ++b) s += part_sum[(long long)b * S * G + i];
-    sums[i] = s;
+    for (int b = lane; b < n_blocks; b += 32) s += part_sum[(long long)b * S * G + i];
+    s = xor_tree(s, 0);
+    if (lane == 0) sums[i] = s;
     return;
   }
   i -= (long long)S * G;
   if (i < (long long)R * G) {
     const bool is_min = mm_is_min((int)(i / G), M, X, K);
     float v = is_min ? INFINITY : -INFINITY;
-    for (int b = 0; b < n_blocks; ++b) {
+    for (int b = lane; b < n_blocks; b += 32) {
       const float p = part_mm[(long long)b * R * G + i];
       v = is_min ? min_nan(v, p) : max_nan(v, p);
     }
-    mm[i] = v;
+    v = xor_tree_mm(v, is_min ? 0 : 1);
+    if (lane == 0) mm[i] = v;
     return;
   }
   i -= (long long)R * G;
   if (i < (long long)I * G) {
     const int kind = idesc[kTailDesc * (int)(i / G) + 1];
     long long v = int_start(kind);
-    for (int b = 0; b < n_blocks; ++b) v = int_fold(v, part_int[(long long)b * I * G + i], kind);
-    ints[i] = v;
+    for (int b = lane; b < n_blocks; b += 32)
+      v = int_fold(v, part_int[(long long)b * I * G + i], kind);
+    v = kind == KIND_SUM ? (long long)xor_tree((unsigned long long)v, 0)
+                         : xor_tree(v, kind == KIND_MIN ? 1 : 2);
+    if (lane == 0) ints[i] = v;
     return;
   }
   i -= (long long)I * G;
   if (i < (long long)IS * G) {
     double s = 0.0;
-    for (int b = 0; b < n_blocks; ++b) s += part_iest[(long long)b * IS * G + i];
-    iest[i] = s;
+    for (int b = lane; b < n_blocks; b += 32) s += part_iest[(long long)b * IS * G + i];
+    s = xor_tree(s, 0);
+    if (lane == 0) iest[i] = s;
     return;
   }
   i -= (long long)IS * G;
   if (i < (long long)A * G) {
     const bool is_min = adesc[kTailDesc * (int)(i / G)] != 0;
     unsigned long long w = is_min ? kArgEmptyMin : 0ull;
-    for (int b = 0; b < n_blocks; ++b) {
+    for (int b = lane; b < n_blocks; b += 32) {
       const unsigned long long p = part_arg[(long long)b * A * G + i];
       if (is_min ? p < w : p > w) w = p;
     }
-    args[i] = w;
+    w = xor_tree(w, is_min ? 1 : 2);
+    if (lane == 0) args[i] = w;
     return;
   }
   if (i == (long long)A * G) {
-    int f = 0;
-    for (int b = 0; b < n_blocks; ++b) f |= part_flags[b];
-    flags[0] = f;
+    unsigned f = 0;
+    for (int b = lane; b < n_blocks; b += 32) f |= (unsigned)part_flags[b];
+    f = __reduce_or_sync(kFull, f);
+    if (lane == 0) flags[0] = (int)f;
   }
 }
 
 }  // namespace sql
 }  // namespace infera
 
+namespace infera {
+namespace sql {
+
+// cudaFuncSetAttribute once per device for the largest dynamic shared
+// memory asked so far, not on every launch
+inline cudaError_t allow_smem(int smem_bytes) {
+  static int allowed[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 64 && smem_bytes <= allowed[dev]) return cudaSuccess;
+  e = cudaFuncSetAttribute(fused_sql_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem_bytes);
+  if (e == cudaSuccess && dev < 64) allowed[dev] = smem_bytes;
+  return e;
+}
+
+// The words of infera_fused_sql_launch's argument block (ops/fused_sql.py
+// _launch_words).
+enum Arg {
+  A_XC = 0, A_NPAD, A_N, A_PLAN, A_BLOB, A_BLOB_FLOATS, A_TREES, A_LOOKUP, A_DIM, A_XI,
+  A_XI_STRIDE, A_DMAT, A_PART, A_NBLOCKS = A_PART + 7, A_SMEM, A_G, A_S, A_R, A_I, A_IS, A_A,
+  A_OUT, A_WORDS = A_OUT + 7
+};
+static_assert(A_WORDS == 34, "argument block of ops/fused_sql.py");
+
+}  // namespace sql
+}  // namespace infera
+
 extern "C" {
 
-// xc: [C, n_pad] f32, rows [0, n) used. plan: int32 words of
-// ops/fused_sql.py pack_plan, which also lays out the shared memory
-// (smem_bytes). blob: the MLP weights, f32 (blob_floats, a multiple of 4, 0
-// without an MLP). trees: the forest slots' tables, int32 words, 16-byte
-// aligned sections. lookup and dim: a join plan's key lookup (int32
-// [kmax + 1]) and dim block (f32 [D][n_dim]), null without a join. xi: the
-// int64 block the int slots read ([rows][xi_stride]), null without int
-// slots. dmat: the DISTINCT/MODE counts, int32, zeroed by the caller.
-// Partials: [n_blocks][G] int64, [n_blocks][S][G] f64, [n_blocks][R][G] f32,
-// [n_blocks][I][G] int64, [n_blocks][IS][G] f64, [n_blocks][A][G] uint64,
-// [n_blocks] int32. Returns a cudaError_t.
-int infera_fused_sql(const void* xc, long long n_pad, long long n, const void* plan,
-                     const void* blob, long long blob_floats, const void* trees,
-                     const void* lookup, const void* dim, const void* xi, long long xi_stride,
-                     void* dmat, void* part_cnt, void* part_sum, void* part_mm, void* part_int,
-                     void* part_iest, void* part_arg, void* part_flags, int n_blocks,
-                     int smem_bytes, void* stream) {
+// K2 (and K2', K4, K5 inside it) and the fold of its partials, launched on
+// one stream from one argument block `a` of int64 words (enum Arg):
+//   xc: [C, n_pad] f32, rows [0, n) used. plan: int32 words of
+//   ops/fused_sql.py pack_plan, which also lays out the shared memory
+//   (smem). blob: the MLP weights, f32 (blob_floats, a multiple of 4, 0
+//   without an MLP). trees: the forest slots' tables, int32 words, 16-byte
+//   aligned sections. lookup and dim: a join plan's key lookup (int32
+//   [kmax + 1]) and dim block (f32 [D][n_dim]), 0 without a join. xi: the
+//   int64 block the int slots read ([rows][xi_stride]), 0 without int slots.
+//   dmat: the DISTINCT/MODE counts, int32, zeroed by the caller.
+//   The 7 partials: [n_blocks][G] int64, [n_blocks][S][G] f64,
+//   [n_blocks][R][G] f32, [n_blocks][I][G] int64, [n_blocks][IS][G] f64,
+//   [n_blocks][A][G] uint64, [n_blocks] int32.
+//   The 7 outputs of the fold: [G] int64 counts, [S][G] f64 sums, [R][G]
+//   f32 min/max rows, [I][G] int64 int slots, [IS][G] f64 estimates, [A][G]
+//   uint64 arg words and the [1] int32 flag word.
+// parts: 1 the kernel, 2 the fold, 3 both (a caller timing each alone).
+// Returns a cudaError_t.
+int infera_fused_sql_launch(const long long* a, int parts, void* stream) {
   using namespace infera::sql;
-  cudaError_t e = cudaFuncSetAttribute(fused_sql_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  const int smem = (int)a[A_SMEM], n_blocks = (int)a[A_NBLOCKS];
+  cudaError_t e = allow_smem(smem);
   if (e != cudaSuccess) return (int)e;
-  fused_sql_kernel<<<n_blocks, infera::kThreads, smem_bytes, (cudaStream_t)stream>>>(
-      (const float*)xc, n_pad, n, (const int*)plan, (const float*)blob, (int)(blob_floats / 4),
-      (const int*)trees, (const int*)lookup, (const float*)dim, (const long long*)xi, xi_stride,
-      (int*)dmat, (long long*)part_cnt, (double*)part_sum, (float*)part_mm,
-      (long long*)part_int, (double*)part_iest, (unsigned long long*)part_arg,
-      (int*)part_flags);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const long long* p = a + A_PART;
+  if (parts & 1) fused_sql_kernel<<<n_blocks, infera::kThreads, smem, s>>>(
+      (const float*)a[A_XC], a[A_NPAD], a[A_N], (const int*)a[A_PLAN], (const float*)a[A_BLOB],
+      (int)(a[A_BLOB_FLOATS] / 4), (const int*)a[A_TREES], (const int*)a[A_LOOKUP],
+      (const float*)a[A_DIM], (const long long*)a[A_XI], a[A_XI_STRIDE], (int*)a[A_DMAT],
+      (long long*)p[0], (double*)p[1], (float*)p[2], (long long*)p[3], (double*)p[4],
+      (unsigned long long*)p[5], (int*)p[6]);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || !(parts & 2)) return (int)e;
+  const int G = (int)a[A_G], S = (int)a[A_S], R = (int)a[A_R], I = (int)a[A_I];
+  const int IS = (int)a[A_IS], A = (int)a[A_A];
+  const long long* o = a + A_OUT;
+  const long long total = (long long)G * (1 + S + R + I + IS + A) + 1;  // a warp each
+  fused_sql_fold<<<(unsigned)((32 * total + 255) / 256), 256, 0, s>>>(
+      (const int*)a[A_PLAN], (const long long*)p[0], (const double*)p[1], (const float*)p[2],
+      (const long long*)p[3], (const double*)p[4], (const unsigned long long*)p[5],
+      (const int*)p[6], n_blocks, G, S, R, I, IS, A, (long long*)o[0], (double*)o[1],
+      (float*)o[2], (long long*)o[3], (double*)o[4], (unsigned long long*)o[5], (int*)o[6]);
   return (int)cudaGetLastError();
 }
 
-// The fold of the partials into [G] int64 counts, [S][G] f64 sums, [R][G]
-// f32 min/max rows, [I][G] int64 int slots, [IS][G] f64 estimates, [A][G]
-// uint64 arg words and the [1] int32 flag word; launched after
-// infera_fused_sql on the same stream, with the same plan words.
-int infera_fused_sql_fold(const void* plan, const void* part_cnt, const void* part_sum,
-                          const void* part_mm, const void* part_int, const void* part_iest,
-                          const void* part_arg, const void* part_flags, int n_blocks, int G,
-                          int S, int R, int I, int IS, int A, void* cnt, void* sums, void* mm,
-                          void* ints, void* iest, void* args, void* flags, void* stream) {
+// Blocks of fused_sql_kernel resident on one SM at `smem` bytes of dynamic
+// shared memory (registers, shared memory and threads all counted), into
+// *blocks. Returns a cudaError_t.
+int infera_fused_sql_occupancy(int smem, int* blocks) {
   using namespace infera::sql;
-  const long long total = (long long)G * (1 + S + R + I + IS + A) + 1;
-  fused_sql_fold<<<(unsigned)((total + 255) / 256), 256, 0, (cudaStream_t)stream>>>(
-      (const int*)plan, (const long long*)part_cnt, (const double*)part_sum,
-      (const float*)part_mm, (const long long*)part_int, (const double*)part_iest,
-      (const unsigned long long*)part_arg, (const int*)part_flags, n_blocks, G, S, R, I, IS, A,
-      (long long*)cnt, (double*)sums, (float*)mm, (long long*)ints, (double*)iest,
-      (unsigned long long*)args, (int*)flags);
-  return (int)cudaGetLastError();
+  cudaError_t e = allow_smem(smem);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fused_sql_kernel,
+                                                            infera::kThreads, smem);
 }
 
 const char* infera_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -24,17 +24,24 @@
 //
 // Design: one kernel runs every stage (K8a is its scan stage): K7a's
 // persistent grid (the wrapper gives it K7a's block count for the MLP) over
-// 64-row tiles, each loaded with K7a's load_rows_tile (query_tile.cuh) and
-// run through K7a's mlp_stack_f32. The stage is a run-time argument, not a
+// 64-row tiles, each loaded with K7a's ring (load_rows_tile, query_tile.cuh)
+// and run through K7a's mlp_stack_f32. The stage is a run-time argument, not a
 // template parameter: ptxas gave a template's stages 61 to 101 registers and
 // spilled one, so they ran differently compiled layer loops and mm_all read
 // slower than full; compiled once, the layer loop is the same code in every
 // stage. The TPU grid is rows // tile_n and drops a
 // ragged tail; these kernels sum every row, which is the same function at every
 // size the TPU experiments run (rows % tile_n == 0). A column of a tile is
-// summed by one warp in a fixed shuffle tree (f32), added to the block's f64
-// sums; each block writes its partials [kOut] and a fold kernel adds them in
-// block order. No float atomics, so the results repeat bit for bit.
+// summed by one warp in a fixed shuffle tree (f32), four columns' trees
+// interleaved, added to the block's f64 sums; each block writes its partials
+// [kOut] and a fold kernel adds them in block order. No float atomics, so the
+// results repeat bit for bit.
+//
+// What bounds K8a now: with the ring the table's bytes arrive ahead of the
+// tile that needs them, so it is no longer the latency of the load. One block
+// an SM (K7a's grid) runs each tile's steps one after another, and the time
+// a tile is that chain: the wait for its own words, their transposition, a
+// barrier, the column sums, a barrier (PERF.md has the measured split).
 #include "query_tile.cuh"
 
 namespace infera {
@@ -49,16 +56,32 @@ static_assert(kTileRows == 64, "add_column_sums reads a tile column as two warp-
 
 // acc[c] += the sum of h[c][r] over the tile's rows r < rows, for c < width:
 // a warp per column, its lanes over rows (neighbouring words of the
-// [feature][row] tile), a fixed xor-shuffle tree in f32.
+// [feature][row] tile), a fixed xor-shuffle tree in f32. A warp takes its
+// columns four at a time, their trees interleaved, so that four shuffle
+// chains are in flight where one would wait on the next.
 __device__ inline void add_column_sums(const float* __restrict__ h, int width, int rows,
                                        double* __restrict__ acc) {
+  constexpr int kWarps = kThreads / 32;
+  constexpr int kAtOnce = 4;
   const int lane = threadIdx.x & 31;
-  for (int c = threadIdx.x >> 5; c < width; c += kThreads / 32) {
-    const float* col = h + c * kActStride;
-    float v = (lane < rows ? col[lane] : 0.f) + (lane + 32 < rows ? col[lane + 32] : 0.f);
+  for (int c0 = threadIdx.x >> 5; c0 < width; c0 += kAtOnce * kWarps) {
+    float v[kAtOnce];
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    if (lane == 0) acc[c] += (double)v;
+    for (int u = 0; u < kAtOnce; ++u) {
+      const int c = c0 + u * kWarps;
+      const float* col = h + c * kActStride;
+      v[u] = c < width ? (lane < rows ? col[lane] : 0.f) + (lane + 32 < rows ? col[lane + 32] : 0.f)
+                       : 0.f;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+      for (int u = 0; u < kAtOnce; ++u) v[u] += __shfl_xor_sync(0xffffffffu, v[u], o);
+    if (lane == 0) {
+#pragma unroll
+      for (int u = 0; u < kAtOnce; ++u)
+        if (c0 + u * kWarps < width) acc[c0 + u * kWarps] += (double)v[u];
+    }
   }
 }
 
@@ -99,7 +122,7 @@ __device__ inline void tail_nomax_tile(TailScratch t, float* __restrict__ mx,
 __global__ void __launch_bounds__(kThreads)
 stage_kernel(int variant, const __nv_bfloat16* __restrict__ x, long long n,
              const float* __restrict__ blob, int blob_words16, MlpDims d, int widest,
-             double* __restrict__ part) {
+             int stages, double* __restrict__ part) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int d0 = d.dim[0];
   const int C = d.dim[d.n_layers];
@@ -111,16 +134,19 @@ stage_kernel(int variant, const __nv_bfloat16* __restrict__ x, long long n,
   TailScratch t = carve_tail(p + kProfileScratch, C);
   float* act0 = reinterpret_cast<float*>(p + kProfileScratch + tail_bytes(C));
   float* act1 = act0 + widest * kActStride;
-  float* stage = act1 + widest * kActStride;
+  const long long n_tiles = (n + kTileRows - 1) / kTileRows;
+  const RowRing<__nv_bfloat16> ring{
+      x, n, d0, stages, reinterpret_cast<unsigned char*>(act1 + widest * kActStride), n_tiles};
   copy_words16(s_blob, blob, blob_words16);
   for (int c = threadIdx.x; c < kOut; c += kThreads) acc[c] = 0.0;
   tail_init(t, C);
+  ring_start(ring);
   __syncthreads();
 
-  const long long n_tiles = (n + kTileRows - 1) / kTileRows;
-  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+  int j = 0;  // this block's tile count
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++j) {
     const long long row0 = tile * kTileRows;
-    load_rows_tile<__nv_bfloat16, true>(x, n, row0, d0, stage, act0);
+    load_rows_tile<__nv_bfloat16, true>(ring, j, row0, act0);
     __syncthreads();
     // n_layers 0 (scan) returns act0, the loaded tile
     const float* h = mlp_stack_f32<true>(d, s_blob, act0, act1);
@@ -155,14 +181,14 @@ __global__ void fold_stage_kernel(const double* __restrict__ part, int n_blocks,
 }
 
 inline cudaError_t launch_stage(int variant, const void* x, long long n, const void* blob,
-                               long long blob_floats, const MlpDims& d, int widest, void* part,
-                               int n_blocks, int smem_bytes, cudaStream_t s) {
+                               long long blob_floats, const MlpDims& d, int widest, int stages,
+                               void* part, int n_blocks, int smem_bytes, cudaStream_t s) {
   cudaError_t e = cudaFuncSetAttribute(stage_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        smem_bytes);
   if (e != cudaSuccess) return e;
   stage_kernel<<<n_blocks, kThreads, smem_bytes, s>>>(variant, (const __nv_bfloat16*)x, n,
                                                       (const float*)blob, (int)(blob_floats / 4),
-                                                      d, widest, (double*)part);
+                                                      d, widest, stages, (double*)part);
   return cudaGetLastError();
 }
 
@@ -178,16 +204,18 @@ extern "C" {
 // K8b, and K8a as its scan stage. variant: 0 scan, 1 mm1, 2 mm_all, 3
 // tail_nomax, 4 full. x: [n, dims[0]] bf16, dims[0] <= 128; blob, dims,
 // n_layers: the stage's layers in the f32 blob layout of mlp_tile.cuh
-// (n_layers 0 for scan). part: [n_blocks, 128] f64 scratch; out: [128] f32.
+// (n_layers 0 for scan). stages: K7a's ring of row-major tiles
+// (query_tile.cuh). part: [n_blocks, 128] f64 scratch; out: [128] f32.
 // Returns a cudaError_t.
 int infera_profile_stage(int variant, const void* x, long long n, const void* blob,
                          long long blob_floats, const int* dims, int n_layers, int widest,
-                         void* part, void* out, int n_blocks, int smem_bytes, void* stream) {
+                         int stages, void* part, void* out, int n_blocks, int smem_bytes,
+                         void* stream) {
   const infera::MlpDims d = infera::make_dims(dims, n_layers);
   cudaStream_t s = (cudaStream_t)stream;
   if (variant < infera::kScan || variant > infera::kFull) return (int)cudaErrorInvalidValue;
-  cudaError_t e = infera::launch_stage(variant, x, n, blob, blob_floats, d, widest, part, n_blocks,
-                                       smem_bytes, s);
+  cudaError_t e = infera::launch_stage(variant, x, n, blob, blob_floats, d, widest, stages, part,
+                                       n_blocks, smem_bytes, s);
   if (e != cudaSuccess) return (int)e;
   return infera::fold_stage(part, n_blocks, infera::kOut, out, s);
 }

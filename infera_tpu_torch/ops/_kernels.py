@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -38,7 +39,7 @@ _SIGNATURES = {
     "fused_query": {
         "infera_fused_query_f32": [_P, _I, _I, _LL, _P, _LL, _P, _I, _I, _P, _P, _P, _P,
                                    _I, _I, _P],
-        "infera_fused_query_rows": [_P, _I, _I, _LL, _P, _LL, _P, _I, _I, _P, _P, _P, _P,
+        "infera_fused_query_rows": [_P, _I, _I, _LL, _P, _LL, _P, _I, _I, _I, _P, _P, _P, _P,
                                     _I, _I, _P],
         "infera_fused_query_int8_shift": [_P, _LL, _P, _LL, _P, _I, _I, _I, _P, _P, _P, _P,
                                           _I, _I, _P],
@@ -46,13 +47,11 @@ _SIGNATURES = {
                                            _I, _I, _P],
     },
     "fused_sql": {
-        "infera_fused_sql": [_P, _LL, _LL, _P, _P, _LL, _P, _P, _P, _P, _LL, _P, _P, _P, _P,
-                             _P, _P, _P, _P, _I, _I, _P],
-        "infera_fused_sql_fold": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                  _P, _P, _P, _P, _P, _P, _P, _P],
+        "infera_fused_sql_launch": [_P, _I, _P],
+        "infera_fused_sql_occupancy": [_I, _P],
     },
     "profile_query": {
-        "infera_profile_stage": [_I, _P, _LL, _P, _LL, _P, _I, _I, _P, _P, _I, _I, _P],
+        "infera_profile_stage": [_I, _P, _LL, _P, _LL, _P, _I, _I, _I, _P, _P, _I, _I, _P],
     },
 }
 
@@ -132,6 +131,27 @@ def build_log(name: str) -> str:
     return p.read_text() if p.exists() else ""
 
 
+def ptxas_usage(name: str, kernel: str) -> tuple:
+    """(registers, stack bytes) ptxas gave the kernel whose mangled name
+    holds ``kernel`` in the last build of ``csrc/<name>.cu`` (the first
+    such kernel); (None, None) if the log does not name it."""
+    cur = regs = stack = None
+    for line in build_log(name).splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
+        if m:
+            cur = m.group(1)
+            continue
+        if cur is None or kernel not in cur:
+            continue
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m and stack is None:
+            stack = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and regs is None:
+            regs = int(m.group(1))
+    return regs, stack
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if needed."""
     lib = _libs.get(name)
@@ -178,15 +198,27 @@ def require_cuda(t: torch.Tensor, what: str) -> None:
 _SM_COUNT: dict = {}
 
 
-def grid_blocks(device: torch.device, n_tiles: int, smem_bytes: int) -> int:
-    """Blocks of a persistent grid: as many as fit on the card at once, at
-    most one per tile."""
+def sm_count(device: torch.device) -> int:
     idx = device.index if device.index is not None else torch.cuda.current_device()
     sms = _SM_COUNT.get(idx)
     if sms is None:
         sms = torch.cuda.get_device_properties(idx).multi_processor_count
         _SM_COUNT[idx] = sms
-    # 228 KB of shared memory per SM, 1 KB of it reserved per block; 2048
-    # threads per SM at 256 a block
-    per_sm = max(1, min(8, 233472 // (smem_bytes + 1024)))
-    return max(1, min(n_tiles, sms * per_sm))
+    return sms
+
+
+def smem_blocks_per_sm(smem_bytes: int) -> int:
+    """Blocks of 256 threads that one SM's shared memory holds: 228 KB, 1 KB
+    of it reserved per block, at most 8 (2,048 threads)."""
+    return max(1, min(8, 233472 // (smem_bytes + 1024)))
+
+
+def grid_blocks(device: torch.device, n_tiles: int, smem_bytes: int,
+                per_sm: int | None = None) -> int:
+    """Blocks of a persistent grid: as many as are resident on the card at
+    once, at most one per tile. ``per_sm`` is the kernel's resident blocks
+    per SM (its occupancy, counting registers too); without it, what shared
+    memory alone allows."""
+    if per_sm is None:
+        per_sm = smem_blocks_per_sm(smem_bytes)
+    return max(1, min(n_tiles, sm_count(device) * max(1, per_sm)))

@@ -274,10 +274,41 @@ def query_smem_bytes(dims) -> int:
     return 4 * blob + _tail_bytes(dims[-1]) + 8 * widest * ACT_STRIDE
 
 
-def rows_query_smem_bytes(dims) -> int:
-    """Shared memory of K7a: K1's, and the staging tile a row-major 64-row
-    tile is read into before its transposition, [64][d0 | 1] f32."""
-    return query_smem_bytes(dims) + 4 * TILE_ROWS * (dims[0] | 1)
+# K7a's ring of row-major tiles (csrc/query_tile.cuh): enough buffers that
+# about 20 KB of the table is in flight on each SM (one block an SM at the
+# bench MLP), at most 8
+RING_IN_FLIGHT = 20 * 1024
+MAX_RING_STAGES = 8
+
+
+def ring_stride(d0: int, itemsize: int) -> int:
+    """Bytes of a ring buffer's row: d0 values padded to an odd number of
+    16-byte words (so the transposition has no bank conflicts)."""
+    return 16 * ((-(-d0 * itemsize // 16)) | 1)
+
+
+def ring_stages(dims, itemsize: int, extra: int = 0) -> int:
+    """Buffers of K7a's ring for an MLP of ``dims`` over a table of
+    ``itemsize``-byte values, beside ``extra`` bytes of other scratch: 1 +
+    the tiles that keep ``RING_IN_FLIGHT`` bytes in flight, fewer where
+    the block's 227 KB would not hold them, 0 (the scalar load) where a row
+    is not a whole number of 16-byte words or no buffer fits."""
+    if dims[0] * itemsize % 16:
+        return 0
+    stage = TILE_ROWS * ring_stride(dims[0], itemsize)
+    stages = min(MAX_RING_STAGES, 1 + -(-RING_IN_FLIGHT // (TILE_ROWS * dims[0] * itemsize)))
+    base = query_smem_bytes(dims) + extra
+    while stages > 0 and base + stages * stage > SMEM_LIMIT:
+        stages -= 1
+    return stages
+
+
+def rows_query_smem_bytes(dims, itemsize: int = 4, extra: int = 0) -> int:
+    """Shared memory of K7a over a table of ``itemsize``-byte values: K1's
+    and the ring's buffers (``ring_stages``), each [64][ring_stride]
+    bytes, beside ``extra`` bytes of other scratch (not counted)."""
+    stages = ring_stages(dims, itemsize, extra)
+    return query_smem_bytes(dims) + stages * TILE_ROWS * ring_stride(dims[0], itemsize)
 
 
 def _int8_widest4(dims) -> int:
@@ -294,9 +325,11 @@ def int8_smem_bytes(dims) -> int:
             + 4 * pad8(dims[-1]) * ACT_STRIDE)
 
 
-def _launch_f32(entry: str, weights: QueryWeights, x: torch.Tensor, n: int, smem: int):
-    """Launch K1 or K7a (C entry ``entry``) over a checked table of ``n``
-    rows; returns (counts, sums) and the compute dtype's name."""
+def _launch_f32(entry: str, weights: QueryWeights, x: torch.Tensor, n: int, smem: int,
+                *stages):
+    """Launch K1 or K7a (C entry ``entry``; K7a with its ring's ``stages``)
+    over a checked table of ``n`` rows; returns (counts, sums) and the
+    compute dtype's name."""
     dims = weights.dims
     if smem > SMEM_LIMIT:
         raise ValueError(f"MLP {dims} exceeds the kernel's shared-memory budget")
@@ -307,8 +340,9 @@ def _launch_f32(entry: str, weights: QueryWeights, x: torch.Tensor, n: int, smem
     rc = getattr(lib, entry)(
         x.data_ptr(), int(x.dtype == torch.bfloat16), int(compute == "bf16"), n,
         weights.blob.data_ptr(), weights.blob.numel(), _kernels.int_array(dims),
-        len(dims) - 1, max(pad8(d) for d in dims), part_cnt.data_ptr(), part_sum.data_ptr(),
-        counts.data_ptr(), sums.data_ptr(), n_blocks, smem, _kernels.stream_handle(x.device))
+        len(dims) - 1, max(pad8(d) for d in dims), *stages, part_cnt.data_ptr(),
+        part_sum.data_ptr(), counts.data_ptr(), sums.data_ptr(), n_blocks, smem,
+        _kernels.stream_handle(x.device))
     _kernels.check(lib, rc, entry)
     return (counts, sums), compute
 
@@ -336,8 +370,9 @@ def fused_mlp_query(weights: QueryWeights, x: torch.Tensor):
         return fused_mlp_query_plain(weights, x)
     dims = weights.dims
     _check_table(x, (torch.float32, torch.bfloat16), dims[0], weights.blob, dims, row_major=True)
+    item = x.element_size()
     out, compute = _launch_f32("infera_fused_query_rows", weights, x, x.shape[0],
-                               rows_query_smem_bytes(dims))
+                               rows_query_smem_bytes(dims, item), ring_stages(dims, item))
     fused_mlp_query.launches[compute] += 1
     return out
 

@@ -74,6 +74,7 @@ their own: the planner lowers them onto sum, min and max slots.
 
 from __future__ import annotations
 
+import ctypes
 import math
 import os
 import struct
@@ -270,8 +271,9 @@ _TAIL_DESC = 4       # words of an int, DISTINCT/MODE or arg slot's descriptor
 (F_TREES, F_NODES, F_DEPTH, F_NOUT, F_DIN, F_NODE_OFF, F_W_OFF, F_STRICT, F_OUT_COL, F_BIAS,
  F_LOGISTIC, F_MODE, F_CBIAS_OFF, F_FEAT, F_LABEL_OFF) = range(15)
 _SMEM_KEYS = ("blob", "act0", "act1", "pred", "vals", "kraw", "kslot", "ridx", "cnt", "sums",
-              "mm", "flags", "ivals", "avals", "iacc", "iest", "aacc", "total")
-H_SMEM = 24          # header words 24..41: byte offsets of _SMEM_KEYS in shared memory
+              "mm", "flags", "ivals", "avals", "iacc", "iest", "aacc", "lead", "total")
+H_SMEM = 24          # header words 24..42: byte offsets of _SMEM_KEYS in shared memory
+WARPS = SLOT_ROWS // 32   # warps of a block; the reduction's lead table is [WARPS][G] bytes
 _HEADER = 48
 
 
@@ -314,6 +316,8 @@ class PackedPlan:
     slots: list
     smem: dict
     lookup: torch.Tensor | None = None
+    # workspace_layout per grid size, made at a launch
+    workspaces: dict = field(default_factory=dict, repr=False)
 
     @property
     def smem_bytes(self) -> int:
@@ -328,9 +332,11 @@ def smem_layout(plan: FusedPlan, n_words: int, blob_floats: int) -> dict:
     with a join), then the block's accumulators (int64 counts,
     f64 sums, f32 min/max rows), the flag word, the tile's int64 values and
     arg words, and the int slots' and arg slots' per-group accumulators
-    (int64, f64 estimates, 64-bit words). ``total`` is the budget that must
-    fit one block's 227 KB. A forest's tables and the DISTINCT counts stay
-    in device memory and take none of it."""
+    (int64, f64 estimates, 64-bit words), and the reduction's lead table
+    ([WARPS][G] bytes, laid over the MLP tiles and predictions when they
+    hold it). ``total`` is the budget that must fit one block's 227 KB. A
+    forest's tables and the DISTINCT counts stay in device memory and take
+    none of it."""
     K, S, M, X = len(plan.keys), len(plan.sums), len(plan.mins), len(plan.maxs)
     G, J = plan.n_groups, len(plan.preds)
     I, A = len(plan.ints), len(plan.args)
@@ -359,6 +365,17 @@ def smem_layout(plan: FusedPlan, n_words: int, blob_floats: int) -> dict:
     for name, size in sizes:
         layout[name] = off
         off += _align16(size)
+    # the reduction's lead table: over the MLP tiles and predictions, dead
+    # once the slot phase has read them, else after the rest, else none (-1:
+    # the kernel combines without it) rather than a plan stop fitting
+    lead = WARPS * G
+    if lead <= layout["vals"] - layout["act0"]:
+        layout["lead"] = layout["act0"]
+    elif off + _align16(lead) <= SMEM_LIMIT:
+        layout["lead"] = off
+        off += _align16(lead)
+    else:
+        layout["lead"] = -1
     layout["total"] = off
     layout["widest"] = widest
     return layout
@@ -870,6 +887,82 @@ def fused_sql_plain(packed: PackedPlan, xc: torch.Tensor, n_valid: int,
 
 # --------------------------------------------------------------------------- kernel
 
+_OUT_KEYS = ("count", "sums", "mm", "ints", "iest", "args", "flags")
+_RESIDENT: dict = {}
+
+
+def resident_blocks(device: torch.device, smem: int) -> int:
+    """Blocks of K2 resident on one SM at ``smem`` bytes of dynamic shared
+    memory, from ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` (its
+    registers count too); asked once per device and size."""
+    key = (device.index, smem)
+    got = _RESIDENT.get(key)
+    if got is None:
+        lib = _kernels.load("fused_sql")
+        blocks = ctypes.c_int(0)
+        _kernels.check(lib, lib.infera_fused_sql_occupancy(smem, ctypes.byref(blocks)),
+                       "fused_sql occupancy")
+        if blocks.value < 1:
+            raise RuntimeError(f"K2 cannot run one block at {smem} bytes of shared memory")
+        got = _RESIDENT[key] = blocks.value
+    return got
+
+
+def workspace_layout(plan: FusedPlan, n_blocks: int) -> tuple:
+    """The one device allocation of a launch: per section (the seven
+    partials, then the seven outputs and the DISTINCT/MODE counts) its byte
+    offset, byte size, dtype and shape, each 16-byte aligned; and the total
+    bytes."""
+    G, S = plan.n_groups, len(plan.sums)
+    R = len(plan.mins) + len(plan.maxs) + 2 * len(plan.keys)
+    I, IS, A = len(plan.ints), len(plan.int_sums), len(plan.args)
+    i64, f64, f32, i32 = torch.int64, torch.float64, torch.float32, torch.int32
+    shapes = [(i64, (G,)), (f64, (S, G)), (f32, (R, G)), (i64, (I, G)), (f64, (IS, G)),
+              (i64, (A, G)), (i32, (1,))]
+    sections = [(dt, (n_blocks,) + shp) for dt, shp in shapes[:6]] + [(i32, (n_blocks,))]
+    sections += shapes + [(i32, (plan.dist_offsets[-1],))]
+    off, out = 0, []
+    for dt, shp in sections:
+        nbytes = math.prod(shp) * (4 if dt in (f32, i32) else 8)
+        out.append((off, nbytes, dt, shp))
+        off += _align16(nbytes)
+    return out, max(off, 16)
+
+
+def _workspace(packed: PackedPlan, n_blocks: int, dev) -> tuple:
+    """One allocation for a launch: (the partials' addresses, the outputs
+    carved from it with ``set_``, which keep it alive)."""
+    lay = packed.workspaces.get(n_blocks)
+    if lay is None:
+        lay = packed.workspaces[n_blocks] = workspace_layout(packed.plan, n_blocks)
+    sections, total = lay
+    ws = torch.empty(total, dtype=torch.uint8, device=dev)
+    base = ws.data_ptr()
+    store = ws.untyped_storage()
+    part = [base + off for off, _n, _dt, _shp in sections[:7]]
+    out = {}
+    for key, (off, _n, dt, shp) in zip(_OUT_KEYS + ("dist",), sections[7:]):
+        size = 4 if dt in (torch.float32, torch.int32) else 8
+        out[key] = torch.empty(0, dtype=dt, device=dev).set_(store, off // size, shp)
+    return part, out
+
+
+def _launch_words(packed: PackedPlan, xc, n_valid, dim_xc, int_xc, part, out, n_blocks,
+                  smem) -> ctypes.Array:
+    """The int64 argument block of ``infera_fused_sql_launch`` (the Arg enum
+    of csrc/fused_sql.cu)."""
+    plan = packed.plan
+    join = plan.join is not None
+    I = len(plan.ints)
+    words = [xc.data_ptr(), xc.shape[1], n_valid, packed.words.data_ptr(),
+             packed.blob.data_ptr(), packed.blob_floats, packed.trees.data_ptr(),
+             packed.lookup.data_ptr() if join else 0, dim_xc.data_ptr() if join else 0,
+             int_xc.data_ptr() if I else 0, int_xc.shape[1] if I else 0,
+             out["dist"].data_ptr(), *part, n_blocks, smem, plan.n_groups, len(plan.sums),
+             len(plan.mins) + len(plan.maxs) + 2 * len(plan.keys), I, len(plan.int_sums),
+             len(plan.args), *(out[k].data_ptr() for k in _OUT_KEYS)]
+    return (ctypes.c_longlong * len(words))(*words)
+
 
 def fused_sql(packed: PackedPlan, xc: torch.Tensor, n_valid: int,
               dim_xc: torch.Tensor | None = None, int_xc: torch.Tensor | None = None) -> dict:
@@ -906,48 +999,22 @@ def fused_sql(packed: PackedPlan, xc: torch.Tensor, n_valid: int,
     smem = packed.smem_bytes
     if smem > SMEM_LIMIT:
         raise ValueError(f"plan needs {smem} bytes of shared memory, over {SMEM_LIMIT}")
-    G, S = plan.n_groups, len(plan.sums)
-    R = len(plan.mins) + len(plan.maxs) + 2 * len(plan.keys)
-    I, IS, A = len(plan.ints), len(plan.int_sums), len(plan.args)
     dev = xc.device
-    n_blocks = _kernels.grid_blocks(dev, -(-n_valid // SLOT_ROWS), smem)
-    i64, f64 = torch.int64, torch.float64
-    part = {"count": torch.empty((n_blocks, G), dtype=i64, device=dev),
-            "sums": torch.empty((n_blocks, S, G), dtype=f64, device=dev),
-            "mm": torch.empty((n_blocks, R, G), dtype=torch.float32, device=dev),
-            "ints": torch.empty((n_blocks, I, G), dtype=i64, device=dev),
-            "iest": torch.empty((n_blocks, IS, G), dtype=f64, device=dev),
-            "args": torch.empty((n_blocks, A, G), dtype=i64, device=dev),
-            "flags": torch.empty(n_blocks, dtype=torch.int32, device=dev)}
-    out = {"count": torch.empty(G, dtype=i64, device=dev),
-           "sums": torch.empty((S, G), dtype=f64, device=dev),
-           "mm": torch.empty((R, G), dtype=torch.float32, device=dev),
-           "ints": torch.empty((I, G), dtype=i64, device=dev),
-           "iest": torch.empty((IS, G), dtype=f64, device=dev),
-           "args": torch.empty((A, G), dtype=i64, device=dev),
-           # the kernel adds to the counts with atomics: they start at 0
-           "dist": torch.zeros(plan.dist_offsets[-1], dtype=torch.int32, device=dev),
-           "flags": torch.empty(1, dtype=torch.int32, device=dev)}
-    keys = ("count", "sums", "mm", "ints", "iest", "args", "flags")
+    n_blocks = _kernels.grid_blocks(dev, -(-n_valid // SLOT_ROWS), smem,
+                                    resident_blocks(dev, smem))
+    part, out = _workspace(packed, n_blocks, dev)
+    if plan.dists:
+        out["dist"].zero_()   # the kernel adds to the counts with atomics
+    words = _launch_words(packed, xc, n_valid, dim_xc, int_xc, part, out, n_blocks, smem)
     lib = _kernels.load("fused_sql")
-    stream = _kernels.stream_handle(dev)
-    rc = lib.infera_fused_sql(
-        xc.data_ptr(), xc.shape[1], n_valid, packed.words.data_ptr(), packed.blob.data_ptr(),
-        packed.blob_floats, packed.trees.data_ptr(),
-        None if join is None else packed.lookup.data_ptr(),
-        None if join is None else dim_xc.data_ptr(),
-        int_xc.data_ptr() if I else None, int_xc.shape[1] if I else 0,
-        out["dist"].data_ptr(), *(part[k].data_ptr() for k in keys), n_blocks, smem, stream)
-    _kernels.check(lib, rc, "fused_sql")
-    rc = lib.infera_fused_sql_fold(
-        packed.words.data_ptr(), *(part[k].data_ptr() for k in keys), n_blocks, G, S, R, I, IS,
-        A, *(out[k].data_ptr() for k in keys), stream)
-    _kernels.check(lib, rc, "fused_sql fold")
+    _kernels.check(lib, lib.infera_fused_sql_launch(words, 3, _kernels.stream_handle(dev)),
+                   "fused_sql")
     counts = fused_sql.launches
     counts["bf16" if plan.bf16 else "f32"] += 1
+    n_isum = len(plan.int_sums)
     for key, on in (("forest", plan.forests), ("join", join is not None),
-                     ("int_sum", IS), ("distinct", plan.dists), ("arg", A),
-                     ("int_minmax", I - IS)):
+                     ("int_sum", n_isum), ("distinct", plan.dists), ("arg", plan.args),
+                     ("int_minmax", len(plan.ints) - n_isum)):
         if on:
             counts[key] += 1
     return out

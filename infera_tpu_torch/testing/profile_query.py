@@ -143,12 +143,18 @@ def _k7a_blocks(x: torch.Tensor, dims) -> int:
     """K7a's persistent grid for an MLP of ``dims`` over x: the profiling
     kernels run the same blocks, so they see K7a's occupancy."""
     return _kernels.grid_blocks(x.device, -(-x.shape[0] // TILE_ROWS),
-                                fq.rows_query_smem_bytes(dims))
+                                fq.rows_query_smem_bytes(dims, x.element_size()))
 
 
 def _stage_smem_bytes(dims) -> int:
-    """K7a's shared memory for ``dims`` and the profiling scratch."""
-    return fq.rows_query_smem_bytes(dims) + _SCRATCH
+    """K7a's shared memory for ``dims`` over a bf16 table (its ring
+    included) and the profiling scratch."""
+    return fq.rows_query_smem_bytes(dims, 2, _SCRATCH) + _SCRATCH
+
+
+def ring_stages(dims) -> int:
+    """The ring's buffers of the stage kernel for the stage's ``dims``."""
+    return fq.ring_stages(dims, 2, _SCRATCH)
 
 
 def _launch_stage(x: torch.Tensor, variant: str, dims, blob: torch.Tensor, grid_dims):
@@ -164,8 +170,8 @@ def _launch_stage(x: torch.Tensor, variant: str, dims, blob: torch.Tensor, grid_
     lib = _kernels.load("profile_query")
     rc = lib.infera_profile_stage(
         VARIANTS.index(variant), x.data_ptr(), x.shape[0], blob.data_ptr(), blob.numel(),
-        _kernels.int_array(dims), len(dims) - 1, max(pad8(d) for d in dims), part.data_ptr(),
-        out.data_ptr(), n_blocks, smem, _kernels.stream_handle(x.device))
+        _kernels.int_array(dims), len(dims) - 1, max(pad8(d) for d in dims), ring_stages(dims),
+        part.data_ptr(), out.data_ptr(), n_blocks, smem, _kernels.stream_handle(x.device))
     _kernels.check(lib, rc, "infera_profile_stage")
     return out
 

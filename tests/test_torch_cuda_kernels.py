@@ -18,7 +18,11 @@ slot against plain at the main path's row counts, the run-to-run equality of
 their partials, the group-key probe as a K2 launch, and the tail's queries
 through Connection.execute; for K8a and K8b (the profiling kernels), ragged
 row counts, another MLP's widths and an odd table width, K8a against K8b's
-scan and K8b's full stage against K7a bf16."""
+scan and K8b's full stage against K7a bf16; for K2's tile reduction, one
+group, 512 groups, a tile in one group, a group a lane, empty groups, with
+and without its lead table, and run-to-run equality; for K7a's ring,
+table widths of 1, 33 and 128 values and an unaligned table against the
+scalar load."""
 
 import numpy as np
 import pytest
@@ -1043,3 +1047,124 @@ def test_k8_refuses_what_it_does_not_take(cuda):
         pq.query_stage(weights, x.to(torch.bfloat16)[:, :31].contiguous(), "full")
     with pytest.raises(ValueError):
         pq.query_stage(weights, x.to(torch.bfloat16), "argmax")
+
+
+# --------------------------------------------------------------------------- K2's tile reduction
+
+# the group key of each row: one group; 512 groups at random; a whole tile
+# in one group; every lane of a warp (every row of a tile) in its own group;
+# three groups of 512, the rest empty
+RED_KEYS = {"one": 1, "g512": 512, "tile": 8, "lane": 256, "sparse": 512}
+
+
+def _red_inputs(kind, n, seed, cuda):
+    xc, xi = _tail_inputs(n, seed, cuda)
+    r = np.arange(n)
+    rng = np.random.default_rng(seed)
+    key = {"one": np.zeros(n), "g512": rng.integers(0, 512, n), "tile": (r // 256) % 7,
+           "lane": r % 256, "sparse": rng.integers(0, 3, n) * 97}[kind]
+    xc[0] = torch.as_tensor(key.astype(np.float32), device=cuda)
+    return xc, xi
+
+
+def _red_check(plan_name, got, want):
+    if plan_name == "ops":
+        _assert_k2_close(got, want, sum_rtol=1e-12)
+    else:
+        _assert_tail_equal(got, want)
+
+
+@pytest.mark.parametrize("plan_name", ["ops", "tail"])
+@pytest.mark.parametrize("kind", list(RED_KEYS))
+@pytest.mark.parametrize("lead", [True, False])
+def test_k2_reduction_matches_plain(cuda, plan_name, kind, lead):
+    """The warp folds and their combine against the plain version: every
+    slot family (NaN in min/max rows, raw keys, int64 sums that wrap, arg
+    words with ties across warps, empty groups) over a ragged last tile;
+    with the lead table and without it (the combine by column)."""
+    n = 100_003
+    G = RED_KEYS[kind]
+    xc, xi = _red_inputs(kind, n, 31, cuda)
+    plan = _ops_plan(G) if plan_name == "ops" else _tail_plan(G)
+    packed = fs.pack_plan(plan, cuda)
+    assert packed.smem["lead"] >= 0
+    if not lead:
+        packed.words[fs.H_SMEM + fs._SMEM_KEYS.index("lead")] = -1
+    int_xc = xi if plan_name == "tail" else None
+    got = fs.fused_sql(packed, xc, n, int_xc=int_xc)
+    torch.cuda.synchronize()
+    _red_check(plan_name, got, fs.fused_sql_plain(packed, xc, n, int_xc=int_xc))
+    if kind == "sparse":
+        assert int((got["count"] > 0).sum()) == 3
+
+
+@pytest.mark.parametrize("kind", ["one", "g512", "lane"])
+def test_k2_reduction_is_the_same_from_run_to_run(cuda, kind):
+    n = 1_000_003
+    xc, xi = _red_inputs(kind, n, 32, cuda)
+    packed = fs.pack_plan(_tail_plan(RED_KEYS[kind]), cuda)
+    first = fs.fused_sql(packed, xc, n, int_xc=xi)
+    for _ in range(2):
+        again = fs.fused_sql(packed, xc, n, int_xc=xi)
+        for k in first:
+            assert torch.equal(first[k], again[k]), k
+
+
+def test_k2_grid_is_the_resident_blocks(cuda):
+    """The grid is the blocks resident on the card at the plan's shared
+    memory, at most one a tile."""
+    packed = fs.pack_plan(_tail_plan(), cuda)
+    per_sm = fs.resident_blocks(cuda, packed.smem_bytes)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert 1 <= per_sm <= 8
+    from infera_tpu_torch.ops import _kernels
+    assert _kernels.grid_blocks(cuda, 1 << 20, packed.smem_bytes, per_sm) == sms * per_sm
+    assert _kernels.grid_blocks(cuda, 3, packed.smem_bytes, per_sm) == 3
+
+
+# --------------------------------------------------------------------------- K7a's ring
+
+
+def _unaligned(x):
+    """x's values in a fresh tensor whose base is 1 element past 16-byte
+    alignment: the ring's scalar path."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    y = flat[1:].view(x.shape)
+    y.copy_(x)
+    assert y.data_ptr() % 16 != 0 and y.is_contiguous()
+    return y
+
+
+@pytest.mark.parametrize("d0", [1, 33, 128])
+@pytest.mark.parametrize("compute,table", [(torch.float32, torch.float32),
+                                           (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("n", [4099, 100_003])
+def test_k7a_ring_widths_match_plain(cuda, d0, compute, table, n):
+    """Table widths whose rows are less than, not a whole number of, and
+    many 16-byte words; n no multiple of 64."""
+    dims = (d0, 64, 10)
+    weights = fq.params_from_numpy(_params(dims, seed=d0), cuda, compute)
+    x = _rows(n, d0, 33, cuda).to(table)
+    f32 = compute == torch.float32
+    got = fq.fused_mlp_query(weights, x)
+    _query_close(got, fq.fused_mlp_query_plain(weights, x),
+                 count_tol=1 if f32 else max(1, n // 500), rtol=1e-4 if f32 else 2e-2)
+
+
+@pytest.mark.parametrize("table", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d0", [32, 128])
+def test_k7a_ring_equals_the_scalar_load(cuda, table, d0):
+    """The ring is a copy: K7a over an aligned table (the ring) and over the
+    same values at an unaligned base (the scalar path) are bit-equal."""
+    dims = (d0, 128, 64, 16)
+    weights = fq.params_from_numpy(_params(dims, seed=34), cuda, torch.bfloat16)
+    x = _rows(100_003, d0, 35, cuda).to(table)
+    assert fq.ring_stages(dims, x.element_size()) > 0
+    a = fq.fused_mlp_query(weights, x)
+    b = fq.fused_mlp_query(weights, _unaligned(x))
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_k8a_ring_equals_the_scalar_load(cuda):
+    x = _rows(1_000_003, 32, 36, cuda).to(torch.bfloat16)
+    assert torch.equal(pq.empty_grid_scan(x), pq.empty_grid_scan(_unaligned(x)))

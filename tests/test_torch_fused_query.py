@@ -284,9 +284,16 @@ def test_row_major_and_columnar_ports_agree(dtype):
 
 def test_rows_shared_memory_adds_the_staging_tile():
     dims = (32, 128, 128, 16)
-    # K1's budget and a [64][33] f32 staging tile
-    assert fq.rows_query_smem_bytes(dims) == fq.query_smem_bytes(dims) + 4 * 64 * 33
-    assert fq.rows_query_smem_bytes((7, 9, 3)) == fq.query_smem_bytes((7, 9, 3)) + 4 * 64 * 7
+    # K1's budget and the ring's buffers: a bf16 row of 32 values is 4
+    # 16-byte words, padded to 5; 1 + 20 KB / 4 KB tiles = 6 buffers
+    assert fq.ring_stride(32, 2) == 80 and fq.ring_stages(dims, 2) == 6
+    assert fq.rows_query_smem_bytes(dims, 2) == fq.query_smem_bytes(dims) + 6 * 64 * 80
+    # f32: 8 words padded to 9, 1 + 20 KB / 8 KB tiles = 4 buffers
+    assert fq.ring_stride(32, 4) == 144 and fq.ring_stages(dims, 4) == 4
+    assert fq.rows_query_smem_bytes(dims) == fq.query_smem_bytes(dims) + 4 * 64 * 144
+    # a row that is no whole number of 16-byte words takes the scalar load
+    assert fq.ring_stages((7, 9, 3), 4) == 0
+    assert fq.rows_query_smem_bytes((7, 9, 3)) == fq.query_smem_bytes((7, 9, 3))
     assert fq.rows_query_smem_bytes(dims) <= fq.SMEM_LIMIT
 
 

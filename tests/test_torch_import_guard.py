@@ -43,6 +43,7 @@ sys.exit(1 if bad else 0)
     "infera_tpu_torch.testing.sqllogic",
     "infera_tpu_torch.testing.profile_query",
     "infera_tpu_torch.testing.benchmarks",
+    "infera_tpu_torch.testing.ab_kernels",
     "chip_smoke",
 ])
 def test_fresh_import_pulls_in_no_jax(module):
