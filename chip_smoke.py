@@ -5,7 +5,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one CUDA
 card, builds every kernel of ``infera_tpu_torch/csrc`` with nvcc (sm_90a), and:
 
 1. prints the card, its power limit, the torch and CUDA versions and the
-   build time;
+   build time; the tensor-core path of K1, K7a and K8b in bf16: HMMA in the
+   SASS (``cuobjdump``) of the bf16 kernels and the stage kernel and none in
+   the f32 and int8 ones, ptxas's registers and spills of each (no spill, at
+   most 128 registers), and at the bench MLP two resident blocks an SM and
+   the grid they give;
 2. drives the main path once through the entry points a user calls, with
    every kernel's launch count set to 0 just before and read just after:
    the 13-function API (``load_model`` of ``onnx.builder``'s ``linear``,
@@ -86,8 +90,9 @@ card, builds every kernel of ``infera_tpu_torch/csrc`` with nvcc (sm_90a), and:
    chain, variants, col) at their default sizes, printing their JSON lines;
    the timer check (a 4096² bf16 matmul) must read at least 0.9 × the card's
    floor. K8a and K8b's five stages are held against their plain versions at
-   1,048,576 and 1,000,003 rows, K8a against K8b scan and K8b full against
-   K7a bf16; two ``observability.trace`` windows (5 steady executions of
+   1,048,576 and 1,000,003 rows (tail_nomax and full within K7a bf16's
+   bounds), K8a against K8b scan and K8b full against K7a bf16 bit for bit;
+   two ``observability.trace`` windows (5 steady executions of
    query A inside ``annotate``, 20 K7a bf16 calls) print their five longest
    device operations and the device's idle share; K8a and K8b are timed
    beside their bounds, plain versions and PyTorch chains (K8a with its
@@ -196,7 +201,7 @@ def sql_split(torch, key, packed, xc, n, dim_xc=None, int_xc=None) -> None:
     sms = torch.cuda.get_device_properties(xc.device).multi_processor_count
     check(s["grid"] <= sms * s["resident"],
           f"K2 {key}: grid {s['grid']} over {sms} x {s['resident']} resident blocks")
-    regs, stack = _kernels.ptxas_usage("fused_sql", "fused_sql_kernel")
+    regs, stack, _ = _kernels.ptxas_usage("fused_sql", "fused_sql_kernel")
     print(f"K2/K5 {key} split: kernel {s['kernel_ms']:.4f} ms, fold {s['fold_ms']:.4f} ms "
           f"(CUDA events, median of 25 launches each), host part {s['host_ms']:.4f} ms; ptxas "
           f"{regs} registers, {stack} B stack; {s['resident']} blocks resident a SM at "
@@ -1452,20 +1457,24 @@ def profile_phase(torch, itt, x_dev, peaks, device) -> list:
                 check(bool((e <= tol).all()) and not bool(g[c:].any()),
                       f"K8b {v} @ {n_rows}: {float(e.max()):.3e}")
             else:
-                check(torch.equal(g[:16], p[:16]),
+                # K7a bf16's bounds: the tensor core accumulates in its own
+                # order, so a bf16 rounding of a ReLU output can go the
+                # other way
+                diff, kept = float((g[:16] - p[:16]).abs().sum()), float(p[:16].sum())
+                check(diff <= 1e-3 * kept,
                       f"K8b {v} @ {n_rows}: counts {g[:16].tolist()} vs plain {p[:16].tolist()}")
-                torch.testing.assert_close(g[16:32], p[16:32], rtol=1e-5, atol=0.0)
+                torch.testing.assert_close(g[16:32], p[16:32], rtol=2e-2, atol=1e-2)
                 e = (g - p).abs()
             max_err[v] = max(max_err[v], float(e.max()))
         counts7, sums7 = fused_mlp_query(sw.full, x)
         full = outs["full"]
         check(torch.equal(full[:16].long(), counts7),
               f"K8b full @ {n_rows}: counts {full[:16].tolist()} vs K7a bf16 {counts7.tolist()}")
-        torch.testing.assert_close(full[16:32], sums7, rtol=1e-5, atol=0.0)
-        print(f"K8a, K8b @ {n_rows} rows: equal to plain (max abs err K8a {max_err['K8a']:.3e}, "
-              f"mm1 {max_err['mm1']:.3e}, mm_all {max_err['mm_all']:.3e}; tail_nomax and full "
-              f"counts exact); K8a == scan; full's counts == K7a bf16's, its sums "
-              f"{'bit-equal' if torch.equal(full[16:32], sums7) else 'within rtol 1e-5'}")
+        check(torch.equal(full[16:32], sums7), f"K8b full @ {n_rows}: sums differ from K7a's")
+        print(f"K8a, K8b @ {n_rows} rows: within plain's bounds (max abs err K8a "
+              f"{max_err['K8a']:.3e}, mm1 {max_err['mm1']:.3e}, mm_all {max_err['mm_all']:.3e}, "
+              f"tail_nomax {max_err['tail_nomax']:.3e}, full {max_err['full']:.3e}); K8a == "
+              f"scan; full's counts and sums bit-equal to K7a bf16's")
 
     # ---------------------------------------------------------------- two traces
     conn = Connection()
@@ -1493,7 +1502,7 @@ def profile_phase(torch, itt, x_dev, peaks, device) -> list:
             torch.cuda.synchronize()
         top = trace_report(pq, "K7a bf16 (20 calls)", prof, f"{d}/k7a", {})
         if top is not None:
-            check("query_f32_kernel" in top[0][0] and top[0][1] == 20,
+            check("query_bf16_kernel" in top[0][0] and top[0][1] == 20,
                   f"trace K7a bf16: the longest device operation is {top[0]}")
 
     # ---------------------------------------------------------------- times
@@ -1546,10 +1555,13 @@ def profile_phase(torch, itt, x_dev, peaks, device) -> list:
         if key == "K8a":
             stages = pq.ring_stages((32,))
             tile = 64 * 32 * 2
+            smem = pq._stage_smem_bytes((32,))
             print(f"K8a ring: {stages} buffers of {64 * fq.ring_stride(32, 2)} B, "
                   f"{(stages - 1) * tile} B of the table in flight a block ahead of the tile "
-                  f"it transposes, {pq._k7a_blocks(x_bf16, pq.PROFILE_DIMS)} blocks (K7a's "
-                  f"grid; K7a bf16's ring {fq.ring_stages(pq.PROFILE_DIMS, 2)} buffers)")
+                  f"it copies, {pq._k7a_blocks(x_bf16, pq.PROFILE_DIMS)} blocks (K7a bf16's "
+                  f"grid; its ring {fq.ring_stages_bf16(pq.PROFILE_DIMS, 2)} buffers); "
+                  f"{pq.stage_resident_blocks(device, smem)} stage kernels resident a SM at "
+                  f"{smem} B")
     k7a_ms = float(np.median(device_ms(torch, lambda: fused_mlp_query(sw.full, x_bf16))))
     # each stage adds one part of K7a to the one before; the tail without
     # argmax is another tail on the same layers
@@ -1561,6 +1573,45 @@ def profile_phase(torch, itt, x_dev, peaks, device) -> list:
         f"{part} {stage_ms[v] - (stage_ms[prev[v]] if prev[v] else 0.0):.4f}"
         for v, part in steps) + " ms")
     return rows
+
+
+def mma_report(torch, _kernels, device) -> None:
+    """The tensor-core path of K1, K7a and K8b in bf16: HMMA in the SASS of
+    the bf16 kernels and the stage kernel (cuobjdump), none in the f32 and
+    int8 ones; ptxas's registers and stack of each; and at the bench MLP over
+    1,048,576 rows the resident blocks an SM and the grid, which must be two
+    blocks an SM."""
+    from infera_tpu_torch.ops import fused_query as fq
+    from infera_tpu_torch.testing import profile_query as pq
+
+    # the mangled names' prefixes: namespace infera, then the kernel's name
+    for lib, mma_kernel in (("fused_query", "6infera17query_bf16_kernel"),
+                            ("profile_query", "6infera12stage_kernel")):
+        for fn, count in sorted(_kernels.sass_opcodes(lib, "HMMA").items()):
+            mma = mma_kernel in fn
+            regs, stack, spill = _kernels.ptxas_usage(lib, fn)
+            print(f"SASS {lib} {fn}: {count} HMMA; ptxas {regs} registers, {stack} B stack, "
+                  f"{spill} B spilled")
+            check(count > 0 if mma else count == 0,
+                  f"{fn}: {count} HMMA, expected {'some' if mma else 'none'}")
+            if mma:
+                check(spill == 0 and regs <= 128, f"{fn}: {regs} registers, {spill} B spilled")
+    dims = pq.PROFILE_DIMS
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for name, table, row_major in (("K1 bf16", torch.bfloat16, False),
+                                   ("K7a bf16", torch.bfloat16, True),
+                                   ("K7a bf16 (f32 table)", torch.float32, True)):
+        shape = (N_MAIN, 32) if row_major else (32, N_MAIN)
+        x = torch.empty(shape, dtype=table, device=device)
+        blocks, smem = fq.bf16_grid(x, dims, row_major)
+        per_sm = fq.resident_blocks(device, table == torch.bfloat16, row_major, smem)
+        print(f"{name} @ {dims}: {smem} B of shared memory, {per_sm} blocks resident a SM, "
+              f"grid {blocks} blocks on {sms} SMs")
+        check(per_sm >= 2 and blocks == sms * per_sm, f"{name}: {per_sm} blocks a SM, grid {blocks}")
+    smem = pq._stage_smem_bytes(dims)
+    per_sm = pq.stage_resident_blocks(device, smem)
+    print(f"K8b stage kernel @ {dims}: {smem} B of shared memory, {per_sm} blocks resident a SM")
+    check(per_sm >= 2, f"K8b: {per_sm} blocks a SM")
 
 
 def _block_rows(conn, name, xc):
@@ -1614,6 +1665,7 @@ def main() -> int:
                 print(f"  {src}: {line.strip()}")
     device = torch.device("cuda")
     itt.set_device(device)
+    mma_report(torch, _kernels, device)
 
     # ---------------------------------------------------------------- data, from seeds
     params = build_params(seed=0)

@@ -26,15 +26,25 @@
 // read once. A feature-major table is read one row per thread and feature, so
 // neighbouring threads read neighbouring addresses. K7a's 64-row tile is one
 // contiguous run of 64 * d0 elements, copied ahead into a ring of buffers in
-// shared memory (cp.async, about 20 KB in flight on each SM while the block
-// computes the tile before) and transposed by the thread that copied each
-// word into the feature-major activation tile (query_tile.cuh). bf16 mode
-// rounds its operands to bf16 exactly where the TPU kernel does and
-// multiplies them on the f32 cores (a bf16 x bf16 product is exact in f32);
-// K3 and K7b use __dp4a (4 int8 products per instruction). None uses the
-// tensor cores yet, so all are far from their bounds, and K7a's layers, not
-// its load, set its pace (K8b splits it by stage): wgmma and warp
-// specialisation are the next design.
+// shared memory (cp.async) and unpacked by the thread that copied each word
+// (query_tile.cuh).
+//
+// bf16 mode (query_bf16_kernel) runs its layers on the tensor cores: warp-level
+// mma.sync m16n8k16 with bf16 operands and f32 accumulators, the operands read
+// from padded, bank-conflict-free shared memory with ldmatrix (mma_tile.cuh),
+// as the TPU kernel's jnp.dot(bf16, bf16, preferred_element_type=f32). Its
+// load writes the bf16 A tile [row][k] directly (a bf16 table's word is a
+// 16-byte copy). Weights at bf16 and no f32 activation tiles halve its shared
+// memory (about 96 KB at the bench MLP), and __launch_bounds__(256, 2) keeps
+// it at 128 registers, so two blocks share an SM: one block's load and tail
+// run beside the other's layers. What bounds it now is no longer the f32
+// cores but a block's serial chain: the load, a barrier, three layers with a
+// barrier each and the tail's per-class loop over the tile's rows (at the
+// bench MLP it takes about 9 times its tensor-core bound); wgmma and warp
+// specialisation, which overlap those steps, are the next design. f32
+// mode stays on the f32 cores (fmaf over a 4 x 8 register tile, mlp_tile.cuh):
+// TF32 would change its results. K3 and K7b use __dp4a (4 int8 products per
+// instruction), not the tensor cores.
 //
 // Cross-tile accumulation: the TPU grid runs in order and keeps the per-class
 // accumulators resident. Here blocks run in any order, so every block keeps
@@ -45,9 +55,9 @@
 
 namespace infera {
 
-// ---------------------------------------------------------------- K1, K7a (f32, bf16)
+// ---------------------------------------------------------------- K1, K7a in f32
 
-template <typename TIn, bool kBf16, bool kRowMajor>
+template <typename TIn, bool kRowMajor>
 __global__ void __launch_bounds__(kThreads)
 query_f32_kernel(const TIn* __restrict__ x, long long n, const float* __restrict__ blob,
                  int blob_words16, MlpDims d, int widest, int stages,
@@ -72,19 +82,57 @@ query_f32_kernel(const TIn* __restrict__ x, long long n, const float* __restrict
   for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++j) {
     const long long row0 = tile * kTileRows;
     if (kRowMajor) {
-      load_rows_tile<TIn, kBf16>(ring, j, row0, act0);
+      load_rows_tile<TIn>(ring, j, row0, act0);
     } else {
       for (int i = threadIdx.x; i < kTileRows * d0; i += kThreads) {
         const int k = i / kTileRows;
         const int r = i - k * kTileRows;
         const long long row = row0 + r;
-        float v = row < n ? load_f32(x + (long long)k * n + row) : 0.f;
-        if (kBf16) v = round_bf16(v);
-        act0[k * kActStride + r] = v;
+        act0[k * kActStride + r] = row < n ? load_f32(x + (long long)k * n + row) : 0.f;
       }
     }
     __syncthreads();
-    const float* h = mlp_stack_f32<kBf16>(d, s_blob, act0, act1);
+    const float* h = mlp_stack_f32<false>(d, s_blob, act0, act1);
+    tail_tile(t, h, C, row0, n);
+  }
+  tail_store(t, C, part_cnt, part_sum);
+}
+
+// ---------------------------------------------------------------- K1, K7a in bf16
+
+// bf16 mode on the tensor cores (mma_tile.cuh). Shared memory: the bf16
+// weights and f32 biases, the tail's scratch, act0 (an A tile), act1 (an A
+// tile or the scores), then K7a's ring. At most 128 registers a thread, so
+// that two blocks share an SM.
+template <typename TIn, bool kRowMajor>
+__global__ void __launch_bounds__(kThreads, 2)
+query_bf16_kernel(const TIn* __restrict__ x, long long n, const unsigned char* __restrict__ blob,
+                  int blob_words16, MlpDims d, int stages, long long* __restrict__ part_cnt,
+                  double* __restrict__ part_sum) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int C = d.dim[d.n_layers];
+  TailScratch t = carve_tail(smem_raw + 16 * blob_words16, C);
+  unsigned char* act0 = smem_raw + 16 * blob_words16 + tail_bytes(C);
+  unsigned char* act1 = act0 + mma_tile_bytes(d);
+  __nv_bfloat16* in = mma_input(d, act0, act1);
+  const int d0 = d.dim[0];
+  const long long n_tiles = (n + kTileRows - 1) / kTileRows;
+  // K7a only: the ring of row-major tiles (query_tile.cuh)
+  const RowRing<TIn> ring{x, n, d0, stages, act1 + mma_out_bytes(d), n_tiles};
+  copy_words16(smem_raw, blob, blob_words16);
+  tail_init(t, C);
+  if (kRowMajor) ring_start(ring);
+  __syncthreads();
+
+  int j = 0;  // this block's tile count
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++j) {
+    const long long row0 = tile * kTileRows;
+    if (kRowMajor)
+      load_rows_tile_bf16<TIn>(ring, j, row0, in);
+    else
+      load_cols_tile_bf16<TIn>(x, n, d0, row0, in);
+    __syncthreads();
+    const float* h = mlp_stack_bf16(d, smem_raw, act0, act1);
     tail_tile(t, h, C, row0, n);
   }
   tail_store(t, C, part_cnt, part_sum);
@@ -270,13 +318,13 @@ inline cudaError_t set_smem(Kernel k, int smem_bytes) {
   return cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
 }
 
-template <typename TIn, bool kBf16, bool kRowMajor>
+template <typename TIn, bool kRowMajor>
 cudaError_t launch_query_f32(const void* x, long long n, const void* blob, long long blob_floats,
                              MlpDims d, int widest, int stages, void* part_cnt, void* part_sum,
                              int n_blocks, int smem_bytes, cudaStream_t stream) {
-  cudaError_t e = set_smem(query_f32_kernel<TIn, kBf16, kRowMajor>, smem_bytes);
+  cudaError_t e = set_smem(query_f32_kernel<TIn, kRowMajor>, smem_bytes);
   if (e != cudaSuccess) return e;
-  query_f32_kernel<TIn, kBf16, kRowMajor><<<n_blocks, kThreads, smem_bytes, stream>>>(
+  query_f32_kernel<TIn, kRowMajor><<<n_blocks, kThreads, smem_bytes, stream>>>(
       (const TIn*)x, n, (const float*)blob, (int)(blob_floats / 4), d, widest, stages,
       (long long*)part_cnt, (double*)part_sum);
   return cudaGetLastError();
@@ -291,31 +339,39 @@ inline cudaError_t fold(const void* part_cnt, const void* part_sum, int n_blocks
 }
 
 template <bool kRowMajor>
-int query_f32(const void* x, int x_bf16, int compute_bf16, long long n, const void* blob,
-              long long blob_floats, const int* dims, int n_layers, int widest, int stages,
-              void* part_cnt, void* part_sum, void* counts, void* sums, int n_blocks,
-              int smem_bytes, void* stream) {
+int query_f32(const void* x, int x_bf16, long long n, const void* blob, long long blob_floats,
+              const int* dims, int n_layers, int widest, int stages, void* part_cnt,
+              void* part_sum, void* counts, void* sums, int n_blocks, int smem_bytes,
+              void* stream) {
   const MlpDims d = make_dims(dims, n_layers);
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t e;
-  if (x_bf16) {
-    e = compute_bf16
-            ? launch_query_f32<__nv_bfloat16, true, kRowMajor>(x, n, blob, blob_floats, d, widest,
-                                                               stages, part_cnt, part_sum,
-                                                               n_blocks, smem_bytes, s)
-            : launch_query_f32<__nv_bfloat16, false, kRowMajor>(x, n, blob, blob_floats, d,
-                                                                widest, stages, part_cnt,
-                                                                part_sum, n_blocks, smem_bytes, s);
-  } else {
-    e = compute_bf16
-            ? launch_query_f32<float, true, kRowMajor>(x, n, blob, blob_floats, d, widest, stages,
-                                                       part_cnt, part_sum, n_blocks, smem_bytes, s)
-            : launch_query_f32<float, false, kRowMajor>(x, n, blob, blob_floats, d, widest,
-                                                        stages, part_cnt, part_sum, n_blocks,
-                                                        smem_bytes, s);
-  }
+  cudaError_t e =
+      x_bf16 ? launch_query_f32<__nv_bfloat16, kRowMajor>(x, n, blob, blob_floats, d, widest,
+                                                           stages, part_cnt, part_sum, n_blocks,
+                                                           smem_bytes, s)
+             : launch_query_f32<float, kRowMajor>(x, n, blob, blob_floats, d, widest, stages,
+                                                  part_cnt, part_sum, n_blocks, smem_bytes, s);
   if (e != cudaSuccess) return (int)e;
   return (int)fold(part_cnt, part_sum, n_blocks, d.dim[n_layers], counts, sums, s);
+}
+
+// the bf16 kernel of a table type and layout
+template <typename TIn>
+inline auto bf16_kernel(int row_major) {
+  return row_major ? query_bf16_kernel<TIn, true> : query_bf16_kernel<TIn, false>;
+}
+
+template <typename TIn>
+cudaError_t launch_query_bf16(const void* x, int row_major, long long n, const void* blob,
+                              long long blob_words, MlpDims d, int stages, void* part_cnt,
+                              void* part_sum, int n_blocks, int smem_bytes, cudaStream_t stream) {
+  const auto k = bf16_kernel<TIn>(row_major);
+  cudaError_t e = set_smem(k, smem_bytes);
+  if (e != cudaSuccess) return e;
+  k<<<n_blocks, kThreads, smem_bytes, stream>>>((const TIn*)x, n, (const unsigned char*)blob,
+                                                (int)(blob_words / 4), d, stages,
+                                                (long long*)part_cnt, (double*)part_sum);
+  return cudaGetLastError();
 }
 
 template <bool kStatic>
@@ -339,29 +395,64 @@ int query_int8(const void* xq, long long n, const void* blob, long long blob_int
 
 extern "C" {
 
-// K1. x: [d0, n] f32 (x_bf16 = 0) or bf16 (x_bf16 = 1); compute_bf16 selects
-// the bf16 mode. Outputs counts [C] int64 and sums [C] f32. Returns a
-// cudaError_t.
-int infera_fused_query_f32(const void* x, int x_bf16, int compute_bf16, long long n,
-                           const void* blob, long long blob_floats, const int* dims, int n_layers,
-                           int widest, void* part_cnt, void* part_sum, void* counts, void* sums,
-                           int n_blocks, int smem_bytes, void* stream) {
-  return infera::query_f32<false>(x, x_bf16, compute_bf16, n, blob, blob_floats, dims, n_layers,
-                                  widest, 0, part_cnt, part_sum, counts, sums, n_blocks,
-                                  smem_bytes, stream);
+// K1 in f32. x: [d0, n] f32 (x_bf16 = 0) or bf16 (x_bf16 = 1); blob: the
+// f32 layout of mlp_tile.cuh. Outputs counts [C] int64 and sums [C] f32.
+// Returns a cudaError_t.
+int infera_fused_query_f32(const void* x, int x_bf16, long long n, const void* blob,
+                           long long blob_floats, const int* dims, int n_layers, int widest,
+                           void* part_cnt, void* part_sum, void* counts, void* sums, int n_blocks,
+                           int smem_bytes, void* stream) {
+  return infera::query_f32<false>(x, x_bf16, n, blob, blob_floats, dims, n_layers, widest, 0,
+                                  part_cnt, part_sum, counts, sums, n_blocks, smem_bytes, stream);
 }
 
-// K7a: K1 over a row-major table x [n, d0]; the same arguments, and the
-// ring's buffers (`stages`, each [64][ring_stride(d0)] bytes after the
+// K7a in f32: K1 over a row-major table x [n, d0]; the same arguments, and
+// the ring's buffers (`stages`, each [64][ring_stride(d0)] bytes after the
 // activation tiles; 0: the scalar load).
-int infera_fused_query_rows(const void* x, int x_bf16, int compute_bf16, long long n,
-                            const void* blob, long long blob_floats, const int* dims,
-                            int n_layers, int widest, int stages, void* part_cnt,
-                            void* part_sum, void* counts, void* sums, int n_blocks,
-                            int smem_bytes, void* stream) {
-  return infera::query_f32<true>(x, x_bf16, compute_bf16, n, blob, blob_floats, dims, n_layers,
-                                 widest, stages, part_cnt, part_sum, counts, sums, n_blocks,
-                                 smem_bytes, stream);
+int infera_fused_query_rows(const void* x, int x_bf16, long long n, const void* blob,
+                            long long blob_floats, const int* dims, int n_layers, int widest,
+                            int stages, void* part_cnt, void* part_sum, void* counts, void* sums,
+                            int n_blocks, int smem_bytes, void* stream) {
+  return infera::query_f32<true>(x, x_bf16, n, blob, blob_floats, dims, n_layers, widest, stages,
+                                 part_cnt, part_sum, counts, sums, n_blocks, smem_bytes, stream);
+}
+
+// K1 (row_major = 0, x [d0, n]) and K7a (row_major = 1, x [n, d0], with
+// its ring's `stages`) in bf16 mode, on the tensor cores. x: f32 (x_bf16 =
+// 0, rounded to bf16 at load) or bf16; blob: int32 words in the layout of
+// mma_tile.cuh. Outputs as K1's. Returns a cudaError_t.
+int infera_fused_query_bf16(const void* x, int x_bf16, int row_major, long long n,
+                            const void* blob, long long blob_words, const int* dims, int n_layers,
+                            int stages, void* part_cnt, void* part_sum, void* counts, void* sums,
+                            int n_blocks, int smem_bytes, void* stream) {
+  using namespace infera;
+  const MlpDims d = make_dims(dims, n_layers);
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t e =
+      x_bf16 ? launch_query_bf16<__nv_bfloat16>(x, row_major, n, blob, blob_words, d, stages,
+                                                 part_cnt, part_sum, n_blocks, smem_bytes, s)
+             : launch_query_bf16<float>(x, row_major, n, blob, blob_words, d, stages, part_cnt,
+                                        part_sum, n_blocks, smem_bytes, s);
+  if (e != cudaSuccess) return (int)e;
+  return (int)fold(part_cnt, part_sum, n_blocks, d.dim[n_layers], counts, sums, s);
+}
+
+// Blocks of the bf16 kernel for (x_bf16, row_major) resident on one SM at
+// `smem` bytes of dynamic shared memory (registers, shared memory and
+// threads all counted), into *blocks. Returns a cudaError_t.
+int infera_fused_query_bf16_occupancy(int x_bf16, int row_major, int smem, int* blocks) {
+  using namespace infera;
+  cudaError_t e;
+  if (x_bf16) {
+    const auto k = bf16_kernel<__nv_bfloat16>(row_major);
+    e = set_smem(k, smem);
+    if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k, kThreads, smem);
+  } else {
+    const auto k = bf16_kernel<float>(row_major);
+    e = set_smem(k, smem);
+    if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k, kThreads, smem);
+  }
+  return (int)e;
 }
 
 // K3. xq: [d0, n] int8. blob: int32 words as laid out in mlp_tile.cuh. Bit l

@@ -7,6 +7,13 @@
 // block then walks over row tiles (a persistent grid), so the weights are read
 // from device memory once per block, not once per tile.
 //
+// This file's layers run on the f32 cores: K6, K1 and K7a in f32 (TF32 would
+// change their results), K2' in fused_sql.cu (f32, and bf16 by rounding
+// operands that are exact in f32). They are bound by the f32 FMA rate and by
+// the shared-memory reads that feed it; the register tile below gives 32 FMAs
+// for three 16-byte reads. K1 and K7a in bf16, and K8b, run their layers on
+// the tensor cores instead (mma_tile.cuh).
+//
 // Activations live feature-major in shared memory: act[feature][row], with a
 // row stride of kActStride words. One thread owns a 4-row x 8-column register
 // tile of a layer's output (rows 4*tr..4*tr+3, columns c0..c0+7 of a

@@ -19,29 +19,33 @@
 // Bound on the H100 at the profiling shapes (N = 1,048,576, the 32 -> 128 ->
 // 128 -> 16 MLP): K8a, scan and mm1 by the table's bytes, 67 MB at 3.35 TB/s =
 // 0.020 ms; mm_all, tail_nomax and full by the bf16 tensor-core rate, 2 * N *
-// 22,528 operations at 989 TFLOP/s = 0.048 ms (K7a bf16's bound). None uses the
-// tensor cores: they run K7a's f32-core arithmetic, which is what they measure.
+// 22,528 operations at 989 TFLOP/s = 0.048 ms (K7a bf16's bound). They run K7a
+// bf16's code, which is what they measure: its layers on the tensor cores
+// (mma.sync, mma_tile.cuh).
 //
 // Design: one kernel runs every stage (K8a is its scan stage): K7a's
-// persistent grid (the wrapper gives it K7a's block count for the MLP) over
-// 64-row tiles, each loaded with K7a's ring (load_rows_tile, query_tile.cuh)
-// and run through K7a's mlp_stack_f32. The stage is a run-time argument, not a
-// template parameter: ptxas gave a template's stages 61 to 101 registers and
-// spilled one, so they ran differently compiled layer loops and mm_all read
-// slower than full; compiled once, the layer loop is the same code in every
-// stage. The TPU grid is rows // tile_n and drops a
-// ragged tail; these kernels sum every row, which is the same function at every
-// size the TPU experiments run (rows % tile_n == 0). A column of a tile is
-// summed by one warp in a fixed shuffle tree (f32), four columns' trees
-// interleaved, added to the block's f64 sums; each block writes its partials
-// [kOut] and a fold kernel adds them in block order. No float atomics, so the
-// results repeat bit for bit.
+// persistent grid (the wrapper gives it K7a bf16's block count for the MLP)
+// over 64-row tiles, each loaded into the bf16 A tile with K7a's ring
+// (load_rows_tile_bf16, query_tile.cuh) and run through K7a's
+// mlp_stack_bf16. The stage is a run-time argument, not a template
+// parameter: ptxas gave a template's stages 61 to 101 registers and spilled
+// one, so they ran differently compiled layer loops and mm_all read slower
+// than full; compiled once, the layer loop is the same code in every stage,
+// and __launch_bounds__(256, 2) holds it to K7a's 128 registers. The TPU grid
+// is rows // tile_n and drops a ragged tail; these kernels sum every row,
+// which is the same function at every size the TPU experiments run (rows %
+// tile_n == 0). A column of a tile is summed by one warp in a fixed shuffle
+// tree (f32), added to the block's f64 sums (scan reads the bf16 A tile, a
+// warp two neighbouring columns as one word); each block writes its partials
+// [kOut] and a fold kernel adds them in block order. No float atomics, so
+// the results repeat bit for bit.
 //
 // What bounds K8a now: with the ring the table's bytes arrive ahead of the
-// tile that needs them, so it is no longer the latency of the load. One block
-// an SM (K7a's grid) runs each tile's steps one after another, and the time
-// a tile is that chain: the wait for its own words, their transposition, a
-// barrier, the column sums, a barrier (PERF.md has the measured split).
+// tile that needs them, so it is not the latency of the load; the time a
+// tile is its serial chain in a block (the wait for its own words, their
+// copy into the A tile, a barrier, the column sums, a barrier), and K7a
+// bf16's grid now holds two blocks an SM, so one block's chain runs beside
+// the other's.
 #include "query_tile.cuh"
 
 namespace infera {
@@ -52,7 +56,7 @@ constexpr int kOut = 128;  // K8b's output width, the TPU kernel's acc_ref [1, 1
 // Block scratch after the weights: acc [kOut] f64 (the block's running sums)
 // and mx [kTileRows] f32 (a row's maximum score, tail_nomax).
 constexpr int kProfileScratch = kOut * 8 + kTileRows * 4;
-static_assert(kTileRows == 64, "add_column_sums reads a tile column as two warp-wide halves");
+static_assert(kTileRows == 64, "the column sums read a tile column as two warp-wide halves");
 
 // acc[c] += the sum of h[c][r] over the tile's rows r < rows, for c < width:
 // a warp per column, its lanes over rows (neighbouring words of the
@@ -81,6 +85,32 @@ __device__ inline void add_column_sums(const float* __restrict__ h, int width, i
 #pragma unroll
       for (int u = 0; u < kAtOnce; ++u)
         if (c0 + u * kWarps < width) acc[c0 + u * kWarps] += (double)v[u];
+    }
+  }
+}
+
+// acc[c] += the sum of a[r][c] over the tile's rows, for c < width, over the
+// bf16 A tile a [64][mma_stride(width)] (rows past n are zero): a warp per
+// pair of neighbouring columns (one word a row), its lanes over rows, each
+// column's sum a fixed xor-shuffle tree in f32.
+__device__ inline void add_column_sums_bf16(const __nv_bfloat16* __restrict__ a, int width,
+                                            double* __restrict__ acc) {
+  constexpr int kWarps = kThreads / 32;
+  const int lane = threadIdx.x & 31;
+  const int sa = mma_stride(width);
+  for (int c = 2 * (threadIdx.x >> 5); c < width; c += 2 * kWarps) {
+    const unsigned lo = *reinterpret_cast<const unsigned*>(a + lane * sa + c);
+    const unsigned hi = *reinterpret_cast<const unsigned*>(a + (lane + 32) * sa + c);
+    float v0 = bf16_lo(lo) + bf16_lo(hi);
+    float v1 = bf16_hi(lo) + bf16_hi(hi);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      v0 += __shfl_xor_sync(0xffffffffu, v0, o);
+      v1 += __shfl_xor_sync(0xffffffffu, v1, o);
+    }
+    if (lane == 0) {
+      acc[c] += (double)v0;
+      if (c + 1 < width) acc[c + 1] += (double)v1;
     }
   }
 }
@@ -118,26 +148,26 @@ __device__ inline void tail_nomax_tile(TailScratch t, float* __restrict__ mx,
 
 // variant: kScan, kMm1 or kMmAll (column sums of the layers' output: d has
 // n_layers 0, 1 or all of them, with dim[0] = d0), kTailNoMax or kFull (the
-// whole MLP). part: [gridDim.x][kOut] f64.
-__global__ void __launch_bounds__(kThreads)
+// whole MLP). blob: the bf16 layout of mma_tile.cuh. part: [gridDim.x][kOut]
+// f64.
+__global__ void __launch_bounds__(kThreads, 2)
 stage_kernel(int variant, const __nv_bfloat16* __restrict__ x, long long n,
-             const float* __restrict__ blob, int blob_words16, MlpDims d, int widest,
-             int stages, double* __restrict__ part) {
+             const unsigned char* __restrict__ blob, int blob_words16, MlpDims d, int stages,
+             double* __restrict__ part) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int d0 = d.dim[0];
   const int C = d.dim[d.n_layers];
   const bool tail = variant == kTailNoMax || variant == kFull;
-  float* s_blob = reinterpret_cast<float*>(smem_raw);
   unsigned char* p = smem_raw + 16 * blob_words16;
   double* acc = reinterpret_cast<double*>(p);
   float* mx = reinterpret_cast<float*>(acc + kOut);
   TailScratch t = carve_tail(p + kProfileScratch, C);
-  float* act0 = reinterpret_cast<float*>(p + kProfileScratch + tail_bytes(C));
-  float* act1 = act0 + widest * kActStride;
+  unsigned char* act0 = p + kProfileScratch + tail_bytes(C);
+  unsigned char* act1 = act0 + mma_tile_bytes(d);
+  __nv_bfloat16* in = mma_input(d, act0, act1);
   const long long n_tiles = (n + kTileRows - 1) / kTileRows;
-  const RowRing<__nv_bfloat16> ring{
-      x, n, d0, stages, reinterpret_cast<unsigned char*>(act1 + widest * kActStride), n_tiles};
-  copy_words16(s_blob, blob, blob_words16);
+  const RowRing<__nv_bfloat16> ring{x, n, d0, stages, act1 + mma_out_bytes(d), n_tiles};
+  copy_words16(smem_raw, blob, blob_words16);
   for (int c = threadIdx.x; c < kOut; c += kThreads) acc[c] = 0.0;
   tail_init(t, C);
   ring_start(ring);
@@ -146,16 +176,19 @@ stage_kernel(int variant, const __nv_bfloat16* __restrict__ x, long long n,
   int j = 0;  // this block's tile count
   for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++j) {
     const long long row0 = tile * kTileRows;
-    load_rows_tile<__nv_bfloat16, true>(ring, j, row0, act0);
+    load_rows_tile_bf16<__nv_bfloat16>(ring, j, row0, in);
     __syncthreads();
-    // n_layers 0 (scan) returns act0, the loaded tile
-    const float* h = mlp_stack_f32<true>(d, s_blob, act0, act1);
-    if (variant == kFull) {
-      tail_tile(t, h, C, row0, n);
-    } else if (variant == kTailNoMax) {
-      tail_nomax_tile(t, mx, h, C, row0, n);
+    if (d.n_layers == 0) {
+      add_column_sums_bf16(in, d0, acc);
     } else {
-      add_column_sums(h, C, (int)min((long long)kTileRows, n - row0), acc);
+      const float* h = mlp_stack_bf16(d, smem_raw, act0, act1);
+      if (variant == kFull) {
+        tail_tile(t, h, C, row0, n);
+      } else if (variant == kTailNoMax) {
+        tail_nomax_tile(t, mx, h, C, row0, n);
+      } else {
+        add_column_sums(h, C, (int)min((long long)kTileRows, n - row0), acc);
+      }
     }
     __syncthreads();
   }
@@ -181,14 +214,15 @@ __global__ void fold_stage_kernel(const double* __restrict__ part, int n_blocks,
 }
 
 inline cudaError_t launch_stage(int variant, const void* x, long long n, const void* blob,
-                               long long blob_floats, const MlpDims& d, int widest, int stages,
-                               void* part, int n_blocks, int smem_bytes, cudaStream_t s) {
+                               long long blob_words, const MlpDims& d, int stages, void* part,
+                               int n_blocks, int smem_bytes, cudaStream_t s) {
   cudaError_t e = cudaFuncSetAttribute(stage_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        smem_bytes);
   if (e != cudaSuccess) return e;
   stage_kernel<<<n_blocks, kThreads, smem_bytes, s>>>(variant, (const __nv_bfloat16*)x, n,
-                                                      (const float*)blob, (int)(blob_floats / 4),
-                                                      d, widest, stages, (double*)part);
+                                                      (const unsigned char*)blob,
+                                                      (int)(blob_words / 4), d, stages,
+                                                      (double*)part);
   return cudaGetLastError();
 }
 
@@ -203,21 +237,30 @@ extern "C" {
 
 // K8b, and K8a as its scan stage. variant: 0 scan, 1 mm1, 2 mm_all, 3
 // tail_nomax, 4 full. x: [n, dims[0]] bf16, dims[0] <= 128; blob, dims,
-// n_layers: the stage's layers in the f32 blob layout of mlp_tile.cuh
-// (n_layers 0 for scan). stages: K7a's ring of row-major tiles
+// n_layers: the stage's layers, blob as int32 words in the bf16 layout of
+// mma_tile.cuh (n_layers 0 for scan). stages: K7a's ring of row-major tiles
 // (query_tile.cuh). part: [n_blocks, 128] f64 scratch; out: [128] f32.
 // Returns a cudaError_t.
 int infera_profile_stage(int variant, const void* x, long long n, const void* blob,
-                         long long blob_floats, const int* dims, int n_layers, int widest,
-                         int stages, void* part, void* out, int n_blocks, int smem_bytes,
-                         void* stream) {
+                         long long blob_words, const int* dims, int n_layers, int stages,
+                         void* part, void* out, int n_blocks, int smem_bytes, void* stream) {
   const infera::MlpDims d = infera::make_dims(dims, n_layers);
   cudaStream_t s = (cudaStream_t)stream;
   if (variant < infera::kScan || variant > infera::kFull) return (int)cudaErrorInvalidValue;
-  cudaError_t e = infera::launch_stage(variant, x, n, blob, blob_floats, d, widest, stages, part,
-                                       n_blocks, smem_bytes, s);
+  cudaError_t e = infera::launch_stage(variant, x, n, blob, blob_words, d, stages, part, n_blocks,
+                                       smem_bytes, s);
   if (e != cudaSuccess) return (int)e;
   return infera::fold_stage(part, n_blocks, infera::kOut, out, s);
+}
+
+// Blocks of the stage kernel resident on one SM at `smem` bytes of dynamic
+// shared memory, into *blocks. Returns a cudaError_t.
+int infera_profile_stage_occupancy(int smem, int* blocks) {
+  cudaError_t e = cudaFuncSetAttribute(infera::stage_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, infera::stage_kernel,
+                                                            infera::kThreads, smem);
 }
 
 const char* infera_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -1,9 +1,10 @@
 // Shared pieces of the fused query kernels (fused_query.cu: K1, K7a, K3, K7b;
-// profile_query.cu: K8a, K8b): K7a's load of a row-major tile and the query's
-// tail (argmax, the score0 > 0 filter, per-class count and sum per block).
+// profile_query.cu: K8a, K8b): K7a's load of a row-major tile, K1's load of
+// a feature-major tile into the tensor cores' A layout, and the query's tail
+// (argmax, the score0 > 0 filter, per-class count and sum per block).
 #pragma once
 
-#include "mlp_tile.cuh"
+#include "mma_tile.cuh"
 
 namespace infera {
 
@@ -11,24 +12,28 @@ namespace infera {
 //
 // The 64 rows of a tile are one contiguous run of 64 * d0 elements. A block
 // walks its tiles j = 0, 1, ... (tile blockIdx.x + j * gridDim.x) with a ring
-// of `stages` buffers in shared memory: before it transposes tile j it has
+// of `stages` buffers in shared memory: before it unpacks tile j it has
 // issued the copies of tiles j + 1 .. j + stages - 1, so their bytes are in
-// flight while tile j is transposed and computed. The tile's 16-byte words
+// flight while tile j is unpacked and computed. The tile's 16-byte words
 // are dealt to the threads by row first (word w of row r to item 64 w + r);
 // a thread copies its words with cp.async.cg, one commit group a tile, waits
-// for its own words of tile j with cp.async.wait_group and transposes them
-// itself: it writes the 8 bf16 or 4 f32 values of a word into 8 or 4 rows of
-// the feature-major activation tile act [d0][kActStride]. No thread reads
-// another's words, so neither the wait nor the refill of a buffer needs a
-// barrier; the caller's barrier after the load is the tile's only one. A
-// buffer keeps each row at a stride of an odd number of 16-byte words, and
-// 32 threads take 32 neighbouring rows of one word, so the copies' writes,
-// the transposition's reads and its writes are free of bank conflicts. A
-// table whose base is not 16-byte aligned, a row of d0 elements that is not
-// a multiple of 16 bytes (stages = 0), and the ragged last tile take a
-// scalar path in the same loop: each value read from device memory straight
-// into act. Rows past n are zero; kBf16 rounds an f32 table's values to bf16.
-// The load is a copy, so its values are the scalar path's bit for bit.
+// for its own words of tile j with cp.async.wait_group and unpacks them
+// itself. f32 mode (load_rows_tile) transposes a word's 4 f32 values into 4
+// rows of the feature-major activation tile act [d0][kActStride]. bf16 mode
+// (load_rows_tile_bf16) writes the tensor cores' A tile [64][mma_stride(d0)]
+// (mma_tile.cuh): a bf16 word (8 features of a row) is one 16-byte copy, an
+// f32 word two bf16x2 words rounded to nearest even, and the k padding
+// d0 .. pad16(d0) is zero. No thread reads another's words, so neither the
+// wait nor the refill of a buffer needs a barrier; the caller's barrier after
+// the load is the tile's only one. A buffer keeps each row at a stride of an
+// odd number of 16-byte words, and 32 threads take 32 neighbouring rows of
+// one word, so the copies' writes and the unpacking's reads (and a bf16
+// tile's writes, whose rows are an odd number of words too) are free of bank
+// conflicts. A table whose base is not 16-byte aligned, a row of d0 elements
+// that is not a multiple of 16 bytes (stages = 0), and the ragged last tile
+// take a scalar path in the same loop: each value read from device memory
+// straight into the tile. Rows past n are zero. The load is a copy, so its
+// values are the scalar path's bit for bit.
 
 // Bytes of a ring buffer's row: d0 elements of `elem` bytes padded to an odd
 // number of 16-byte words.
@@ -102,15 +107,15 @@ __device__ inline void ring_start(const RowRing<TIn> g) {
   for (int j = 0; j + 1 < g.stages; ++j) ring_issue(g, j);
 }
 
-__device__ inline void put4(float* act, int k, int r, float4 v, bool bf) {
-  act[k * kActStride + r] = bf ? round_bf16(v.x) : v.x;
-  act[(k + 1) * kActStride + r] = bf ? round_bf16(v.y) : v.y;
-  act[(k + 2) * kActStride + r] = bf ? round_bf16(v.z) : v.z;
-  act[(k + 3) * kActStride + r] = bf ? round_bf16(v.w) : v.w;
+__device__ inline void put4(float* act, int k, int r, float4 v) {
+  act[k * kActStride + r] = v.x;
+  act[(k + 1) * kActStride + r] = v.y;
+  act[(k + 2) * kActStride + r] = v.z;
+  act[(k + 3) * kActStride + r] = v.w;
 }
 
-__device__ inline void transpose_word(const float* p, float* act, int k, int r, bool bf) {
-  put4(act, k, r, *reinterpret_cast<const float4*>(p), bf);
+__device__ inline void transpose_word(const float* p, float* act, int k, int r) {
+  put4(act, k, r, *reinterpret_cast<const float4*>(p));
 }
 
 // the f32 of the first and of the second bf16 of a word: a bf16 is the high
@@ -118,28 +123,43 @@ __device__ inline void transpose_word(const float* p, float* act, int k, int r, 
 __device__ inline float bf16_lo(unsigned w) { return __uint_as_float(w << 16); }
 __device__ inline float bf16_hi(unsigned w) { return __uint_as_float(w & 0xffff0000u); }
 
-__device__ inline void transpose_word(const __nv_bfloat16* p, float* act, int k, int r,
-                                      bool bf) {
+__device__ inline void transpose_word(const __nv_bfloat16* p, float* act, int k, int r) {
   const uint4 u = *reinterpret_cast<const uint4*>(p);
-  put4(act, k, r, make_float4(bf16_lo(u.x), bf16_hi(u.x), bf16_lo(u.y), bf16_hi(u.y)), bf);
-  put4(act, k + 4, r, make_float4(bf16_lo(u.z), bf16_hi(u.z), bf16_lo(u.w), bf16_hi(u.w)), bf);
+  put4(act, k, r, make_float4(bf16_lo(u.x), bf16_hi(u.x), bf16_lo(u.y), bf16_hi(u.y)));
+  put4(act, k + 4, r, make_float4(bf16_lo(u.z), bf16_hi(u.z), bf16_lo(u.w), bf16_hi(u.w)));
 }
 
-// Tile j of this block (row0 = its first row) into act: issue tile
-// j + stages - 1 into the buffer tile j - 1 left (this thread's own words,
-// read in the last call), wait for this thread's words of tile j, transpose
-// them. Ends without a barrier.
-template <typename TIn, bool kBf16>
-__device__ inline void load_rows_tile(const RowRing<TIn> g, int j, long long row0,
-                                      float* __restrict__ act) {
-  const long long tile = blockIdx.x + (long long)j * gridDim.x;
+// a ring word into the A tile at its (row, k): 8 bf16 as they are, 4 f32
+// rounded to bf16
+__device__ inline void put_word_bf16(const __nv_bfloat16* p, __nv_bfloat16* a) {
+  *reinterpret_cast<uint4*>(a) = *reinterpret_cast<const uint4*>(p);
+}
+
+__device__ inline void put_word_bf16(const float* p, __nv_bfloat16* a) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  *reinterpret_cast<uint2*>(a) = make_uint2(bf16x2_bits(v.x, v.y), bf16x2_bits(v.z, v.w));
+}
+
+// Start the copies of tile j + stages - 1 into the buffer tile j - 1 left
+// (this thread's own words, read in the last call) and wait for this
+// thread's words of tile j.
+template <typename TIn>
+__device__ inline void ring_advance(const RowRing<TIn> g, int j) {
   if (g.stages > 0) {
     ring_issue(g, j + g.stages - 1);
     cp_async_wait(g.stages - 1);
   }
+}
+
+// Tile j of this block (row0 = its first row) into the f32 tile act
+// [d0][kActStride]: ring_advance, then transpose this thread's words. Ends
+// without a barrier.
+template <typename TIn>
+__device__ inline void load_rows_tile(const RowRing<TIn> g, int j, long long row0,
+                                      float* __restrict__ act) {
+  const long long tile = blockIdx.x + (long long)j * gridDim.x;
+  ring_advance(g, j);
   const int d0 = g.d0;
-  // a bf16 value is already a bf16: only an f32 table is rounded
-  constexpr bool kRound = kBf16 && sizeof(TIn) == 4;
   if (ring_tile(g, tile)) {
     constexpr int kPer = 16 / (int)sizeof(TIn);  // values of a 16-byte word
     const int words = d0 / kPer;
@@ -148,8 +168,7 @@ __device__ inline void load_rows_tile(const RowRing<TIn> g, int j, long long row
     for (int i = threadIdx.x; i < kTileRows * words; i += kThreads) {
       const int r = i & (kTileRows - 1);
       const int w = i / kTileRows;
-      transpose_word(reinterpret_cast<const TIn*>(b + r * stride + 16 * w), act, kPer * w, r,
-                     kRound);
+      transpose_word(reinterpret_cast<const TIn*>(b + r * stride + 16 * w), act, kPer * w, r);
     }
     return;
   }
@@ -158,9 +177,69 @@ __device__ inline void load_rows_tile(const RowRing<TIn> g, int j, long long row
   for (int i = threadIdx.x; i < kTileRows * d0; i += kThreads) {
     const int k = i / kTileRows;
     const int r = i - k * kTileRows;
-    float v = r < rows ? load_f32(src + (long long)r * d0 + k) : 0.f;
-    if (kRound) v = round_bf16(v);
-    act[k * kActStride + r] = v;
+    act[k * kActStride + r] = r < rows ? load_f32(src + (long long)r * d0 + k) : 0.f;
+  }
+}
+
+// Tile j of this block into the bf16 A tile a [64][mma_stride(d0)]:
+// ring_advance, then copy this thread's words; zeros past d0 and past n.
+// Ends without a barrier.
+template <typename TIn>
+__device__ inline void load_rows_tile_bf16(const RowRing<TIn> g, int j, long long row0,
+                                           __nv_bfloat16* __restrict__ a) {
+  const long long tile = blockIdx.x + (long long)j * gridDim.x;
+  ring_advance(g, j);
+  const int d0 = g.d0;
+  const int kp = pad16(d0);
+  const int sa = mma_stride(d0);
+  if (ring_tile(g, tile)) {
+    constexpr int kPer = 16 / (int)sizeof(TIn);
+    const int words = d0 / kPer;
+    const int stride = ring_stride(d0, (int)sizeof(TIn));
+    const unsigned char* b = g.buf + (j % g.stages) * kTileRows * stride;
+    for (int i = threadIdx.x; i < kTileRows * words; i += kThreads) {
+      const int r = i & (kTileRows - 1);
+      const int w = i / kTileRows;
+      put_word_bf16(reinterpret_cast<const TIn*>(b + r * stride + 16 * w), a + r * sa + kPer * w);
+    }
+    // the k padding: d0 is a multiple of 4 here, so whole bf16x2 words
+    const int pairs = (kp - d0) >> 1;
+    for (int i = threadIdx.x; i < kTileRows * pairs; i += kThreads) {
+      const int r = i / pairs;
+      *reinterpret_cast<unsigned*>(a + r * sa + d0 + 2 * (i - r * pairs)) = 0u;
+    }
+    return;
+  }
+  const int rows = (int)min((long long)kTileRows, g.n - row0);
+  const TIn* src = g.x + row0 * d0;
+  for (int i = threadIdx.x; i < kTileRows * kp; i += kThreads) {
+    const int r = i / kp;
+    const int k = i - r * kp;
+    const float v = r < rows && k < d0 ? load_f32(src + (long long)r * d0 + k) : 0.f;
+    a[r * sa + k] = __float2bfloat16_rn(v);
+  }
+}
+
+// K1's load: rows row0 .. row0 + 63 of the feature-major table x [d0, n]
+// into the A tile a [64][mma_stride(d0)]. A thread takes 8 features of a row
+// (8 loads, each from 32 neighbouring rows across the warp) and writes them as
+// one 16-byte word; zeros past d0 and past n. Ends without a barrier.
+template <typename TIn>
+__device__ inline void load_cols_tile_bf16(const TIn* __restrict__ x, long long n, int d0,
+                                           long long row0, __nv_bfloat16* __restrict__ a) {
+  const int groups = pad16(d0) >> 3;
+  const int sa = mma_stride(d0);
+  for (int i = threadIdx.x; i < kTileRows * groups; i += kThreads) {
+    const int r = i & (kTileRows - 1);
+    const int k0 = 8 * (i / kTileRows);
+    const long long row = row0 + r;
+    float v[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      v[u] = row < n && k0 + u < d0 ? load_f32(x + (long long)(k0 + u) * n + row) : 0.f;
+    *reinterpret_cast<uint4*>(a + r * sa + k0) =
+        make_uint4(bf16x2_bits(v[0], v[1]), bf16x2_bits(v[2], v[3]), bf16x2_bits(v[4], v[5]),
+                   bf16x2_bits(v[6], v[7]));
   }
 }
 

@@ -37,10 +37,12 @@ _SIGNATURES = {
         "infera_fused_mlp": [_P, _LL, _P, _LL, _P, _I, _I, _I, _P, _I, _I, _P],
     },
     "fused_query": {
-        "infera_fused_query_f32": [_P, _I, _I, _LL, _P, _LL, _P, _I, _I, _P, _P, _P, _P,
-                                   _I, _I, _P],
-        "infera_fused_query_rows": [_P, _I, _I, _LL, _P, _LL, _P, _I, _I, _I, _P, _P, _P, _P,
-                                    _I, _I, _P],
+        "infera_fused_query_f32": [_P, _I, _LL, _P, _LL, _P, _I, _I, _P, _P, _P, _P, _I, _I, _P],
+        "infera_fused_query_rows": [_P, _I, _LL, _P, _LL, _P, _I, _I, _I, _P, _P, _P, _P, _I,
+                                    _I, _P],
+        "infera_fused_query_bf16": [_P, _I, _I, _LL, _P, _LL, _P, _I, _I, _P, _P, _P, _P, _I,
+                                    _I, _P],
+        "infera_fused_query_bf16_occupancy": [_I, _I, _I, _P],
         "infera_fused_query_int8_shift": [_P, _LL, _P, _LL, _P, _I, _I, _I, _P, _P, _P, _P,
                                           _I, _I, _P],
         "infera_fused_query_int8_static": [_P, _LL, _P, _LL, _P, _I, _I, _P, _P, _P, _P,
@@ -51,7 +53,8 @@ _SIGNATURES = {
         "infera_fused_sql_occupancy": [_I, _P],
     },
     "profile_query": {
-        "infera_profile_stage": [_I, _P, _LL, _P, _LL, _P, _I, _I, _I, _P, _P, _I, _I, _P],
+        "infera_profile_stage": [_I, _P, _LL, _P, _LL, _P, _I, _I, _P, _P, _I, _I, _P],
+        "infera_profile_stage_occupancy": [_I, _P],
     },
 }
 
@@ -68,12 +71,12 @@ def set_build_dir(path) -> Path:
     return BUILD
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def _cuda_tool(name: str) -> str:
+    found = shutil.which(name)
     if found:
         return found
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    return str(Path(home) / "bin" / "nvcc")
+    return str(Path(home) / "bin" / name)
 
 
 def _lib_path(name: str) -> Path:
@@ -92,7 +95,7 @@ def _stale(name: str) -> bool:
 def _start(name: str) -> tuple:
     BUILD.mkdir(parents=True, exist_ok=True)
     tmp = BUILD / f"lib{name}.{os.getpid()}.so"
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    cmd = [_cuda_tool("nvcc"), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
            "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
            "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -132,10 +135,11 @@ def build_log(name: str) -> str:
 
 
 def ptxas_usage(name: str, kernel: str) -> tuple:
-    """(registers, stack bytes) ptxas gave the kernel whose mangled name
-    holds ``kernel`` in the last build of ``csrc/<name>.cu`` (the first
-    such kernel); (None, None) if the log does not name it."""
-    cur = regs = stack = None
+    """(registers, stack bytes, spill-store bytes) ptxas gave the kernel
+    whose mangled name holds ``kernel`` in the last build of
+    ``csrc/<name>.cu`` (the first such kernel); None for what the log does
+    not name."""
+    cur = regs = stack = spill = None
     for line in build_log(name).splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
         if m:
@@ -143,13 +147,39 @@ def ptxas_usage(name: str, kernel: str) -> tuple:
             continue
         if cur is None or kernel not in cur:
             continue
-        m = re.search(r"(\d+) bytes stack frame", line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line)
         if m and stack is None:
-            stack = int(m.group(1))
+            stack, spill = int(m.group(1)), int(m.group(2))
         m = re.search(r"Used (\d+) registers", line)
         if m and regs is None:
             regs = int(m.group(1))
-    return regs, stack
+    return regs, stack, spill
+
+
+def count_sass(sass: str, opcode: str) -> dict:
+    """{kernel's mangled name: instructions whose opcode starts with
+    ``opcode``} in ``cuobjdump --dump-sass`` output, one entry a kernel."""
+    counts: dict = {}
+    cur = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = m.group(1)
+            counts.setdefault(cur, 0)
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if cur is not None and m and m.group(1).startswith(opcode):
+            counts[cur] += 1
+    return counts
+
+
+def sass_opcodes(name: str, opcode: str) -> dict:
+    """``count_sass`` over the built library of ``csrc/<name>.cu`` (built
+    first if needed), read with ``cuobjdump --dump-sass``."""
+    load(name)
+    sass = subprocess.run([_cuda_tool("cuobjdump"), "--dump-sass", str(_lib_path(name))],
+                          check=True, capture_output=True, text=True).stdout
+    return count_sass(sass, opcode)
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -193,6 +223,27 @@ def require_cuda(t: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what} must be a CUDA tensor, got {t.device}")
     if not t.is_contiguous():
         raise ValueError(f"{what} must be contiguous")
+
+
+_RESIDENT: dict = {}
+
+
+def resident_blocks(device: torch.device, name: str, entry: str, *args) -> int:
+    """Blocks of a kernel resident on one SM, from the occupancy entry
+    ``entry`` of ``csrc/<name>.cu`` (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``:
+    registers, shared memory and threads all count), which takes ``args``
+    and then the int it writes; asked once per device, entry and args.
+    Raises where not one block fits."""
+    key = (device.index, name, entry, *args)
+    got = _RESIDENT.get(key)
+    if got is None:
+        lib = load(name)
+        blocks = ctypes.c_int(0)
+        check(lib, getattr(lib, entry)(*args, ctypes.byref(blocks)), entry)
+        if blocks.value < 1:
+            raise RuntimeError(f"{entry}{args}: not one block fits an SM")
+        got = _RESIDENT[key] = blocks.value
+    return got
 
 
 _SM_COUNT: dict = {}

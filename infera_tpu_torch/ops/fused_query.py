@@ -22,6 +22,9 @@ runs in ``csrc/fused_query.cu``:
   requantize as ``q = clip(rint(t), 0, 127)`` (ReLU folded into the clip), the
   last layer keeps ``t``. Its weights come from ``quantize_mlp_static``.
 
+K1 and K7a in bf16 run their layers on the tensor cores (``mma.sync``, with
+the weights packed by ``pack_mma_blob``); in f32 on the f32 cores.
+
 All return ``(counts [C] int64, sums [C] f32)``: the counts stay integers,
 where the TPU kernel returned them as f32. Each wrapper launches its kernel
 for a CUDA tensor and runs its plain version for a CPU tensor; it raises for
@@ -49,20 +52,51 @@ def _div4(n: int) -> int:
     return (n + 3) // 4
 
 
+def pad16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def mma_stride(k: int) -> int:
+    """bf16 values of a row of a tensor-core operand (``csrc/mma_tile.cuh``):
+    k padded to 16, and 8 more, so that a row is an odd number of 16-byte
+    words and ldmatrix's 8 row addresses fall on different banks."""
+    return pad16(k) + 8
+
+
 # --------------------------------------------------------------------------- weights
 
 
 @dataclass(frozen=True)
 class QueryWeights:
     """K1's weights on one device: ``layers`` = [(Wt [dout, din] in the
-    compute dtype, b [dout, 1] f32), ...], as the TPU kernel takes them, and
-    ``blob``, the same numbers in the kernel's shared-memory layout (f32; in
-    bf16 mode they hold bf16-rounded values)."""
+    compute dtype, b [dout, 1] f32), ...], as the TPU kernel takes them;
+    ``blob``, the same numbers in the f32 kernels' shared-memory layout (in
+    bf16 mode they hold bf16-rounded values); and in bf16 mode ``mma_blob``,
+    the tensor-core kernels' layout (``pack_mma_blob``)."""
 
     compute_dtype: torch.dtype
     dims: tuple
     layers: list
     blob: torch.Tensor
+    mma_blob: torch.Tensor | None = None
+
+
+def pack_mma_blob(wts, biases) -> np.ndarray:
+    """The bf16 kernels' weight blob (``csrc/mma_tile.cuh``) from each
+    layer's bf16 Wt [dout, din] and f32 b [dout] (torch tensors): per layer
+    Wt as bf16 [pad8(dout)][mma_stride(din)], then per layer b as f32
+    [pad8(dout)], all zero-padded; int32 words."""
+    parts = []
+    for wt in wts:
+        dout, din = wt.shape
+        block = np.zeros((pad8(dout), mma_stride(din)), np.uint16)
+        block[:dout, :din] = wt.detach().cpu().contiguous().view(torch.int16).numpy().view(np.uint16)
+        parts.append(block.reshape(-1))
+    for b in biases:
+        row = np.zeros(pad8(b.numel()), np.float32)
+        row[:b.numel()] = b.detach().cpu().float().reshape(-1).numpy()
+        parts.append(row.view(np.uint16))
+    return np.concatenate(parts).view(np.int32)
 
 
 def params_from_numpy(params, device, compute_dtype=torch.float32) -> QueryWeights:
@@ -77,7 +111,11 @@ def params_from_numpy(params, device, compute_dtype=torch.float32) -> QueryWeigh
         layers.append((wt.to(compute_dtype), b2))
     dims = (layers[0][0].shape[1],) + tuple(wt.shape[0] for wt, _ in layers)
     blob = pack_f32_blob([wt.float().T for wt, _ in layers], [b for _, b in layers])
-    return QueryWeights(compute_dtype=compute_dtype, dims=dims, layers=layers, blob=blob)
+    mma_blob = None
+    if compute_dtype == torch.bfloat16:
+        mma_blob = torch.as_tensor(pack_mma_blob(*zip(*layers)), device=device)
+    return QueryWeights(compute_dtype=compute_dtype, dims=dims, layers=layers, blob=blob,
+                        mma_blob=mma_blob)
 
 
 @dataclass(frozen=True)
@@ -267,18 +305,44 @@ def _check_table(x: torch.Tensor, dtypes, d0: int, blob: torch.Tensor, dims,
 
 
 def query_smem_bytes(dims) -> int:
-    """Shared memory of K1: weights and biases at f32, the tail's scratch and
-    two 64-row activation tiles at the widest width."""
+    """Shared memory of K1 in f32: weights and biases at f32, the tail's
+    scratch and two 64-row activation tiles at the widest width."""
     widest = max(pad8(d) for d in dims)
     blob = sum(dims[i] * pad8(dims[i + 1]) + pad8(dims[i + 1]) for i in range(len(dims) - 1))
     return 4 * blob + _tail_bytes(dims[-1]) + 8 * widest * ACT_STRIDE
 
 
-# K7a's ring of row-major tiles (csrc/query_tile.cuh): enough buffers that
-# about 20 KB of the table is in flight on each SM (one block an SM at the
-# bench MLP), at most 8
+def mma_blob_bytes(dims) -> int:
+    """Bytes of ``pack_mma_blob``'s blob for an MLP of ``dims``."""
+    return sum(2 * pad8(dims[i + 1]) * mma_stride(dims[i]) + 4 * pad8(dims[i + 1])
+               for i in range(len(dims) - 1))
+
+
+def mma_tile_bytes(dims) -> tuple:
+    """(act0, act1) bytes of the bf16 kernels: an A tile [64][mma_stride]
+    at the widest layer input (``dims[0]`` for a stage with no layer), and
+    the larger of that and the scores [pad8(C)][68] f32, which lie over it."""
+    a = 2 * TILE_ROWS * mma_stride(max(dims[:max(1, len(dims) - 1)]))
+    return a, max(a, 4 * pad8(dims[-1]) * ACT_STRIDE)
+
+
+def query_smem_bytes_bf16(dims) -> int:
+    """Shared memory of K1 in bf16 (``csrc/mma_tile.cuh``): bf16 weights
+    and f32 biases, the tail's scratch, act0 and act1."""
+    return mma_blob_bytes(dims) + _tail_bytes(dims[-1]) + sum(mma_tile_bytes(dims))
+
+
+# K7a's ring of row-major tiles (csrc/query_tile.cuh). f32 mode (one block
+# an SM at the bench MLP): enough buffers that about 20 KB of the table is in
+# flight on each SM, at most 8. bf16 mode: two buffers, which hide the load
+# at two blocks an SM (the ring sweep of PERF.md), within half an SM's shared
+# memory where they fit there.
 RING_IN_FLIGHT = 20 * 1024
 MAX_RING_STAGES = 8
+BF16_RING_STAGES = 2
+# one block's share of an SM's 228 KB when two blocks share it (1 KB of
+# each block's is reserved)
+TWO_BLOCK_SMEM = 233472 // 2 - 1024
 
 
 def ring_stride(d0: int, itemsize: int) -> int:
@@ -287,9 +351,15 @@ def ring_stride(d0: int, itemsize: int) -> int:
     return 16 * ((-(-d0 * itemsize // 16)) | 1)
 
 
+def _fit_stages(stages: int, base: int, stage: int, limit: int) -> int:
+    while stages > 0 and base + stages * stage > limit:
+        stages -= 1
+    return stages
+
+
 def ring_stages(dims, itemsize: int, extra: int = 0) -> int:
-    """Buffers of K7a's ring for an MLP of ``dims`` over a table of
-    ``itemsize``-byte values, beside ``extra`` bytes of other scratch: 1 +
+    """Buffers of K7a's ring in f32 mode for an MLP of ``dims`` over a table
+    of ``itemsize``-byte values, beside ``extra`` bytes of other scratch: 1 +
     the tiles that keep ``RING_IN_FLIGHT`` bytes in flight, fewer where
     the block's 227 KB would not hold them, 0 (the scalar load) where a row
     is not a whole number of 16-byte words or no buffer fits."""
@@ -297,18 +367,35 @@ def ring_stages(dims, itemsize: int, extra: int = 0) -> int:
         return 0
     stage = TILE_ROWS * ring_stride(dims[0], itemsize)
     stages = min(MAX_RING_STAGES, 1 + -(-RING_IN_FLIGHT // (TILE_ROWS * dims[0] * itemsize)))
-    base = query_smem_bytes(dims) + extra
-    while stages > 0 and base + stages * stage > SMEM_LIMIT:
-        stages -= 1
-    return stages
+    return _fit_stages(stages, query_smem_bytes(dims) + extra, stage, SMEM_LIMIT)
+
+
+def ring_stages_bf16(dims, itemsize: int, extra: int = 0) -> int:
+    """Buffers of K7a's ring in bf16 mode: ``BF16_RING_STAGES``, fewer
+    where they would push the block past ``TWO_BLOCK_SMEM``; where not one
+    fits there, as many of them as the block's 227 KB holds. 0 where a row
+    is not a whole number of 16-byte words."""
+    if dims[0] * itemsize % 16:
+        return 0
+    stage = TILE_ROWS * ring_stride(dims[0], itemsize)
+    base = query_smem_bytes_bf16(dims) + extra
+    return (_fit_stages(BF16_RING_STAGES, base, stage, TWO_BLOCK_SMEM)
+            or _fit_stages(BF16_RING_STAGES, base, stage, SMEM_LIMIT))
 
 
 def rows_query_smem_bytes(dims, itemsize: int = 4, extra: int = 0) -> int:
-    """Shared memory of K7a over a table of ``itemsize``-byte values: K1's
-    and the ring's buffers (``ring_stages``), each [64][ring_stride]
+    """Shared memory of K7a in f32 over a table of ``itemsize``-byte values:
+    K1's and the ring's buffers (``ring_stages``), each [64][ring_stride]
     bytes, beside ``extra`` bytes of other scratch (not counted)."""
     stages = ring_stages(dims, itemsize, extra)
     return query_smem_bytes(dims) + stages * TILE_ROWS * ring_stride(dims[0], itemsize)
+
+
+def rows_query_smem_bytes_bf16(dims, itemsize: int = 2, extra: int = 0) -> int:
+    """Shared memory of K7a in bf16: K1's in bf16 and the ring's buffers
+    (``ring_stages_bf16``), beside ``extra`` bytes (not counted)."""
+    stages = ring_stages_bf16(dims, itemsize, extra)
+    return query_smem_bytes_bf16(dims) + stages * TILE_ROWS * ring_stride(dims[0], itemsize)
 
 
 def _int8_widest4(dims) -> int:
@@ -327,24 +414,60 @@ def int8_smem_bytes(dims) -> int:
 
 def _launch_f32(entry: str, weights: QueryWeights, x: torch.Tensor, n: int, smem: int,
                 *stages):
-    """Launch K1 or K7a (C entry ``entry``; K7a with its ring's ``stages``)
-    over a checked table of ``n`` rows; returns (counts, sums) and the
-    compute dtype's name."""
+    """Launch K1 or K7a in f32 (C entry ``entry``; K7a with its ring's
+    ``stages``) over a checked table of ``n`` rows; returns (counts, sums)."""
     dims = weights.dims
     if smem > SMEM_LIMIT:
         raise ValueError(f"MLP {dims} exceeds the kernel's shared-memory budget")
     n_blocks = _kernels.grid_blocks(x.device, -(-n // TILE_ROWS), smem)
     part_cnt, part_sum, counts, sums = _partials(n_blocks, dims[-1], x.device)
-    compute = _COMPUTE[weights.compute_dtype]
     lib = _kernels.load("fused_query")
     rc = getattr(lib, entry)(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), int(compute == "bf16"), n,
-        weights.blob.data_ptr(), weights.blob.numel(), _kernels.int_array(dims),
-        len(dims) - 1, max(pad8(d) for d in dims), *stages, part_cnt.data_ptr(),
-        part_sum.data_ptr(), counts.data_ptr(), sums.data_ptr(), n_blocks, smem,
-        _kernels.stream_handle(x.device))
+        x.data_ptr(), int(x.dtype == torch.bfloat16), n, weights.blob.data_ptr(),
+        weights.blob.numel(), _kernels.int_array(dims), len(dims) - 1,
+        max(pad8(d) for d in dims), *stages, part_cnt.data_ptr(), part_sum.data_ptr(),
+        counts.data_ptr(), sums.data_ptr(), n_blocks, smem, _kernels.stream_handle(x.device))
     _kernels.check(lib, rc, entry)
-    return (counts, sums), compute
+    return counts, sums
+
+
+def resident_blocks(device: torch.device, x_bf16: bool, row_major: bool, smem: int) -> int:
+    """Blocks of the bf16 kernel (K1 or K7a over an f32 or bf16 table)
+    resident on one SM at ``smem`` bytes of dynamic shared memory."""
+    return _kernels.resident_blocks(device, "fused_query", "infera_fused_query_bf16_occupancy",
+                                    int(x_bf16), int(row_major), smem)
+
+
+def bf16_grid(x: torch.Tensor, dims, row_major: bool) -> tuple:
+    """(blocks, shared-memory bytes) of K1 or K7a in bf16 over the table
+    ``x``: the persistent grid is the blocks resident on the card, at most
+    one a tile. The profiling kernels run K7a's."""
+    x_bf16 = x.dtype == torch.bfloat16
+    smem = (rows_query_smem_bytes_bf16(dims, x.element_size()) if row_major
+            else query_smem_bytes_bf16(dims))
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"MLP {dims} exceeds the kernel's shared-memory budget")
+    n = x.shape[0] if row_major else x.shape[1]
+    per_sm = resident_blocks(x.device, x_bf16, row_major, smem)
+    return _kernels.grid_blocks(x.device, -(-n // TILE_ROWS), smem, per_sm), smem
+
+
+def _launch_bf16(weights: QueryWeights, x: torch.Tensor, row_major: bool):
+    """Launch K1 or K7a in bf16 (the tensor-core kernel) over a checked
+    table; returns (counts, sums)."""
+    dims = weights.dims
+    n_blocks, smem = bf16_grid(x, dims, row_major)
+    n = x.shape[0] if row_major else x.shape[1]
+    stages = ring_stages_bf16(dims, x.element_size()) if row_major else 0
+    part_cnt, part_sum, counts, sums = _partials(n_blocks, dims[-1], x.device)
+    lib = _kernels.load("fused_query")
+    rc = lib.infera_fused_query_bf16(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), int(row_major), n,
+        weights.mma_blob.data_ptr(), weights.mma_blob.numel(), _kernels.int_array(dims),
+        len(dims) - 1, stages, part_cnt.data_ptr(), part_sum.data_ptr(), counts.data_ptr(),
+        sums.data_ptr(), n_blocks, smem, _kernels.stream_handle(x.device))
+    _kernels.check(lib, rc, "infera_fused_query_bf16")
+    return counts, sums
 
 
 def fused_mlp_query_columnar(weights: QueryWeights, xc: torch.Tensor):
@@ -354,8 +477,12 @@ def fused_mlp_query_columnar(weights: QueryWeights, xc: torch.Tensor):
         return fused_mlp_query_columnar_plain(weights, xc)
     dims = weights.dims
     _check_table(xc, (torch.float32, torch.bfloat16), dims[0], weights.blob, dims)
-    out, compute = _launch_f32("infera_fused_query_f32", weights, xc, xc.shape[1],
-                               query_smem_bytes(dims))
+    compute = _COMPUTE[weights.compute_dtype]
+    if compute == "bf16":
+        out = _launch_bf16(weights, xc, row_major=False)
+    else:
+        out = _launch_f32("infera_fused_query_f32", weights, xc, xc.shape[1],
+                          query_smem_bytes(dims))
     fused_mlp_query_columnar.launches[compute] += 1
     return out
 
@@ -370,9 +497,13 @@ def fused_mlp_query(weights: QueryWeights, x: torch.Tensor):
         return fused_mlp_query_plain(weights, x)
     dims = weights.dims
     _check_table(x, (torch.float32, torch.bfloat16), dims[0], weights.blob, dims, row_major=True)
-    item = x.element_size()
-    out, compute = _launch_f32("infera_fused_query_rows", weights, x, x.shape[0],
-                               rows_query_smem_bytes(dims, item), ring_stages(dims, item))
+    compute = _COMPUTE[weights.compute_dtype]
+    if compute == "bf16":
+        out = _launch_bf16(weights, x, row_major=True)
+    else:
+        item = x.element_size()
+        out = _launch_f32("infera_fused_query_rows", weights, x, x.shape[0],
+                          rows_query_smem_bytes(dims, item), ring_stages(dims, item))
     fused_mlp_query.launches[compute] += 1
     return out
 

@@ -888,24 +888,10 @@ def fused_sql_plain(packed: PackedPlan, xc: torch.Tensor, n_valid: int,
 # --------------------------------------------------------------------------- kernel
 
 _OUT_KEYS = ("count", "sums", "mm", "ints", "iest", "args", "flags")
-_RESIDENT: dict = {}
-
-
 def resident_blocks(device: torch.device, smem: int) -> int:
     """Blocks of K2 resident on one SM at ``smem`` bytes of dynamic shared
-    memory, from ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` (its
-    registers count too); asked once per device and size."""
-    key = (device.index, smem)
-    got = _RESIDENT.get(key)
-    if got is None:
-        lib = _kernels.load("fused_sql")
-        blocks = ctypes.c_int(0)
-        _kernels.check(lib, lib.infera_fused_sql_occupancy(smem, ctypes.byref(blocks)),
-                       "fused_sql occupancy")
-        if blocks.value < 1:
-            raise RuntimeError(f"K2 cannot run one block at {smem} bytes of shared memory")
-        got = _RESIDENT[key] = blocks.value
-    return got
+    memory (``_kernels.resident_blocks``)."""
+    return _kernels.resident_blocks(device, "fused_sql", "infera_fused_sql_occupancy", smem)
 
 
 def workspace_layout(plan: FusedPlan, n_blocks: int) -> tuple:

@@ -44,7 +44,7 @@ import torch
 from ..device import get_device
 from ..ops import _kernels
 from ..ops import fused_query as fq
-from ..ops.fused_mlp import SMEM_LIMIT, TILE_ROWS, pad8
+from ..ops.fused_mlp import SMEM_LIMIT, TILE_ROWS
 from .benchmarks import device_peaks
 
 IN_DIM, HIDDEN, OUT_DIM = 32, (128, 128), 16
@@ -78,7 +78,8 @@ def _params(seed=0):
 class StageWeights:
     """K8b's weights on one device: ``full``, the bf16 query weights K7a
     takes, and ``first``, layer 1 alone (mm1's blob: the kernels' blob keeps
-    every bias after every weight)."""
+    every bias after every weight). The stage kernel reads their
+    ``mma_blob``."""
 
     full: fq.QueryWeights
     first: fq.QueryWeights
@@ -140,27 +141,33 @@ def _check_table(x: torch.Tensor, d0: int | None) -> None:
 
 
 def _k7a_blocks(x: torch.Tensor, dims) -> int:
-    """K7a's persistent grid for an MLP of ``dims`` over x: the profiling
-    kernels run the same blocks, so they see K7a's occupancy."""
-    return _kernels.grid_blocks(x.device, -(-x.shape[0] // TILE_ROWS),
-                                fq.rows_query_smem_bytes(dims, x.element_size()))
+    """K7a bf16's persistent grid for an MLP of ``dims`` over x: the
+    profiling kernels run the same blocks, so they see K7a's occupancy."""
+    return fq.bf16_grid(x, dims, row_major=True)[0]
 
 
 def _stage_smem_bytes(dims) -> int:
-    """K7a's shared memory for ``dims`` over a bf16 table (its ring
+    """K7a bf16's shared memory for ``dims`` over a bf16 table (its ring
     included) and the profiling scratch."""
-    return fq.rows_query_smem_bytes(dims, 2, _SCRATCH) + _SCRATCH
+    return fq.rows_query_smem_bytes_bf16(dims, 2, _SCRATCH) + _SCRATCH
 
 
 def ring_stages(dims) -> int:
     """The ring's buffers of the stage kernel for the stage's ``dims``."""
-    return fq.ring_stages(dims, 2, _SCRATCH)
+    return fq.ring_stages_bf16(dims, 2, _SCRATCH)
+
+
+def stage_resident_blocks(device: torch.device, smem: int) -> int:
+    """Blocks of the stage kernel resident on one SM at ``smem`` bytes of
+    dynamic shared memory."""
+    return _kernels.resident_blocks(device, "profile_query", "infera_profile_stage_occupancy",
+                                    smem)
 
 
 def _launch_stage(x: torch.Tensor, variant: str, dims, blob: torch.Tensor, grid_dims):
     """Launch the stage kernel over a checked table: the stage's layers
-    ``dims`` (``(d0,)`` for scan) and ``blob``, on K7a's grid for an MLP of
-    ``grid_dims``; returns out [128] f32."""
+    ``dims`` (``(d0,)`` for scan) and ``blob`` (``pack_mma_blob``'s), on
+    K7a bf16's grid for an MLP of ``grid_dims``; returns out [128] f32."""
     smem = _stage_smem_bytes(dims)
     if smem > SMEM_LIMIT or len(dims) - 1 > fq.MAX_LAYERS:
         raise ValueError(f"MLP {dims} exceeds the kernel's shared memory or layer count")
@@ -170,8 +177,8 @@ def _launch_stage(x: torch.Tensor, variant: str, dims, blob: torch.Tensor, grid_
     lib = _kernels.load("profile_query")
     rc = lib.infera_profile_stage(
         VARIANTS.index(variant), x.data_ptr(), x.shape[0], blob.data_ptr(), blob.numel(),
-        _kernels.int_array(dims), len(dims) - 1, max(pad8(d) for d in dims), ring_stages(dims),
-        part.data_ptr(), out.data_ptr(), n_blocks, smem, _kernels.stream_handle(x.device))
+        _kernels.int_array(dims), len(dims) - 1, ring_stages(dims), part.data_ptr(),
+        out.data_ptr(), n_blocks, smem, _kernels.stream_handle(x.device))
     _kernels.check(lib, rc, "infera_profile_stage")
     return out
 
@@ -183,7 +190,7 @@ def empty_grid_scan(x: torch.Tensor) -> torch.Tensor:
         return empty_grid_scan_plain(x)
     _check_table(x, None)
     d0 = x.shape[1]
-    out = _launch_stage(x, "scan", (d0,), torch.empty(0, device=x.device),
+    out = _launch_stage(x, "scan", (d0,), torch.empty(0, dtype=torch.int32, device=x.device),
                         (d0, *PROFILE_DIMS[1:]))
     empty_grid_scan.launches += 1
     return out[:d0]
@@ -201,13 +208,13 @@ def query_stage(weights: StageWeights, x: torch.Tensor, variant: str) -> torch.T
         return query_stage_plain(weights, x, variant)
     full_dims = weights.full.dims
     _check_table(x, full_dims[0])
-    if weights.full.blob.device != x.device:
-        raise ValueError(f"weights on {weights.full.blob.device}, table on {x.device}")
+    if weights.full.mma_blob.device != x.device:
+        raise ValueError(f"weights on {weights.full.mma_blob.device}, table on {x.device}")
     layers = _stage_layers(weights, variant)
     dims = layers.dims if layers is not None else full_dims[:1]
     if dims[-1] * (2 if variant in ("tail_nomax", "full") else 1) > OUT_WIDTH:
         raise ValueError(f"MLP {full_dims}: stage {variant} does not fit out [{OUT_WIDTH}]")
-    blob = layers.blob if layers is not None else weights.full.blob[:0]
+    blob = layers.mma_blob if layers is not None else weights.full.mma_blob[:0]
     out = _launch_stage(x, variant, dims, blob, full_dims)
     query_stage.launches[variant] += 1
     return out

@@ -22,7 +22,9 @@ scan and K8b's full stage against K7a bf16; for K2's tile reduction, one
 group, 512 groups, a tile in one group, a group a lane, empty groups, with
 and without its lead table, and run-to-run equality; for K7a's ring,
 table widths of 1, 33 and 128 values and an unaligned table against the
-scalar load."""
+scalar load; for the tensor-core path of K1, K7a and K8b in bf16, odd
+widths, HMMA in the bf16 kernels' SASS and none in the f32 ones, and two
+resident blocks an SM at the bench MLP."""
 
 import numpy as np
 import pytest
@@ -1014,9 +1016,11 @@ def test_k8b_matches_plain(cuda, variant, dims, n):
         assert bool(((got[:c] - want[:c]).abs() <= tol).all())
         assert not bool(got[c:].any())
     else:
+        # the layers accumulate in the tensor core's order, so a bf16
+        # rounding of a ReLU output can go the other way: K7a bf16's bounds
         c = dims[-1]
-        assert torch.equal(got[:c], want[:c])
-        torch.testing.assert_close(got[c:2 * c], want[c:2 * c], rtol=1e-5, atol=0.0)
+        assert float((got[:c] - want[:c]).abs().sum()) <= max(1, n // 500)
+        torch.testing.assert_close(got[c:2 * c], want[c:2 * c], rtol=2e-2, atol=1e-3)
         assert not bool(got[2 * c:].any())
 
 
@@ -1159,7 +1163,7 @@ def test_k7a_ring_equals_the_scalar_load(cuda, table, d0):
     dims = (d0, 128, 64, 16)
     weights = fq.params_from_numpy(_params(dims, seed=34), cuda, torch.bfloat16)
     x = _rows(100_003, d0, 35, cuda).to(table)
-    assert fq.ring_stages(dims, x.element_size()) > 0
+    assert fq.ring_stages_bf16(dims, x.element_size()) > 0
     a = fq.fused_mlp_query(weights, x)
     b = fq.fused_mlp_query(weights, _unaligned(x))
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
@@ -1168,3 +1172,61 @@ def test_k7a_ring_equals_the_scalar_load(cuda, table, d0):
 def test_k8a_ring_equals_the_scalar_load(cuda):
     x = _rows(1_000_003, 32, 36, cuda).to(torch.bfloat16)
     assert torch.equal(pq.empty_grid_scan(x), pq.empty_grid_scan(_unaligned(x)))
+
+
+# --------------------------------------------------------------------------- the tensor-core path
+
+
+@pytest.mark.parametrize("dims,n", [((30, 200, 7), 4161), ((5, 3), 63), ((30, 64, 48, 10), 1000),
+                                    ((32, 128, 128, 16), 100_003)])
+def test_mma_path_runs_the_odd_widths(cuda, dims, n):
+    """K1, K7a and K8b's full stage in bf16 at widths that pad k to 16 and n
+    to 8 (a layer wider than one 128-column pass, one class tile): within
+    K7a bf16's bounds of plain, and K7a bit-equal to K1 and to K8b full."""
+    weights = fq.params_from_numpy(_params(dims, seed=n + 7), cuda, torch.bfloat16)
+    x = _rows(n, dims[0], 41, cuda).to(torch.bfloat16)
+    before = (fq.fused_mlp_query.launches["bf16"], fq.fused_mlp_query_columnar.launches["bf16"])
+    rows = fq.fused_mlp_query(weights, x)
+    cols = fq.fused_mlp_query_columnar(weights, x.T.contiguous())
+    torch.cuda.synchronize()
+    assert (fq.fused_mlp_query.launches["bf16"],
+            fq.fused_mlp_query_columnar.launches["bf16"]) == (before[0] + 1, before[1] + 1)
+    _query_close(rows, fq.fused_mlp_query_plain(weights, x), count_tol=max(1, n // 500),
+                 rtol=2e-2)
+    for a, b in zip(rows, cols):
+        assert torch.equal(a, b)
+    if dims[0] <= pq.OUT_WIDTH and 2 * dims[-1] <= pq.OUT_WIDTH:
+        sw = pq.StageWeights(full=weights,
+                             first=fq.params_from_numpy(_params(dims, seed=n + 7)[:1], cuda,
+                                                        torch.bfloat16))
+        full = pq.query_stage(sw, x, "full")
+        c = dims[-1]
+        assert torch.equal(full[:c].long(), rows[0]) and torch.equal(full[c:2 * c], rows[1])
+
+
+def test_hmma_in_the_bf16_kernels_only(cuda):
+    """The built libraries' SASS: HMMA in every bf16 instantiation of K1 and
+    K7a and in the stage kernel (K8a, K8b), none in the f32 and int8 ones."""
+    from infera_tpu_torch.ops import _kernels
+    for lib, mma_kernel, n_mma in (("fused_query", "6infera17query_bf16_kernel", 4),
+                                   ("profile_query", "6infera12stage_kernel", 1)):
+        counts = _kernels.sass_opcodes(lib, "HMMA")
+        mma = {k: v for k, v in counts.items() if mma_kernel in k}
+        rest = {k: v for k, v in counts.items() if mma_kernel not in k}
+        assert len(mma) == n_mma and all(v > 0 for v in mma.values()), mma
+        assert rest and not any(rest.values()), rest
+
+
+@pytest.mark.parametrize("table", [torch.bfloat16, torch.float32])
+def test_bf16_kernels_hold_two_blocks_an_sm(cuda, table):
+    """At the bench MLP K1 and K7a in bf16 and the stage kernel fit two
+    blocks an SM (registers and shared memory), and the grid is that."""
+    dims = (32, 128, 128, 16)
+    x = _rows(1 << 20, 32, 42, cuda).to(table)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for row_major in (True, False):
+        t = x if row_major else x.T.contiguous()
+        blocks, smem = fq.bf16_grid(t, dims, row_major)
+        assert fq.resident_blocks(cuda, table == torch.bfloat16, row_major, smem) >= 2
+        assert blocks == sms * fq.resident_blocks(cuda, table == torch.bfloat16, row_major, smem)
+    assert pq.stage_resident_blocks(cuda, pq._stage_smem_bytes(dims)) >= 2

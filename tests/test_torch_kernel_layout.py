@@ -137,10 +137,10 @@ def test_profiling_kernels_share_k7a_ring_and_grid():
     """The stage kernel's ring (beside its scratch) has K7a bf16's buffers at
     the profiling MLP, and K8a's grid is K7a's."""
     dims = pq.PROFILE_DIMS
-    assert pq.ring_stages(dims) == fq.ring_stages(dims, 2) == 6
-    assert pq.ring_stages((32,)) == 6
-    assert pq._stage_smem_bytes(dims) == fq.rows_query_smem_bytes(dims, 2) + pq._SCRATCH
-    assert pq._stage_smem_bytes(dims) <= fq.SMEM_LIMIT
+    assert pq.ring_stages(dims) == fq.ring_stages_bf16(dims, 2) == fq.BF16_RING_STAGES == 2
+    assert pq.ring_stages((32,)) == 2
+    assert pq._stage_smem_bytes(dims) == fq.rows_query_smem_bytes_bf16(dims, 2) + pq._SCRATCH
+    assert pq._stage_smem_bytes(dims) <= fq.TWO_BLOCK_SMEM
 
 
 def test_workspace_layout_is_aligned_and_sized():
