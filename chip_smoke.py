@@ -5,11 +5,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one CUDA
 card, builds every kernel of ``infera_tpu_torch/csrc`` with nvcc (sm_90a), and:
 
 1. prints the card, its power limit, the torch and CUDA versions and the
-   build time; the tensor-core path of K1, K7a and K8b in bf16: HMMA in the
-   SASS (``cuobjdump``) of the bf16 kernels and the stage kernel and none in
-   the f32 and int8 ones, ptxas's registers and spills of each (no spill, at
-   most 128 registers), and at the bench MLP two resident blocks an SM and
-   the grid they give;
+   build time; the tensor-core paths: HMMA in the SASS (``cuobjdump``) of
+   the bf16 kernels of K1, K7a and K8b and none in the f32 and int8 ones,
+   IMMA in the int8 kernel of K3 and K7b and none in the f32 and bf16 ones,
+   ptxas's registers and spills of each (no spill; at most 128 registers in
+   bf16, 80 in int8), and at the bench MLP the resident blocks an SM (at
+   least two) and the grid they give;
 2. drives the main path once through the entry points a user calls, with
    every kernel's launch count set to 0 just before and read just after:
    the 13-function API (``load_model`` of ``onnx.builder``'s ``linear``,
@@ -69,10 +70,12 @@ card, builds every kernel of ``infera_tpu_torch/csrc`` with nvcc (sm_90a), and:
    bound, its plain version and a PyTorch chain; the SUM(BIGINT) overflow
    must raise the host's message;
 9. the rest of the bench form and the int8 policy: with the launch counts of
-   K7a (f32, bf16) and K7b set to 0 just before and read just after,
-   ``infera_tpu_torch.bench.bench_cuda`` runs all eight impls over its
-   1,048,576-row table (K7a over a row-major table in f32, in bf16 over a
-   bf16 table and over an f32 one; K7b over an int8 table), then
+   K7a (f32, bf16), K7b, K1 (f32, bf16) and K3 set to 0 just before and read
+   just after, ``infera_tpu_torch.bench.bench_cuda`` runs all eight impls
+   over its 1,048,576-row table (K7a over a row-major table in f32, in bf16
+   over a bf16 table and over an f32 one; K7b over an int8 table; K1 and K3
+   over its feature-major copies: their rows of the kernels line count these
+   launches beside those of step 2), then
    ``load_model(..., precision="int8")`` of the 32-128-128-16 softmax MLP
    and ``predict`` of 1,048,576 seeded rows, which must run the fused int8
    chain, stay within the int8 bound of the f32 model and equal the same
@@ -1180,16 +1183,19 @@ def library_rows(torch, x, weights):
     return counts, sums
 
 
-def bench_phase(torch, itt, params, x_rows, x_dev, peaks, device, f32_predict_ms) -> list:
+def bench_phase(torch, itt, params, x_rows, x_dev, peaks, device, f32_predict_ms) -> tuple:
     """The bench form's K7a and K7b and the engine's int8 policy; returns
-    their rows of the kernels line."""
+    their rows of the kernels line and the launches of K1 and K3 that the
+    bench's other impls made."""
     from infera_tpu_torch.bench import bench_cuda
     from infera_tpu_torch.onnx import builder, proto
     from infera_tpu_torch.onnx.executor import compile_model_file
     from infera_tpu_torch.ops.fused_query import (
         fused_mlp_query,
+        fused_mlp_query_columnar,
         fused_mlp_query_columnar_int8,
         fused_mlp_query_columnar_int8_plain,
+        fused_mlp_query_columnar_int8_shift,
         fused_mlp_query_plain,
         params_from_numpy,
         qparams_static_from_numpy,
@@ -1210,9 +1216,14 @@ def bench_phase(torch, itt, params, x_rows, x_dev, peaks, device, f32_predict_ms
     # ---------------------------------------------------------------- the main path
     counters = {"K7a-f32": lambda: fused_mlp_query.launches["f32"],
                 "K7a-bf16": lambda: fused_mlp_query.launches["bf16"],
-                "K7b": lambda: fused_mlp_query_columnar_int8.launches}
+                "K7b": lambda: fused_mlp_query_columnar_int8.launches,
+                "K1-f32": lambda: fused_mlp_query_columnar.launches["f32"],
+                "K1-bf16": lambda: fused_mlp_query_columnar.launches["bf16"],
+                "K3": lambda: fused_mlp_query_columnar_int8_shift.launches}
     fused_mlp_query.launches = {"f32": 0, "bf16": 0}
     fused_mlp_query_columnar_int8.launches = 0
+    fused_mlp_query_columnar.launches = {"f32": 0, "bf16": 0}
+    fused_mlp_query_columnar_int8_shift.launches = 0
     t0 = time.perf_counter()
     best = bench_cuda(params, n, iters=20)
     torch.cuda.synchronize()
@@ -1364,7 +1375,7 @@ def bench_phase(torch, itt, params, x_rows, x_dev, peaks, device, f32_predict_ms
     int8_ms = host_ms(torch, lambda: itt.predict("mlp_int8", x_rows))
     print(f"engine predict @ {n} rows on the host clock: int8 {int8_ms:.3f} ms "
           f"({n / int8_ms * 1e3:,.0f} rows/s), f32 {f32_predict_ms:.3f} ms")
-    return rows
+    return rows, {k: launches[k] for k in ("K1-f32", "K1-bf16", "K3")}
 
 
 def trace_report(pq, name, prof, log_dir, spans):
@@ -1576,26 +1587,32 @@ def profile_phase(torch, itt, x_dev, peaks, device) -> list:
 
 
 def mma_report(torch, _kernels, device) -> None:
-    """The tensor-core path of K1, K7a and K8b in bf16: HMMA in the SASS of
-    the bf16 kernels and the stage kernel (cuobjdump), none in the f32 and
-    int8 ones; ptxas's registers and stack of each; and at the bench MLP over
-    1,048,576 rows the resident blocks an SM and the grid, which must be two
-    blocks an SM."""
+    """The tensor-core paths: HMMA in the SASS (cuobjdump) of the bf16
+    kernels of K1, K7a and K8b and none in the f32 and int8 ones, IMMA in
+    K3's and K7b's int8 kernel and none in the f32 and bf16 ones; ptxas's
+    registers, stack and spills of each (no spill in a tensor-core kernel);
+    and at the bench MLP over 1,048,576 rows the resident blocks an SM and
+    the grid, which must be at least two blocks an SM and the SMs times
+    that."""
     from infera_tpu_torch.ops import fused_query as fq
     from infera_tpu_torch.testing import profile_query as pq
 
     # the mangled names' prefixes: namespace infera, then the kernel's name
-    for lib, mma_kernel in (("fused_query", "6infera17query_bf16_kernel"),
-                            ("profile_query", "6infera12stage_kernel")):
-        for fn, count in sorted(_kernels.sass_opcodes(lib, "HMMA").items()):
+    checks = (("fused_query", "HMMA", "6infera17query_bf16_kernel", 128),
+              ("profile_query", "HMMA", "6infera12stage_kernel", 128),
+              ("fused_query", "IMMA", "6infera17query_int8_kernel", 80))
+    for lib, opcode, mma_kernel, max_regs in checks:
+        counts = _kernels.sass_opcodes(lib, opcode)
+        check(sum(mma_kernel in fn for fn in counts) >= 1, f"{lib}: no kernel {mma_kernel}")
+        for fn, count in sorted(counts.items()):
             mma = mma_kernel in fn
             regs, stack, spill = _kernels.ptxas_usage(lib, fn)
-            print(f"SASS {lib} {fn}: {count} HMMA; ptxas {regs} registers, {stack} B stack, "
+            print(f"SASS {lib} {fn}: {count} {opcode}; ptxas {regs} registers, {stack} B stack, "
                   f"{spill} B spilled")
             check(count > 0 if mma else count == 0,
-                  f"{fn}: {count} HMMA, expected {'some' if mma else 'none'}")
+                  f"{fn}: {count} {opcode}, expected {'some' if mma else 'none'}")
             if mma:
-                check(spill == 0 and regs <= 128, f"{fn}: {regs} registers, {spill} B spilled")
+                check(spill == 0 and regs <= max_regs, f"{fn}: {regs} registers, {spill} B spilled")
     dims = pq.PROFILE_DIMS
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     for name, table, row_major in (("K1 bf16", torch.bfloat16, False),
@@ -1605,6 +1622,13 @@ def mma_report(torch, _kernels, device) -> None:
         x = torch.empty(shape, dtype=table, device=device)
         blocks, smem = fq.bf16_grid(x, dims, row_major)
         per_sm = fq.resident_blocks(device, table == torch.bfloat16, row_major, smem)
+        print(f"{name} @ {dims}: {smem} B of shared memory, {per_sm} blocks resident a SM, "
+              f"grid {blocks} blocks on {sms} SMs")
+        check(per_sm >= 2 and blocks == sms * per_sm, f"{name}: {per_sm} blocks a SM, grid {blocks}")
+    xq = torch.empty((32, N_MAIN), dtype=torch.int8, device=device)
+    for name, static in (("K3", False), ("K7b", True)):
+        blocks, smem = fq.int8_grid(xq, dims, static)
+        per_sm = fq.int8_resident_blocks(device, static, smem)
         print(f"{name} @ {dims}: {smem} B of shared memory, {per_sm} blocks resident a SM, "
               f"grid {blocks} blocks on {sms} SMs")
         check(per_sm >= 2 and blocks == sms * per_sm, f"{name}: {per_sm} blocks a SM, grid {blocks}")
@@ -1889,7 +1913,12 @@ def main() -> int:
           f"{N_MAIN / parts['predict'] * 1e3:,.0f} rows/s; copy in {parts['h2d']:.3f} ms, "
           f"K6 {parts['k6']:.3f} ms, copy out {parts['d2h']:.3f} ms")
 
-    rows += bench_phase(torch, itt, params, x_rows, x_dev, peaks, device, parts["predict"])
+    bench_rows, bench_launches = bench_phase(torch, itt, params, x_rows, x_dev, peaks, device,
+                                             parts["predict"])
+    # K1 and K3 launch on both paths: the row counts the launches of each
+    for row in rows:
+        row["launches"] += bench_launches.get(row["name"].split(" ")[0], 0)
+    rows += bench_rows
     rows += sql_phase(torch, itt, x_rows, peaks, device)
     rows += tree_phase(torch, itt, x_rows, peaks, device)
     rows += join_phase(torch, itt, peaks, device)

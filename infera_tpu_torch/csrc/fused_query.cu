@@ -23,11 +23,11 @@
 //                 34 MB, 0.01 ms).
 // Design: as fused_mlp.cu, the layer stack runs on a 64-row tile in shared
 // memory with the weights resident per persistent block, and the table is
-// read once. A feature-major table is read one row per thread and feature, so
-// neighbouring threads read neighbouring addresses. K7a's 64-row tile is one
-// contiguous run of 64 * d0 elements, copied ahead into a ring of buffers in
-// shared memory (cp.async) and unpacked by the thread that copied each word
-// (query_tile.cuh).
+// read once. A feature-major f32 or bf16 table is read one row per thread and
+// feature, so neighbouring threads read neighbouring addresses. K7a's 64-row
+// tile is one contiguous run of 64 * d0 elements, copied ahead into a ring of
+// buffers in shared memory (cp.async) and unpacked by the thread that copied
+// each word (query_tile.cuh).
 //
 // bf16 mode (query_bf16_kernel) runs its layers on the tensor cores: warp-level
 // mma.sync m16n8k16 with bf16 operands and f32 accumulators, the operands read
@@ -43,14 +43,26 @@
 // bench MLP it takes about 9 times its tensor-core bound); wgmma and warp
 // specialisation, which overlap those steps, are the next design. f32
 // mode stays on the f32 cores (fmaf over a 4 x 8 register tile, mlp_tile.cuh):
-// TF32 would change its results. K3 and K7b use __dp4a (4 int8 products per
-// instruction), not the tensor cores.
+// TF32 would change its results.
+//
+// K3 and K7b (query_int8_kernel) run their layers on the tensor cores too:
+// mma.sync m16n8k32, s8 x s8 -> s32, with mma_tile.cuh's ldmatrix addressing
+// counted in bytes (imma_tile.cuh). s32 sums are exact in any order, so
+// their outputs do not depend on the order of the products. The load
+// transposes the int8 table into the A tile [row][k] a word at a time (4
+// rows x 4 features per __byte_perm transposition), from a ring of staging
+// buffers that cp.async fills a tile ahead. Their shared memory is about 53
+// KB at the bench MLP and __launch_bounds__(256, 3) holds them to 80
+// registers, so three blocks share an SM and the grid is sized by the
+// kernel's measured occupancy: one block's load and tail overlap the
+// others' layers, while a block's own chain stays serial.
 //
 // Cross-tile accumulation: the TPU grid runs in order and keeps the per-class
 // accumulators resident. Here blocks run in any order, so every block keeps
 // its own counts (int64) and sums (f64, summed in row order) and writes them to
 // partials [n_blocks, C]; a second kernel folds the partials in block order.
 // No float atomics, so the sums are the same from run to run.
+#include "imma_tile.cuh"
 #include "query_tile.cuh"
 
 namespace infera {
@@ -140,157 +152,43 @@ query_bf16_kernel(const TIn* __restrict__ x, long long n, const unsigned char* _
 
 // ---------------------------------------------------------------- K3 (shifts), K7b (static)
 
-// One int8 layer on packed activations in [div4(din)][kActStride] int32 words.
-// Hidden, K3: q = clip(((y << sl) + bias_pre) >> sr, 0, 127); K7b: q =
-// clip(rint(f32(y) * comb + bq), 0, 127); written packed to out_q. Last: h =
-// y * comb + bias in f32, to out_h. The f32 multiply and add are written as
-// two roundings (no contraction into an FMA), as the TPU kernel writes them and
-// the plain version computes them; rintf rounds half to even, as jnp.rint
-// does. f32(y) is exact while |y| <= 127 * 127 * din < 2^24 (K7b's wrapper
-// checks din).
-template <bool kLast, bool kStatic>
-__device__ inline void dense_int8(const int* __restrict__ in, int din4,
-                                  const int* __restrict__ w, const int* __restrict__ epi,
-                                  int doutp, bool need_sl, int* __restrict__ out_q,
-                                  float* __restrict__ out_h) {
-  const int tr = threadIdx.x & 15;
-  const int tc = threadIdx.x >> 4;
-  for (int cbase = 0; cbase < doutp; cbase += 128) {
-    const int c0 = cbase + 8 * tc;
-    if (c0 >= doutp) break;
-    int acc[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0;
-#pragma unroll 4
-    for (int k = 0; k < din4; ++k) {
-      const int4 a = *reinterpret_cast<const int4*>(in + k * kActStride + 4 * tr);
-      const int4 b0 = *reinterpret_cast<const int4*>(w + k * doutp + c0);
-      const int4 b1 = *reinterpret_cast<const int4*>(w + k * doutp + c0 + 4);
-      const int av[4] = {a.x, a.y, a.z, a.w};
-      const int bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = __dp4a(av[i], bv[j], acc[i][j]);
-    }
-    if (kLast) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float comb = __int_as_float(epi[c0 + j]);
-        const float bias = __int_as_float(epi[2 * doutp + c0 + j]);
-        float v[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          v[i] = __fadd_rn(__fmul_rn(__int2float_rn(acc[i][j]), comb), bias);
-        *reinterpret_cast<float4*>(out_h + (c0 + j) * kActStride + 4 * tr) =
-            make_float4(v[0], v[1], v[2], v[3]);
-      }
-    } else {
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        int word[4] = {0, 0, 0, 0};
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          const int c = c0 + 4 * jj + b;
-          if (kStatic) {
-            const float comb = __int_as_float(epi[c]);
-            const float bq = __int_as_float(epi[2 * doutp + c]);
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const float t =
-                  __fadd_rn(__fmul_rn(__int2float_rn(acc[i][4 * jj + b]), comb), bq);
-              // ReLU folds into the clip's floor
-              const int q = (int)fminf(fmaxf(rintf(t), 0.f), 127.f);
-              word[i] |= q << (8 * b);
-            }
-          } else {
-            const int sl = epi[c];
-            const int sr = min(epi[doutp + c], 31);
-            const int bx = epi[2 * doutp + c];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              int y = acc[i][4 * jj + b];
-              // int32 wrap-around like jnp.left_shift; >> is arithmetic
-              if (need_sl) y = (int)((unsigned)y << sl);
-              y += bx;
-              const int q = min(max(y >> sr, 0), 127);
-              word[i] |= q << (8 * b);
-            }
-          }
-        }
-        *reinterpret_cast<int4*>(out_q + (c0 / 4 + jj) * kActStride + 4 * tr) =
-            make_int4(word[0], word[1], word[2], word[3]);
-      }
-    }
-  }
-}
+// Blocks of the int8 kernel that registers must leave room for on one SM:
+// at most 80 registers a thread. Shared memory (53,696 B at the bench MLP)
+// allows four, but at 64 registers the kernel ran slower (measured on the
+// H100), and at two blocks slower still.
+constexpr int kInt8MinBlocks = 3;
 
-// K3 (kStatic = false) and K7b (kStatic = true) over xq [d0, N] int8.
+// K3 (kStatic = false) and K7b (kStatic = true) over xq [d0, N] int8, the
+// layers on the tensor cores (imma_tile.cuh). Shared memory: the int8
+// weights and epilogue rows, the tail's scratch, act0, act1, then the
+// load's ring of staging buffers.
 template <bool kStatic>
-__global__ void __launch_bounds__(kThreads)
-query_int8_kernel(const int8_t* __restrict__ xq, long long n, const int* __restrict__ blob,
-                  int blob_words16, MlpDims d, int widest4, int need_sl_mask,
-                  long long* __restrict__ part_cnt, double* __restrict__ part_sum) {
+__global__ void __launch_bounds__(kThreads, kInt8MinBlocks)
+query_int8_kernel(const int8_t* __restrict__ xq, long long n,
+                  const unsigned char* __restrict__ blob, int blob_words16, MlpDims d,
+                  int need_sl_mask, int stages, long long* __restrict__ part_cnt,
+                  double* __restrict__ part_sum) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int L = d.n_layers;
-  const int C = d.dim[L];
-  int* s_blob = reinterpret_cast<int*>(smem_raw);
+  const int C = d.dim[d.n_layers];
   TailScratch t = carve_tail(smem_raw + 16 * blob_words16, C);
-  int* act0 = reinterpret_cast<int*>(smem_raw + 16 * blob_words16 + tail_bytes(C));
-  int* act1 = act0 + widest4 * kActStride;
-  float* hbuf = reinterpret_cast<float*>(act1 + widest4 * kActStride);  // [pad8(C)][kActStride]
-  copy_words16(s_blob, blob, blob_words16);
+  unsigned char* act0 = smem_raw + 16 * blob_words16 + tail_bytes(C);
+  unsigned char* act1 = act0 + imma_act_bytes(d, 1);
+  unsigned char* in = (d.n_layers & 1) ? act0 : act1;
+  const long long n_tiles = (n + kTileRows - 1) / kTileRows;
+  // the ring of staging buffers (imma_tile.cuh) after the tiles
+  const ColRing ring{xq, n, d.dim[0], stages, act1 + imma_act_bytes(d, 0), n_tiles};
+  copy_words16(smem_raw, blob, blob_words16);
   tail_init(t, C);
+  col_ring_start(ring);
   __syncthreads();
 
-  int e_base = 0;
-  for (int l = 0; l < L; ++l) e_base += div4(d.dim[l]) * pad8(d.dim[l + 1]);
-
-  const int d0 = d.dim[0];
-  const int d04 = div4(d0);
-  const long long n_tiles = (n + kTileRows - 1) / kTileRows;
-  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+  int j = 0;  // this block's tile count
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++j) {
     const long long row0 = tile * kTileRows;
-    // pack 4 consecutive features of one row into one word (zero beyond d0)
-    for (int i = threadIdx.x; i < kTileRows * d04; i += kThreads) {
-      const int k4 = i / kTileRows;
-      const int r = i - k4 * kTileRows;
-      const long long row = row0 + r;
-      unsigned word = 0;
-      if (row < n) {
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          const int f = 4 * k4 + b;
-          if (f < d0) word |= (unsigned)(uint8_t)xq[(long long)f * n + row] << (8 * b);
-        }
-      }
-      act0[k4 * kActStride + r] = (int)word;
-    }
+    load_cols_tile_int8(ring, j, row0, in);
     __syncthreads();
-    int* cur = act0;
-    int* nxt = act1;
-    int wl = 0;
-    int el = e_base;
-    for (int l = 0; l < L; ++l) {
-      const int din4 = div4(d.dim[l]);
-      const int doutp = pad8(d.dim[l + 1]);
-      if (l + 1 < L) {
-        dense_int8<false, kStatic>(cur, din4, s_blob + wl, s_blob + el, doutp,
-                                   (need_sl_mask >> l) & 1, nxt, nullptr);
-      } else {
-        dense_int8<true, kStatic>(cur, din4, s_blob + wl, s_blob + el, doutp, false, nullptr,
-                                  hbuf);
-      }
-      __syncthreads();
-      wl += din4 * doutp;
-      el += 3 * doutp;
-      int* tmp = cur;
-      cur = nxt;
-      nxt = tmp;
-    }
-    tail_tile(t, hbuf, C, row0, n);
+    const float* h = mlp_stack_int8<kStatic>(d, smem_raw, act0, act1, need_sl_mask);
+    tail_tile(t, h, C, row0, n);
   }
   tail_store(t, C, part_cnt, part_sum);
 }
@@ -375,8 +273,8 @@ cudaError_t launch_query_bf16(const void* x, int row_major, long long n, const v
 }
 
 template <bool kStatic>
-int query_int8(const void* xq, long long n, const void* blob, long long blob_ints,
-               const int* dims, int n_layers, int widest4, int need_sl_mask, void* part_cnt,
+int query_int8(const void* xq, long long n, const void* blob, long long blob_words,
+               const int* dims, int n_layers, int need_sl_mask, int stages, void* part_cnt,
                void* part_sum, void* counts, void* sums, int n_blocks, int smem_bytes,
                void* stream) {
   const MlpDims d = make_dims(dims, n_layers);
@@ -384,8 +282,8 @@ int query_int8(const void* xq, long long n, const void* blob, long long blob_int
   cudaError_t e = set_smem(query_int8_kernel<kStatic>, smem_bytes);
   if (e != cudaSuccess) return (int)e;
   query_int8_kernel<kStatic><<<n_blocks, kThreads, smem_bytes, s>>>(
-      (const int8_t*)xq, n, (const int*)blob, (int)(blob_ints / 4), d, widest4, need_sl_mask,
-      (long long*)part_cnt, (double*)part_sum);
+      (const int8_t*)xq, n, (const unsigned char*)blob, (int)(blob_words / 4), d, need_sl_mask,
+      stages, (long long*)part_cnt, (double*)part_sum);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   return (int)fold(part_cnt, part_sum, n_blocks, d.dim[n_layers], counts, sums, s);
@@ -455,26 +353,38 @@ int infera_fused_query_bf16_occupancy(int x_bf16, int row_major, int smem, int* 
   return (int)e;
 }
 
-// K3. xq: [d0, n] int8. blob: int32 words as laid out in mlp_tile.cuh. Bit l
-// of need_sl_mask says whether hidden layer l applies its left shifts.
+// K3. xq: [d0, n] int8. blob: int32 words as laid out in imma_tile.cuh. Bit l
+// of need_sl_mask says whether hidden layer l applies its left shifts;
+// `stages`: the load's staging buffers (imma_tile.cuh), each
+// int8_stage_bytes(d0) after the activation tiles (0: the byte path).
 int infera_fused_query_int8_shift(const void* xq, long long n, const void* blob,
-                                  long long blob_ints, const int* dims, int n_layers,
-                                  int widest4, int need_sl_mask, void* part_cnt, void* part_sum,
+                                  long long blob_words, const int* dims, int n_layers,
+                                  int need_sl_mask, int stages, void* part_cnt, void* part_sum,
                                   void* counts, void* sums, int n_blocks, int smem_bytes,
                                   void* stream) {
-  return infera::query_int8<false>(xq, n, blob, blob_ints, dims, n_layers, widest4,
-                                   need_sl_mask, part_cnt, part_sum, counts, sums, n_blocks,
-                                   smem_bytes, stream);
+  return infera::query_int8<false>(xq, n, blob, blob_words, dims, n_layers, need_sl_mask, stages,
+                                   part_cnt, part_sum, counts, sums, n_blocks, smem_bytes, stream);
 }
 
 // K7b. xq: [d0, n] int8. blob: K3's layout with the epilogue rows (comb, 0,
-// bq) of every layer as float bits.
+// bq) of every layer as float bits; `stages` as K3's.
 int infera_fused_query_int8_static(const void* xq, long long n, const void* blob,
-                                   long long blob_ints, const int* dims, int n_layers,
-                                   int widest4, void* part_cnt, void* part_sum, void* counts,
+                                   long long blob_words, const int* dims, int n_layers,
+                                   int stages, void* part_cnt, void* part_sum, void* counts,
                                    void* sums, int n_blocks, int smem_bytes, void* stream) {
-  return infera::query_int8<true>(xq, n, blob, blob_ints, dims, n_layers, widest4, 0, part_cnt,
+  return infera::query_int8<true>(xq, n, blob, blob_words, dims, n_layers, 0, stages, part_cnt,
                                   part_sum, counts, sums, n_blocks, smem_bytes, stream);
+}
+
+// Blocks of K3 (is_static = 0) or K7b (1) resident on one SM at `smem`
+// bytes of dynamic shared memory (registers, shared memory and threads all
+// counted), into *blocks. Returns a cudaError_t.
+int infera_fused_query_int8_occupancy(int is_static, int smem, int* blocks) {
+  using namespace infera;
+  const auto k = is_static ? query_int8_kernel<true> : query_int8_kernel<false>;
+  cudaError_t e = set_smem(k, smem);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k, kThreads, smem);
+  return (int)e;
 }
 
 const char* infera_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -12,7 +12,8 @@
 // operands that are exact in f32). They are bound by the f32 FMA rate and by
 // the shared-memory reads that feed it; the register tile below gives 32 FMAs
 // for three 16-byte reads. K1 and K7a in bf16, and K8b, run their layers on
-// the tensor cores instead (mma_tile.cuh).
+// the tensor cores instead (mma_tile.cuh), and so do K3 and K7b in int8
+// (imma_tile.cuh).
 //
 // Activations live feature-major in shared memory: act[feature][row], with a
 // row stride of kActStride words. One thread owns a 4-row x 8-column register
@@ -20,14 +21,10 @@
 // 128-column pass), so each step of the reduction reads one 16-byte activation
 // vector and two 16-byte weight vectors for 32 multiply-adds.
 //
-// Weight blob layout (built on the host by the Python wrappers):
-//   f32 kernels:  W_0 .. W_{L-1} as [din][pad8(dout)], then b_0 .. b_{L-1}
-//                 as [pad8(dout)], zero-padded.
-//   int8 kernels: W_0 .. W_{L-1} as int32 [ceil(din/4)][pad8(dout)], each
-//                 word holding the int8 weights of 4 consecutive inputs of
-//                 one output column; then per layer 3 rows of [pad8(dout)]
-//                 int32: (sl, sr, bias_pre) for a hidden layer, (comb, 0,
-//                 bias) as float bits for the last layer.
+// Weight blob layout of the f32 kernels (built on the host by the Python
+// wrappers): W_0 .. W_{L-1} as [din][pad8(dout)], then b_0 .. b_{L-1} as
+// [pad8(dout)], zero-padded. The tensor-core kernels' blobs are laid out in
+// mma_tile.cuh (bf16) and imma_tile.cuh (int8).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -49,7 +46,6 @@ struct MlpDims {
 };
 
 __host__ __device__ inline int pad8(int n) { return (n + 7) & ~7; }
-__host__ __device__ inline int div4(int n) { return (n + 3) >> 2; }
 
 inline MlpDims make_dims(const int* dims, int n_layers) {
   MlpDims d;

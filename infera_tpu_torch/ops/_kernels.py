@@ -47,6 +47,7 @@ _SIGNATURES = {
                                           _I, _I, _P],
         "infera_fused_query_int8_static": [_P, _LL, _P, _LL, _P, _I, _I, _P, _P, _P, _P,
                                            _I, _I, _P],
+        "infera_fused_query_int8_occupancy": [_I, _I, _P],
     },
     "fused_sql": {
         "infera_fused_sql_launch": [_P, _I, _P],

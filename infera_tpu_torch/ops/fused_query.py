@@ -23,7 +23,9 @@ runs in ``csrc/fused_query.cu``:
   last layer keeps ``t``. Its weights come from ``quantize_mlp_static``.
 
 K1 and K7a in bf16 run their layers on the tensor cores (``mma.sync``, with
-the weights packed by ``pack_mma_blob``); in f32 on the f32 cores.
+the weights packed by ``pack_mma_blob``); in f32 on the f32 cores. K3 and
+K7b run theirs on the tensor cores in int8 (``mma.sync`` m16n8k32, with the
+weights packed by ``_int8_blob``) on a grid sized by their occupancy.
 
 All return ``(counts [C] int64, sums [C] f32)``: the counts stay integers,
 where the TPU kernel returned them as f32. Each wrapper launches its kernel
@@ -48,10 +50,6 @@ def _tail_bytes(n_classes: int) -> int:
     return pad8(n_classes) * 16 + TILE_ROWS * 8
 
 
-def _div4(n: int) -> int:
-    return (n + 3) // 4
-
-
 def pad16(n: int) -> int:
     return (n + 15) // 16 * 16
 
@@ -61,6 +59,23 @@ def mma_stride(k: int) -> int:
     k padded to 16, and 8 more, so that a row is an odd number of 16-byte
     words and ldmatrix's 8 row addresses fall on different banks."""
     return pad16(k) + 8
+
+
+def pad32(n: int) -> int:
+    return (n + 31) // 32 * 32
+
+
+def imma_astride(k: int) -> int:
+    """Bytes of a row of an int8 A tile (``csrc/imma_tile.cuh``): k padded
+    to 32 with zeros, and 16 more, so that a row is an odd number of 16-byte
+    words and ldmatrix's 8 row addresses fall on different banks."""
+    return pad32(k) + 16
+
+
+def imma_wstride(k: int) -> int:
+    """Bytes of a row of an int8 W^T: the odd number of 16-byte words that
+    holds k bytes."""
+    return 16 * (-(-k // 16) | 1)
 
 
 # --------------------------------------------------------------------------- weights
@@ -132,30 +147,24 @@ class ShiftWeights:
     need_sl: tuple
 
 
-def _pack_int8_words(wq: np.ndarray) -> np.ndarray:
-    """wq [dout, din] int8 -> int32 [ceil(din/4)][pad8(dout)]: each word holds
-    the weights of 4 consecutive inputs of one output column."""
-    dout, din = wq.shape
-    b = np.zeros((pad8(dout), _div4(din) * 4), np.int8)
-    b[:dout, :din] = wq
-    words = b.view(np.uint8).reshape(pad8(dout), _div4(din), 4).astype(np.uint32)
-    words = words[..., 0] | words[..., 1] << 8 | words[..., 2] << 16 | words[..., 3] << 24
-    return np.ascontiguousarray(words.T).view(np.int32)
-
-
 def _int8_blob(wqs, epilogue_rows, device) -> tuple:
-    """(dims, blob) of an int8 kernel from each layer's weights wq int8
-    [dout, din] and three epilogue rows: the packed weights of every layer,
-    then per layer its epilogue rows as int32 words [3][pad8(dout)]."""
-    weight_words = [_pack_int8_words(wq).reshape(-1) for wq in wqs]
-    epilogues = []
+    """(dims, blob) of an int8 kernel (``csrc/imma_tile.cuh``) from each
+    layer's weights wq int8 [dout, din] and three epilogue rows: per layer
+    wq as int8 [pad8(dout)][imma_wstride(din)], zero-padded, then per layer
+    its epilogue rows as int32 [3][pad8(dout)]; int32 words."""
+    parts = []
+    for wq in wqs:
+        dout, din = wq.shape
+        block = np.zeros((pad8(dout), imma_wstride(din)), np.int8)
+        block[:dout, :din] = wq
+        parts.append(block.reshape(-1).view(np.int32))
     for wq, rows in zip(wqs, epilogue_rows):
         epi = np.zeros((3, pad8(wq.shape[0])), np.int32)
         for r, row in enumerate(rows):
             epi[r, :wq.shape[0]] = row
-        epilogues.append(epi.reshape(-1))
+        parts.append(epi.reshape(-1))
     dims = (wqs[0].shape[1],) + tuple(wq.shape[0] for wq in wqs)
-    return dims, torch.as_tensor(np.concatenate(weight_words + epilogues), device=device)
+    return dims, torch.as_tensor(np.concatenate(parts), device=device)
 
 
 def qparams_from_numpy(qparams, device) -> ShiftWeights:
@@ -398,18 +407,50 @@ def rows_query_smem_bytes_bf16(dims, itemsize: int = 2, extra: int = 0) -> int:
     return query_smem_bytes_bf16(dims) + stages * TILE_ROWS * ring_stride(dims[0], itemsize)
 
 
-def _int8_widest4(dims) -> int:
-    return max([_div4(dims[0])] + [pad8(d) // 4 for d in dims[1:-1]])
+def int8_act_bytes(dims) -> tuple:
+    """(act0, act1) bytes of K3 and K7b: layer l reads act0 when the layer
+    count less l is odd and act1 otherwise, each an A tile [64][imma_astride];
+    the last layer writes the scores [pad8(C)][68] f32 into act1."""
+    n_layers = len(dims) - 1
+    act = [0, 4 * pad8(dims[-1]) * ACT_STRIDE]
+    for l in range(n_layers):
+        odd = (n_layers - l) % 2
+        act[1 - odd] = max(act[1 - odd], TILE_ROWS * imma_astride(dims[l]))
+    return act[0], act[1]
+
+
+def _int8_core_bytes(dims) -> int:
+    """K3's and K7b's shared memory without the load's ring: the int8
+    weights and epilogue rows, the tail's scratch, act0 and act1."""
+    blob = sum(pad8(dims[i + 1]) * (imma_wstride(dims[i]) + 12) for i in range(len(dims) - 1))
+    return blob + _tail_bytes(dims[-1]) + sum(int8_act_bytes(dims))
+
+
+# K3's and K7b's load (csrc/imma_tile.cuh): staging buffers of 17 words a
+# feature, two of them (one tile copied ahead), fewer where they would push
+# the block past its 227 KB
+INT8_RING_STAGES = 2
+STAGE_WORDS = 17
+
+
+def int8_stage_bytes(d0: int) -> int:
+    """Bytes of a staging buffer: 17 words a feature, whole 16-byte words."""
+    return 16 * -(-4 * STAGE_WORDS * d0 // 16)
+
+
+def int8_ring_stages(dims) -> int:
+    """Staging buffers of K3's and K7b's load: ``INT8_RING_STAGES``, fewer
+    where the block's 227 KB would not hold them (0: every tile takes the
+    byte path)."""
+    return _fit_stages(INT8_RING_STAGES, _int8_core_bytes(dims), int8_stage_bytes(dims[0]),
+                       SMEM_LIMIT)
 
 
 def int8_smem_bytes(dims) -> int:
-    """Shared memory of K3 and of K7b (whose blob has K3's layout): packed
-    weights and epilogue constants, the tail's scratch, two packed
-    activation tiles and the f32 scores of the tile."""
-    blob = sum(_div4(dims[i]) * pad8(dims[i + 1]) + 3 * pad8(dims[i + 1])
-               for i in range(len(dims) - 1))
-    return (4 * blob + _tail_bytes(dims[-1]) + 8 * _int8_widest4(dims) * ACT_STRIDE
-            + 4 * pad8(dims[-1]) * ACT_STRIDE)
+    """Shared memory of K3 and of K7b (whose blob has K3's layout): the int8
+    weights and epilogue rows, the tail's scratch, act0, act1 and the load's
+    staging buffers."""
+    return _int8_core_bytes(dims) + int8_ring_stages(dims) * int8_stage_bytes(dims[0])
 
 
 def _launch_f32(entry: str, weights: QueryWeights, x: torch.Tensor, n: int, smem: int,
@@ -511,22 +552,37 @@ def fused_mlp_query(weights: QueryWeights, x: torch.Tensor):
 fused_mlp_query.launches = {"f32": 0, "bf16": 0}
 
 
-def _launch_int8(entry: str, weights, xq: torch.Tensor, *extra):
-    """Launch K3 or K7b (C entry ``entry``, with K3's ``extra`` arguments)
-    over a checked int8 table; returns (counts, sums)."""
-    dims = weights.dims
+def int8_resident_blocks(device: torch.device, static: bool, smem: int) -> int:
+    """Blocks of K3 (``static`` False) or K7b resident on one SM at ``smem``
+    bytes of dynamic shared memory."""
+    return _kernels.resident_blocks(device, "fused_query", "infera_fused_query_int8_occupancy",
+                                    int(static), smem)
+
+
+def int8_grid(xq: torch.Tensor, dims, static: bool) -> tuple:
+    """(blocks, shared-memory bytes) of K3 or K7b over the table ``xq``:
+    the persistent grid is the blocks resident on the card, at most one a
+    tile."""
     smem = int8_smem_bytes(dims)
     if smem > SMEM_LIMIT:
         raise ValueError(f"MLP {dims} exceeds the kernel's shared-memory budget")
-    n = xq.shape[1]
-    n_blocks = _kernels.grid_blocks(xq.device, -(-n // TILE_ROWS), smem)
+    per_sm = int8_resident_blocks(xq.device, static, smem)
+    return _kernels.grid_blocks(xq.device, -(-xq.shape[1] // TILE_ROWS), smem, per_sm), smem
+
+
+def _launch_int8(weights, xq: torch.Tensor, static: bool, *extra):
+    """Launch K3 (with its ``extra`` arguments) or K7b (``static``) over a
+    checked int8 table; returns (counts, sums)."""
+    dims = weights.dims
+    n_blocks, smem = int8_grid(xq, dims, static)
     part_cnt, part_sum, counts, sums = _partials(n_blocks, dims[-1], xq.device)
+    entry = "infera_fused_query_int8_static" if static else "infera_fused_query_int8_shift"
     lib = _kernels.load("fused_query")
     rc = getattr(lib, entry)(
-        xq.data_ptr(), n, weights.blob.data_ptr(), weights.blob.numel(),
-        _kernels.int_array(dims), len(dims) - 1, _int8_widest4(dims), *extra,
-        part_cnt.data_ptr(), part_sum.data_ptr(), counts.data_ptr(), sums.data_ptr(),
-        n_blocks, smem, _kernels.stream_handle(xq.device))
+        xq.data_ptr(), xq.shape[1], weights.blob.data_ptr(), weights.blob.numel(),
+        _kernels.int_array(dims), len(dims) - 1, *extra, int8_ring_stages(dims),
+        part_cnt.data_ptr(), part_sum.data_ptr(), counts.data_ptr(), sums.data_ptr(), n_blocks,
+        smem, _kernels.stream_handle(xq.device))
     _kernels.check(lib, rc, entry)
     return counts, sums
 
@@ -538,7 +594,7 @@ def fused_mlp_query_columnar_int8_shift(weights: ShiftWeights, xq: torch.Tensor)
         return fused_mlp_query_columnar_int8_shift_plain(weights, xq)
     _check_table(xq, (torch.int8,), weights.dims[0], weights.blob, weights.dims)
     need_sl_mask = sum(1 << i for i, flag in enumerate(weights.need_sl) if flag)
-    out = _launch_int8("infera_fused_query_int8_shift", weights, xq, need_sl_mask)
+    out = _launch_int8(weights, xq, False, need_sl_mask)
     fused_mlp_query_columnar_int8_shift.launches += 1
     return out
 
@@ -560,7 +616,7 @@ def fused_mlp_query_columnar_int8(weights: StaticInt8Weights, xq: torch.Tensor):
     if max(dims[:-1]) > MAX_STATIC_DIN:
         raise ValueError(f"MLP {dims}: a layer input wider than {MAX_STATIC_DIN} would not "
                          f"convert its int32 sums to f32 exactly")
-    out = _launch_int8("infera_fused_query_int8_static", weights, xq)
+    out = _launch_int8(weights, xq, True)
     fused_mlp_query_columnar_int8.launches += 1
     return out
 

@@ -15,6 +15,9 @@ from ROOT (a checkout, or a ``git archive`` of one) and, over the bench's
 - K7a in bf16 (over a bf16 table) and in f32, and K1 in bf16 (over the
   table's feature-major copy): ms per call over 200 queued calls (CUDA
   events around them, after three warm-up calls);
+- K3 and K7b over the table's feature-major int8 copy, quantized as the
+  bench quantizes it (calibration sample ``default_rng(7)``): ms per call
+  over 200 queued calls;
 - K8a and the five K8b stages over the bf16 table: ms per call over 100
   queued calls; where the checkout has K7a's ring, ``ring_sweep`` (K8a with
   0 to 6 of its buffers, on K7a's grid and on twice as many blocks);
@@ -28,13 +31,15 @@ from ROOT (a checkout, or a ``git archive`` of one) and, over the bench's
 prints a line per measurement and saves every output to
 OUT_DIR/ab_TAG.npz. ``compare`` holds every TAG's outputs to the first
 TAG's of its side (a side is the tag without its trailing digits: parent
-and parent2, change and change2): K7a, K1 and K8 bit for bit; K2/K5
+and parent2, change and change2): K7a, K1, K3, K7b and K8 bit for bit; K2/K5
 counts, flags, min/max rows, int slots, arg words and DISTINCT counts
 equal, f64 sums and estimates within rtol 1e-12, atol 1e-9 (their
 summation order may change with the grid). Across the sides the same,
 but for the kernels whose arithmetic a change may redesign (``REDESIGNED``:
 K7a and K1 in bf16, K8a, K8b), held within rtol 2e-2, atol 1e-2, with the
-largest difference printed.
+largest difference printed. K3's and K7b's counts and sums (``EXACT``) are
+held bit for bit across the sides as well: their s32 layers are exact in
+any order.
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ import numpy as np
 N = 1 << 20
 _SUM_KEYS = ("sums", "iest")
 REDESIGNED = ("K7a bf16", "K1 bf16", "K8a", "K8b")
+EXACT = ("K3", "K7b")
 
 
 def _host_ms(torch, fn, runs: int) -> float:
@@ -266,6 +272,25 @@ def run(root: str, tag: str, out_dir: str) -> None:
             ms = _queued_ms(torch, lambda: fq.fused_mlp_query_columnar(w, xc), 200)
             print(f"{tag} K1 bf16: {ms:.4f} ms (mean of 200 queued calls)", flush=True)
             del xc
+    # K3, K7b: queued calls over the int8 table
+    params = build_params(seed=0)
+    x_cal = np.random.default_rng(7).standard_normal((1 << 14, 32)).astype(np.float32)
+    xc = x.T.contiguous()
+    qparams, s0, _ = fq.quantize_mlp_shift(params, x_cal, max_flip_rate=0.04)
+    qparams_s, s0_s = fq.quantize_mlp_static(params, x_cal)
+    int8 = {"K3": (fq.fused_mlp_query_columnar_int8_shift, fq.qparams_from_numpy(qparams, dev),
+                   s0),
+            "K7b": (fq.fused_mlp_query_columnar_int8, fq.qparams_static_from_numpy(qparams_s, dev),
+                    s0_s)}
+    for name, (kern, w, scale) in int8.items():
+        xq = torch.clamp(torch.round(xc / float(scale)), -127, 127).to(torch.int8)
+        counts, sums = kern(w, xq)
+        out[f"{name}:counts"] = counts.cpu().numpy()
+        out[f"{name}:sums"] = sums.cpu().numpy()
+        ms = _queued_ms(torch, lambda kern=kern, w=w, xq=xq: kern(w, xq), 200)
+        print(f"{tag} {name}: {ms:.4f} ms (mean of 200 queued calls)", flush=True)
+    del xc
+
     sw = pq.stage_weights(pq._params(), dev)
     k8 = {"K8a": lambda: pq.empty_grid_scan(x_bf16)}
     for v in pq.VARIANTS:
@@ -320,7 +345,9 @@ def compare(out_dir: str, tags) -> bool:
             base = first[_side(tag)] if first[_side(tag)] != tag else ref_tag
             ref, got = runs[base][key], runs[tag][key]
             across = _side(base) != _side(tag)
-            if across and key.startswith(REDESIGNED):
+            if key.startswith(EXACT):
+                same = np.array_equal(got, ref)
+            elif across and key.startswith(REDESIGNED):
                 same = got.shape == ref.shape and np.allclose(got, ref, rtol=2e-2, atol=1e-2)
                 if same and tag == first[_side(tag)]:
                     rel = np.abs(got.astype(np.float64) - ref) / np.maximum(np.abs(ref), 1e-30)
@@ -336,7 +363,7 @@ def compare(out_dir: str, tags) -> bool:
                 print(f"{key}: {tag} differs from {base}")
     print(f"outputs of {', '.join(tags)}: {'equal' if ok else 'DIFFER'} (each side bit for bit "
           f"but K2/K5 sums within rtol 1e-12; across sides {', '.join(REDESIGNED)} within rtol "
-          f"2e-2)")
+          f"2e-2, {', '.join(EXACT)} bit for bit)")
     return ok
 
 

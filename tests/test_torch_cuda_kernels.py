@@ -24,7 +24,9 @@ and without its lead table, and run-to-run equality; for K7a's ring,
 table widths of 1, 33 and 128 values and an unaligned table against the
 scalar load; for the tensor-core path of K1, K7a and K8b in bf16, odd
 widths, HMMA in the bf16 kernels' SASS and none in the f32 ones, and two
-resident blocks an SM at the bench MLP."""
+resident blocks an SM at the bench MLP; for K3 and K7b on the tensor cores,
+the layout tests' widths, an unaligned table, IMMA in their SASS and none
+elsewhere, no spill, and a grid of their resident blocks."""
 
 import numpy as np
 import pytest
@@ -138,7 +140,9 @@ def test_k1_f32_table_in_bf16_mode(cuda):
 
 
 @pytest.mark.parametrize("dims,n,seed", [((32, 64, 48, 16), 4099, 11), ((30, 20, 6), 64, 12),
-                                         ((9, 130, 3), 1, 13)])
+                                         ((9, 130, 3), 1, 13), ((30, 200, 7), 4161, 19),
+                                         ((5, 3), 63, 20), ((30, 64, 48, 10), 100_003, 21),
+                                         ((32, 128, 128, 16), 100_003, 22)])
 def test_k3_matches_plain_exactly(cuda, dims, n, seed):
     qparams = synthetic_shift_qparams(dims, seed)
     weights = fq.qparams_from_numpy(qparams, cuda)
@@ -197,7 +201,9 @@ def _static_qparams(dims, seed, n):
 
 @pytest.mark.parametrize("dims,n,seed", [((32, 128, 128, 16), 4096, 14),
                                          ((32, 64, 48, 16), 4099, 15), ((30, 20, 6), 64, 16),
-                                         ((9, 130, 3), 1, 17)])
+                                         ((9, 130, 3), 1, 17), ((30, 200, 7), 4161, 23),
+                                         ((5, 3), 63, 24), ((30, 64, 48, 10), 100_003, 25),
+                                         ((32, 128, 128, 16), 100_003, 26)])
 def test_k7b_matches_plain_exactly(cuda, dims, n, seed):
     qparams, xq_np = _static_qparams(dims, seed, n)
     weights = fq.qparams_static_from_numpy(qparams, cuda)
@@ -211,6 +217,38 @@ def test_k7b_matches_plain_exactly(cuda, dims, n, seed):
     # rint on both sides: counts are bit-exact
     torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
     torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("static", [False, True])
+def test_int8_unaligned_table_equals_the_aligned_one(cuda, static):
+    """A table whose base is not 4-byte aligned takes the load's byte path:
+    the same counts and sums as the word path over the same values."""
+    dims = (32, 128, 128, 16)
+    if static:
+        qparams, xq_np = _static_qparams(dims, 27, 100_003)
+        weights = fq.qparams_static_from_numpy(qparams, cuda)
+        kern = fq.fused_mlp_query_columnar_int8
+    else:
+        weights = fq.qparams_from_numpy(synthetic_shift_qparams(dims, 28), cuda)
+        xq_np = np.random.default_rng(28).integers(-127, 128, (32, 100_003)).astype(np.int8)
+        kern = fq.fused_mlp_query_columnar_int8_shift
+    xq = torch.as_tensor(xq_np, device=cuda)
+    for a, b in zip(kern(weights, xq), kern(weights, _unaligned(xq))):
+        assert torch.equal(a, b)
+
+
+def test_int8_grid_is_the_resident_blocks(cuda):
+    """K3's and K7b's grid is the blocks resident on the card at the bench
+    MLP (at least two an SM), at most one a tile."""
+    dims = (32, 128, 128, 16)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for static in (False, True):
+        xq = torch.zeros((32, 1 << 20), dtype=torch.int8, device=cuda)
+        blocks, smem = fq.int8_grid(xq, dims, static)
+        per_sm = fq.int8_resident_blocks(cuda, static, smem)
+        assert smem == fq.int8_smem_bytes(dims) and 2 <= per_sm <= 8
+        assert blocks == sms * per_sm
+        assert fq.int8_grid(xq[:, :130].contiguous(), dims, static)[0] == 3
 
 
 def test_k7b_refuses_an_input_too_wide_for_exact_f32(cuda):
@@ -1215,6 +1253,20 @@ def test_hmma_in_the_bf16_kernels_only(cuda):
         rest = {k: v for k, v in counts.items() if mma_kernel not in k}
         assert len(mma) == n_mma and all(v > 0 for v in mma.values()), mma
         assert rest and not any(rest.values()), rest
+
+
+def test_imma_in_the_int8_kernel_only(cuda):
+    """The built library's SASS: IMMA in both instantiations of K3's and
+    K7b's kernel, none in the f32 and bf16 ones; ptxas spills nothing
+    there."""
+    from infera_tpu_torch.ops import _kernels
+    counts = _kernels.sass_opcodes("fused_query", "IMMA")
+    imma = {k: v for k, v in counts.items() if "6infera17query_int8_kernel" in k}
+    rest = {k: v for k, v in counts.items() if k not in imma}
+    assert len(imma) == 2 and all(v > 0 for v in imma.values()), imma
+    assert rest and not any(rest.values()), rest
+    for fn in imma:
+        assert _kernels.ptxas_usage("fused_query", fn)[2] == 0, fn
 
 
 @pytest.mark.parametrize("table", [torch.bfloat16, torch.float32])

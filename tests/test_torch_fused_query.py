@@ -152,23 +152,23 @@ def test_f32_blob_layout_is_what_the_kernel_reads():
 
 def _simulate_int8_blob(weights, xq):
     """Per-class counts as K3 or K7b computes them from the int32 blob:
-    packed weights, then (sl, sr, bias_pre) or (comb, 0, bias) per layer;
-    K7b's hidden layers read (comb, 0, bq) and requantize with rint."""
-    dims, blob = weights.dims, weights.blob.numpy()
-    n_layers = len(dims) - 1
+    W^T int8 [pad8(dout)][imma_wstride(din)] per layer, then (sl, sr,
+    bias_pre) or (comb, 0, bias) per layer; K7b's hidden layers read (comb,
+    0, bq) and requantize with rint."""
+    dims, raw = weights.dims, weights.blob.numpy()
+    blob, n_layers = raw.view(np.int8), len(dims) - 1
     off, ws = 0, []
     for i in range(n_layers):
-        d4, dp = (dims[i] + 3) // 4, pad8(dims[i + 1])
-        words = blob[off:off + d4 * dp].reshape(d4, dp).view(np.uint32)
-        off += d4 * dp
-        by = ((words[:, None, :] >> (8 * np.arange(4)[None, :, None])) & 0xFF).astype(np.uint8)
-        ws.append(by.view(np.int8).reshape(d4 * 4, dp).astype(np.int64))
+        dp, sw = pad8(dims[i + 1]), fq.imma_wstride(dims[i])
+        ws.append(blob[off:off + dp * sw].reshape(dp, sw)[:, :dims[i]].T.astype(np.int64))
+        off += dp * sw
+    assert off % 4 == 0
+    off //= 4
     q = xq.T.astype(np.int64)
     for i in range(n_layers):
         dp = pad8(dims[i + 1])
-        e = blob[off:off + 3 * dp].reshape(3, dp)
+        e = raw[off:off + 3 * dp].reshape(3, dp)
         off += 3 * dp
-        q = np.pad(q, ((0, 0), (0, ws[i].shape[0] - q.shape[1])))
         y = q @ ws[i]
         if i < n_layers - 1 and isinstance(weights, fq.StaticInt8Weights):
             t = y.astype(np.float32) * e[0].view(np.float32) + e[2].view(np.float32)
@@ -180,7 +180,7 @@ def _simulate_int8_blob(weights, xq):
         else:
             comb, bias = e[0].view(np.float32), e[2].view(np.float32)
             h = (y.astype(np.float32) * comb + bias)[:, :dims[-1]]
-    assert off == blob.size
+    assert off == raw.size
     pred, sel = h.argmax(1), h[:, 0] > 0
     return np.bincount(pred[sel], minlength=dims[-1])
 

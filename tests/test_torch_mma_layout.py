@@ -325,16 +325,19 @@ def test_sass_counts_hmma_by_kernel():
     assert sum(_kernels.count_sass(SASS, "LDSM").values()) == 1
 
 
-def _ab_run(out_dir, tag, k7a_bf16, k7a_f32):
+def _ab_run(out_dir, tag, k7a_bf16, k7a_f32, k3_sums=(5.0, 6.0)):
     np.savez(out_dir / f"ab_{tag}.npz", **{"K7a bf16:sums": np.float32(k7a_bf16),
                                           "K7a f32:sums": np.float32(k7a_f32),
+                                          "K3:counts": np.arange(3),
+                                          "K3:sums": np.float32(k3_sums),
                                           "A:count": np.arange(4)})
 
 
 def test_ab_compare_holds_each_side_bit_equal_and_the_redesign_within_tolerance(tmp_path):
     """``ab_kernels.compare``: parent against parent2 and change against
     change2 bit for bit; across the sides K7a bf16 (redesigned) within
-    rtol 2e-2, but K7a f32 still bit for bit."""
+    rtol 2e-2, but K7a f32 still bit for bit, and K3 (redesigned, exact
+    integer layers) bit for bit too."""
     from infera_tpu_torch.testing import ab_kernels as ab
 
     tags = ["parent", "change", "change2", "parent2"]
@@ -347,3 +350,10 @@ def test_ab_compare_holds_each_side_bit_equal_and_the_redesign_within_tolerance(
     _ab_run(tmp_path, "change", [1.001, 2.0], [3.0000002])  # f32 moved across the sides
     _ab_run(tmp_path, "change2", [1.001, 2.0], [3.0000002])
     assert not ab.compare(str(tmp_path), tags)
+    ulp = np.nextafter(np.float32(5.0), np.float32(6.0))
+    for tag in ("change", "change2"):                       # K3's sums moved by an ulp
+        _ab_run(tmp_path, tag, [1.001, 2.0], [3.0], k3_sums=(ulp, 6.0))
+    assert not ab.compare(str(tmp_path), tags)
+    for tag in ("change", "change2"):
+        _ab_run(tmp_path, tag, [1.001, 2.0], [3.0])
+    assert ab.compare(str(tmp_path), tags)
