@@ -42,8 +42,16 @@
 // barrier each and the tail's per-class loop over the tile's rows (at the
 // bench MLP it takes about 9 times its tensor-core bound); wgmma and warp
 // specialisation, which overlap those steps, are the next design. f32
-// mode stays on the f32 cores (fmaf over a 4 x 8 register tile, mlp_tile.cuh):
-// TF32 would change its results.
+// mode stays on the f32 cores (fmaf over register tiles, mlp_tile.cuh's
+// mlp_stack_ffma): TF32 would change its results. Its weights alone take 91
+// KB of shared memory at the bench MLP, so a second block cannot share the
+// SM; instead a block of 512 threads runs two halves of 256, each on its own
+// tiles with its own activations and named barrier, over one copy of the
+// weights (232,000 B at the bench MLP), so that one half's load, barriers
+// and tail run beside the other half's FMAs. Every warp of a half works on
+// every layer, the narrow last one included. An MLP whose two halves do not
+// fit runs one half, with K7a's ring; at two halves K7a loads without it
+// (the scalar path), the other half's layers hiding the latency.
 //
 // K3 and K7b (query_int8_kernel) run their layers on the tensor cores too:
 // mma.sync m16n8k32, s8 x s8 -> s32, with mma_tile.cuh's ldmatrix addressing
@@ -69,45 +77,54 @@ namespace infera {
 
 // ---------------------------------------------------------------- K1, K7a in f32
 
+// f32 mode on the f32 cores, `halves` (blockDim.x / kThreads) tile groups a
+// block (mlp_tile.cuh's Half). Shared memory: the f32 weights and biases
+// once, then each half's tail scratch, act0 and act1, then (one half only)
+// K7a's ring; the wrapper passes stages = 0 with two halves, whose tiles
+// take the scalar load. At most 128 registers a thread, so that a block of
+// two halves fits an SM.
 template <typename TIn, bool kRowMajor>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxHalves * kThreads, 1)
 query_f32_kernel(const TIn* __restrict__ x, long long n, const float* __restrict__ blob,
                  int blob_words16, MlpDims d, int widest, int stages,
                  long long* __restrict__ part_cnt, double* __restrict__ part_sum) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  const Half g = this_half();
   const int C = d.dim[d.n_layers];
   float* s_blob = reinterpret_cast<float*>(smem_raw);
-  TailScratch t = carve_tail(smem_raw + 16 * blob_words16, C);
-  float* act0 = reinterpret_cast<float*>(smem_raw + 16 * blob_words16 + tail_bytes(C));
+  unsigned char* own = smem_raw + 16 * blob_words16 +
+                       g.h * (tail_bytes(C) + 8 * widest * kActStride);
+  TailScratch t = carve_tail(own, C);
+  float* act0 = reinterpret_cast<float*>(own + tail_bytes(C));
   float* act1 = act0 + widest * kActStride;
   const int d0 = d.dim[0];
   const long long n_tiles = (n + kTileRows - 1) / kTileRows;
   // K7a only: the ring of row-major tiles (query_tile.cuh)
   const RowRing<TIn> ring{x, n, d0, stages,
                           reinterpret_cast<unsigned char*>(act1 + widest * kActStride), n_tiles};
-  copy_words16(s_blob, blob, blob_words16);
-  tail_init(t, C);
-  if (kRowMajor) ring_start(ring);
+  copy_words16(s_blob, blob, blob_words16, threadIdx.x, blockDim.x);
+  tail_init(t, C, g);
+  if (kRowMajor) ring_start(ring, g);
   __syncthreads();
 
-  int j = 0;  // this block's tile count
-  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++j) {
+  int j = 0;  // this half's tile count
+  for (long long tile = g.index(); tile < n_tiles; tile += g.step(), ++j) {
     const long long row0 = tile * kTileRows;
     if (kRowMajor) {
-      load_rows_tile<TIn>(ring, j, row0, act0);
+      load_rows_tile<TIn>(ring, j, row0, act0, g);
     } else {
-      for (int i = threadIdx.x; i < kTileRows * d0; i += kThreads) {
+      for (int i = g.tid(); i < kTileRows * d0; i += kThreads) {
         const int k = i / kTileRows;
         const int r = i - k * kTileRows;
         const long long row = row0 + r;
         act0[k * kActStride + r] = row < n ? load_f32(x + (long long)k * n + row) : 0.f;
       }
     }
-    __syncthreads();
-    const float* h = mlp_stack_f32<false>(d, s_blob, act0, act1);
-    tail_tile(t, h, C, row0, n);
+    g.sync();
+    const float* h = mlp_stack_ffma(d, s_blob, act0, act1, g);
+    tail_tile(t, h, C, row0, n, g);
   }
-  tail_store(t, C, part_cnt, part_sum);
+  tail_store(t, C, part_cnt, part_sum, g);
 }
 
 // ---------------------------------------------------------------- K1, K7a in bf16
@@ -219,10 +236,10 @@ inline cudaError_t set_smem(Kernel k, int smem_bytes) {
 template <typename TIn, bool kRowMajor>
 cudaError_t launch_query_f32(const void* x, long long n, const void* blob, long long blob_floats,
                              MlpDims d, int widest, int stages, void* part_cnt, void* part_sum,
-                             int n_blocks, int smem_bytes, cudaStream_t stream) {
+                             int n_blocks, int halves, int smem_bytes, cudaStream_t stream) {
   cudaError_t e = set_smem(query_f32_kernel<TIn, kRowMajor>, smem_bytes);
   if (e != cudaSuccess) return e;
-  query_f32_kernel<TIn, kRowMajor><<<n_blocks, kThreads, smem_bytes, stream>>>(
+  query_f32_kernel<TIn, kRowMajor><<<n_blocks, halves * kThreads, smem_bytes, stream>>>(
       (const TIn*)x, n, (const float*)blob, (int)(blob_floats / 4), d, widest, stages,
       (long long*)part_cnt, (double*)part_sum);
   return cudaGetLastError();
@@ -239,18 +256,27 @@ inline cudaError_t fold(const void* part_cnt, const void* part_sum, int n_blocks
 template <bool kRowMajor>
 int query_f32(const void* x, int x_bf16, long long n, const void* blob, long long blob_floats,
               const int* dims, int n_layers, int widest, int stages, void* part_cnt,
-              void* part_sum, void* counts, void* sums, int n_blocks, int smem_bytes,
+              void* part_sum, void* counts, void* sums, int n_blocks, int halves, int smem_bytes,
               void* stream) {
   const MlpDims d = make_dims(dims, n_layers);
   cudaStream_t s = (cudaStream_t)stream;
+  if (halves < 1 || halves > kMaxHalves) return (int)cudaErrorInvalidValue;
   cudaError_t e =
       x_bf16 ? launch_query_f32<__nv_bfloat16, kRowMajor>(x, n, blob, blob_floats, d, widest,
                                                            stages, part_cnt, part_sum, n_blocks,
-                                                           smem_bytes, s)
+                                                           halves, smem_bytes, s)
              : launch_query_f32<float, kRowMajor>(x, n, blob, blob_floats, d, widest, stages,
-                                                  part_cnt, part_sum, n_blocks, smem_bytes, s);
+                                                  part_cnt, part_sum, n_blocks, halves,
+                                                  smem_bytes, s);
   if (e != cudaSuccess) return (int)e;
-  return (int)fold(part_cnt, part_sum, n_blocks, d.dim[n_layers], counts, sums, s);
+  // one row of partials a half, in row order
+  return (int)fold(part_cnt, part_sum, n_blocks * halves, d.dim[n_layers], counts, sums, s);
+}
+
+// the f32 kernel of a table type and layout
+template <typename TIn>
+inline auto f32_kernel(int row_major) {
+  return row_major ? query_f32_kernel<TIn, true> : query_f32_kernel<TIn, false>;
 }
 
 // the bf16 kernel of a table type and layout
@@ -294,25 +320,50 @@ int query_int8(const void* xq, long long n, const void* blob, long long blob_wor
 extern "C" {
 
 // K1 in f32. x: [d0, n] f32 (x_bf16 = 0) or bf16 (x_bf16 = 1); blob: the
-// f32 layout of mlp_tile.cuh. Outputs counts [C] int64 and sums [C] f32.
-// Returns a cudaError_t.
+// f32 layout of mlp_tile.cuh; `halves` (1 or 2) tile groups a block of
+// halves x 256 threads, and partials [n_blocks * halves, C]. Outputs counts
+// [C] int64 and sums [C] f32. Returns a cudaError_t.
 int infera_fused_query_f32(const void* x, int x_bf16, long long n, const void* blob,
                            long long blob_floats, const int* dims, int n_layers, int widest,
                            void* part_cnt, void* part_sum, void* counts, void* sums, int n_blocks,
-                           int smem_bytes, void* stream) {
+                           int halves, int smem_bytes, void* stream) {
   return infera::query_f32<false>(x, x_bf16, n, blob, blob_floats, dims, n_layers, widest, 0,
-                                  part_cnt, part_sum, counts, sums, n_blocks, smem_bytes, stream);
+                                  part_cnt, part_sum, counts, sums, n_blocks, halves, smem_bytes,
+                                  stream);
 }
 
 // K7a in f32: K1 over a row-major table x [n, d0]; the same arguments, and
 // the ring's buffers (`stages`, each [64][ring_stride(d0)] bytes after the
-// activation tiles; 0: the scalar load).
+// activation tiles; 0: the scalar load; one half only).
 int infera_fused_query_rows(const void* x, int x_bf16, long long n, const void* blob,
                             long long blob_floats, const int* dims, int n_layers, int widest,
                             int stages, void* part_cnt, void* part_sum, void* counts, void* sums,
-                            int n_blocks, int smem_bytes, void* stream) {
+                            int n_blocks, int halves, int smem_bytes, void* stream) {
+  if (halves > 1 && stages > 0) return (int)cudaErrorInvalidValue;
   return infera::query_f32<true>(x, x_bf16, n, blob, blob_floats, dims, n_layers, widest, stages,
-                                 part_cnt, part_sum, counts, sums, n_blocks, smem_bytes, stream);
+                                 part_cnt, part_sum, counts, sums, n_blocks, halves, smem_bytes,
+                                 stream);
+}
+
+// Blocks of the f32 kernel for (x_bf16, row_major) resident on one SM at
+// `halves` x 256 threads and `smem` bytes of dynamic shared memory, into
+// *blocks. Returns a cudaError_t.
+int infera_fused_query_f32_occupancy(int x_bf16, int row_major, int halves, int smem,
+                                     int* blocks) {
+  using namespace infera;
+  cudaError_t e;
+  if (x_bf16) {
+    const auto k = f32_kernel<__nv_bfloat16>(row_major);
+    e = set_smem(k, smem);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k, halves * kThreads, smem);
+  } else {
+    const auto k = f32_kernel<float>(row_major);
+    e = set_smem(k, smem);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k, halves * kThreads, smem);
+  }
+  return (int)e;
 }
 
 // K1 (row_major = 0, x [d0, n]) and K7a (row_major = 1, x [n, d0], with

@@ -80,19 +80,19 @@ __device__ inline bool ring_tile(const RowRing<TIn> g, long long tile) {
          (reinterpret_cast<unsigned long long>(g.x) & 15) == 0;
 }
 
-// Issue this thread's copies of this block's tile j into its buffer and
-// commit them as one group (an empty group where the tile takes the scalar
-// path).
-template <typename TIn>
-__device__ inline void ring_issue(const RowRing<TIn> g, int j) {
-  const long long tile = blockIdx.x + (long long)j * gridDim.x;
+// Issue this thread's copies of its group's tile j (a whole block's, or a
+// half's: mlp_tile.cuh) into its buffer and commit them as one group (an
+// empty group where the tile takes the scalar path).
+template <typename TIn, typename G = Block>
+__device__ inline void ring_issue(const RowRing<TIn> g, int j, const G& grp = G()) {
+  const long long tile = grp.index() + (long long)j * grp.step();
   if (ring_tile(g, tile)) {
     const int words = g.d0 * (int)sizeof(TIn) / 16;  // 16-byte words of a row
     const int stride = ring_stride(g.d0, (int)sizeof(TIn));
     unsigned char* dst = g.buf + (j % g.stages) * kTileRows * stride;
     const unsigned char* src =
         reinterpret_cast<const unsigned char*>(g.x + tile * kTileRows * g.d0);
-    for (int i = threadIdx.x; i < kTileRows * words; i += kThreads) {
+    for (int i = grp.tid(); i < kTileRows * words; i += kThreads) {
       const int r = i & (kTileRows - 1);
       const int w = i / kTileRows;
       cp_async16(dst + r * stride + 16 * w, src + r * (16 * words) + 16 * w);
@@ -102,9 +102,9 @@ __device__ inline void ring_issue(const RowRing<TIn> g, int j) {
 }
 
 // Before the loop over tiles: issue tiles 0 .. stages - 2.
-template <typename TIn>
-__device__ inline void ring_start(const RowRing<TIn> g) {
-  for (int j = 0; j + 1 < g.stages; ++j) ring_issue(g, j);
+template <typename TIn, typename G = Block>
+__device__ inline void ring_start(const RowRing<TIn> g, const G& grp = G()) {
+  for (int j = 0; j + 1 < g.stages; ++j) ring_issue(g, j, grp);
 }
 
 __device__ inline void put4(float* act, int k, int r, float4 v) {
@@ -143,29 +143,29 @@ __device__ inline void put_word_bf16(const float* p, __nv_bfloat16* a) {
 // Start the copies of tile j + stages - 1 into the buffer tile j - 1 left
 // (this thread's own words, read in the last call) and wait for this
 // thread's words of tile j.
-template <typename TIn>
-__device__ inline void ring_advance(const RowRing<TIn> g, int j) {
+template <typename TIn, typename G = Block>
+__device__ inline void ring_advance(const RowRing<TIn> g, int j, const G& grp = G()) {
   if (g.stages > 0) {
-    ring_issue(g, j + g.stages - 1);
+    ring_issue(g, j + g.stages - 1, grp);
     cp_async_wait(g.stages - 1);
   }
 }
 
-// Tile j of this block (row0 = its first row) into the f32 tile act
-// [d0][kActStride]: ring_advance, then transpose this thread's words. Ends
-// without a barrier.
-template <typename TIn>
+// Tile j of this thread's group (row0 = its first row) into the f32 tile
+// act [d0][kActStride]: ring_advance, then transpose this thread's words.
+// Ends without a barrier.
+template <typename TIn, typename G = Block>
 __device__ inline void load_rows_tile(const RowRing<TIn> g, int j, long long row0,
-                                      float* __restrict__ act) {
-  const long long tile = blockIdx.x + (long long)j * gridDim.x;
-  ring_advance(g, j);
+                                      float* __restrict__ act, const G& grp = G()) {
+  const long long tile = grp.index() + (long long)j * grp.step();
+  ring_advance(g, j, grp);
   const int d0 = g.d0;
   if (ring_tile(g, tile)) {
     constexpr int kPer = 16 / (int)sizeof(TIn);  // values of a 16-byte word
     const int words = d0 / kPer;
     const int stride = ring_stride(d0, (int)sizeof(TIn));
     const unsigned char* b = g.buf + (j % g.stages) * kTileRows * stride;
-    for (int i = threadIdx.x; i < kTileRows * words; i += kThreads) {
+    for (int i = grp.tid(); i < kTileRows * words; i += kThreads) {
       const int r = i & (kTileRows - 1);
       const int w = i / kTileRows;
       transpose_word(reinterpret_cast<const TIn*>(b + r * stride + 16 * w), act, kPer * w, r);
@@ -174,7 +174,7 @@ __device__ inline void load_rows_tile(const RowRing<TIn> g, int j, long long row
   }
   const int rows = (int)min((long long)kTileRows, g.n - row0);
   const TIn* src = g.x + row0 * d0;
-  for (int i = threadIdx.x; i < kTileRows * d0; i += kThreads) {
+  for (int i = grp.tid(); i < kTileRows * d0; i += kThreads) {
     const int k = i / kTileRows;
     const int r = i - k * kTileRows;
     act[k * kActStride + r] = r < rows ? load_f32(src + (long long)r * d0 + k) : 0.f;
@@ -263,18 +263,20 @@ __host__ __device__ inline int tail_bytes(int C) {
   return pad8(C) * 16 + kTileRows * 8;
 }
 
-__device__ inline void tail_init(TailScratch t, int C) {
-  for (int c = threadIdx.x; c < C; c += kThreads) {
+template <typename G = Block>
+__device__ inline void tail_init(TailScratch t, int C, const G& grp = G()) {
+  for (int c = grp.tid(); c < C; c += kThreads) {
     t.blk_cnt[c] = 0;
     t.blk_sum[c] = 0.0;
   }
 }
 
-// h: [C][kActStride] f32 scores of one tile. Ends with a barrier.
+// h: [C][kActStride] f32 scores of one tile. Ends with the group's barrier.
+template <typename G = Block>
 __device__ inline void tail_tile(TailScratch t, const float* h, int C, long long row0,
-                                 long long n) {
-  if (threadIdx.x < kTileRows) {
-    const int r = threadIdx.x;
+                                 long long n, const G& grp = G()) {
+  if (grp.tid() < kTileRows) {
+    const int r = grp.tid();
     const float v0 = h[r];
     int pred = -1;
     if (row0 + r < n && v0 > 0.f) {
@@ -291,8 +293,8 @@ __device__ inline void tail_tile(TailScratch t, const float* h, int C, long long
     t.pred[r] = pred;
     t.val[r] = v0;
   }
-  __syncthreads();
-  for (int c = threadIdx.x; c < C; c += kThreads) {
+  grp.sync();
+  for (int c = grp.tid(); c < C; c += kThreads) {
     long long cnt = 0;
     double sum = 0.0;
     for (int r = 0; r < kTileRows; ++r) {
@@ -304,13 +306,16 @@ __device__ inline void tail_tile(TailScratch t, const float* h, int C, long long
     t.blk_cnt[c] += cnt;
     t.blk_sum[c] += sum;
   }
-  __syncthreads();
+  grp.sync();
 }
 
-__device__ inline void tail_store(TailScratch t, int C, long long* part_cnt, double* part_sum) {
-  for (int c = threadIdx.x; c < C; c += kThreads) {
-    part_cnt[(long long)blockIdx.x * C + c] = t.blk_cnt[c];
-    part_sum[(long long)blockIdx.x * C + c] = t.blk_sum[c];
+// the group's counts and sums into its row index() of the partials
+template <typename G = Block>
+__device__ inline void tail_store(TailScratch t, int C, long long* part_cnt, double* part_sum,
+                                  const G& grp = G()) {
+  for (int c = grp.tid(); c < C; c += kThreads) {
+    part_cnt[grp.index() * C + c] = t.blk_cnt[c];
+    part_sum[grp.index() * C + c] = t.blk_sum[c];
   }
 }
 

@@ -34,12 +34,15 @@ _LL = ctypes.c_longlong
 # ctypes never cuts a 64-bit address to an int
 _SIGNATURES = {
     "fused_mlp": {
-        "infera_fused_mlp": [_P, _LL, _P, _LL, _P, _I, _I, _I, _P, _I, _I, _P],
+        "infera_fused_mlp": [_P, _LL, _P, _LL, _P, _I, _I, _I, _P, _I, _I, _I, _P],
+        "infera_fused_mlp_occupancy": [_I, _I, _P],
     },
     "fused_query": {
-        "infera_fused_query_f32": [_P, _I, _LL, _P, _LL, _P, _I, _I, _P, _P, _P, _P, _I, _I, _P],
+        "infera_fused_query_f32": [_P, _I, _LL, _P, _LL, _P, _I, _I, _P, _P, _P, _P, _I, _I,
+                                   _I, _P],
         "infera_fused_query_rows": [_P, _I, _LL, _P, _LL, _P, _I, _I, _I, _P, _P, _P, _P, _I,
-                                    _I, _P],
+                                    _I, _I, _P],
+        "infera_fused_query_f32_occupancy": [_I, _I, _I, _I, _P],
         "infera_fused_query_bf16": [_P, _I, _I, _LL, _P, _LL, _P, _I, _I, _P, _P, _P, _P, _I,
                                     _I, _P],
         "infera_fused_query_bf16_occupancy": [_I, _I, _I, _P],

@@ -23,7 +23,9 @@ runs in ``csrc/fused_query.cu``:
   last layer keeps ``t``. Its weights come from ``quantize_mlp_static``.
 
 K1 and K7a in bf16 run their layers on the tensor cores (``mma.sync``, with
-the weights packed by ``pack_mma_blob``); in f32 on the f32 cores. K3 and
+the weights packed by ``pack_mma_blob``); in f32 on the f32 cores, two
+halves of 256 threads a block over one copy of the weights where they fit
+(``query_halves``, ``rows_query_layout``). K3 and
 K7b run theirs on the tensor cores in int8 (``mma.sync`` m16n8k32, with the
 weights packed by ``_int8_blob``) on a grid sized by their occupancy.
 
@@ -41,7 +43,16 @@ import numpy as np
 import torch
 
 from . import _kernels
-from .fused_mlp import ACT_STRIDE, MAX_LAYERS, SMEM_LIMIT, TILE_ROWS, pack_f32_blob, pad8
+from .fused_mlp import (
+    ACT_STRIDE,
+    MAX_HALVES,
+    MAX_LAYERS,
+    SMEM_LIMIT,
+    TILE_ROWS,
+    grid_for,
+    pack_f32_blob,
+    pad8,
+)
 
 _COMPUTE = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -313,12 +324,20 @@ def _check_table(x: torch.Tensor, dtypes, d0: int, blob: torch.Tensor, dims,
         raise ValueError(f"the kernel takes 1 to {MAX_LAYERS} layers, got {len(dims) - 1}")
 
 
-def query_smem_bytes(dims) -> int:
-    """Shared memory of K1 in f32: weights and biases at f32, the tail's
-    scratch and two 64-row activation tiles at the widest width."""
+def query_smem_bytes(dims, halves: int = 1) -> int:
+    """Shared memory of K1 in f32 at ``halves`` tile groups a block:
+    weights and biases at f32 once, and each half's tail scratch and two
+    64-row activation tiles at the widest width."""
     widest = max(pad8(d) for d in dims)
     blob = sum(dims[i] * pad8(dims[i + 1]) + pad8(dims[i + 1]) for i in range(len(dims) - 1))
-    return 4 * blob + _tail_bytes(dims[-1]) + 8 * widest * ACT_STRIDE
+    return 4 * blob + halves * (_tail_bytes(dims[-1]) + 8 * widest * ACT_STRIDE)
+
+
+def query_halves(dims) -> int:
+    """Tile groups a block of K1 in f32 runs for an MLP of ``dims``: two
+    where two halves fit one block's 227 KB (232,000 bytes at the bench
+    MLP), else one."""
+    return MAX_HALVES if query_smem_bytes(dims, MAX_HALVES) <= SMEM_LIMIT else 1
 
 
 def mma_blob_bytes(dims) -> int:
@@ -341,11 +360,11 @@ def query_smem_bytes_bf16(dims) -> int:
     return mma_blob_bytes(dims) + _tail_bytes(dims[-1]) + sum(mma_tile_bytes(dims))
 
 
-# K7a's ring of row-major tiles (csrc/query_tile.cuh). f32 mode (one block
-# an SM at the bench MLP): enough buffers that about 20 KB of the table is in
-# flight on each SM, at most 8. bf16 mode: two buffers, which hide the load
-# at two blocks an SM (the ring sweep of PERF.md), within half an SM's shared
-# memory where they fit there.
+# K7a's ring of row-major tiles (csrc/query_tile.cuh). f32 mode at one half
+# a block (an MLP whose two halves do not fit, ``rows_query_layout``): enough
+# buffers that about 20 KB of the table is in flight on each SM, at most 8.
+# bf16 mode: two buffers, which hide the load at two blocks an SM (the ring
+# sweep of PERF.md), within half an SM's shared memory where they fit there.
 RING_IN_FLIGHT = 20 * 1024
 MAX_RING_STAGES = 8
 BF16_RING_STAGES = 2
@@ -398,6 +417,16 @@ def rows_query_smem_bytes(dims, itemsize: int = 4, extra: int = 0) -> int:
     bytes, beside ``extra`` bytes of other scratch (not counted)."""
     stages = ring_stages(dims, itemsize, extra)
     return query_smem_bytes(dims) + stages * TILE_ROWS * ring_stride(dims[0], itemsize)
+
+
+def rows_query_layout(dims, itemsize: int = 4, halves: int | None = None) -> tuple:
+    """(halves, ring buffers, shared-memory bytes) of K7a in f32 over a
+    table of ``itemsize``-byte values: K1's two halves without the ring
+    where they fit (the scalar load), else one half with its ring;
+    ``halves`` asks for a launch shape."""
+    if (halves or query_halves(dims)) == 2:
+        return 2, 0, query_smem_bytes(dims, 2)
+    return 1, ring_stages(dims, itemsize), rows_query_smem_bytes(dims, itemsize)
 
 
 def rows_query_smem_bytes_bf16(dims, itemsize: int = 2, extra: int = 0) -> int:
@@ -453,21 +482,45 @@ def int8_smem_bytes(dims) -> int:
     return _int8_core_bytes(dims) + int8_ring_stages(dims) * int8_stage_bytes(dims[0])
 
 
-def _launch_f32(entry: str, weights: QueryWeights, x: torch.Tensor, n: int, smem: int,
-                *stages):
-    """Launch K1 or K7a in f32 (C entry ``entry``; K7a with its ring's
-    ``stages``) over a checked table of ``n`` rows; returns (counts, sums)."""
-    dims = weights.dims
+def f32_grid(x: torch.Tensor, dims, row_major: bool, halves: int | None = None) -> tuple:
+    """(blocks, halves, ring buffers, shared-memory bytes) of K1 or K7a in
+    f32 over the table ``x``: ``query_halves`` (K1) or ``rows_query_layout``
+    (K7a) tile groups a block, or ``halves`` (1 or 2) where given, on the
+    blocks resident on the card at that shape, at most one half a tile."""
+    if halves not in (None, 1, 2):
+        raise ValueError(f"halves must be 1 or 2, got {halves}")
+    if row_major:
+        halves, stages, smem = rows_query_layout(dims, x.element_size(), halves)
+    else:
+        halves, stages = halves or query_halves(dims), 0
+        smem = query_smem_bytes(dims, halves)
     if smem > SMEM_LIMIT:
         raise ValueError(f"MLP {dims} exceeds the kernel's shared-memory budget")
-    n_blocks = _kernels.grid_blocks(x.device, -(-n // TILE_ROWS), smem)
-    part_cnt, part_sum, counts, sums = _partials(n_blocks, dims[-1], x.device)
+    per_sm = _kernels.resident_blocks(x.device, "fused_query", "infera_fused_query_f32_occupancy",
+                                      int(x.dtype == torch.bfloat16), int(row_major), halves, smem)
+    n = x.shape[0] if row_major else x.shape[1]
+    return grid_for(x.device, n, halves, smem, per_sm), halves, stages, smem
+
+
+def _launch_f32(weights: QueryWeights, x: torch.Tensor, row_major: bool,
+                halves: int | None = None):
+    """Launch K1 or K7a (``row_major``, with its ring's buffers) in f32
+    over a checked table at ``f32_grid``'s shape (``halves`` asks for one;
+    the tests and ``testing/ab_kernels.py`` compare the two); returns
+    (counts, sums). The partials have a row a half."""
+    dims = weights.dims
+    n_blocks, halves, stages, smem = f32_grid(x, dims, row_major, halves)
+    n = x.shape[0] if row_major else x.shape[1]
+    part_cnt, part_sum, counts, sums = _partials(n_blocks * halves, dims[-1], x.device)
+    entry, ring = (("infera_fused_query_rows", (stages,)) if row_major
+                   else ("infera_fused_query_f32", ()))
     lib = _kernels.load("fused_query")
     rc = getattr(lib, entry)(
         x.data_ptr(), int(x.dtype == torch.bfloat16), n, weights.blob.data_ptr(),
         weights.blob.numel(), _kernels.int_array(dims), len(dims) - 1,
-        max(pad8(d) for d in dims), *stages, part_cnt.data_ptr(), part_sum.data_ptr(),
-        counts.data_ptr(), sums.data_ptr(), n_blocks, smem, _kernels.stream_handle(x.device))
+        max(pad8(d) for d in dims), *ring, part_cnt.data_ptr(), part_sum.data_ptr(),
+        counts.data_ptr(), sums.data_ptr(), n_blocks, halves, smem,
+        _kernels.stream_handle(x.device))
     _kernels.check(lib, rc, entry)
     return counts, sums
 
@@ -522,8 +575,7 @@ def fused_mlp_query_columnar(weights: QueryWeights, xc: torch.Tensor):
     if compute == "bf16":
         out = _launch_bf16(weights, xc, row_major=False)
     else:
-        out = _launch_f32("infera_fused_query_f32", weights, xc, xc.shape[1],
-                          query_smem_bytes(dims))
+        out = _launch_f32(weights, xc, False)
     fused_mlp_query_columnar.launches[compute] += 1
     return out
 
@@ -542,9 +594,7 @@ def fused_mlp_query(weights: QueryWeights, x: torch.Tensor):
     if compute == "bf16":
         out = _launch_bf16(weights, x, row_major=True)
     else:
-        item = x.element_size()
-        out = _launch_f32("infera_fused_query_rows", weights, x, x.shape[0],
-                          rows_query_smem_bytes(dims, item), ring_stages(dims, item))
+        out = _launch_f32(weights, x, True)
     fused_mlp_query.launches[compute] += 1
     return out
 

@@ -12,9 +12,14 @@ call on the card::
 from ROOT (a checkout, or a ``git archive`` of one) and, over the bench's
 1,048,576-row table (``default_rng(1)``):
 
-- K7a in bf16 (over a bf16 table) and in f32, and K1 in bf16 (over the
-  table's feature-major copy): ms per call over 200 queued calls (CUDA
+- K7a in bf16 (over a bf16 table) and in f32, and K1 in bf16 and f32 (over
+  the table's feature-major copy): ms per call over 200 queued calls (CUDA
   events around them, after three warm-up calls);
+- K6 over the table with the bench MLP and its softmax: ms per call over
+  200 queued calls; the outputs are saved as their SHA-256 and every
+  4,096th row;
+- where the checkout runs the f32 kernels in halves (``query_halves``),
+  K7a and K1 in f32 and K6 at one half a block as well (times only);
 - K3 and K7b over the table's feature-major int8 copy, quantized as the
   bench quantizes it (calibration sample ``default_rng(7)``): ms per call
   over 200 queued calls;
@@ -31,19 +36,22 @@ from ROOT (a checkout, or a ``git archive`` of one) and, over the bench's
 prints a line per measurement and saves every output to
 OUT_DIR/ab_TAG.npz. ``compare`` holds every TAG's outputs to the first
 TAG's of its side (a side is the tag without its trailing digits: parent
-and parent2, change and change2): K7a, K1, K3, K7b and K8 bit for bit; K2/K5
-counts, flags, min/max rows, int slots, arg words and DISTINCT counts
+and parent2, change and change2): K7a, K1, K6, K3, K7b and K8 bit for bit;
+K2/K5 counts, flags, min/max rows, int slots, arg words and DISTINCT counts
 equal, f64 sums and estimates within rtol 1e-12, atol 1e-9 (their
 summation order may change with the grid). Across the sides the same,
 but for the kernels whose arithmetic a change may redesign (``REDESIGNED``:
 K7a and K1 in bf16, K8a, K8b), held within rtol 2e-2, atol 1e-2, with the
-largest difference printed. K3's and K7b's counts and sums (``EXACT``) are
-held bit for bit across the sides as well: their s32 layers are exact in
-any order.
+largest difference printed, and the f32 query's sums (``F32_SUMS``: K7a
+and K1 in f32), held within rtol 1e-6: a launch shape may group their f64
+partials otherwise, while their counts, and K6's outputs, stay bit for
+bit. K3's and K7b's counts and sums (``EXACT``) are held bit for bit
+across the sides as well: their s32 layers are exact in any order.
 """
 
 from __future__ import annotations
 
+import hashlib
 import os
 import sys
 import tempfile
@@ -55,6 +63,7 @@ N = 1 << 20
 _SUM_KEYS = ("sums", "iest")
 REDESIGNED = ("K7a bf16", "K1 bf16", "K8a", "K8b")
 EXACT = ("K3", "K7b")
+F32_SUMS = ("K7a f32:sums", "K1 f32:sums")
 
 
 def _host_ms(torch, fn, runs: int) -> float:
@@ -240,6 +249,7 @@ def run(root: str, tag: str, out_dir: str) -> None:
     import infera_tpu_torch as itt
     from infera_tpu_torch.bench import build_params
     from infera_tpu_torch.ops import _kernels
+    from infera_tpu_torch.ops import fused_mlp as fm
     from infera_tpu_torch.ops import fused_query as fq
     from infera_tpu_torch.ops import fused_sql as fs
     from infera_tpu_torch.testing import profile_query as pq
@@ -254,6 +264,7 @@ def run(root: str, tag: str, out_dir: str) -> None:
     x = torch.as_tensor(np.random.default_rng(1).standard_normal((N, 32)).astype(np.float32),
                         device=dev)
     x_bf16 = x.to(torch.bfloat16)
+    one_half = hasattr(fq, "query_halves")   # the f32 kernels also launch at one half a block
     out = {}
 
     # K7a, K8a, K8b: queued calls
@@ -264,14 +275,29 @@ def run(root: str, tag: str, out_dir: str) -> None:
         out[f"K7a {mode}:sums"] = sums.cpu().numpy()
         ms = _queued_ms(torch, lambda: fq.fused_mlp_query(w, table), 200)
         print(f"{tag} K7a {mode}: {ms:.4f} ms (mean of 200 queued calls, {card})", flush=True)
-        if mode == "bf16":
-            xc = table.T.contiguous()
-            counts, sums = fq.fused_mlp_query_columnar(w, xc)
-            out["K1 bf16:counts"] = counts.cpu().numpy()
-            out["K1 bf16:sums"] = sums.cpu().numpy()
-            ms = _queued_ms(torch, lambda: fq.fused_mlp_query_columnar(w, xc), 200)
-            print(f"{tag} K1 bf16: {ms:.4f} ms (mean of 200 queued calls)", flush=True)
-            del xc
+        xc = table.T.contiguous()
+        counts, sums = fq.fused_mlp_query_columnar(w, xc)
+        out[f"K1 {mode}:counts"] = counts.cpu().numpy()
+        out[f"K1 {mode}:sums"] = sums.cpu().numpy()
+        ms = _queued_ms(torch, lambda: fq.fused_mlp_query_columnar(w, xc), 200)
+        print(f"{tag} K1 {mode}: {ms:.4f} ms (mean of 200 queued calls)", flush=True)
+        if mode == "f32" and one_half:
+            for name, fn in (("K7a", lambda: fq._launch_f32(w, table, True, 1)),
+                             ("K1", lambda: fq._launch_f32(w, xc, False, 1))):
+                ms = _queued_ms(torch, fn, 200)
+                print(f"{tag} {name} f32, one half a block: {ms:.4f} ms (mean of 200 queued "
+                      f"calls)", flush=True)
+        del xc
+    # K6: the bench MLP with its softmax over the row-major table
+    mw = fm.mlp_weights(build_params(seed=0), dev)
+    k6 = fm.fused_mlp(mw, x, True).cpu().numpy()
+    out["K6:sha256"] = np.frombuffer(hashlib.sha256(k6.tobytes()).digest(), np.uint8)
+    out["K6:rows"] = k6[::4096]
+    ms = _queued_ms(torch, lambda: fm.fused_mlp(mw, x, True), 200)
+    print(f"{tag} K6: {ms:.4f} ms (mean of 200 queued calls)", flush=True)
+    if one_half:
+        ms = _queued_ms(torch, lambda: fm._launch(mw, x, True, 1), 200)
+        print(f"{tag} K6, one half a block: {ms:.4f} ms (mean of 200 queued calls)", flush=True)
     # K3, K7b: queued calls over the int8 table
     params = build_params(seed=0)
     x_cal = np.random.default_rng(7).standard_normal((1 << 14, 32)).astype(np.float32)
@@ -347,6 +373,8 @@ def compare(out_dir: str, tags) -> bool:
             across = _side(base) != _side(tag)
             if key.startswith(EXACT):
                 same = np.array_equal(got, ref)
+            elif across and key in F32_SUMS:
+                same = got.shape == ref.shape and np.allclose(got, ref, rtol=1e-6, atol=0)
             elif across and key.startswith(REDESIGNED):
                 same = got.shape == ref.shape and np.allclose(got, ref, rtol=2e-2, atol=1e-2)
                 if same and tag == first[_side(tag)]:
@@ -363,7 +391,7 @@ def compare(out_dir: str, tags) -> bool:
                 print(f"{key}: {tag} differs from {base}")
     print(f"outputs of {', '.join(tags)}: {'equal' if ok else 'DIFFER'} (each side bit for bit "
           f"but K2/K5 sums within rtol 1e-12; across sides {', '.join(REDESIGNED)} within rtol "
-          f"2e-2, {', '.join(EXACT)} bit for bit)")
+          f"2e-2, {', '.join(F32_SUMS)} within rtol 1e-6, {', '.join(EXACT)} bit for bit)")
     return ok
 
 

@@ -26,7 +26,12 @@ scalar load; for the tensor-core path of K1, K7a and K8b in bf16, odd
 widths, HMMA in the bf16 kernels' SASS and none in the f32 ones, and two
 resident blocks an SM at the bench MLP; for K3 and K7b on the tensor cores,
 the layout tests' widths, an unaligned table, IMMA in their SASS and none
-elsewhere, no spill, and a grid of their resident blocks."""
+elsewhere, no spill, and a grid of their resident blocks; for the f32 layer
+stack of K1, K7a and K6 (two halves a block), every width of
+``test_torch_kernel_layout.MLPS`` at 1,000,003 rows and at fewer tiles than
+the grid has halves, one half against two on the same MLP, K6 in
+``chip_smoke.fma_map``'s order bit for bit, and no spill at 128 registers
+on a grid of 132 blocks of 512 threads."""
 
 import numpy as np
 import pytest
@@ -36,6 +41,7 @@ from infera_tpu_torch.ops import fused_mlp as fm
 from infera_tpu_torch.ops import fused_query as fq
 from infera_tpu_torch.ops import fused_sql as fs
 from infera_tpu_torch.testing import profile_query as pq
+from test_torch_kernel_layout import MLPS
 
 pytestmark = pytest.mark.cuda
 
@@ -1282,3 +1288,89 @@ def test_bf16_kernels_hold_two_blocks_an_sm(cuda, table):
         assert fq.resident_blocks(cuda, table == torch.bfloat16, row_major, smem) >= 2
         assert blocks == sms * fq.resident_blocks(cuda, table == torch.bfloat16, row_major, smem)
     assert pq.stage_resident_blocks(cuda, pq._stage_smem_bytes(dims)) >= 2
+
+
+# ------------------------------------------------------------------ the f32 stack, two halves
+
+FEW_TILES = 64 * 100 + 5   # 101 tiles, fewer than a 132-block grid's 264 halves
+
+
+@pytest.mark.parametrize("n", [1_000_003, FEW_TILES])
+@pytest.mark.parametrize("dims", MLPS)
+def test_f32_kernels_match_plain_at_the_layout_widths(cuda, dims, n):
+    """K1 and K7a in f32 and K6 (with its softmax) against their plain
+    versions, at one half or two as each MLP fits: counts within the main
+    path's 4 rows (a near-tie in another summation order), sums rtol 1e-4;
+    K6 within the 1e-5 parity bound."""
+    params = _params(dims, seed=dims[0] + n % 7)
+    x = _rows(n, dims[0], 51, cuda)
+    xc = x.T.contiguous()
+    w = fq.params_from_numpy(params, cuda)
+    plain = fq.fused_mlp_query_columnar_plain(w, xc)
+    for got in (fq.fused_mlp_query_columnar(w, xc), fq.fused_mlp_query(w, x)):
+        _query_close(got, plain, count_tol=4, rtol=1e-4)
+    mw = fm.mlp_weights(params, cuda)
+    torch.testing.assert_close(fm.fused_mlp(mw, x, True), fm.fused_mlp_plain(mw, x, True),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dims", [(32, 128, 128, 16), (30, 64, 48, 10), (5, 130, 3)])
+def test_one_half_and_two_halves_agree(cuda, dims):
+    """The same MLP at one half a block and at two: the same scores, so
+    equal counts and K6 outputs bit for bit; the sums differ only in how
+    the f64 partials group (rtol 1e-6)."""
+    assert fq.query_halves(dims) == fm.mlp_halves(dims) == 2
+    params = _params(dims, seed=52)
+    x = _rows(100_003, dims[0], 53, cuda)
+    w = fq.params_from_numpy(params, cuda)
+    for row_major, t in ((False, x.T.contiguous()), (True, x)):
+        one, two = fq._launch_f32(w, t, row_major, 1), fq._launch_f32(w, t, row_major, 2)
+        assert torch.equal(one[0], two[0])
+        torch.testing.assert_close(two[1], one[1], rtol=1e-6, atol=0)
+    mw = fm.mlp_weights(params, cuda)
+    for softmax in (False, True):
+        assert torch.equal(fm._launch(mw, x, softmax, 1), fm._launch(mw, x, softmax, 2))
+
+
+@pytest.mark.parametrize("dims", [(32, 128, 128, 16), (30, 200, 7), (5, 3)])
+def test_k6_sums_in_fma_map_order(cuda, dims):
+    """K6 without its softmax equals chip_smoke.fma_map's layers (from 0,
+    one fused multiply-add per input in input order, then the bias, ReLU
+    between) bit for bit, at one half or two, over 200 rows."""
+    from chip_smoke import fma_map
+
+    params = _params(dims, seed=54)
+    x = np.random.default_rng(55).standard_normal((200, dims[0])).astype(np.float32)
+    h = x
+    for l, (w, b) in enumerate(params):
+        h = fma_map(h, w, b)
+        if l + 1 < len(params):
+            h = np.where(h < 0, np.float32(0), h)
+    mw = fm.mlp_weights(params, cuda)
+    xd = torch.as_tensor(x, device=cuda)
+    for halves in sorted({1, fm.mlp_halves(dims)}):
+        got = fm._launch(mw, xd, False, halves).cpu().numpy()
+        assert np.array_equal(got, h), (dims, halves)
+
+
+def test_f32_kernels_run_two_halves_without_spill(cuda):
+    """At the bench MLP over 1,048,576 rows K1 and K7a in f32 run two halves
+    on one block of 512 threads an SM (K7a without its ring) and K6 the
+    same; every instantiation of the f32 query kernel and K6 keep to 128
+    registers without a spill."""
+    from infera_tpu_torch.ops import _kernels
+
+    dims = (32, 128, 128, 16)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for table in (torch.float32, torch.bfloat16):
+        rows = torch.empty((1 << 20, 32), dtype=table, device=cuda)
+        assert fq.f32_grid(rows, dims, True) == (sms, 2, 0, 232_000)
+        assert fq.f32_grid(rows.T.contiguous(), dims, False) == (sms, 2, 0, 232_000)
+    assert fm.mlp_grid(cuda, dims, 1 << 20) == (sms, 2, 230_464)
+    for lib, kernel, count in (("fused_query", "6infera16query_f32_kernel", 4),
+                               ("fused_mlp", "6infera16fused_mlp_kernel", 1)):
+        ffma = {k: v for k, v in _kernels.sass_opcodes(lib, "FFMA").items() if kernel in k}
+        assert len(ffma) == count and all(v > 0 for v in ffma.values()), ffma
+        for fn in ffma:
+            regs, _, spill = _kernels.ptxas_usage(lib, fn)
+            assert regs <= 128 and spill == 0, (fn, regs, spill)
