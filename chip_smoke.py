@@ -6,10 +6,12 @@ card, builds every kernel of ``infera_tpu_torch/csrc`` with nvcc (sm_90a), and:
 
 1. prints the card, its power limit, the torch and CUDA versions and the
    build time; the tensor-core paths: HMMA in the SASS (``cuobjdump``) of
-   the bf16 kernels of K1, K7a and K8b and none in the f32 and int8 ones,
-   IMMA in the int8 kernel of K3 and K7b and none in the f32 and bf16 ones,
-   ptxas's registers and spills of each (no spill; at most 128 registers in
-   bf16, 80 in int8), and at the bench MLP the resident blocks an SM (at
+   the bf16 kernels of K1, K7a and K8b and of K2's kWide instance (plans
+   with a bf16 MLP slot or a 128-column f32 layer), none in the f32 and
+   int8 ones nor in K2's other instance, IMMA in the int8 kernel of K3 and
+   K7b and none in the f32 and bf16 ones, ptxas's registers and spills of
+   each (no spill; at most 128 registers in bf16, 80 in int8 and in K2's
+   other instance), and at the bench MLP the resident blocks an SM (at
    least two) and the grid they give; for the f32 layer stack (every
    instantiation of K1's and K7a's f32 kernel, and K6) ptxas's registers,
    stack and spills (no spill, at most 128 registers) and at the bench MLP
@@ -41,7 +43,10 @@ card, builds every kernel of ``infera_tpu_torch/csrc`` with nvcc (sm_90a), and:
    (the same catalog with ``INFERA_PALLAS_SQL=0``); it prints each query's
    steady time on the host clock and its phases, holds K2 against its plain
    version on the emitted plans at 1,048,576 and 1,000,003 rows, and times
-   K2, its plain version and a PyTorch library chain;
+   K2, its plain version and a PyTorch library chain; for each plan with an
+   MLP slot it prints the 64-row sub-tiles K2′ ran against those of a pass
+   over every row (the MLP runs on the rows the WHERE keeps), and query B's
+   bf16 plan must hold at least two blocks an SM;
 6. the tree path, BASELINE config 4: engine ``predict`` of a 64-tree
    depth-6 GBT over 262,144 seeded rows (GEMM forest, checked against the
    gather traversal and a numpy walk), then query D (the GBT regressor in
@@ -204,18 +209,26 @@ def sql_split(torch, key, packed, xc, n, dim_xc=None, int_xc=None) -> None:
     resident blocks an SM at the plan's shared memory and the grid, which
     must not exceed the blocks resident on the card."""
     from infera_tpu_torch.ops import _kernels
+    from infera_tpu_torch.ops import fused_sql as fs
     from infera_tpu_torch.testing.ab_kernels import split_by_events
 
     s = split_by_events(torch, packed, xc, n, dim_xc, int_xc)
     sms = torch.cuda.get_device_properties(xc.device).multi_processor_count
     check(s["grid"] <= sms * s["resident"],
           f"K2 {key}: grid {s['grid']} over {sms} x {s['resident']} resident blocks")
-    regs, stack, _ = _kernels.ptxas_usage("fused_sql", "fused_sql_kernel")
+    instance = sql_instance(fs.wide_instance(packed.plan))
+    regs, stack, _ = _kernels.ptxas_usage("fused_sql", instance)
     print(f"K2/K5 {key} split: kernel {s['kernel_ms']:.4f} ms, fold {s['fold_ms']:.4f} ms "
           f"(CUDA events, median of 25 launches each), host part {s['host_ms']:.4f} ms; ptxas "
           f"{regs} registers, {stack} B stack; {s['resident']} blocks resident a SM at "
           f"{packed.smem_bytes} B of shared memory, grid {s['grid']} blocks; lead table "
           f"{'in use' if packed.smem['lead'] >= 0 else 'none'}")
+
+
+def sql_instance(wide: bool) -> str:
+    """The mangled-name stem of K2's kernel instance: kWide (plans with a
+    bf16 MLP slot or an f32 layer of 128 columns or more) or the other one."""
+    return f"3sql16fused_sql_kernelILb{int(wide)}E"
 
 
 def emulate_int8_shift(qparams, xq: np.ndarray):
@@ -449,7 +462,15 @@ def sql_phase(torch, itt, x_rows, peaks, device) -> list:
               f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
               f"{len(used)} columns, {n_sel} selected rows, {2.0 * n_sel * macs / 1e9:.2f} G "
               f"MLP operations, {packed.smem_bytes} B of shared memory")
+        if plan.mlps:
+            run, dense = fs.mlp_subtiles(packed, xc, n)
+            on = "the rows the WHERE keeps" if fs.mlp_on_kept_rows(plan) else "every row"
+            print(f"K2' {key}: {run} MLP sub-tiles of 64 rows run (on {on}), against {dense} "
+                  f"in a pass over every row")
         sql_split(torch, key, packed, xc, n)
+        if plan.bf16:
+            per_sm = fs.resident_blocks(device, packed.smem_bytes, True)
+            check(per_sm >= 2, f"K2 {key}: {per_sm} blocks resident an SM, expected 2 or more")
     return rows
 
 
@@ -1613,6 +1634,7 @@ def mma_report(torch, _kernels, device) -> None:
     # the mangled names' prefixes: namespace infera, then the kernel's name
     checks = (("fused_query", "HMMA", "6infera17query_bf16_kernel", 128),
               ("profile_query", "HMMA", "6infera12stage_kernel", 128),
+              ("fused_sql", "HMMA", sql_instance(True), 128),
               ("fused_query", "IMMA", "6infera17query_int8_kernel", 80))
     for lib, opcode, mma_kernel, max_regs in checks:
         counts = _kernels.sass_opcodes(lib, opcode)
@@ -1626,6 +1648,11 @@ def mma_report(torch, _kernels, device) -> None:
                   f"{fn}: {count} {opcode}, expected {'some' if mma else 'none'}")
             if mma:
                 check(spill == 0 and regs <= max_regs, f"{fn}: {regs} registers, {spill} B spilled")
+    # K2's other instance: 3 blocks an SM, so at most 80 registers, no spill
+    regs, stack, spill = _kernels.ptxas_usage("fused_sql", sql_instance(False))
+    print(f"ptxas fused_sql {sql_instance(False)}: {regs} registers, {stack} B stack, "
+          f"{spill} B spilled")
+    check(spill == 0 and regs <= 80, f"K2: {regs} registers, {spill} B spilled")
     dims = pq.PROFILE_DIMS
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     for name, table, row_major in (("K1 bf16", torch.bfloat16, False),

@@ -27,20 +27,43 @@
 //
 // K2': each `infera_predict` is an MLP slot. On every tile, before the slot
 // programs run, the block evaluates the slot's feature programs into a
-// [d_in][64-row] activation tile (rounded to bf16 in bf16 mode) and runs the
-// layer stack of mlp_tile.cuh on it with the weights resident in shared memory
-// (hidden outputs rounded to bf16 in bf16 mode), then an optional softmax
-// over the classes, and keeps output column `oc` as the slot's prediction.
+// 64-row activation tile and runs the layer stack on it with the weights
+// resident in shared memory, then an optional softmax over the classes, and
+// keeps output column `oc` as the slot's prediction. An f32 slot runs
+// mlp_stack_ffma (mlp_tile.cuh: every warp on every layer, the narrow last
+// layer included; each output summed from 0 in input order, so the f32
+// predictions equal the plain version's, and K6's, bit for bit). A bf16 slot
+// runs mlp_stack_bf16 (mma_tile.cuh: mma.sync m16n8k16, bf16 operands and
+// f32 sums, as the TPU's jnp.dot(bf16, bf16, preferred_element_type=f32))
+// over its features rounded to bf16 in an A tile [64][mma_stride(d_in)] and
+// pack_mma_blob's weights. The 128-column f32 passes and the tensor-core
+// layers live only in the kernel's kWide instance (below), which a plan
+// with a bf16 slot or an f32 layer of 128 columns or more launches.
 //
-// Bound on the H100 (main path, 1,048,576 rows): with the 4-32-1 MLP of the
-// SQL flagship the work is ~0.3 G operations and the 5 read columns are 21 MB,
-// so it is bound by bytes (~0.006 ms at 3.35 TB/s); with the bench MLP
-// (32-128-128-16 softmax) it is bound by f32 operations (47.2 G operations
-// over all rows, ~0.70 ms at 67 TFLOP/s, half that where the WHERE keeps half
-// the rows; at the bf16 tensor-core rate the 33 columns' bytes bound it). It
-// runs the layers on the f32 CUDA cores (mlp_tile.cuh) and interprets
-// programs with a switch, so it is far from either bound; wgmma for the MLP
-// is the next design.
+// The TPU kernel ran the MLP over a dense [C, N] block, every row. Here,
+// where the WHERE reads no prediction (header word H_KEPT), each thread
+// evaluates the WHERE for its row once, before the slots; a warp ballot and
+// each warp's count before it list the tile's kept rows in row order in
+// kslot, and the MLP slots run on ceil(kept / 64) sub-tiles of that list,
+// zeros past its end, each prediction scattered back to pred[j][row]. The
+// slot phase reads the kept flag and does not run the WHERE again. A row's
+// sum does not depend on its place in the sub-tile, so the predictions are
+// the same bits either way. A dropped row's prediction is not written, and
+// nothing that a selected row reads uses it. A WHERE that reads a
+// prediction, a plan without a WHERE, and every forest slot run over every
+// row.
+//
+// Bound on the H100 (main path, 1,048,576 rows), counted on the rows the
+// WHERE keeps: with the 4-32-1 MLP of the SQL flagship the work is ~0.3 G
+// operations and the 5 read columns are 21 MB, so it is bound by bytes
+// (~0.006 ms at 3.35 TB/s); with the bench MLP (32-128-128-16 softmax) in
+// f32 by f32 operations (47.2 G operations over all rows, ~0.70 ms at 67
+// TFLOP/s, half that where the WHERE keeps half the rows), in bf16 by the 33
+// columns' bytes (at 989 TFLOP/s the operations take less). It reads a
+// feature that is a bare column straight from the block (mlp_feature) and
+// interprets any other feature program with a switch, one feature a thread
+// at a time, and its block's steps (features, a barrier, each layer and a
+// barrier, the softmax) run in series, so it stays far from either bound.
 //
 // K4: each `infera_predict` of a tree ensemble is a forest slot. The TPU
 // kernel ran the forest as strip-packed one-hot and ancestry matmuls for the
@@ -142,9 +165,9 @@
 // grid is the blocks resident on the card at once
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor at the plan's shared
 // memory), so no block waits for a second wave; __launch_bounds__ asks for 3
-// blocks an SM. No atomics on values: sums repeat bit for bit from run to
-// run at one grid size.
-#include "mlp_tile.cuh"
+// blocks an SM (2 in the kWide instance). No atomics on values: sums repeat
+// bit for bit from run to run at one grid size.
+#include "mma_tile.cuh"
 
 #include <limits.h>
 #include <math.h>
@@ -170,12 +193,13 @@ enum Op {
 enum Hdr {
   H_WORDS = 0, H_K, H_S, H_M, H_X, H_WHERE, H_J, H_G, H_NPROG, H_PROGS, H_CODE, H_CONSTS,
   H_STRIDES, H_PREDS, H_JOIN_KEY, H_JOIN_KMAX, H_JOIN_NDIM, H_JOIN_NCOLS, H_I, H_IS, H_D, H_A,
-  H_TAIL,
+  H_TAIL, H_KEPT,
   H_SM_BLOB = 24, H_SM_ACT0, H_SM_ACT1, H_SM_PRED, H_SM_VALS, H_SM_KRAW, H_SM_KSLOT, H_SM_RIDX,
   H_SM_CNT, H_SM_SUMS, H_SM_MM, H_SM_FLAGS, H_SM_IVALS, H_SM_AVALS, H_SM_IACC, H_SM_IEST,
   H_SM_AACC, H_SM_LEAD, H_SM_TOTAL
 };
-static_assert(H_TAIL == 22 && H_SM_TOTAL == 42, "header layout of ops/fused_sql.py");
+static_assert(H_TAIL == 22 && H_KEPT == 23 && H_SM_TOTAL == 42,
+              "header layout of ops/fused_sql.py");
 
 // the tail's slots (ops/fused_sql.py pack_plan): kTailDesc words each at
 // plan[H_TAIL], int slots {block row, kind, estimate row or -1}, then
@@ -315,11 +339,29 @@ __device__ inline T* at(unsigned char* smem, const int* plan, int which) {
   return reinterpret_cast<T*>(smem + plan[which]);
 }
 
-// MLP slot j (descriptor md) on rows [rbase, rbase + 64) of the tile: its
-// predictions go to pred[j][sub * 64 + r]. A feature may read an earlier slot.
+// Feature program `prog` of an MLP slot on row t of the tile (table row
+// `row`): a bare column, a program that is one COL op, is read straight
+// from the block (the same __ldg the interpreter makes, so the same bits);
+// any other program runs in run_program.
+__device__ inline float mlp_feature(const int* plan, int prog, const Src& src, long long row,
+                                    const float* pred, int t) {
+  const int* pt = plan + plan[H_PROGS] + 2 * prog;
+  const int* code = plan + plan[H_CODE] + 2 * pt[0];
+  if (pt[1] == 1 && code[0] == COL) return __ldg(src.x + (long long)code[1] * src.n_pad + row);
+  return run_program(plan, prog, src, row, pred, t);
+}
+
+// MLP slot j (descriptor md) on sub-tile `sub` of the tile's rows: entries
+// 64 sub .. 64 sub + 63 of `rows` (the tile's rows that the WHERE keeps, in
+// row order; nullptr: every row, entry p is row p), of which the first
+// `count` are rows. Row t's prediction goes to pred[j][t]; rows past `count`
+// are zeros in the activation tile and write nothing. A feature may read an
+// earlier slot. f32 layers run on the f32 cores (mlp_stack_ffma), bf16
+// layers on the tensor cores (mlp_stack_bf16, only in the kWide instance).
+template <bool kWide>
 __device__ void mlp_slot(const int* plan, const int* md, int j, unsigned char* smem,
-                         const Src& src, long long n, long long rbase, int sub) {
-  float* s_blob = at<float>(smem, plan, H_SM_BLOB);
+                         const Src& src, long long row0, const int* rows, int count, int sub) {
+  unsigned char* s_blob = smem + plan[H_SM_BLOB];
   float* act0 = at<float>(smem, plan, H_SM_ACT0);
   float* act1 = at<float>(smem, plan, H_SM_ACT1);
   float* pred = at<float>(smem, plan, H_SM_PRED);
@@ -327,22 +369,41 @@ __device__ void mlp_slot(const int* plan, const int* md, int j, unsigned char* s
   d.n_layers = md[0];
   for (int i = 0; i <= kMaxLayers; ++i) d.dim[i] = i <= d.n_layers ? md[1 + i] : 0;
   const int d_in = d.dim[0];
-  const bool bf16 = md[12] != 0;
+  const bool mma = kWide && md[12] != 0;
   const int feat = md[13];
-  for (int i = threadIdx.x; i < kTileRows * d_in; i += kThreads) {
-    const int k = i / kTileRows;
-    const int r = i - k * kTileRows;
-    const long long row = rbase + r;
-    float v = row < n ? run_program(plan, feat + k, src, row, pred, sub * kTileRows + r) : 0.f;
-    if (bf16) v = round_bf16(v);
-    act0[k * kActStride + r] = v;
+  // this thread's row of the sub-tile: its entry p of the list, its row t
+  // of the tile (-1 past count), and every (kThreads / 64)-th feature of it,
+  // each feature's program recognised once (mlp_feature)
+  const int r = threadIdx.x & (kTileRows - 1);
+  const int p = sub * kTileRows + r;
+  const int t = p < count ? (rows != nullptr ? rows[p] : p) : -1;
+  constexpr int kFeatStep = kThreads / kTileRows;
+  const float* h;
+  if (mma) {
+    // the A tile [64][mma_stride(d_in)] bf16 (RN), zero from d_in on, a
+    // pair of features a 4-byte word
+    unsigned char* a0 = reinterpret_cast<unsigned char*>(act0);
+    unsigned char* a1 = reinterpret_cast<unsigned char*>(act1);
+    __nv_bfloat16* a = mma_input(d, a0, a1);
+    const int sa = mma_stride(d_in);
+    for (int k = 2 * (threadIdx.x / kTileRows); k < sa; k += 2 * kFeatStep) {
+      const float lo = t >= 0 && k < d_in ? mlp_feature(plan, feat + k, src, row0 + t, pred, t)
+                                          : 0.f;
+      const float hi = t >= 0 && k + 1 < d_in
+                           ? mlp_feature(plan, feat + k + 1, src, row0 + t, pred, t)
+                           : 0.f;
+      *reinterpret_cast<unsigned*>(a + r * sa + k) = bf16x2_bits(lo, hi);
+    }
+    __syncthreads();
+    h = mlp_stack_bf16(d, s_blob + 4 * md[10], a0, a1);
+  } else {
+    for (int k = threadIdx.x / kTileRows; k < d_in; k += kFeatStep)
+      act0[k * kActStride + r] = t >= 0 ? mlp_feature(plan, feat + k, src, row0 + t, pred, t) : 0.f;
+    __syncthreads();
+    h = mlp_stack_ffma<Block, kWide>(d, reinterpret_cast<const float*>(s_blob) + md[10], act0,
+                                     act1, Block());
   }
-  __syncthreads();
-  const float* w = s_blob + md[10];
-  const float* h = bf16 ? mlp_stack_f32<true>(d, w, act0, act1)
-                        : mlp_stack_f32<false>(d, w, act0, act1);
-  if (threadIdx.x < kTileRows) {
-    const int r = threadIdx.x;
+  if (threadIdx.x < kTileRows && t >= 0) {
     const int C = d.dim[d.n_layers];
     const int oc = md[14];
     float v = h[oc * kActStride + r];
@@ -354,7 +415,7 @@ __device__ void mlp_slot(const int* plan, const int* md, int j, unsigned char* s
       for (int c = 0; c < C; ++c) s = __fadd_rn(s, expf(__fsub_rn(h[c * kActStride + r], m)));
       v = __fdiv_rn(expf(__fsub_rn(v, m)), s);
     }
-    pred[j * kRows + sub * kTileRows + r] = v;
+    pred[j * kRows + t] = v;
   }
   __syncthreads();
 }
@@ -740,12 +801,20 @@ __device__ void combine_by_column(const int* plan, const float* vals, const floa
   }
 }
 
-// 3 blocks an SM: ptxas keeps the kernel in 80 registers without a spill
-// (left free it took 104, 2 blocks an SM; at 4 blocks, 64 registers, it
-// spills), so 24 warps an SM hide the latency of the programs' loads
-constexpr int kMinBlocks = 3;
-
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+// Two instances. kWide = false asks for 3 blocks an SM: ptxas keeps it in
+// 80 registers without a spill (left free the kernel took 104, 2 blocks an
+// SM; at 4 blocks, 64 registers, it spilled), so 24 warps an SM hide the
+// latency of the programs' loads. It runs every plan but those below, its
+// f32 layers on the narrow and thin tiles alone (the flagship's 4-32-1 MLP,
+// the join's 8-4 map). kWide = true adds the 128-column passes' 4 x 8
+// register tile and the tensor-core layers (32 accumulators and 16
+// fragment registers a warp in flight), which at 80 registers spilled: it
+// asks for 2 blocks an SM (128 registers), as K1 bf16 does, and runs a plan
+// with a bf16 slot or an f32 layer of 128 columns or more. Query B's f32
+// plan (about 170 KB of shared memory) fits one block an SM either way, its
+// bf16 plan (about 93 KB) two.
+template <bool kWide>
+__global__ void __launch_bounds__(kThreads, kWide ? 2 : 3)
 fused_sql_kernel(const float* __restrict__ x, long long n_pad, long long n,
                  const int* __restrict__ gplan, const float* __restrict__ blob, int blob_words16,
                  const int* __restrict__ trees, const int* __restrict__ lookup,
@@ -762,6 +831,7 @@ fused_sql_kernel(const float* __restrict__ x, long long n_pad, long long n,
   const int K = plan[H_K], S = plan[H_S], M = plan[H_M], X = plan[H_X];
   const int J = plan[H_J], G = plan[H_G];
   const int has_where = plan[H_WHERE];
+  const bool kept_only = plan[H_KEPT] != 0;  // MLP slots on the rows the WHERE keeps
   const int R = M + X + 2 * K;
   const int SMX = S + M + X;
   const int I = plan[H_I], IS = plan[H_IS], D = plan[H_D], A = plan[H_A];
@@ -773,7 +843,9 @@ fused_sql_kernel(const float* __restrict__ x, long long n_pad, long long n,
   float* pred = at<float>(smem, plan, H_SM_PRED);
   float* vals = at<float>(smem, plan, H_SM_VALS);    // [S + M + X][kRows]
   float* kraw = at<float>(smem, plan, H_SM_KRAW);    // [K][kRows]
-  int* kslot = at<int>(smem, plan, H_SM_KSLOT);      // [kRows]: a leader's fold (warp_fold)
+  // [kRows]: the kept rows' list before the slot phase, then a leader's
+  // fold (warp_fold)
+  int* kslot = at<int>(smem, plan, H_SM_KSLOT);
   long long* cnt = at<long long>(smem, plan, H_SM_CNT);
   double* sums = at<double>(smem, plan, H_SM_SUMS);  // [S][G]
   float* mm = at<float>(smem, plan, H_SM_MM);        // [R][G]
@@ -819,6 +891,28 @@ fused_sql_kernel(const float* __restrict__ x, long long n_pad, long long n,
       ridx[threadIdx.x] = ri;
       __syncthreads();
     }
+    // the rows the MLP slots run on: every row of the tile, or where the
+    // WHERE reads no prediction, the rows it keeps, listed in row order in
+    // kslot (a warp ballot, then each warp's count before it)
+    int count = (int)min((long long)kRows, n - row0);
+    bool keep = false;
+    if (kept_only) {
+      const int t = threadIdx.x;
+      keep = row0 + t < n && run_program(plan, 0, src, row0 + t, pred, t) != 0.f;  // NaN: true
+      const unsigned b = __ballot_sync(kFull, keep);
+      int* warp_kept = reinterpret_cast<int*>(pred);  // [kWarps], before a slot writes pred
+      if ((t & 31) == 0) warp_kept[t >> 5] = __popc(b);
+      __syncthreads();
+      int before = 0;
+      count = 0;
+      for (int w = 0; w < kWarps; ++w) {
+        const int c = warp_kept[w];
+        if (w < (t >> 5)) before += c;
+        count += c;
+      }
+      if (keep) kslot[before + __popc(b & ((1u << (t & 31)) - 1))] = t;
+      __syncthreads();
+    }
     // prediction slots, in order: a feature may read an earlier slot
     for (int j = 0; j < J; ++j) {
       const int* md = plan + plan[H_PREDS] + j * kSlotDesc;
@@ -827,18 +921,18 @@ fused_sql_kernel(const float* __restrict__ x, long long n_pad, long long n,
         __syncthreads();
         continue;
       }
-      for (int sub = 0; sub < kRows / kTileRows; ++sub) {
-        const long long rbase = row0 + sub * kTileRows;
-        if (rbase >= n) break;  // uniform across the block
-        mlp_slot(plan, md, j, smem, src, n, rbase, sub);
-      }
+      for (int sub = 0; sub * kTileRows < count; ++sub)  // count is uniform across the block
+        mlp_slot<kWide>(plan, md, j, smem, src, row0, kept_only ? kslot : nullptr, count, sub);
     }
     // slot phase: one row per thread
     const int t = threadIdx.x;
     const long long row = row0 + t;
     int slot = -1;
     int fl = 0;
-    if (row < n && (!has_where || run_program(plan, 0, src, row, pred, t) != 0.f)) {
+    const bool selected =
+        kept_only ? keep
+                  : row < n && (!has_where || run_program(plan, 0, src, row, pred, t) != 0.f);
+    if (selected) {
       unsigned comb = 0;
       for (int k = 0; k < K; ++k) {
         const float r = run_program(plan, p_key + k, src, row, pred, t);
@@ -1001,15 +1095,16 @@ __global__ void fused_sql_fold(const int* __restrict__ plan,
 namespace infera {
 namespace sql {
 
-// cudaFuncSetAttribute once per device for the largest dynamic shared
-// memory asked so far, not on every launch
+// cudaFuncSetAttribute once per device and instance for the largest dynamic
+// shared memory asked so far, not on every launch
+template <bool kWide>
 inline cudaError_t allow_smem(int smem_bytes) {
   static int allowed[64] = {};
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev < 64 && smem_bytes <= allowed[dev]) return cudaSuccess;
-  e = cudaFuncSetAttribute(fused_sql_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  e = cudaFuncSetAttribute(fused_sql_kernel<kWide>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            smem_bytes);
   if (e == cudaSuccess && dev < 64) allowed[dev] = smem_bytes;
   return e;
@@ -1020,9 +1115,9 @@ inline cudaError_t allow_smem(int smem_bytes) {
 enum Arg {
   A_XC = 0, A_NPAD, A_N, A_PLAN, A_BLOB, A_BLOB_FLOATS, A_TREES, A_LOOKUP, A_DIM, A_XI,
   A_XI_STRIDE, A_DMAT, A_PART, A_NBLOCKS = A_PART + 7, A_SMEM, A_G, A_S, A_R, A_I, A_IS, A_A,
-  A_OUT, A_WORDS = A_OUT + 7
+  A_OUT, A_WIDE = A_OUT + 7, A_WORDS
 };
-static_assert(A_WORDS == 34, "argument block of ops/fused_sql.py");
+static_assert(A_WORDS == 35, "argument block of ops/fused_sql.py");
 
 }  // namespace sql
 }  // namespace infera
@@ -1045,16 +1140,19 @@ extern "C" {
 //   The 7 outputs of the fold: [G] int64 counts, [S][G] f64 sums, [R][G]
 //   f32 min/max rows, [I][G] int64 int slots, [IS][G] f64 estimates, [A][G]
 //   uint64 arg words and the [1] int32 flag word.
+//   wide: 1 for the kernel's kWide instance (ops/fused_sql.py wide_instance).
 // parts: 1 the kernel, 2 the fold, 3 both (a caller timing each alone).
 // Returns a cudaError_t.
 int infera_fused_sql_launch(const long long* a, int parts, void* stream) {
   using namespace infera::sql;
   const int smem = (int)a[A_SMEM], n_blocks = (int)a[A_NBLOCKS];
-  cudaError_t e = allow_smem(smem);
+  const bool wide = a[A_WIDE] != 0;
+  cudaError_t e = wide ? allow_smem<true>(smem) : allow_smem<false>(smem);
   if (e != cudaSuccess) return (int)e;
   const cudaStream_t s = (cudaStream_t)stream;
   const long long* p = a + A_PART;
-  if (parts & 1) fused_sql_kernel<<<n_blocks, infera::kThreads, smem, s>>>(
+  auto kernel = wide ? fused_sql_kernel<true> : fused_sql_kernel<false>;
+  if (parts & 1) kernel<<<n_blocks, infera::kThreads, smem, s>>>(
       (const float*)a[A_XC], a[A_NPAD], a[A_N], (const int*)a[A_PLAN], (const float*)a[A_BLOB],
       (int)(a[A_BLOB_FLOATS] / 4), (const int*)a[A_TREES], (const int*)a[A_LOOKUP],
       (const float*)a[A_DIM], (const long long*)a[A_XI], a[A_XI_STRIDE], (int*)a[A_DMAT],
@@ -1074,15 +1172,15 @@ int infera_fused_sql_launch(const long long* a, int parts, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// Blocks of fused_sql_kernel resident on one SM at `smem` bytes of dynamic
-// shared memory (registers, shared memory and threads all counted), into
-// *blocks. Returns a cudaError_t.
-int infera_fused_sql_occupancy(int smem, int* blocks) {
+// Blocks of fused_sql_kernel's instance `wide` resident on one SM at `smem`
+// bytes of dynamic shared memory (registers, shared memory and threads all
+// counted), into *blocks. Returns a cudaError_t.
+int infera_fused_sql_occupancy(int smem, int wide, int* blocks) {
   using namespace infera::sql;
-  cudaError_t e = allow_smem(smem);
+  cudaError_t e = wide ? allow_smem<true>(smem) : allow_smem<false>(smem);
   if (e != cudaSuccess) return (int)e;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fused_sql_kernel,
-                                                            infera::kThreads, smem);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, wide ? fused_sql_kernel<true> : fused_sql_kernel<false>, infera::kThreads, smem);
 }
 
 const char* infera_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -7,33 +7,30 @@
 // block then walks over row tiles (a persistent grid), so the weights are read
 // from device memory once per block, not once per tile.
 //
-// This file's layers run on the f32 cores: K6, K1 and K7a in f32 (TF32 would
-// change their results), K2' in fused_sql.cu (f32, and bf16 by rounding
-// operands that are exact in f32). They are bound by the f32 FMA rate and by
-// the shared-memory reads that feed it; the register tile below gives 32 FMAs
-// for three 16-byte reads. K1 and K7a in bf16, and K8b, run their layers on
-// the tensor cores instead (mma_tile.cuh), and so do K3 and K7b in int8
+// This file's layer stack, mlp_stack_ffma, runs on the f32 cores: K6, K1 and
+// K7a in f32, and K2' in f32 (fused_sql.cu); TF32 would change their
+// results. It is bound by the f32 FMA rate and by the shared-memory reads
+// that feed it. K1, K7a and K2' in bf16, and K8b, run their layers on the
+// tensor cores instead (mma_tile.cuh), and so do K3 and K7b in int8
 // (imma_tile.cuh).
 //
 // Activations live feature-major in shared memory: act[feature][row], with a
-// row stride of kActStride words. One thread owns a 4-row x 8-column register
-// tile of a layer's output (rows 4*tr..4*tr+3, columns c0..c0+7 of a
-// 128-column pass), so each step of the reduction reads one 16-byte activation
-// vector and two 16-byte weight vectors for 32 multiply-adds.
-//
-// K6, K1 and K7a in f32 run the stack of mlp_stack_ffma below instead
-// (K2' keeps mlp_stack_f32). Two changes, neither of which touches how an
-// output is summed (from 0, one fmaf per input in input order, then the
-// bias), so their results are mlp_stack_f32's bit for bit:
-//   - every warp works on every layer: a layer's 128-column passes keep the
-//     4 x 8 tile, and its narrow rest (the 16 classes of the bench MLP)
-//     takes a 4 x 2 tile dealt over the group's warps, where the 4 x 8 tile
-//     left that layer to one warp of eight;
-//   - two tiles in flight on each SM: a block of 2 x kThreads threads holds
-//     one copy of the weights and two halves (Half), each with its own
-//     activation tiles, its own tiles of the table and its own named
-//     barrier, so one half's load, barriers and tail run beside the other
-//     half's FMAs.
+// row stride of kActStride words. Each output of a layer is summed the same
+// way whichever thread owns it: from 0, one fmaf per input in input order,
+// then the bias, then ReLU; so the kernels agree with one another, and with
+// the plain versions that sum in that order, bit for bit. The outputs are
+// dealt over every warp of a tile group:
+//   - a layer's 128-column passes take a 4-row x 8-column register tile a
+//     thread, so each step of the reduction reads one 16-byte activation
+//     vector and two 16-byte weight vectors for 32 multiply-adds;
+//   - its narrow rest (the 16 classes of the bench MLP) takes a 4 x 2 tile
+//     dealt over the group's warps, where a 4 x 8 tile would leave that layer
+//     to one warp of eight;
+//   - K6, K1 and K7a in f32 run two tiles in flight on each SM: a block of 2 x
+//     kThreads threads holds one copy of the weights and two halves (Half),
+//     each with its own activation tiles, its own tiles of the table and its
+//     own named barrier, so one half's load, barriers and tail run beside the
+//     other half's FMAs. K2' runs one group of kThreads (Block).
 //
 // Weight blob layout of the f32 kernels (built on the host by the Python
 // wrappers): W_0 .. W_{L-1} as [din][pad8(dout)], then b_0 .. b_{L-1} as
@@ -68,94 +65,15 @@ inline MlpDims make_dims(const int* dims, int n_layers) {
   return d;
 }
 
-__device__ inline float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
 __device__ inline float load_f32(const float* p) { return *p; }
 __device__ inline float load_f32(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 
-// out[c][r] = act(sum_k in[k][r] * w[k][c] + bias[c]) for every c < doutp and
-// every row of the tile. kHidden applies ReLU (NaN passes through, as
-// jnp.maximum does); kRoundBf16 then rounds the result to bf16.
-template <bool kHidden, bool kRoundBf16>
-__device__ inline void dense_f32(const float* __restrict__ in, int din,
-                                 const float* __restrict__ w,
-                                 const float* __restrict__ bias, int doutp,
-                                 float* __restrict__ out) {
-  const int tr = threadIdx.x & 15;
-  const int tc = threadIdx.x >> 4;
-  for (int cbase = 0; cbase < doutp; cbase += 128) {
-    const int c0 = cbase + 8 * tc;
-    if (c0 >= doutp) break;
-    float acc[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-    for (int k = 0; k < din; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(in + k * kActStride + 4 * tr);
-      const float4 b0 = *reinterpret_cast<const float4*>(w + k * doutp + c0);
-      const float4 b1 = *reinterpret_cast<const float4*>(w + k * doutp + c0 + 4);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float bj = bias[c0 + j];
-      float v[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float t = acc[i][j] + bj;
-        if (kHidden) t = t < 0.f ? 0.f : t;
-        if (kRoundBf16) t = round_bf16(t);
-        v[i] = t;
-      }
-      *reinterpret_cast<float4*>(out + (c0 + j) * kActStride + 4 * tr) =
-          make_float4(v[0], v[1], v[2], v[3]);
-    }
-  }
-}
-
-// The f32 layer stack over one tile held in act0. Returns the buffer that
-// holds the last layer's output, [pad8(dout)][kActStride] f32.
-template <bool kRoundBf16>
-__device__ inline float* mlp_stack_f32(const MlpDims& d, const float* s_blob,
-                                       float* act0, float* act1) {
-  int w_off = 0;
-  int b_off = 0;
-  for (int l = 0; l < d.n_layers; ++l) w_off += d.dim[l] * pad8(d.dim[l + 1]);
-  float* cur = act0;
-  float* nxt = act1;
-  int wl = 0;
-  for (int l = 0; l < d.n_layers; ++l) {
-    const int din = d.dim[l];
-    const int doutp = pad8(d.dim[l + 1]);
-    if (l + 1 < d.n_layers)
-      dense_f32<true, kRoundBf16>(cur, din, s_blob + wl, s_blob + w_off + b_off, doutp, nxt);
-    else
-      dense_f32<false, false>(cur, din, s_blob + wl, s_blob + w_off + b_off, doutp, nxt);
-    __syncthreads();
-    wl += din * doutp;
-    b_off += doutp;
-    float* t = cur;
-    cur = nxt;
-    nxt = t;
-  }
-  return cur;
-}
-
-// ---------------------------------------------------------------- the f32 stack of K6, K1, K7a
+// ---------------------------------------------------------------- the f32 stack
 
 // The threads that run one tile: a whole block of kThreads threads (Block:
-// every kernel but K6, K1 and K7a in f32), or one half of a block of
-// halves x kThreads threads (Half). A group's tiles are index(), then steps
-// of step(); index() is also its row of a kernel's partials.
+// K2' and every kernel without f32 halves), or one half of a block of halves
+// x kThreads threads (Half). A group's tiles are index(), then steps of
+// step(); index() is also its row of a kernel's partials.
 struct Block {
   __device__ int tid() const { return threadIdx.x; }
   __device__ long long index() const { return blockIdx.x; }
@@ -238,9 +156,9 @@ __device__ inline void store_vec(float* p, const float (&v)[N]) {
 // threads of a group in units of an RM x CN register tile. Unit u goes to
 // thread u mod kThreads: lane u & 31 of warp slot u >> 5, whose warp covers
 // RL * RM rows and (32 / RL) * CN columns, the tile's row spans first. Each
-// output is summed as dense_f32 sums it: from 0, one fmaf per input in input
-// order, then the bias, then ReLU.
-template <bool kHidden, int RM, int CN, int RL>
+// output is summed from 0, one fmaf per input in input order, then the bias,
+// then ReLU. kUnroll: the k loop's unrolling.
+template <bool kHidden, int RM, int CN, int RL, int kUnroll = 4>
 __device__ inline void dense_units(const float* __restrict__ in, int din,
                                    const float* __restrict__ w, const float* __restrict__ bias,
                                    int doutp, int c_begin, int c_end, float* __restrict__ out,
@@ -259,7 +177,7 @@ __device__ inline void dense_units(const float* __restrict__ in, int din,
     for (int i = 0; i < RM; ++i)
 #pragma unroll
       for (int j = 0; j < CN; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
+#pragma unroll kUnroll
     for (int k = 0; k < din; ++k) {
       float av[RM];
       float bv[CN];
@@ -286,27 +204,36 @@ __device__ inline void dense_units(const float* __restrict__ in, int din,
 }
 
 // One layer over every warp of the group: the 128-column passes with the
-// wide tile, then the rest with the narrow (or thin) one.
-template <bool kHidden>
+// wide tile, then the rest with the narrow (or thin) one. kWide = false
+// leaves the wide tile out of the code, for a kernel whose register budget
+// it does not fit (K2's instance of 3 blocks an SM, 80 registers): every
+// column then takes the narrow tile, summed the same, and its k loop
+// unrolls by 2, not 4, which keeps that kernel without a spill.
+template <bool kHidden, bool kWide = true>
 __device__ inline void dense_ffma(const float* __restrict__ in, int din,
                                   const float* __restrict__ w, const float* __restrict__ bias,
                                   int doutp, float* __restrict__ out, int tid) {
-  const int wide = doutp / kPassCols * kPassCols;
-  if (wide > 0)
-    dense_units<kHidden, kWideRows, kWideCols, kWideLanes>(in, din, w, bias, doutp, 0, wide, out,
-                                                           tid);
+  int wide = 0;
+  if constexpr (kWide) {
+    wide = doutp / kPassCols * kPassCols;
+    if (wide > 0)
+      dense_units<kHidden, kWideRows, kWideCols, kWideLanes>(in, din, w, bias, doutp, 0, wide,
+                                                             out, tid);
+  }
+  constexpr int kUnroll = kWide ? 4 : 2;
   if (doutp - wide >= 16)  // the rest: 16 columns or more, else one 8-column group
-    dense_units<kHidden, kNarrowRows, kNarrowCols, kNarrowLanes>(in, din, w, bias, doutp, wide,
-                                                                 doutp, out, tid);
+    dense_units<kHidden, kNarrowRows, kNarrowCols, kNarrowLanes, kUnroll>(in, din, w, bias, doutp,
+                                                                          wide, doutp, out, tid);
   else if (doutp > wide)
-    dense_units<kHidden, kThinRows, kThinCols, kThinLanes>(in, din, w, bias, doutp, wide, doutp,
-                                                           out, tid);
+    dense_units<kHidden, kThinRows, kThinCols, kThinLanes, kUnroll>(in, din, w, bias, doutp, wide,
+                                                                    doutp, out, tid);
 }
 
-// mlp_stack_f32 for K6, K1 and K7a in f32: the same layers and the same
-// bits, every warp of the group on every layer, and the group's own barrier
-// after each layer.
-template <typename G>
+// The f32 layer stack over the tile held in act0, every warp of the group on
+// every layer and the group's own barrier after each layer. Returns the
+// buffer that holds the last layer's output, [pad8(dout)][kActStride] f32.
+// kWide: dense_ffma's.
+template <typename G, bool kWide = true>
 __device__ inline float* mlp_stack_ffma(const MlpDims& d, const float* s_blob, float* act0,
                                         float* act1, const G& g) {
   int w_off = 0;
@@ -319,9 +246,9 @@ __device__ inline float* mlp_stack_ffma(const MlpDims& d, const float* s_blob, f
     const int din = d.dim[l];
     const int doutp = pad8(d.dim[l + 1]);
     if (l + 1 < d.n_layers)
-      dense_ffma<true>(cur, din, s_blob + wl, s_blob + w_off + b_off, doutp, nxt, g.tid());
+      dense_ffma<true, kWide>(cur, din, s_blob + wl, s_blob + w_off + b_off, doutp, nxt, g.tid());
     else
-      dense_ffma<false>(cur, din, s_blob + wl, s_blob + w_off + b_off, doutp, nxt, g.tid());
+      dense_ffma<false, kWide>(cur, din, s_blob + wl, s_blob + w_off + b_off, doutp, nxt, g.tid());
     g.sync();
     wl += din * doutp;
     b_off += doutp;

@@ -54,7 +54,7 @@ _SIGNATURES = {
     },
     "fused_sql": {
         "infera_fused_sql_launch": [_P, _I, _P],
-        "infera_fused_sql_occupancy": [_I, _P],
+        "infera_fused_sql_occupancy": [_I, _I, _P],
     },
     "profile_query": {
         "infera_profile_stage": [_I, _P, _LL, _P, _LL, _P, _I, _I, _P, _P, _I, _I, _P],

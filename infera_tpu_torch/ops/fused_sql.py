@@ -25,8 +25,10 @@ prediction slot ``j``, which the kernel computes on the tile before the slot
 programs run, in slot order (a feature may read an earlier slot):
 
 - an MLP slot (K2′): a ReLU MLP in f32, or in bf16 (the features and every
-  ReLU output rounded to bf16, f32 accumulation), an optional softmax over
-  the classes, then output column ``oc``;
+  ReLU output rounded to bf16, f32 accumulation, on the tensor cores), an
+  optional softmax over the classes, then output column ``oc``. Where the
+  WHERE reads no prediction (``mlp_on_kept_rows``), the kernel runs the MLP
+  slots only on the rows it keeps;
 - a forest slot (K4): every tree walked per row over node tables in device
   memory, the leaf weights added in tree order, then the regressor's column
   plus its base (optional logistic), or the classifier's first-index argmax
@@ -85,7 +87,7 @@ import torch
 
 from . import _kernels
 from .fused_mlp import ACT_STRIDE, MAX_LAYERS, SMEM_LIMIT, pad8
-from .fused_query import QueryWeights, params_from_numpy
+from .fused_query import QueryWeights, mma_blob_bytes, mma_tile_bytes, params_from_numpy
 
 # --------------------------------------------------------------------------- programs
 
@@ -263,10 +265,11 @@ _TAIL_DESC = 4       # words of an int, DISTINCT/MODE or arg slot's descriptor
 # H_JOIN_* (-1 in H_JOIN_KEY: no join); H_TAIL points at the tail slots'
 # descriptors: per int slot (block row, kind, estimate row or -1), per
 # DISTINCT/MODE slot (v_dom, first element of its counts), per arg slot
-# (is_min)
+# (is_min); H_KEPT is 1 where the MLP slots run on the rows the WHERE keeps
+# (``mlp_on_kept_rows``)
 (H_WORDS, H_K, H_S, H_M, H_X, H_WHERE, H_J, H_G, H_NPROG, H_PROGS, H_CODE, H_CONSTS,
  H_STRIDES, H_PREDS, H_JOIN_KEY, H_JOIN_KMAX, H_JOIN_NDIM, H_JOIN_NCOLS, H_I, H_IS, H_D, H_A,
- H_TAIL) = range(23)
+ H_TAIL, H_KEPT) = range(24)
 # a forest slot's descriptor words, shared with csrc/fused_sql.cu
 (F_TREES, F_NODES, F_DEPTH, F_NOUT, F_DIN, F_NODE_OFF, F_W_OFF, F_STRICT, F_OUT_COL, F_BIAS,
  F_LOGISTIC, F_MODE, F_CBIAS_OFF, F_FEAT, F_LABEL_OFF) = range(15)
@@ -325,14 +328,17 @@ class PackedPlan:
 
 
 def smem_layout(plan: FusedPlan, n_words: int, blob_floats: int) -> dict:
-    """Byte offsets of K2's shared memory: the plan words, the MLP weights,
-    two 64-row activation tiles at the widest MLP width (only with an MLP),
-    the tile's predictions (one row per slot, MLP or forest), slot values,
-    raw keys, group slots and a join's dim row per row of the tile (only
-    with a join), then the block's accumulators (int64 counts,
-    f64 sums, f32 min/max rows), the flag word, the tile's int64 values and
-    arg words, and the int slots' and arg slots' per-group accumulators
-    (int64, f64 estimates, 64-bit words), and the reduction's lead table
+    """Byte offsets of K2's shared memory: the plan words, the MLP weights
+    (f32, or ``pack_mma_blob``'s bf16 layout for a bf16 slot), two 64-row
+    activation tiles (only with an MLP), each the larger of an f32 tile at
+    the widest f32 MLP width and a bf16 slot's A tile or scores
+    (``mma_tile_bytes``), the tile's predictions (one row per slot, MLP or
+    forest), slot values, raw keys, group slots and a join's dim row per row
+    of the tile (only with a join), then the block's accumulators (int64
+    counts, f64 sums, f32 min/max rows), the flag word, the tile's int64
+    values and arg words, and the int slots' and arg slots' per-group
+    accumulators (int64, f64 estimates, 64-bit words), and the reduction's
+    lead table
     ([WARPS][G] bytes, laid over the MLP tiles and predictions when they
     hold it). ``total`` is the budget that must fit one block's 227 KB. A
     forest's tables and the DISTINCT counts stay in device memory and take
@@ -340,11 +346,16 @@ def smem_layout(plan: FusedPlan, n_words: int, blob_floats: int) -> dict:
     K, S, M, X = len(plan.keys), len(plan.sums), len(plan.mins), len(plan.maxs)
     G, J = plan.n_groups, len(plan.preds)
     I, A = len(plan.ints), len(plan.args)
-    widest = max((pad8(d) for m in plan.mlps for d in m.dims), default=0)
+    widest = max((pad8(d) for m in plan.mlps if not m.bf16 for d in m.dims), default=0)
+    act0 = act1 = 4 * widest * ACT_STRIDE
+    for m in plan.mlps:
+        if m.bf16:
+            a0, a1 = mma_tile_bytes(m.dims)
+            act0, act1 = max(act0, a0), max(act1, a1)
     sizes = [
         ("blob", 4 * blob_floats),
-        ("act0", 4 * widest * ACT_STRIDE),
-        ("act1", 4 * widest * ACT_STRIDE),
+        ("act0", act0),
+        ("act1", act1),
         ("pred", 4 * J * SLOT_ROWS),
         ("vals", 4 * (S + M + X) * SLOT_ROWS),
         ("kraw", 4 * K * SLOT_ROWS),
@@ -381,6 +392,13 @@ def smem_layout(plan: FusedPlan, n_words: int, blob_floats: int) -> dict:
     return layout
 
 
+def mlp_on_kept_rows(plan: FusedPlan) -> bool:
+    """Whether K2 runs the plan's MLP slots only on the rows its WHERE keeps:
+    the plan has an MLP slot and a WHERE that reads no prediction (the
+    kernel evaluates it before the slots). Forest slots run on every row."""
+    return bool(plan.mlps) and plan.where is not None and all(op != PRED for op, _ in plan.where)
+
+
 def smem_bytes(plan: FusedPlan) -> int:
     """Shared memory K2 needs for ``plan`` (see ``smem_layout``)."""
     n_words, blob_floats = _sizes(plan)
@@ -409,8 +427,12 @@ def _distinct_params(plan: FusedPlan) -> list:
     return seen
 
 
-def _blob_floats(params) -> int:
+def _blob_floats(params, bf16: bool) -> int:
+    """4-byte words of one MLP's weights in the kernel: f32 ``[din][pad8(dout)]``
+    and biases, or ``pack_mma_blob``'s bf16 layout for a bf16 slot."""
     dims = (params[0][0].shape[0],) + tuple(w.shape[1] for w, _ in params)
+    if bf16:
+        return mma_blob_bytes(dims) // 4
     return sum(dims[i] * pad8(dims[i + 1]) + pad8(dims[i + 1]) for i in range(len(dims) - 1))
 
 
@@ -426,7 +448,7 @@ def _sizes(plan: FusedPlan) -> tuple:
     n_words = (_HEADER + 2 * len(progs) + 2 * n_code + len(plan.consts) + len(plan.keys)
                + _SLOT_DESC * len(plan.preds)
                + _TAIL_DESC * (len(plan.ints) + len(plan.dists) + len(plan.args)))
-    blob = sum(_blob_floats(p) for p, _ in _distinct_params(plan))
+    blob = sum(_blob_floats(p, bf16) for p, bf16 in _distinct_params(plan))
     return n_words, blob
 
 
@@ -473,8 +495,10 @@ def pack_plan(plan: FusedPlan, device, lookup=None) -> PackedPlan:
         qw = params_from_numpy(params, device, torch.bfloat16 if bf16 else torch.float32)
         weights.append(qw)
         offsets.append(off)
-        parts.append(qw.blob)
-        off += qw.blob.numel()
+        # a bf16 slot runs on the tensor cores, over pack_mma_blob's layout
+        part = qw.mma_blob.view(torch.float32) if bf16 else qw.blob
+        parts.append(part)
+        off += part.numel()
 
     progs = _programs(plan)
     n_words, blob_floats = _sizes(plan)
@@ -484,6 +508,7 @@ def pack_plan(plan: FusedPlan, device, lookup=None) -> PackedPlan:
     words[H_K], words[H_S] = len(plan.keys), len(plan.sums)
     words[H_M], words[H_X] = len(plan.mins), len(plan.maxs)
     words[H_WHERE] = int(plan.where is not None)
+    words[H_KEPT] = int(mlp_on_kept_rows(plan))
     words[H_J], words[H_G], words[H_NPROG] = len(plan.preds), plan.n_groups, len(progs)
     words[H_I], words[H_IS] = len(plan.ints), len(plan.int_sums)
     words[H_D], words[H_A] = len(plan.dists), len(plan.args)
@@ -668,8 +693,8 @@ def eval_program(code, consts, xc: torch.Tensor, n: int, preds: list,
 
 
 def _dense_fma(wt: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
-    """``wt [d_out, d_in] @ h [d_in, n]`` as the kernel's layer computes it
-    (``csrc/mlp_tile.cuh`` ``dense_f32``): from 0, one ``fmaf`` per input
+    """``wt [d_out, d_in] @ h [d_in, n]`` as the kernel's f32 layer computes it
+    (``csrc/mlp_tile.cuh`` ``dense_units``): from 0, one ``fmaf`` per input
     in input order, each rounded once to f32. The product of two f32 values
     is exact in f64, so each step is the f64 sum rounded to f32."""
     w64 = wt.double()
@@ -686,8 +711,12 @@ def mlp_plain(weights: QueryWeights, feats: torch.Tensor, final_softmax: bool,
     layer stack of ``fused_query.fused_mlp_query_columnar_plain`` (bf16 mode
     rounds the features and every ReLU output to bf16), an optional softmax
     over the classes, then output row ``out_col``. Each layer's products
-    are summed in the kernel's order (``_dense_fma``), so without a softmax
-    every prediction equals the kernel's bit for bit. Returns [n] f32."""
+    are summed in the f32 kernel's order (``_dense_fma``), so in f32 without
+    a softmax every prediction equals the kernel's bit for bit. The kernel
+    runs bf16 layers on the tensor cores (``mma.sync``: bf16 products, f32
+    sums in the tensor core's order), so in bf16 the two agree within the
+    bf16 bounds (a ReLU output's rounding can go the other way when its f32
+    sum differs in the last bit), not bit for bit. Returns [n] f32."""
     bf16 = weights.compute_dtype == torch.bfloat16
     h = feats.to(torch.bfloat16).float() if bf16 else feats
     last = len(weights.layers) - 1
@@ -761,6 +790,24 @@ def predictions_plain(packed: PackedPlan, xc: torch.Tensor, n: int,
         else:
             preds.append(forest_plain(s, w, feats))
     return preds
+
+
+def mlp_subtiles(packed: PackedPlan, xc: torch.Tensor, n: int,
+                 dim_xc: torch.Tensor | None = None) -> tuple:
+    """(64-row sub-tiles K2 runs its MLP slots on, sub-tiles a pass over
+    every row runs) over rows [0, n), all slots together: per 256-row tile
+    ``ceil(kept / 64)`` (``mlp_on_kept_rows``) or ``ceil(rows / 64)``. The
+    WHERE is evaluated by the plain version."""
+    plan = packed.plan
+    tiles = -(-n // SLOT_ROWS)
+    rows = torch.full((tiles * SLOT_ROWS,), False, dtype=torch.bool, device=xc.device)
+    rows[:n] = True
+    dense = int((-(-rows.view(tiles, SLOT_ROWS).sum(1) // 64)).sum())
+    if mlp_on_kept_rows(plan):
+        join = None if plan.join is None else join_plain(packed, xc, n, dim_xc)
+        rows[:n] = _truthy(eval_program(plan.where, plan.consts, xc, n, [], join))
+    run = int((-(-rows.view(tiles, SLOT_ROWS).sum(1) // 64)).sum())
+    return len(plan.mlps) * run, len(plan.mlps) * dense
 
 
 def key_to_int32(r: torch.Tensor) -> torch.Tensor:
@@ -888,10 +935,30 @@ def fused_sql_plain(packed: PackedPlan, xc: torch.Tensor, n_valid: int,
 # --------------------------------------------------------------------------- kernel
 
 _OUT_KEYS = ("count", "sums", "mm", "ints", "iest", "args", "flags")
-def resident_blocks(device: torch.device, smem: int) -> int:
+def wide_instance(plan: FusedPlan) -> bool:
+    """Whether K2 runs ``plan`` in its kWide instance (at most 2 blocks an
+    SM, 128 registers), which alone holds the tensor-core layers and the
+    128-column passes of the f32 layers: a plan with a bf16 MLP slot or an
+    f32 layer of 128 columns or more. Every other plan runs the instance of
+    3 blocks an SM (80 registers), its f32 layers on the narrow tile."""
+    return any(m.bf16 or any(pad8(d) >= 128 for d in m.dims[1:]) for m in plan.mlps)
+
+
+def resident_blocks(device: torch.device, smem: int, wide: bool = False) -> int:
     """Blocks of K2 resident on one SM at ``smem`` bytes of dynamic shared
-    memory (``_kernels.resident_blocks``)."""
-    return _kernels.resident_blocks(device, "fused_sql", "infera_fused_sql_occupancy", smem)
+    memory (``_kernels.resident_blocks``), in the kernel's kWide instance
+    (``wide``) or the other one."""
+    return _kernels.resident_blocks(device, "fused_sql", "infera_fused_sql_occupancy", smem,
+                                    int(wide))
+
+
+def plan_grid(packed: PackedPlan, n_valid: int, device: torch.device) -> tuple:
+    """(blocks of the launch, blocks resident an SM) of K2 on ``packed``
+    over ``n_valid`` rows: the resident blocks of the plan's instance at its
+    shared memory, at most one a tile."""
+    per_sm = resident_blocks(device, packed.smem_bytes, wide_instance(packed.plan))
+    return _kernels.grid_blocks(device, -(-n_valid // SLOT_ROWS), packed.smem_bytes,
+                                per_sm), per_sm
 
 
 def workspace_layout(plan: FusedPlan, n_blocks: int) -> tuple:
@@ -946,7 +1013,7 @@ def _launch_words(packed: PackedPlan, xc, n_valid, dim_xc, int_xc, part, out, n_
              int_xc.data_ptr() if I else 0, int_xc.shape[1] if I else 0,
              out["dist"].data_ptr(), *part, n_blocks, smem, plan.n_groups, len(plan.sums),
              len(plan.mins) + len(plan.maxs) + 2 * len(plan.keys), I, len(plan.int_sums),
-             len(plan.args), *(out[k].data_ptr() for k in _OUT_KEYS)]
+             len(plan.args), *(out[k].data_ptr() for k in _OUT_KEYS), int(wide_instance(plan))]
     return (ctypes.c_longlong * len(words))(*words)
 
 
@@ -986,8 +1053,7 @@ def fused_sql(packed: PackedPlan, xc: torch.Tensor, n_valid: int,
     if smem > SMEM_LIMIT:
         raise ValueError(f"plan needs {smem} bytes of shared memory, over {SMEM_LIMIT}")
     dev = xc.device
-    n_blocks = _kernels.grid_blocks(dev, -(-n_valid // SLOT_ROWS), smem,
-                                    resident_blocks(dev, smem))
+    n_blocks, _per_sm = plan_grid(packed, n_valid, dev)
     part, out = _workspace(packed, n_blocks, dev)
     if plan.dists:
         out["dist"].zero_()   # the kernel adds to the counts with atomics

@@ -5,7 +5,7 @@ Run as a script (not with ``-m``, which would import this checkout's package
 first), one process a side, in turns (parent, change, change, parent), in one
 call on the card::
 
-    python infera_tpu_torch/testing/ab_kernels.py run ROOT TAG OUT_DIR
+    python infera_tpu_torch/testing/ab_kernels.py run ROOT TAG OUT_DIR [sql]
     python infera_tpu_torch/testing/ab_kernels.py compare OUT_DIR TAG...
 
 ``run`` imports ``infera_tpu_torch`` and ``chip_smoke`` (for its queries)
@@ -26,12 +26,14 @@ from ROOT (a checkout, or a ``git archive`` of one) and, over the bench's
 - K8a and the five K8b stages over the bf16 table: ms per call over 100
   queued calls; where the checkout has K7a's ring, ``ring_sweep`` (K8a with
   0 to 6 of its buffers, on K7a's grid and on twice as many blocks);
-- K2/K5 on the plans of SQL queries A, C, F, G-LEFT, G-FULL, H, I and J at
-  ``chip_smoke``'s sizes (the plans come from ``Connection.execute``): the
-  median of 25 calls each between its own CUDA events (``chip_smoke``'s
-  ``device_ms``), the ms per call over 100 queued calls, and ``call_split``
-  (the main kernel and the fold alone from a profiler trace, the call's
-  host part, the grid);
+- K2/K5 on the plans of SQL queries A, B (f32 and bf16), C, F, G-LEFT,
+  G-FULL, H, I, J and K at ``chip_smoke``'s sizes (the plans come from
+  ``Connection.execute``): the median of 25 calls each between its own
+  CUDA events (``chip_smoke``'s ``device_ms``), the ms per call over 100
+  queued calls, and ``call_split`` (the main kernel and the fold alone from
+  a profiler trace, the call's host part, the grid);
+
+With ``sql`` last, ``run`` measures the K2/K5 plans alone.
 
 prints a line per measurement and saves every output to
 OUT_DIR/ab_TAG.npz. ``compare`` holds every TAG's outputs to the first
@@ -41,8 +43,9 @@ K2/K5 counts, flags, min/max rows, int slots, arg words and DISTINCT counts
 equal, f64 sums and estimates within rtol 1e-12, atol 1e-9 (their
 summation order may change with the grid). Across the sides the same,
 but for the kernels whose arithmetic a change may redesign (``REDESIGNED``:
-K7a and K1 in bf16, K8a, K8b), held within rtol 2e-2, atol 1e-2, with the
-largest difference printed, and the f32 query's sums (``F32_SUMS``: K7a
+K7a and K1 in bf16, K8a, K8b, and K2′ bf16, query B's bf16 plan
+``B-bf16``), held within rtol 2e-2, atol 1e-2, with the largest difference
+printed, and the f32 query's sums (``F32_SUMS``: K7a
 and K1 in f32), held within rtol 1e-6: a launch shape may group their f64
 partials otherwise, while their counts, and K6's outputs, stay bit for
 bit. K3's and K7b's counts and sums (``EXACT``) are held bit for bit
@@ -61,7 +64,7 @@ import numpy as np
 
 N = 1 << 20
 _SUM_KEYS = ("sums", "iest")
-REDESIGNED = ("K7a bf16", "K1 bf16", "K8a", "K8b")
+REDESIGNED = ("K7a bf16", "K1 bf16", "K8a", "K8b", "B-bf16")
 EXACT = ("K3", "K7b")
 F32_SUMS = ("K7a f32:sums", "K1 f32:sums")
 
@@ -119,8 +122,7 @@ def split_by_events(torch, packed, xc, n, dim_xc=None, int_xc=None, runs: int = 
 
     dev = xc.device
     smem = packed.smem_bytes
-    per_sm = fs.resident_blocks(dev, smem)
-    grid = _kernels.grid_blocks(dev, -(-n // fs.SLOT_ROWS), smem, per_sm)
+    grid, per_sm = fs.plan_grid(packed, n, dev)
     part, out = fs._workspace(packed, grid, dev)
     words = fs._launch_words(packed, xc, n, dim_xc, int_xc, part, out, grid, smem)
     lib = _kernels.load("fused_sql")
@@ -192,8 +194,9 @@ def ring_sweep(torch, _kernels, pq, x, want, tag) -> None:
 
 def sql_plans(torch, itt, cs) -> dict:
     """{query: (xc, packed, dim_xc, int_xc)}: the K2/K5 plans of queries A,
-    C, F, G-LEFT, G-FULL, H, I and J, each run once through
-    Connection.execute on the card at chip_smoke's tables and models."""
+    B-f32, B-bf16, C, F, G-LEFT, G-FULL, H, I, J and K, each run once
+    through Connection.execute on the card at chip_smoke's tables and
+    models."""
     from infera_tpu_torch.columnar import Column, Table
     from infera_tpu_torch.columnar import types as T
     from infera_tpu_torch.onnx import builder, proto
@@ -203,9 +206,14 @@ def sql_plans(torch, itt, cs) -> dict:
         for name, model in (
                 ("m", builder.mlp_model(in_dim=4, hidden=(32,), out_dim=1)),
                 ("m3", builder.mlp_model(in_dim=8, hidden=(), out_dim=4, softmax=False, seed=0)),
-                ("mt", builder.mlp_model(in_dim=4, hidden=(32,), out_dim=1, softmax=False))):
+                ("mt", builder.mlp_model(in_dim=4, hidden=(32,), out_dim=1, softmax=False)),
+                ("mk", builder.mlp_model(in_dim=32, hidden=(128, 128), out_dim=16,
+                                         softmax=True))):
             proto.save_model_file(model, f"{d}/{name}.onnx")
             itt.load_model(name, f"{d}/{name}.onnx")
+        # query B's models: K's bench MLP at f32 and bf16
+        itt.load_model("mlp_sql", f"{d}/mk.onnx")
+        itt.load_model("mlp_sql_bf16", f"{d}/mk.onnx", "bf16")
     conn = Connection()
     conn.execute("create table big as select x % 64 as g, x % 5 as h, "
                  "(x % 100)::float / 10.0 as f1, "
@@ -225,9 +233,16 @@ def sql_plans(torch, itt, cs) -> dict:
                  f"x % 6 as og from range({N}) r(x)")
     conn.execute("create table dim as select x as k, (x * 2)::float as w from range(1000) r(x)")
     conn.execute(cs.TAIL_TABLE.format(n=N))
-    queries = {"A": cs.SQL_A, "C": cs.SQL_C, "F": cs.SQL_F, "G-LEFT": cs.SQL_G.format(kind="left"),
+    x_rows = np.random.default_rng(1).standard_normal((N, 32)).astype(np.float32)
+    wide = {f"c{k}": Column(np.ascontiguousarray(x_rows[:, k]), T.FLOAT) for k in range(32)}
+    wide.update(g=Column(mid % 64, T.BIGINT), h=Column(mid % 5, T.BIGINT), id=Column(mid, T.BIGINT))
+    conn.register_table("wide", Table(wide))
+    cols = ", ".join(f"c{k}" for k in range(32))
+    queries = {"A": cs.SQL_A, "B-f32": cs.SQL_B.format(m="mlp_sql", cols=cols),
+               "B-bf16": cs.SQL_B.format(m="mlp_sql_bf16", cols=cols), "C": cs.SQL_C,
+               "F": cs.SQL_F, "G-LEFT": cs.SQL_G.format(kind="left"),
                "G-FULL": cs.SQL_G.format(kind="full"), "H": cs.SQL_H, "I": cs.SQL_I,
-               "J": cs.SQL_J}
+               "J": cs.SQL_J, "K": cs.SQL_K.format(cols=cols)}
     plans = {}
     for key, q in queries.items():
         before = set(getattr(conn, "_device_plan_cache", {}))
@@ -240,7 +255,7 @@ def sql_plans(torch, itt, cs) -> dict:
     return plans
 
 
-def run(root: str, tag: str, out_dir: str) -> None:
+def run(root: str, tag: str, out_dir: str, parts: str = "all") -> None:
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     import torch
@@ -266,6 +281,11 @@ def run(root: str, tag: str, out_dir: str) -> None:
     x_bf16 = x.to(torch.bfloat16)
     one_half = hasattr(fq, "query_halves")   # the f32 kernels also launch at one half a block
     out = {}
+    if parts == "sql":
+        sql_phase(torch, itt, cs, _kernels, fs, tag, out)
+        os.makedirs(out_dir, exist_ok=True)
+        np.savez(os.path.join(out_dir, f"ab_{tag}.npz"), **out)
+        return
 
     # K7a, K8a, K8b: queued calls
     for mode, dtype, table in (("bf16", torch.bfloat16, x_bf16), ("f32", torch.float32, x)):
@@ -328,7 +348,15 @@ def run(root: str, tag: str, out_dir: str) -> None:
     if hasattr(pq, "ring_stages"):
         ring_sweep(torch, _kernels, pq, x_bf16, out["K8a:out"], tag)
 
-    # K2/K5 on the SQL plans
+    sql_phase(torch, itt, cs, _kernels, fs, tag, out)
+    os.makedirs(out_dir, exist_ok=True)
+    np.savez(os.path.join(out_dir, f"ab_{tag}.npz"), **out)
+
+
+def sql_phase(torch, itt, cs, _kernels, fs, tag, out) -> None:
+    """K2/K5 on the SQL plans (``sql_plans``) of the checkout's package:
+    each plan's outputs into ``out``, a line of times each."""
+    dev = torch.device("cuda")
     for key, (xc, packed, dim_xc, int_xc) in sql_plans(torch, itt, cs).items():
         def call(packed=packed, xc=xc, dim_xc=dim_xc, int_xc=int_xc):
             return fs.fused_sql(packed, xc, N, dim_xc, int_xc)
@@ -341,7 +369,9 @@ def run(root: str, tag: str, out_dir: str) -> None:
         split = call_split(torch, call)
         smem = packed.smem_bytes
         tiles = -(-N // fs.SLOT_ROWS)
-        if hasattr(fs, "resident_blocks"):
+        if hasattr(fs, "plan_grid"):
+            grid, per_sm = fs.plan_grid(packed, N, dev)
+        elif hasattr(fs, "resident_blocks"):
             per_sm = fs.resident_blocks(dev, smem)
             grid = _kernels.grid_blocks(dev, tiles, smem, per_sm)
         else:
@@ -351,8 +381,6 @@ def run(root: str, tag: str, out_dir: str) -> None:
               f"fold {split['fold_ms']:.4f} ms (trace), host part {split['host_ms']:.4f} ms; "
               f"grid {grid} blocks, resident {per_sm} a SM, {smem} B of shared memory, "
               f"G {packed.plan.n_groups}", flush=True)
-    os.makedirs(out_dir, exist_ok=True)
-    np.savez(os.path.join(out_dir, f"ab_{tag}.npz"), **out)
 
 
 def _side(tag: str) -> str:
@@ -377,7 +405,7 @@ def compare(out_dir: str, tags) -> bool:
                 same = got.shape == ref.shape and np.allclose(got, ref, rtol=1e-6, atol=0)
             elif across and key.startswith(REDESIGNED):
                 same = got.shape == ref.shape and np.allclose(got, ref, rtol=2e-2, atol=1e-2)
-                if same and tag == first[_side(tag)]:
+                if same and tag == first[_side(tag)] and got.size:
                     rel = np.abs(got.astype(np.float64) - ref) / np.maximum(np.abs(ref), 1e-30)
                     print(f"{key}: {tag} against {base}: max abs diff "
                           f"{float(np.abs(got.astype(np.float64) - ref).max()):.4e}, max rel "
@@ -397,7 +425,7 @@ def compare(out_dir: str, tags) -> bool:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if argv[:1] == ["run"] and len(argv) == 4:
+    if argv[:1] == ["run"] and len(argv) in (4, 5) and argv[4:] in ([], ["sql"]):
         run(*argv[1:])
         return 0
     if argv[:1] == ["compare"] and len(argv) >= 3:

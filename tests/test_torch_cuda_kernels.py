@@ -8,11 +8,14 @@ one 128-column pass, widths that are no multiple of 4 or 8, and left shifts
 in K3; K7a over row-major f32 and bf16 tables and K7b with its f32
 epilogues, at a tile multiple and ragged row counts, and the engine's int8
 chain against the CPU's; for K2, every opcode of the programs, the key guards, MLP slots in
-f32 and bf16, and the SQL flagship through Connection.execute; for K4,
+f32 and bf16 on the rows a WHERE keeps (none, one, about half, every row)
+and on every row where the WHERE reads the prediction (f32 without a
+softmax bit for bit), an f32 and a bf16 slot in one plan, and the SQL
+flagship through Connection.execute; for K4,
 regressors and classifiers over heap and non-heap trees, a NaN feature, and
 tree queries through Connection.execute; for K5, a permuted 1:1 key, keys
 with no dim row, negative keys, outer masking over NaN dim values, an MLP
-over dim columns, ragged row counts, the no-fallback rule and join queries
+over dim columns (in f32 and bf16), ragged row counts, the no-fallback rule and join queries
 through Connection.execute; for K2 b–e (the aggregate tail), every tail
 slot against plain at the main path's row counts, the run-to-run equality of
 their partials, the group-key probe as a K2 launch, and the tail's queries
@@ -23,8 +26,8 @@ group, 512 groups, a tile in one group, a group a lane, empty groups, with
 and without its lead table, and run-to-run equality; for K7a's ring,
 table widths of 1, 33 and 128 values and an unaligned table against the
 scalar load; for the tensor-core path of K1, K7a and K8b in bf16, odd
-widths, HMMA in the bf16 kernels' SASS and none in the f32 ones, and two
-resident blocks an SM at the bench MLP; for K3 and K7b on the tensor cores,
+widths, HMMA in the bf16 kernels' SASS (K2's bf16 instance included) and
+none in the f32 ones, and two resident blocks an SM at the bench MLP; for K3 and K7b on the tensor cores,
 the layout tests' widths, an unaligned table, IMMA in their SASS and none
 elsewhere, no spill, and a grid of their resident blocks; for the f32 layer
 stack of K1, K7a and K6 (two halves a block), every width of
@@ -397,33 +400,97 @@ def test_k2_key_guards(cuda):
     _assert_k2_close(got, want, sum_rtol=0)
 
 
-def _mlp_plan(dims, softmax, bf16, oc, seed, G=64):
+def _where(kind, consts, xc):
+    """A WHERE of the MLP plans: ``half`` keeps about half the rows (column
+    3 > 0), ``none`` no row, ``one`` the row of column 1's value at row n //
+    2, ``all`` every row (column 5 > 0), ``pred`` reads the prediction (the
+    MLP then runs on every row)."""
+    if kind == "half":
+        return [(fs.COL, 3), _c(consts, 0.0), (fs.GT, 0)]
+    if kind == "none":
+        return [(fs.COL, 3), _c(consts, 100.0), (fs.GT, 0)]
+    if kind == "one":
+        return [(fs.COL, 1), _c(consts, float(xc[1, xc.shape[1] // 2])), (fs.EQ, 0)]
+    if kind == "all":
+        return [(fs.COL, 5), _c(consts, 0.0), (fs.GT, 0)]
+    return [(fs.PRED, 0), _c(consts, 0.0), (fs.GT, 0), (fs.COL, 3), _c(consts, 0.0), (fs.GT, 0),
+            (fs.OR, 0)]
+
+
+def _mlp_plan(dims, softmax, bf16, oc, seed, G=64, where="half", xc=None):
+    """An MLP slot over the table's columns without NaN: even features bare
+    columns (read straight from the block), odd ones an expression (run by
+    the interpreter)."""
     params = _params(dims, seed)
-    feats = [[(fs.COL, (1, 3, 4, 5)[k % 4])] for k in range(dims[0])]  # no NaN column
+    consts = []
+    half = _c(consts, 0.5)
+    feats = [[(fs.COL, (1, 3, 4, 5)[k % 4])] + ([half, (fs.MUL, 0)] if k % 2 else [])
+             for k in range(dims[0])]
     slot = fs.MlpSlot(params=params, final_softmax=softmax, out_col=oc, bf16=bf16,
                       features=feats)
-    consts = []
-    return fs.FusedPlan(where=[(fs.COL, 3), _c(consts, 0.0), (fs.GT, 0)], keys=[[(fs.COL, 0)]],
+    return fs.FusedPlan(where=_where(where, consts, xc), keys=[[(fs.COL, 0)]],
                         sums=[[(fs.PRED, 0)]], mins=[[(fs.PRED, 0)]], maxs=[[(fs.PRED, 0)]],
                         strides=[1], n_groups=G, consts=consts, preds=[slot])
 
 
+@pytest.mark.parametrize("where", ["half", "none", "one", "all", "pred"])
 @pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("dims,softmax,oc,n", [((4, 32, 1), False, 0, 100_003),
                                                ((32, 128, 128, 16), True, 1, 70_001),
                                                ((5, 130, 3), False, 2, 1)])
-def test_k2_mlp_slots_match_plain(cuda, dims, softmax, oc, n, bf16):
-    packed = fs.pack_plan(_mlp_plan(dims, softmax, bf16, oc, seed=n), cuda)
+def test_k2_mlp_slots_match_plain(cuda, dims, softmax, oc, n, bf16, where):
+    """The MLP slots on the rows the WHERE keeps (none, one, about half,
+    every row) or, where the WHERE reads the prediction, on every row: the
+    same results as the plain version's dense pass; in f32 without a
+    softmax each prediction is the plain version's bit for bit (minima and
+    maxima exact)."""
     xc = _sql_block(n, 10, cuda)
+    packed = fs.pack_plan(_mlp_plan(dims, softmax, bf16, oc, seed=n, where=where, xc=xc), cuda)
+    assert int(packed.words[fs.H_KEPT]) == int(where != "pred")
     got = fs.fused_sql(packed, xc, n)
     want = fs.fused_sql_plain(packed, xc, n)
-    if not bf16:
-        # f32 layers summed in another order: the 1e-5 parity bound
+    if where == "one":
+        assert int(got["count"].sum()) >= 1
+    if not bf16 and not softmax:
+        # the layers sum in the plain version's order: only the f64 sums of
+        # the predictions differ, in their order
+        _assert_k2_close(got, want, sum_rtol=1e-12, mm_rtol=0.0)
+    elif not bf16:
+        # expf differs from torch's exp in the last bits: the 1e-5 parity bound
         _assert_k2_close(got, want, sum_rtol=1e-5, mm_rtol=1e-5)
     else:
         # a bf16 rounding of a ReLU output can go the other way when the f32
         # sum before it differs in its last bit
         _assert_k2_close(got, want, sum_rtol=1e-3, mm_rtol=2e-2)
+
+
+@pytest.mark.parametrize("where", ["half", "pred"])
+def test_k2_f32_and_bf16_mlp_slots_in_one_plan(cuda, where):
+    """One plan with an f32 slot and a bf16 slot: the f32 slot's
+    predictions are the plain version's bit for bit, the bf16 slot's within
+    the bf16 bounds."""
+    n = 100_003
+    xc = _sql_block(n, 12, cuda)
+    consts = []
+    f32 = fs.MlpSlot(params=_params((4, 32, 1), 5), final_softmax=False, out_col=0, bf16=False,
+                     features=[[(fs.COL, k)] for k in (1, 3, 4, 5)])
+    bf16 = fs.MlpSlot(params=_params((32, 128, 128, 16), 6), final_softmax=True, out_col=1,
+                      bf16=True, features=[[(fs.COL, (1, 3, 4, 5)[k % 4])] for k in range(32)])
+    plan = fs.FusedPlan(where=_where(where, consts, xc), keys=[[(fs.COL, 0)]],
+                        sums=[[(fs.PRED, 0)], [(fs.PRED, 1)]], mins=[[(fs.PRED, 0)]],
+                        maxs=[[(fs.PRED, 1)]], strides=[1], n_groups=64, consts=consts,
+                        preds=[f32, bf16])
+    packed = fs.pack_plan(plan, cuda)
+    before = fs.fused_sql.launches["bf16"]
+    got = fs.fused_sql(packed, xc, n)
+    torch.cuda.synchronize()
+    assert fs.fused_sql.launches["bf16"] == before + 1
+    want = fs.fused_sql_plain(packed, xc, n)
+    torch.testing.assert_close(got["count"], want["count"], rtol=0, atol=0)
+    torch.testing.assert_close(got["sums"][0], want["sums"][0], rtol=1e-12, atol=1e-9)
+    torch.testing.assert_close(got["mm"][0], want["mm"][0], rtol=0, atol=0)
+    torch.testing.assert_close(got["sums"][1], want["sums"][1], rtol=1e-3, atol=1e-9)
+    torch.testing.assert_close(got["mm"][1], want["mm"][1], rtol=2e-2, atol=2e-2)
 
 
 def test_k2_sums_are_the_same_from_run_to_run(cuda):
@@ -714,7 +781,7 @@ def _join_inputs(n, kind, seed, cuda):
     return xc, torch.as_tensor(dim, device=cuda), lookup
 
 
-def _join_plan(shape, lookup, n_dim, G=64):
+def _join_plan(shape, lookup, n_dim, G=64, bf16=False):
     consts = []
     col = [(fs.COL, i) for i in range(7)]
     dim = [(fs.DIM, i) for i in range(3)]
@@ -737,7 +804,7 @@ def _join_plan(shape, lookup, n_dim, G=64):
             consts=consts, join=spec)
     # an MLP slot whose features read dim columns (K2' inside K5)
     slot = fs.MlpSlot(params=_params((4, 32, 1), seed=9), final_softmax=False, out_col=0,
-                      bf16=False, features=[[dim[0]], [col[1]], [dim[2]], [col[3]]])
+                      bf16=bf16, features=[[dim[0]], [col[1]], [dim[2]], [col[3]]])
     return fs.FusedPlan(where=[m], keys=[[col[0]]], sums=[[(fs.PRED, 0)]],
                         mins=[[(fs.PRED, 0)]], maxs=[[(fs.PRED, 0)]], strides=[1], n_groups=G,
                         consts=consts, preds=[slot], join=spec)
@@ -766,6 +833,19 @@ def test_k5_join_matches_plain(cuda, kind, n, shape):
         assert int(got["count"].sum()) == n
         if kind == "holes" and n > 1:
             assert 0 < float(got["sums"][0].sum()) < n   # some rows matched, some not
+
+
+@pytest.mark.parametrize("kind,n", [("holes", 1_000_003), ("permuted", 257)])
+def test_k5_bf16_mlp_over_dim_columns_matches_plain(cuda, kind, n):
+    """K2' in bf16 inside K5: the MLP's features read dim columns, on the
+    rows the WHERE (the match) keeps, its layers on the tensor cores; within
+    the bf16 bounds of the plain version."""
+    xc, dim, lookup = _join_inputs(n, kind, seed=n % 89, cuda=cuda)
+    packed = fs.pack_plan(_join_plan("mlp", lookup, dim.shape[1], bf16=True), cuda, lookup)
+    assert int(packed.words[fs.H_KEPT]) == 1
+    got = fs.fused_sql(packed, xc, n, dim)
+    want = fs.fused_sql_plain(packed, xc, n, dim)
+    _assert_k2_close(got, want, sum_rtol=1e-3, mm_rtol=2e-2)
 
 
 def test_k5_join_plan_raises_without_its_library(cuda, monkeypatch):
@@ -1168,6 +1248,10 @@ def test_k2_grid_is_the_resident_blocks(cuda):
     from infera_tpu_torch.ops import _kernels
     assert _kernels.grid_blocks(cuda, 1 << 20, packed.smem_bytes, per_sm) == sms * per_sm
     assert _kernels.grid_blocks(cuda, 3, packed.smem_bytes, per_sm) == 3
+    # query B's bf16 plan (the kWide instance): two blocks an SM or more
+    bf16 = fs.pack_plan(_mlp_plan((32, 128, 128, 16), True, True, 1, seed=1), cuda)
+    grid, per_sm = fs.plan_grid(bf16, 1 << 20, cuda)
+    assert per_sm >= 2 and grid == sms * per_sm
 
 
 # --------------------------------------------------------------------------- K7a's ring
@@ -1250,15 +1334,20 @@ def test_mma_path_runs_the_odd_widths(cuda, dims, n):
 
 def test_hmma_in_the_bf16_kernels_only(cuda):
     """The built libraries' SASS: HMMA in every bf16 instantiation of K1 and
-    K7a and in the stage kernel (K8a, K8b), none in the f32 and int8 ones."""
+    K7a, in the stage kernel (K8a, K8b) and in K2's kWide instance, none
+    in the f32 and int8 ones nor in K2's other instance; neither K2
+    instance spills."""
     from infera_tpu_torch.ops import _kernels
     for lib, mma_kernel, n_mma in (("fused_query", "6infera17query_bf16_kernel", 4),
-                                   ("profile_query", "6infera12stage_kernel", 1)):
+                                   ("profile_query", "6infera12stage_kernel", 1),
+                                   ("fused_sql", "3sql16fused_sql_kernelILb1E", 1)):
         counts = _kernels.sass_opcodes(lib, "HMMA")
         mma = {k: v for k, v in counts.items() if mma_kernel in k}
         rest = {k: v for k, v in counts.items() if mma_kernel not in k}
         assert len(mma) == n_mma and all(v > 0 for v in mma.values()), mma
         assert rest and not any(rest.values()), rest
+    for stem in ("3sql16fused_sql_kernelILb1E", "3sql16fused_sql_kernelILb0E"):
+        assert _kernels.ptxas_usage("fused_sql", stem)[2] == 0, stem
 
 
 def test_imma_in_the_int8_kernel_only(cuda):
