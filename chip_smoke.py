@@ -7,7 +7,7 @@ card, builds every kernel of ``infera_tpu_torch/csrc`` with nvcc (sm_90a), and:
 1. prints the card, its power limit, the torch and CUDA versions and the
    build time; the tensor-core paths: HMMA in the SASS (``cuobjdump``) of
    the bf16 kernels of K1, K7a and K8b and of K2's kWide instance (plans
-   with a bf16 MLP slot or a 128-column f32 layer), none in the f32 and
+   with a bf16 MLP slot, a 128-column f32 layer or a forest), none in the f32 and
    int8 ones nor in K2's other instance, IMMA in the int8 kernel of K3 and
    K7b and none in the f32 and bf16 ones, ptxas's registers and spills of
    each (no spill; at most 128 registers in bf16, 80 in int8 and in K2's
@@ -56,7 +56,12 @@ card, builds every kernel of ``infera_tpu_torch/csrc`` with nvcc (sm_90a), and:
    after. Each must run on ``device_plan_cuda`` with K4 launched and give
    the host executor's rows; K2+K4 is held against its plain version at
    1,048,576 and 1,000,003 rows and timed beside its bound, its plain
-   version and a PyTorch chain (the port's GEMM forest and ``index_add_``);
+   version and a PyTorch chain (the port's GEMM forest and ``index_add_``),
+   with each plan's split, where K4 reads the forest (records in shared
+   memory, features in the tile), its shared memory, blocks an SM (at least
+   two), trees in flight and ptxas's registers and spills (none); then a
+   512-tree forest whose records stay in device memory, held against plain
+   at 1,000,003 rows;
 7. the join path, BASELINE config 3: query F (an 8→4 map's outputs over a
    1,048,576-row source joined back on a permuted key to a 1,048,576-row
    dimension, 16 groups) and the outer joins G-LEFT, G-FULL and H (a
@@ -227,7 +232,8 @@ def sql_split(torch, key, packed, xc, n, dim_xc=None, int_xc=None) -> None:
 
 def sql_instance(wide: bool) -> str:
     """The mangled-name stem of K2's kernel instance: kWide (plans with a
-    bf16 MLP slot or an f32 layer of 128 columns or more) or the other one."""
+    bf16 MLP slot, an f32 layer of 128 columns or more, or a forest slot) or
+    the other one."""
     return f"3sql16fused_sql_kernelILb{int(wide)}E"
 
 
@@ -485,6 +491,14 @@ SQL_D = ("select g, count(*) c, avg(infera_predict('gbt', {f})) p, "
          "where infera_predict('gbt', {f}) > 0.5 group by g order by g").format(f=TREE_FEATS)
 SQL_E = ("select g, count(*), avg(infera_predict('gbc', {f})), "
          "min(infera_predict('gbc', {f})) from wide group by g order by g").format(f=TREE_FEATS)
+# a forest whose records (512 x 127 x 8 B, 520 KB) stay in device memory:
+# 512 trees of depth 6 over 8 features, inside the 2 MiB strip limit of
+# kernel_forest (over 16 features it would not be)
+GBT512 = dict(n_features=8, n_trees=512, depth=6, seed=9)
+SQL_D512 = ("select g, count(*) c, avg(infera_predict('gbt512', {f})) p, "
+            "max(infera_predict('gbt512', {f})) mx from wide "
+            "where infera_predict('gbt512', {f}) > 0.5 group by g order by g").format(
+                f=", ".join(f"c{k}" for k in range(8)))
 # rows against the host executor: keys and counts exact; D's prediction
 # aggregates rel 1e-5 (the host's GEMM forest adds the leaves in another
 # order); E's labels exact, so their average and minimum too
@@ -512,7 +526,9 @@ def numpy_walk(model, x: np.ndarray) -> np.ndarray:
 def tree_phase(torch, itt, x_rows, peaks, device) -> list:
     """Config 4 on the card: engine predict of the GBT over 262,144 rows,
     then queries D (regressor) and E (classifier) through Connection.execute
-    with K4 inside K2; returns the K4 rows of the kernels line."""
+    with K4 inside K2, each plan's route, split and registers, and the
+    512-tree forest on the device-memory route; returns the K4 rows of the
+    kernels line."""
     import os
 
     from infera_tpu_torch.columnar import Column, Table
@@ -630,10 +646,21 @@ def tree_phase(torch, itt, x_rows, peaks, device) -> list:
         sums = torch.zeros(65, device=xc.device).index_add_(0, slot, v)
         return cnt, sums, ext
 
+    from infera_tpu_torch.ops import _kernels
+
     rows = []
     for (key, q), (xc, packed, _, _) in zip(queries.items(), plans):
         plan = packed.plan
         (slot,) = plan.forests
+        # where K4 reads the forest, the instance it runs in and its blocks
+        (route,) = fs.forest_routes(packed)
+        _grid, per_sm = fs.plan_grid(packed, n, xc.device)
+        regs, stack, spill = _kernels.ptxas_usage("fused_sql",
+                                                  sql_instance(fs.wide_instance(plan)))
+        check(spill == 0, f"K4 {key}: ptxas spills {spill} B in its instance")
+        check(route["records"] == "shared" and route["features"] == "tile" and per_sm >= 2,
+              f"K4 {key}: route {route}, {per_sm} blocks an SM")
+        sql_split(torch, key, packed, xc, n)
         check((plan.n_groups, len(plan.keys), slot.n_trees) == (64, 1, 64),
               f"query {key}: plan of {plan.n_groups} groups, {len(plan.keys)} keys")
         err = 0.0
@@ -670,8 +697,43 @@ def tree_phase(torch, itt, x_rows, peaks, device) -> list:
                      "bound_by": b_by, "library_ms": library_ms})
         print(f"K4 {key}: kernel {ms:.4f} ms (quartiles {q25:.4f}-{q75:.4f}), plain "
               f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
-              f"{len(used)} columns, {ops / 1e9:.3f} G operations, {packed.smem_bytes} B of "
-              f"shared memory, {packed.trees.numel() * 4} B of forest tables")
+              f"{len(used)} columns, {ops / 1e9:.3f} G operations, {packed.trees.numel() * 4} B "
+              f"of forest tables; route: records {route['records']}, leaf weights "
+              f"{route['weights']}, features {route['features']}; {packed.smem_bytes} B of "
+              f"shared memory, {per_sm} blocks an SM, {fs.TREES_IN_FLIGHT} trees in flight; "
+              f"ptxas {regs} registers, {stack} B stack, {spill} B spill "
+              f"({sql_instance(fs.wide_instance(plan))})")
+
+    # ---------------------------------------------------------------- 512 trees
+    # records past two blocks' share of an SM: the walk reads device memory
+    with tempfile.TemporaryDirectory() as d:
+        proto.save_model_file(builder.gbt_regressor_model(**GBT512), f"{d}/gbt512.onnx")
+        itt.load_model("gbt512", f"{d}/gbt512.onnx")
+    before = fs.fused_sql.launches["forest"]
+    big_rows = conn.execute(SQL_D512).rows
+    torch.cuda.synchronize()
+    check(conn._exec_path == "device_plan_cuda" and fs.fused_sql.launches["forest"] == before + 1,
+          f"512-tree query ran on {conn._exec_path}")
+    check(len(big_rows) == 64 and all(np.isfinite(r[2]) for r in big_rows if r[1]),
+          "512-tree query: rows")
+    xc, packed, _, _ = list(conn._device_plan_cache.values())[-1]
+    (route,) = fs.forest_routes(packed)
+    check(route["records"] == "device" and route["features"] == "tile",
+          f"512-tree forest: route {route}")
+    got = fs.fused_sql(packed, xc, N_RAGGED)
+    want = fs.fused_sql_plain(packed, xc, N_RAGGED)
+    torch.cuda.synchronize()
+    check(torch.equal(got["count"], want["count"]) and torch.equal(got["flags"], want["flags"]),
+          "K4 512 trees: counts and flags")
+    torch.testing.assert_close(got["sums"], want["sums"], rtol=1e-12, atol=1e-9)
+    torch.testing.assert_close(got["mm"], want["mm"], rtol=0, atol=0)
+    del want
+    _grid, per_sm = fs.plan_grid(packed, n, xc.device)
+    big_ms = float(np.median(device_ms(torch, lambda: fs.fused_sql(packed, xc, n))))
+    print(f"K4 512 trees of depth 6 (8 features) @ {N_RAGGED} rows: counts, flags and min/max "
+          f"equal plain, sums to 1e-12; route: records {route['records']}, features "
+          f"{route['features']}; {packed.smem_bytes} B of shared memory, {per_sm} blocks an SM; "
+          f"kernel {big_ms:.4f} ms @ {n} rows (CUDA events, median of 25)")
     return rows
 
 

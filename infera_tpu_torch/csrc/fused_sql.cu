@@ -69,26 +69,42 @@
 // kernel ran the forest as strip-packed one-hot and ancestry matmuls for the
 // MXU; the function is "per tree, the leaf the row's decisions reach; add the
 // leaf weights", so here one thread takes one row of the 256-row tile and
-// walks every tree over node records {feature or -1, threshold bits, true
-// child, false child} (ml_ops._PackedTrees.kernel_forest), adding the leaf
-// weights in tree order with __fadd_rn, as forest_plain does, so the two agree
-// bit for bit. The tables stay in device memory and are read through the
-// read-only path (__ldg), where every block finds them in L2: no forest that
-// the TPU kernel's 2 MiB strip limit takes is refused for want of shared
-// memory. A classifier walks the forest once per 4 classes and keeps the
-// first-index argmax (a NaN wins, as jnp.argmax) before its label map. A row
-// that holds a non-finite feature sees NaN at every node that tests another
-// feature: the TPU kernel's one-hot select (and the host's GEMM forest)
-// multiplies every feature by 0 or 1, and inf * 0 is NaN.
+// walks every tree, adding the leaf weights in tree order with __fadd_rn, as
+// forest_plain does, so the two agree bit for bit. Per tile, the thread first
+// evaluates its row's feature programs once into its column of a
+// feature-major tile feat[d_in][kRows] in shared memory (bare columns read
+// straight from the block, eight loads in flight), then applies the
+// non-finite rule below to that column once; the walk reads feat[f][r], one
+// bank per row whatever feature a node tests. The trees are
+// compact 8-byte node records (ops/fused_sql.py forest_records): the
+// threshold's bits (a regressor's leaf: its weight), the feature (0xFFFF: a
+// leaf) and two one-byte children, a leaf's children itself; each tree is
+// numbered level by level, so a warp reads one level of one tree from one run
+// of records. Each persistent block copies the records into shared memory
+// once, before its first tile, where the plan still fits two blocks an SM
+// with them (D and E: 64 x 127 records, 65 KB); a larger forest keeps them
+// in device memory and walks the same layout through __ldg. A thread
+// walks kTreesInFlight trees at once, level by level, issuing all their
+// record loads and then all their feature loads before it uses one, so the
+// loads of a level overlap; a tree at its leaf loops on it. A classifier's
+// leaf weights [T * M][n_out] are read after its group's walk, from shared
+// memory where the plan still fits two blocks an SM, else from device
+// memory; it walks the forest once per kOutChunk classes, their sums in
+// registers, then takes the first-index argmax (a NaN wins, as jnp.argmax)
+// and its label map. A row that holds a non-finite feature sees
+// NaN at every node that tests another feature: the TPU kernel's one-hot
+// select (and the host's GEMM forest) multiplies every feature by 0 or 1,
+// and inf * 0 is NaN. A plan whose feature tile does not fit runs each
+// visited node's feature program instead, one tree at a time, from device
+// memory. K4 lives in the kernel's kWide instance (below): eight trees in
+// flight spilled at 80 registers.
 //
 // Bound of K4 on the H100 (config 4: 64 trees of depth 6 over 16 features,
 // 1,048,576 rows): the 17 columns it reads are 71.3 MB (0.021 ms at 3.35
 // TB/s), the 64 x 6 compares and 64 adds per row 0.47 G operations (0.007 ms
-// at 67 TFLOP/s): bound by bytes. This first version interprets each visited
-// node's feature program and chases one record per level, so it is bound by
-// the latency of those dependent loads, far from either bound; staging the
-// features and the tables in shared memory and walking trees across a warp
-// are the next design.
+// at 67 TFLOP/s): bound by bytes. The walk is bound by shared memory
+// instead: 448 record and 384 feature loads a row, each a wavefront or more
+// a warp, and the d_in feature programs a row.
 //
 // K5: a join plan carries the fact key's block row, the largest dim key and
 // the dim block's shape in its header, and the launch two more device
@@ -177,8 +193,10 @@ namespace sql {
 
 constexpr int kRows = 256;      // rows of a tile, one per thread (== kThreads)
 constexpr int kMaxStack = 16;   // MAX_STACK in ops/fused_sql.py
-constexpr int kSlotDesc = 16;   // words of a prediction slot's descriptor; the last is its kind
-constexpr int kOutChunk = 4;    // classes a forest walk adds up at once, in registers
+constexpr int kSlotDesc = 17;   // words of a prediction slot's descriptor; the last is its kind
+constexpr int kOutChunk = 4;    // class sums a forest walk keeps in registers
+constexpr int kTreesInFlight = 8;  // trees a thread walks at once (TREES_IN_FLIGHT)
+constexpr unsigned kLeaf = 0xFFFFu;  // a leaf record's feature (LEAF_FEATURE)
 static_assert(kRows == kThreads, "one row per thread in the slot phase");
 static_assert(kRows % kTileRows == 0, "MLP sub-tiles");
 
@@ -196,7 +214,8 @@ enum Hdr {
   H_TAIL, H_KEPT,
   H_SM_BLOB = 24, H_SM_ACT0, H_SM_ACT1, H_SM_PRED, H_SM_VALS, H_SM_KRAW, H_SM_KSLOT, H_SM_RIDX,
   H_SM_CNT, H_SM_SUMS, H_SM_MM, H_SM_FLAGS, H_SM_IVALS, H_SM_AVALS, H_SM_IACC, H_SM_IEST,
-  H_SM_AACC, H_SM_LEAD, H_SM_TOTAL
+  H_SM_AACC, H_SM_LEAD, H_SM_TOTAL,
+  H_SM_FTILE  // K4's feature tile [d_in][kRows] f32, -1: none (each node's program runs)
 };
 static_assert(H_TAIL == 22 && H_KEPT == 23 && H_SM_TOTAL == 42,
               "header layout of ops/fused_sql.py");
@@ -232,8 +251,8 @@ __device__ inline long long int_start(int kind) {
 // descriptor words: ops/fused_sql.py pack_plan
 enum SlotKind { SLOT_MLP = 0, SLOT_FOREST = 1 };
 enum ForestDesc {
-  F_TREES = 0, F_NODES, F_DEPTH, F_NOUT, F_DIN, F_NODE_OFF, F_W_OFF, F_STRICT, F_OUT_COL, F_BIAS,
-  F_LOGISTIC, F_MODE, F_CBIAS_OFF, F_FEAT, F_LABEL_OFF
+  F_TREES = 0, F_NODES, F_DEPTH, F_NOUT, F_DIN, F_NODE_OFF, F_W_OFF, F_STRICT, F_BIAS, F_LOGISTIC,
+  F_MODE, F_CBIAS_OFF, F_FEAT, F_LABEL_OFF, F_REC_SMEM, F_W_SMEM
 };
 
 __device__ inline float b2f(bool b) { return b ? 1.f : 0.f; }
@@ -343,11 +362,16 @@ __device__ inline T* at(unsigned char* smem, const int* plan, int which) {
 // `row`): a bare column, a program that is one COL op, is read straight
 // from the block (the same __ldg the interpreter makes, so the same bits);
 // any other program runs in run_program.
-__device__ inline float mlp_feature(const int* plan, int prog, const Src& src, long long row,
-                                    const float* pred, int t) {
+__device__ inline int bare_column(const int* plan, int prog) {
   const int* pt = plan + plan[H_PROGS] + 2 * prog;
   const int* code = plan + plan[H_CODE] + 2 * pt[0];
-  if (pt[1] == 1 && code[0] == COL) return __ldg(src.x + (long long)code[1] * src.n_pad + row);
+  return pt[1] == 1 && code[0] == COL ? code[1] : -1;
+}
+
+__device__ inline float mlp_feature(const int* plan, int prog, const Src& src, long long row,
+                                    const float* pred, int t) {
+  const int c = bare_column(plan, prog);
+  if (c >= 0) return __ldg(src.x + (long long)c * src.n_pad + row);
   return run_program(plan, prog, src, row, pred, t);
 }
 
@@ -422,34 +446,103 @@ __device__ void mlp_slot(const int* plan, const int* md, int j, unsigned char* s
 
 __device__ inline bool is_finite(float v) { return fabsf(v) < INFINITY; }  // false for NaN
 
-// K4's walk for one row: adds to acc[0, nc) the weights of classes
-// [c0, c0 + nc) of the leaf each tree of forest fd reaches, tree by tree.
-// nonfin counts the row's non-finite features.
-__device__ __forceinline__ void forest_sums(const int* plan, const int* fd,
-                                            const int* __restrict__ trees, const Src& src,
-                                            long long row, const float* pred, int r, int nonfin,
-                                            int c0, int nc, float (&acc)[kOutChunk]) {
+// K4's node record (ops/fused_sql.py forest_records): x the threshold's f32
+// bits (a regressor's leaf: the leaf weight of its kept column), y the
+// feature (kLeaf: a leaf) | true child << 16 | false child << 24. A tree's
+// nodes are numbered level by level, so a warp's 32 rows read one level of
+// one tree from one run of records; a leaf's children are itself.
+template <bool kShared>
+__device__ __forceinline__ uint2 node_record(const uint2* rec, int i) {
+  if constexpr (kShared) return rec[i];
+  else return __ldg(rec + i);
+}
+
+// Where K4 reads a row's feature f: its column of the feature tile
+// (tile[f * kRows], one bank per row whatever f), or without a tile the
+// feature program `prog + f` (a leaf reads nothing).
+struct RowFeatures {
+  const float* tile;
+  const int* plan;
+  int prog;
+  const Src* src;
+  long long row;
+  const float* pred;
+  int r;
+  int last;  // d_in - 1
+};
+
+template <bool kTile>
+__device__ __forceinline__ float row_feature(const RowFeatures& x, unsigned f) {
+  if constexpr (kTile) return x.tile[min((int)f, x.last) * kRows];
+  else return f == kLeaf ? 0.f : run_program(x.plan, x.prog + f, *x.src, x.row, x.pred, x.r);
+}
+
+// A row with a non-finite feature sees NaN at every node that tests
+// another feature (the one-hot product of the TPU kernel and of the host's
+// GEMM forest: inf * 0 is NaN): feature value v under the row's count of
+// non-finite features.
+__device__ __forceinline__ float one_hot_value(float v, int nonfin) {
+  return nonfin > (is_finite(v) ? 0 : 1) ? __int_as_float(0x7fc00000) : v;
+}
+
+// K4's walk for one row over forest fd's records `rec` (shared memory:
+// kShared) and a classifier's leaf weights w [T * M][n_out] (shared or
+// device memory, one generic load; through __ldg query E ran slower on an
+// H100): kG trees at a time, `depth` levels, each level issuing the
+// group's record loads and then its feature loads before it uses any;
+// a tree that has reached its leaf loops on it. The last group's trees past
+// T walk the last tree and add nothing. Then the group's leaf weights are
+// added in tree order with __fadd_rn, as forest_plain adds them: a
+// regressor's (from its leaf records) to acc[0], a classifier's classes
+// [c0, c0 + nc) to acc.
+// The tile holds the features with one_hot_value applied; without it the
+// walk applies it at each node (nonfin counts the row's non-finite
+// features). kStrict compares with <, else <=.
+template <int kG, bool kShared, bool kTile, bool kStrict>
+__device__ void forest_walk(const int* fd, const uint2* __restrict__ rec, const float* w,
+                            const RowFeatures& x, int nonfin, int c0, int nc,
+                            float (&acc)[kOutChunk]) {
   const int T = fd[F_TREES], M = fd[F_NODES], depth = fd[F_DEPTH], n_out = fd[F_NOUT];
-  const int feat = fd[F_FEAT];
-  const bool strict = fd[F_STRICT] != 0;
-  const int4* nodes = reinterpret_cast<const int4*>(trees + fd[F_NODE_OFF]);
-  const float* w = reinterpret_cast<const float*>(trees + fd[F_W_OFF]);
-  for (int t = 0; t < T; ++t) {
-    const int4* tree = nodes + (long long)t * M;
-    int k = 0;
-    for (int level = 0; level < depth; ++level) {
-      const int4 nd = __ldg(tree + k);
-      if (nd.x < 0) break;  // a leaf
-      float v = run_program(plan, feat + nd.x, src, row, pred, r);
-      // another feature of the row is non-finite: the one-hot product is NaN
-      if (nonfin > (is_finite(v) ? 0 : 1)) v = __int_as_float(0x7fc00000);
-      const float th = __int_as_float(nd.y);
-      k = (strict ? v < th : v <= th) ? nd.z : nd.w;
-    }
-    const float* wl = w + ((long long)t * M + k) * n_out + c0;
+  const bool regressor = fd[F_MODE] == 0;
+  for (int t0 = 0; t0 < T; t0 += kG) {
+    int base[kG], k[kG];
 #pragma unroll
-    for (int i = 0; i < kOutChunk; ++i)
-      if (i < nc) acc[i] = __fadd_rn(acc[i], __ldg(wl + i));
+    for (int i = 0; i < kG; ++i) {
+      base[i] = min(t0 + i, T - 1) * M;
+      k[i] = 0;
+    }
+    for (int level = 0; level < depth; ++level) {
+      uint2 nd[kG];
+      float v[kG];
+#pragma unroll
+      for (int i = 0; i < kG; ++i) nd[i] = node_record<kShared>(rec, base[i] + k[i]);
+#pragma unroll
+      for (int i = 0; i < kG; ++i) v[i] = row_feature<kTile>(x, nd[i].y & kLeaf);
+#pragma unroll
+      for (int i = 0; i < kG; ++i) {
+        const float f = kTile ? v[i] : one_hot_value(v[i], nonfin);
+        const float th = __uint_as_float(nd[i].x);
+        k[i] = (kStrict ? f < th : f <= th) ? (nd[i].y >> 16) & 0xFFu : nd[i].y >> 24;
+      }
+    }
+    if (regressor) {
+      float lw[kG];
+#pragma unroll
+      for (int i = 0; i < kG; ++i)
+        lw[i] = __uint_as_float(node_record<kShared>(rec, base[i] + k[i]).x);
+#pragma unroll
+      for (int i = 0; i < kG; ++i)
+        if (t0 + i < T) acc[0] = __fadd_rn(acc[0], lw[i]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kG; ++i) {
+        if (t0 + i >= T) break;
+        const float* wl = w + (long long)(base[i] + k[i]) * n_out + c0;
+#pragma unroll
+        for (int c = 0; c < kOutChunk; ++c)
+          if (c < nc) acc[c] = __fadd_rn(acc[c], wl[c]);
+      }
+    }
   }
 }
 
@@ -462,47 +555,98 @@ __device__ inline void argmax_step(float v, int c, float& best, int& idx) {
 }
 
 // Forest slot j (descriptor fd, K4) on the tile's rows, one per thread: its
-// prediction goes to pred[j][r].
-__device__ void forest_slot(const int* plan, const int* fd, int j, float* pred,
+// prediction goes to pred[j][r]. The row's features are evaluated once, into
+// its column of the feature tile where the plan has one (counting the
+// non-finite ones); the walk reads the records from shared memory where the
+// plan placed them there, else from device memory.
+__device__ void forest_slot(const int* plan, const int* fd, int j, unsigned char* smem,
                             const int* __restrict__ trees, const Src& src, long long n,
                             long long row0) {
+  float* pred = at<float>(smem, plan, H_SM_PRED);
   const int r = threadIdx.x;
   const long long row = row0 + r;
   float out = 0.f;
   if (row < n) {
-    const int d_in = fd[F_DIN], feat = fd[F_FEAT], mode = fd[F_MODE];
+    const int d_in = fd[F_DIN], mode = fd[F_MODE], prog = fd[F_FEAT];
+    float* tile = plan[H_SM_FTILE] >= 0 ? at<float>(smem, plan, H_SM_FTILE) + r : nullptr;
+    const RowFeatures x{tile, plan, prog, &src, row, pred, r, d_in - 1};
     int nonfin = 0;
-    for (int f = 0; f < d_in; ++f)
-      nonfin += is_finite(run_program(plan, feat + f, src, row, pred, r)) ? 0 : 1;
+    if (tile != nullptr) {
+      // bare columns kStage at a time, every load issued before the first
+      // store; then any other feature program
+      constexpr int kStage = 8;
+      for (int f0 = 0; f0 < d_in; f0 += kStage) {
+        float v[kStage];
+#pragma unroll
+        for (int i = 0; i < kStage; ++i) {
+          const int c = f0 + i < d_in ? bare_column(plan, prog + f0 + i) : -1;
+          v[i] = c >= 0 ? __ldg(src.x + (long long)c * src.n_pad + row) : 0.f;
+        }
+#pragma unroll
+        for (int i = 0; i < kStage; ++i)
+          if (f0 + i < d_in) tile[(f0 + i) * kRows] = v[i];
+      }
+      for (int f = 0; f < d_in; ++f)
+        if (bare_column(plan, prog + f) < 0)
+          tile[f * kRows] = run_program(plan, prog + f, src, row, pred, r);
+      for (int f = 0; f < d_in; ++f) nonfin += is_finite(tile[f * kRows]) ? 0 : 1;
+      if (nonfin > 0)
+        for (int f = 0; f < d_in; ++f) tile[f * kRows] = one_hot_value(tile[f * kRows], nonfin);
+    } else {
+      for (int f = 0; f < d_in; ++f)
+        nonfin += is_finite(mlp_feature(plan, prog + f, src, row, pred, r)) ? 0 : 1;
+    }
+    const bool rec_shared = tile != nullptr && fd[F_REC_SMEM] >= 0;
+    const uint2* rec = reinterpret_cast<const uint2*>(
+        rec_shared ? smem + fd[F_REC_SMEM]
+                   : reinterpret_cast<const unsigned char*>(trees + fd[F_NODE_OFF]));
+    const float* w = fd[F_W_SMEM] >= 0   ? reinterpret_cast<const float*>(smem + fd[F_W_SMEM])
+                     : fd[F_W_OFF] >= 0 ? reinterpret_cast<const float*>(trees + fd[F_W_OFF])
+                                        : nullptr;  // a regressor's lie in its records
+    const bool strict = fd[F_STRICT] != 0;
+    constexpr int kG = kTreesInFlight;
+    auto walk = [&](int c0, int nc, float (&acc)[kOutChunk]) {
+      if (tile == nullptr) {
+        if (strict) forest_walk<1, false, false, true>(fd, rec, w, x, nonfin, c0, nc, acc);
+        else forest_walk<1, false, false, false>(fd, rec, w, x, nonfin, c0, nc, acc);
+      } else if (rec_shared) {
+        if (strict) forest_walk<kG, true, true, true>(fd, rec, w, x, 0, c0, nc, acc);
+        else forest_walk<kG, true, true, false>(fd, rec, w, x, 0, c0, nc, acc);
+      } else {
+        if (strict) forest_walk<kG, false, true, true>(fd, rec, w, x, 0, c0, nc, acc);
+        else forest_walk<kG, false, true, false>(fd, rec, w, x, 0, c0, nc, acc);
+      }
+    };
     if (mode == 0) {
       // regressor: the kept column plus its base, then an optional logistic
       float acc[kOutChunk] = {0.f, 0.f, 0.f, 0.f};
-      forest_sums(plan, fd, trees, src, row, pred, r, nonfin, fd[F_OUT_COL], 1, acc);
+      walk(0, 1, acc);
       out = __fadd_rn(acc[0], __int_as_float(fd[F_BIAS]));
       if (fd[F_LOGISTIC]) out = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-out)));
     } else {
-      // classifier: per-class base, (binary expansion), argmax, label map
+      // classifier: per-class base, (binary expansion), argmax, label map;
+      // one walk per kOutChunk classes, their sums in registers
       const int n_out = fd[F_NOUT];
       const float* cbias =
           fd[F_CBIAS_OFF] >= 0 ? reinterpret_cast<const float*>(trees + fd[F_CBIAS_OFF]) : nullptr;
       float best = 0.f;
       int idx = 0;
+      auto score = [&](float s, int c) {
+        if (cbias != nullptr) s = __fadd_rn(s, __ldg(cbias + c));
+        if (mode == 2) {
+          argmax_step(-s, 0, best, idx);
+          argmax_step(s, 1, best, idx);
+        } else {
+          argmax_step(s, c, best, idx);
+        }
+      };
       for (int c0 = 0; c0 < n_out; c0 += kOutChunk) {
         const int nc = min(kOutChunk, n_out - c0);
         float acc[kOutChunk] = {0.f, 0.f, 0.f, 0.f};
-        forest_sums(plan, fd, trees, src, row, pred, r, nonfin, c0, nc, acc);
+        walk(c0, nc, acc);
 #pragma unroll
-        for (int i = 0; i < kOutChunk; ++i) {
-          if (i >= nc) continue;
-          float s = acc[i];
-          if (cbias != nullptr) s = __fadd_rn(s, __ldg(cbias + c0 + i));
-          if (mode == 2) {
-            argmax_step(-s, 0, best, idx);
-            argmax_step(s, 1, best, idx);
-          } else {
-            argmax_step(s, c0 + i, best, idx);
-          }
-        }
+        for (int i = 0; i < kOutChunk; ++i)
+          if (i < nc) score(acc[i], c0 + i);
       }
       out = fd[F_LABEL_OFF] >= 0
                 ? __ldg(reinterpret_cast<const float*>(trees + fd[F_LABEL_OFF]) + idx)
@@ -810,9 +954,12 @@ __device__ void combine_by_column(const int* plan, const float* vals, const floa
 // register tile and the tensor-core layers (32 accumulators and 16
 // fragment registers a warp in flight), which at 80 registers spilled: it
 // asks for 2 blocks an SM (128 registers), as K1 bf16 does, and runs a plan
-// with a bf16 slot or an f32 layer of 128 columns or more. Query B's f32
-// plan (about 170 KB of shared memory) fits one block an SM either way, its
-// bf16 plan (about 93 KB) two.
+// with a bf16 slot or an f32 layer of 128 columns or more, and every plan
+// with a forest slot: K4's trees in flight spilled at 80 registers, and its
+// records hold D's and E's plans (about 89 KB) to 2 blocks an SM anyway;
+// the other instance holds no forest code. Query B's f32 plan (about 170
+// KB of shared memory) fits one block an SM either way, its bf16 plan
+// (about 93 KB) two.
 template <bool kWide>
 __global__ void __launch_bounds__(kThreads, kWide ? 2 : 3)
 fused_sql_kernel(const float* __restrict__ x, long long n_pad, long long n,
@@ -840,6 +987,17 @@ fused_sql_kernel(const float* __restrict__ x, long long n_pad, long long n,
   const int* adesc = ddesc + kTailDesc * D;         // arg slots
   const int* strides = plan + plan[H_STRIDES];
   if (blob_words16 > 0) copy_words16(at<float>(smem, plan, H_SM_BLOB), blob, blob_words16);
+  // K4: the records and leaf weights the plan places in shared memory, once
+  // per block (ordered before the first tile by the barrier below)
+  for (int j = 0; kWide && j < J; ++j) {
+    const int* fd = plan + plan[H_PREDS] + j * kSlotDesc;
+    if (fd[kSlotDesc - 1] != SLOT_FOREST) continue;
+    const int nodes = fd[F_TREES] * fd[F_NODES];
+    if (fd[F_REC_SMEM] >= 0)
+      copy_words16(smem + fd[F_REC_SMEM], trees + fd[F_NODE_OFF], (8 * nodes + 15) / 16);
+    if (fd[F_W_SMEM] >= 0)
+      copy_words16(smem + fd[F_W_SMEM], trees + fd[F_W_OFF], (4 * nodes * fd[F_NOUT] + 15) / 16);
+  }
   float* pred = at<float>(smem, plan, H_SM_PRED);
   float* vals = at<float>(smem, plan, H_SM_VALS);    // [S + M + X][kRows]
   float* kraw = at<float>(smem, plan, H_SM_KRAW);    // [K][kRows]
@@ -917,7 +1075,10 @@ fused_sql_kernel(const float* __restrict__ x, long long n_pad, long long n,
     for (int j = 0; j < J; ++j) {
       const int* md = plan + plan[H_PREDS] + j * kSlotDesc;
       if (md[kSlotDesc - 1] == SLOT_FOREST) {
-        forest_slot(plan, md, j, pred, trees, src, n, row0);
+        // the other instance holds no forest code: a forest plan launched
+        // there (wide_instance decides) fails rather than keep stale values
+        if constexpr (kWide) forest_slot(plan, md, j, smem, trees, src, n, row0);
+        else __trap();
         __syncthreads();
         continue;
       }

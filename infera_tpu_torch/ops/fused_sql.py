@@ -29,8 +29,10 @@ programs run, in slot order (a feature may read an earlier slot):
   optional softmax over the classes, then output column ``oc``. Where the
   WHERE reads no prediction (``mlp_on_kept_rows``), the kernel runs the MLP
   slots only on the rows it keeps;
-- a forest slot (K4): every tree walked per row over node tables in device
-  memory, the leaf weights added in tree order, then the regressor's column
+- a forest slot (K4): the row's features staged once per tile, every tree
+  walked per row over compact node records (``forest_records``, in shared
+  memory where ``smem_layout`` places them), ``TREES_IN_FLIGHT`` trees at
+  once, the leaf weights added in tree order, then the regressor's column
   plus its base (optional logistic), or the classifier's first-index argmax
   over the per-class scores mapped through its labels. ``forest_plain`` is
   the same function in torch ops.
@@ -87,7 +89,8 @@ import torch
 
 from . import _kernels
 from .fused_mlp import ACT_STRIDE, MAX_LAYERS, SMEM_LIMIT, pad8
-from .fused_query import QueryWeights, mma_blob_bytes, mma_tile_bytes, params_from_numpy
+from .fused_query import (TWO_BLOCK_SMEM, QueryWeights, mma_blob_bytes, mma_tile_bytes,
+                          params_from_numpy)
 
 # --------------------------------------------------------------------------- programs
 
@@ -178,6 +181,8 @@ class ForestSlot:
     class_bias: np.ndarray | None = None
     binary: bool = False
     labels: np.ndarray | None = None
+    # forest_records of this slot, made once
+    _records: tuple | None = field(default=None, init=False, repr=False, compare=False)
 
     @property
     def n_trees(self) -> int:
@@ -186,6 +191,72 @@ class ForestSlot:
     @property
     def n_out(self) -> int:
         return self.weights.shape[2]
+
+    def records(self) -> tuple:
+        """``forest_records`` of the slot, made at the first call."""
+        if self._records is None:
+            self._records = forest_records(self)
+        return self._records
+
+    def smem_bytes(self) -> tuple:
+        """(bytes of shared memory K4 keeps for the records, for a
+        classifier's leaf weights, 0 for a regressor): 8 B, and n_out f32,
+        for each of the node table's slots. That holds what
+        ``forest_records`` packs (its reachable nodes), and the budget,
+        which the planner checks at every execution, walks no tree."""
+        T, M = self.node.shape[:2]
+        return 8 * T * M, 4 * T * M * self.n_out if self.classifier else 0
+
+
+def forest_records(s: ForestSlot) -> tuple:
+    """K4's compact tables of forest slot ``s``: (records uint32 [T, M, 2],
+    a classifier's leaf weights [T, M, n_out] f32 or None for a regressor).
+    Each tree's reachable nodes are numbered level by level from the root
+    (the true child first), so one level of one tree is one run of records;
+    M is the most nodes of a tree. Word 0 of a record holds the threshold's
+    f32 bits (a regressor's leaf: the leaf weight of column ``out_col``),
+    word 1 the feature | true child << 16 | false child << 24; a leaf's
+    feature is LEAF_FEATURE and its children are itself, so a walk that has
+    reached it stays. ``kernel_forest`` admits trees of at most 128 internal
+    nodes and 128 leaves, so every child fits its byte; a feature past
+    65,534 or a child past 255 raises ValueError, never wraps."""
+    node = s.node
+    T = node.shape[0]
+    orders = []
+    for t in range(T):
+        order, seen = [0], {0}
+        for nd in order:                      # grows while it is read: breadth first
+            if node[t, nd, 0] >= 0:
+                for c in (int(node[t, nd, 2]), int(node[t, nd, 3])):
+                    if c not in seen:
+                        seen.add(c)
+                        order.append(c)
+        orders.append(np.asarray(order))
+    M = max(len(o) for o in orders)
+    if M > 256:
+        raise ValueError(f"a tree of {M} nodes: K4's records hold children below 256")
+    feats = node[:, :, 0]
+    if feats.max(initial=-1) > LEAF_FEATURE - 1:
+        raise ValueError(f"feature {int(feats.max())} past K4's records' {LEAF_FEATURE - 1}")
+    rec = np.zeros((T, M, 2), np.uint32)
+    w = None if not s.classifier else np.zeros((T, M, s.n_out), np.float32)
+    for t, old in enumerate(orders):
+        j = np.arange(len(old))
+        new = np.zeros(node.shape[1], np.int64)
+        new[old] = j
+        nd = node[t, old]
+        leaf = nd[:, 0] < 0
+        tc = np.where(leaf, j, new[nd[:, 2]])
+        fc = np.where(leaf, j, new[nd[:, 3]])
+        if s.classifier:
+            rec[t, j, 0] = np.where(leaf, 0, nd[:, 1].view(np.uint32))
+            w[t, j] = s.weights[t, old]
+        else:
+            lw = s.weights[t, old, s.out_col].view(np.uint32)
+            rec[t, j, 0] = np.where(leaf, lw, nd[:, 1].view(np.uint32))
+        feat = np.where(leaf, LEAF_FEATURE, nd[:, 0]).astype(np.int64)
+        rec[t, j, 1] = (feat | tc << 16 | fc << 24).astype(np.uint32)
+    return rec, w
 
 
 @dataclass
@@ -258,7 +329,7 @@ class FusedPlan:
 
 # --------------------------------------------------------------------------- packing
 
-_SLOT_DESC = 16      # words of a prediction slot's descriptor; the last says its kind
+_SLOT_DESC = 17      # words of a prediction slot's descriptor; the last says its kind
 SLOT_MLP, SLOT_FOREST = 0, 1
 _TAIL_DESC = 4       # words of an int, DISTINCT/MODE or arg slot's descriptor
 # header words, shared with csrc/fused_sql.cu; K5's join descriptor is
@@ -270,12 +341,21 @@ _TAIL_DESC = 4       # words of an int, DISTINCT/MODE or arg slot's descriptor
 (H_WORDS, H_K, H_S, H_M, H_X, H_WHERE, H_J, H_G, H_NPROG, H_PROGS, H_CODE, H_CONSTS,
  H_STRIDES, H_PREDS, H_JOIN_KEY, H_JOIN_KMAX, H_JOIN_NDIM, H_JOIN_NCOLS, H_I, H_IS, H_D, H_A,
  H_TAIL, H_KEPT) = range(24)
-# a forest slot's descriptor words, shared with csrc/fused_sql.cu
-(F_TREES, F_NODES, F_DEPTH, F_NOUT, F_DIN, F_NODE_OFF, F_W_OFF, F_STRICT, F_OUT_COL, F_BIAS,
- F_LOGISTIC, F_MODE, F_CBIAS_OFF, F_FEAT, F_LABEL_OFF) = range(15)
+# a forest slot's descriptor words, shared with csrc/fused_sql.cu: the
+# device-memory word offsets of its records (F_NODE_OFF; a regressor's
+# leaf weights of its kept column lie in them), a classifier's leaf
+# weights, class base values and labels (-1: none), and the byte offsets of
+# the records and the leaf weights in shared memory (-1: the kernel reads
+# them from device memory)
+(F_TREES, F_NODES, F_DEPTH, F_NOUT, F_DIN, F_NODE_OFF, F_W_OFF, F_STRICT, F_BIAS, F_LOGISTIC,
+ F_MODE, F_CBIAS_OFF, F_FEAT, F_LABEL_OFF, F_REC_SMEM, F_W_SMEM) = range(16)
+TREES_IN_FLIGHT = 8  # trees a thread of K4 walks at once (kTreesInFlight)
+OUT_CHUNK = 4        # class sums K4 keeps in registers, a walk each (kOutChunk)
+LEAF_FEATURE = 0xFFFF   # a leaf record's feature
 _SMEM_KEYS = ("blob", "act0", "act1", "pred", "vals", "kraw", "kslot", "ridx", "cnt", "sums",
               "mm", "flags", "ivals", "avals", "iacc", "iest", "aacc", "lead", "total")
 H_SMEM = 24          # header words 24..42: byte offsets of _SMEM_KEYS in shared memory
+H_FTILE = 43         # byte offset of K4's feature tile [d_in][SLOT_ROWS] f32, -1: none
 WARPS = SLOT_ROWS // 32   # warps of a block; the reduction's lead table is [WARPS][G] bytes
 _HEADER = 48
 
@@ -305,8 +385,9 @@ class PackedPlan:
     """A plan on one device: ``words`` int32 (header, program table, code,
     constants, strides, slot descriptors), ``blob`` f32 (every distinct MLP's
     weights in the kernel's layout, ``blob_floats`` of them), ``trees`` int32
-    (every forest slot's node records, leaf weights, class base values and
-    labels, which K4 reads from device memory), per prediction slot its
+    (every forest slot's records and a classifier's leaf weights,
+    ``forest_records``, class base values and labels; K4 copies them into
+    shared memory where ``smem_layout`` places them), per prediction slot its
     weights for the plain version (``QueryWeights`` or ``ForestTables``),
     the kernel's shared-memory layout, and a join plan's key lookup (int32
     ``[kmax + 1]``, None without a join)."""
@@ -340,9 +421,12 @@ def smem_layout(plan: FusedPlan, n_words: int, blob_floats: int) -> dict:
     accumulators (int64, f64 estimates, 64-bit words), and the reduction's
     lead table
     ([WARPS][G] bytes, laid over the MLP tiles and predictions when they
-    hold it). ``total`` is the budget that must fit one block's 227 KB. A
-    forest's tables and the DISTINCT counts stay in device memory and take
-    none of it."""
+    hold it). A plan with a forest slot adds K4's feature tile and each
+    forest's records and leaf weights where they fit (``ftile``,
+    ``forests``: per forest slot the byte offsets of its records and leaf
+    weights, -1 where they stay in device memory).
+    ``total`` is the budget that must fit one block's 227 KB. The DISTINCT
+    counts stay in device memory and take none of it."""
     K, S, M, X = len(plan.keys), len(plan.sums), len(plan.mins), len(plan.maxs)
     G, J = plan.n_groups, len(plan.preds)
     I, A = len(plan.ints), len(plan.args)
@@ -387,9 +471,47 @@ def smem_layout(plan: FusedPlan, n_words: int, blob_floats: int) -> dict:
         off += _align16(lead)
     else:
         layout["lead"] = -1
+    if plan.forests:
+        # K4: the feature tile [d_in][SLOT_ROWS] f32 at the widest forest's
+        # inputs where it fits beside the rest, else none (-1: the kernel
+        # runs each visited node's feature program) rather than a plan stop
+        # fitting; per forest, in slot order, its records beside a feature
+        # tile, then a classifier's leaf weights, each where the plan still
+        # fits two blocks an SM (-1: device memory, where two blocks walk
+        # the same records through __ldg)
+        tile = 4 * max(len(f.features) for f in plan.forests) * SLOT_ROWS
+        layout["ftile"] = -1
+        if off + _align16(tile) <= SMEM_LIMIT:
+            layout["ftile"] = off
+            off += _align16(tile)
+        places = []
+        for f in plan.forests:
+            rec_bytes, w_bytes = f.smem_bytes()
+            rec = w = -1
+            if layout["ftile"] >= 0 and off + _align16(rec_bytes) <= TWO_BLOCK_SMEM:
+                rec = off
+                off += _align16(rec_bytes)
+                if w_bytes and off + _align16(w_bytes) <= TWO_BLOCK_SMEM:
+                    w = off
+                    off += _align16(w_bytes)
+            places.append((rec, w))
+        layout["forests"] = places
     layout["total"] = off
     layout["widest"] = widest
     return layout
+
+
+def forest_routes(packed: PackedPlan) -> list:
+    """Where K4 reads each forest slot's tables, in slot order: its records
+    and leaf weights ("shared" memory or "device" memory; a regressor's
+    weights lie in its records) and its features ("tile": staged once per
+    row; "programs": each visited node's program run)."""
+    lay = packed.smem
+    tile = "tile" if lay.get("ftile", -1) >= 0 else "programs"
+    return [{"records": "shared" if rec >= 0 else "device",
+             "weights": "shared" if (w if f.classifier else rec) >= 0 else "device",
+             "features": tile}
+            for f, (rec, w) in zip(packed.plan.forests, lay.get("forests", []))]
 
 
 def mlp_on_kept_rows(plan: FusedPlan) -> bool:
@@ -455,18 +577,22 @@ def _sizes(plan: FusedPlan) -> tuple:
 def _pack_forest(s: ForestSlot, parts: list, start: int, device) -> tuple:
     """Append forest slot ``s``'s tables to ``parts`` (int32 arrays of the
     trees buffer, whose next word is ``start``), each section 16-byte
-    aligned. Returns (section offsets, the words appended, ForestTables)."""
+    aligned: its records and a classifier's leaf weights (``forest_records``),
+    class base values and labels. Returns (section offsets, the words
+    appended, ForestTables of the plain version over the original node
+    table)."""
+    rec, w = s.records()
     offs = []
     pos = start
-    for a in (s.node, s.weights, s.class_bias, s.labels):
+    for a in (rec, w, s.class_bias, s.labels):
         if a is None:
             offs.append(-1)
             continue
-        w = np.ascontiguousarray(a).view(np.int32).reshape(-1)
+        words = np.ascontiguousarray(a).view(np.int32).reshape(-1)
         offs.append(pos)
-        parts.append(w)
-        parts.append(np.zeros(-w.size % 4, np.int32))
-        pos += w.size + (-w.size % 4)
+        parts.append(words)
+        parts.append(np.zeros(-words.size % 4, np.int32))
+        pos += words.size + (-words.size % 4)
     node = torch.as_tensor(s.node.reshape(-1, 4), device=device)
     f32 = torch.float32
 
@@ -514,6 +640,7 @@ def pack_plan(plan: FusedPlan, device, lookup=None) -> PackedPlan:
     words[H_D], words[H_A] = len(plan.dists), len(plan.args)
     for i, key in enumerate(_SMEM_KEYS):
         words[H_SMEM + i] = layout[key]
+    words[H_FTILE] = layout.get("ftile", -1)
     words[H_JOIN_KEY] = -1
     if plan.join is not None:
         j = plan.join
@@ -542,7 +669,7 @@ def pack_plan(plan: FusedPlan, device, lookup=None) -> PackedPlan:
     words[H_PREDS] = pos
     feat = len(plan.slot_programs)
     tree_parts: list = []
-    n_tree_words = 0
+    n_tree_words = n_forests = 0
     slots = []
     for s in plan.preds:
         d = words[pos:pos + _SLOT_DESC]
@@ -561,11 +688,12 @@ def pack_plan(plan: FusedPlan, device, lookup=None) -> PackedPlan:
         else:
             offs, used, tables = _pack_forest(s, tree_parts, n_tree_words, device)
             n_tree_words += used
-            d[F_TREES], d[F_NODES] = s.n_trees, s.node.shape[1]
+            d[F_TREES], d[F_NODES] = s.n_trees, s.records()[0].shape[1]
+            d[F_REC_SMEM], d[F_W_SMEM] = layout["forests"][n_forests]
+            n_forests += 1
             d[F_DEPTH], d[F_NOUT], d[F_DIN] = s.max_depth, s.n_out, len(s.features)
             d[F_NODE_OFF], d[F_W_OFF], d[F_CBIAS_OFF], d[F_LABEL_OFF] = offs
             d[F_STRICT] = int(s.strict)
-            d[F_OUT_COL] = s.out_col
             d[F_BIAS] = _f32_bits(s.bias)
             d[F_LOGISTIC] = int(s.logistic)
             d[F_MODE] = (2 if s.binary else 1) if s.classifier else 0
@@ -937,11 +1065,13 @@ def fused_sql_plain(packed: PackedPlan, xc: torch.Tensor, n_valid: int,
 _OUT_KEYS = ("count", "sums", "mm", "ints", "iest", "args", "flags")
 def wide_instance(plan: FusedPlan) -> bool:
     """Whether K2 runs ``plan`` in its kWide instance (at most 2 blocks an
-    SM, 128 registers), which alone holds the tensor-core layers and the
-    128-column passes of the f32 layers: a plan with a bf16 MLP slot or an
-    f32 layer of 128 columns or more. Every other plan runs the instance of
-    3 blocks an SM (80 registers), its f32 layers on the narrow tile."""
-    return any(m.bf16 or any(pad8(d) >= 128 for d in m.dims[1:]) for m in plan.mlps)
+    SM, 128 registers), which alone holds the tensor-core layers, the
+    128-column passes of the f32 layers and K4 (its trees in flight spill at
+    80 registers): a plan with a bf16 MLP slot, an f32 layer of 128 columns
+    or more, or a forest slot. Every other plan runs the instance of 3
+    blocks an SM (80 registers), its f32 layers on the narrow tile."""
+    return bool(plan.forests) or any(m.bf16 or any(pad8(d) >= 128 for d in m.dims[1:])
+                                     for m in plan.mlps)
 
 
 def resident_blocks(device: torch.device, smem: int, wide: bool = False) -> int:

@@ -5,8 +5,9 @@ Run as a script (not with ``-m``, which would import this checkout's package
 first), one process a side, in turns (parent, change, change, parent), in one
 call on the card::
 
-    python infera_tpu_torch/testing/ab_kernels.py run ROOT TAG OUT_DIR [sql]
+    python infera_tpu_torch/testing/ab_kernels.py run ROOT TAG OUT_DIR [sql [QUERY...]|routes]
     python infera_tpu_torch/testing/ab_kernels.py compare OUT_DIR TAG...
+    python infera_tpu_torch/testing/ab_kernels.py sass ROOT...
 
 ``run`` imports ``infera_tpu_torch`` and ``chip_smoke`` (for its queries)
 from ROOT (a checkout, or a ``git archive`` of one) and, over the bench's
@@ -26,14 +27,21 @@ from ROOT (a checkout, or a ``git archive`` of one) and, over the bench's
 - K8a and the five K8b stages over the bf16 table: ms per call over 100
   queued calls; where the checkout has K7a's ring, ``ring_sweep`` (K8a with
   0 to 6 of its buffers, on K7a's grid and on twice as many blocks);
-- K2/K5 on the plans of SQL queries A, B (f32 and bf16), C, F, G-LEFT,
-  G-FULL, H, I, J and K at ``chip_smoke``'s sizes (the plans come from
+- K2/K5 on the plans of SQL queries A, B (f32 and bf16), C, D and E (K4's
+  regressor and classifier, config 4), F, G-LEFT, G-FULL, H, I, J and K at
+  ``chip_smoke``'s sizes (the plans come from
   ``Connection.execute``): the median of 25 calls each between its own
   CUDA events (``chip_smoke``'s ``device_ms``), the ms per call over 100
   queued calls, and ``call_split`` (the main kernel and the fold alone from
   a profiler trace, the call's host part, the grid);
 
-With ``sql`` last, ``run`` measures the K2/K5 plans alone.
+With ``sql`` last, ``run`` measures the K2/K5 plans alone; queries named
+after it (``J``, say) are the only ones planned and run, so a plan can be
+timed without the others' tables on the card before it. With ``routes``
+last, it times K4 on both of its routes instead (``forest_route_sweep``).
+``sass`` prints, for each checkout's built ``fused_sql`` library, each
+kernel instance's SASS instructions and its local-memory loads, stores and
+calls (``cuobjdump``).
 
 prints a line per measurement and saves every output to
 OUT_DIR/ab_TAG.npz. ``compare`` holds every TAG's outputs to the first
@@ -192,11 +200,11 @@ def ring_sweep(torch, _kernels, pq, x, want, tag) -> None:
                   flush=True)
 
 
-def sql_plans(torch, itt, cs) -> dict:
+def sql_plans(torch, itt, cs, only=()) -> dict:
     """{query: (xc, packed, dim_xc, int_xc)}: the K2/K5 plans of queries A,
-    B-f32, B-bf16, C, F, G-LEFT, G-FULL, H, I, J and K, each run once
-    through Connection.execute on the card at chip_smoke's tables and
-    models."""
+    B-f32, B-bf16, C, D, E, F, G-LEFT, G-FULL, H, I, J and K (or those in
+    ``only``), each run once through Connection.execute on the card at
+    chip_smoke's tables and models."""
     from infera_tpu_torch.columnar import Column, Table
     from infera_tpu_torch.columnar import types as T
     from infera_tpu_torch.onnx import builder, proto
@@ -209,6 +217,11 @@ def sql_plans(torch, itt, cs) -> dict:
                 ("mt", builder.mlp_model(in_dim=4, hidden=(32,), out_dim=1, softmax=False)),
                 ("mk", builder.mlp_model(in_dim=32, hidden=(128, 128), out_dim=16,
                                          softmax=True))):
+            proto.save_model_file(model, f"{d}/{name}.onnx")
+            itt.load_model(name, f"{d}/{name}.onnx")
+        # queries D and E's forests (config 4)
+        for name, model in (("gbt", builder.gbt_regressor_model(**cs.GBT)),
+                            ("gbc", builder.gbt_classifier_model(**cs.GBC))):
             proto.save_model_file(model, f"{d}/{name}.onnx")
             itt.load_model(name, f"{d}/{name}.onnx")
         # query B's models: K's bench MLP at f32 and bf16
@@ -240,11 +253,13 @@ def sql_plans(torch, itt, cs) -> dict:
     cols = ", ".join(f"c{k}" for k in range(32))
     queries = {"A": cs.SQL_A, "B-f32": cs.SQL_B.format(m="mlp_sql", cols=cols),
                "B-bf16": cs.SQL_B.format(m="mlp_sql_bf16", cols=cols), "C": cs.SQL_C,
-               "F": cs.SQL_F, "G-LEFT": cs.SQL_G.format(kind="left"),
+               "D": cs.SQL_D, "E": cs.SQL_E, "F": cs.SQL_F, "G-LEFT": cs.SQL_G.format(kind="left"),
                "G-FULL": cs.SQL_G.format(kind="full"), "H": cs.SQL_H, "I": cs.SQL_I,
                "J": cs.SQL_J, "K": cs.SQL_K.format(cols=cols)}
     plans = {}
     for key, q in queries.items():
+        if only and key not in only:
+            continue
         before = set(getattr(conn, "_device_plan_cache", {}))
         conn.execute(q)
         new = [k for k in conn._device_plan_cache if k not in before]
@@ -255,7 +270,7 @@ def sql_plans(torch, itt, cs) -> dict:
     return plans
 
 
-def run(root: str, tag: str, out_dir: str, parts: str = "all") -> None:
+def run(root: str, tag: str, out_dir: str, parts: str = "all", *only: str) -> None:
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     import torch
@@ -281,8 +296,11 @@ def run(root: str, tag: str, out_dir: str, parts: str = "all") -> None:
     x_bf16 = x.to(torch.bfloat16)
     one_half = hasattr(fq, "query_halves")   # the f32 kernels also launch at one half a block
     out = {}
+    if parts == "routes":
+        forest_route_sweep(torch, itt, cs, fs, tag)
+        return
     if parts == "sql":
-        sql_phase(torch, itt, cs, _kernels, fs, tag, out)
+        sql_phase(torch, itt, cs, _kernels, fs, tag, out, only)
         os.makedirs(out_dir, exist_ok=True)
         np.savez(os.path.join(out_dir, f"ab_{tag}.npz"), **out)
         return
@@ -353,11 +371,11 @@ def run(root: str, tag: str, out_dir: str, parts: str = "all") -> None:
     np.savez(os.path.join(out_dir, f"ab_{tag}.npz"), **out)
 
 
-def sql_phase(torch, itt, cs, _kernels, fs, tag, out) -> None:
+def sql_phase(torch, itt, cs, _kernels, fs, tag, out, only=()) -> None:
     """K2/K5 on the SQL plans (``sql_plans``) of the checkout's package:
     each plan's outputs into ``out``, a line of times each."""
     dev = torch.device("cuda")
-    for key, (xc, packed, dim_xc, int_xc) in sql_plans(torch, itt, cs).items():
+    for key, (xc, packed, dim_xc, int_xc) in sql_plans(torch, itt, cs, only).items():
         def call(packed=packed, xc=xc, dim_xc=dim_xc, int_xc=int_xc):
             return fs.fused_sql(packed, xc, N, dim_xc, int_xc)
 
@@ -381,6 +399,92 @@ def sql_phase(torch, itt, cs, _kernels, fs, tag, out) -> None:
               f"fold {split['fold_ms']:.4f} ms (trace), host part {split['host_ms']:.4f} ms; "
               f"grid {grid} blocks, resident {per_sm} a SM, {smem} B of shared memory, "
               f"G {packed.plan.n_groups}", flush=True)
+
+
+ROUTE_TREES = (64, 96, 128)
+
+
+def forest_route_sweep(torch, itt, cs, fs, tag) -> None:
+    """K4 on depth-6 regressors over 16 features (config 4's shape, query D's
+    SQL) of ``ROUTE_TREES`` trees over ``N`` rows, each plan packed twice:
+    its records in shared memory with one block's 227 KB as their budget
+    (past about 91 trees one block an SM) and in device memory (two blocks
+    an SM). A line of times each (median of 25 calls, each between CUDA
+    events, and ms per call over 100 queued calls); the two routes' counts
+    and min/max must be equal and their sums within rtol 1e-12."""
+    from infera_tpu_torch.columnar import Column, Table
+    from infera_tpu_torch.columnar import types as T
+    from infera_tpu_torch.onnx import builder, proto
+    from infera_tpu_torch.sql import Connection
+
+    dev = torch.device("cuda")
+    x = np.random.default_rng(1).standard_normal((N, 16)).astype(np.float32)
+    cols = {f"c{k}": Column(np.ascontiguousarray(x[:, k]), T.FLOAT) for k in range(16)}
+    cols["g"] = Column(np.arange(N, dtype=np.int64) % 64, T.BIGINT)
+    conn = Connection()
+    conn.register_table("wide", Table(cols))
+    two_blocks = fs.TWO_BLOCK_SMEM
+    for trees in ROUTE_TREES:
+        name = f"gbt{trees}"
+        with tempfile.TemporaryDirectory() as d:
+            proto.save_model_file(builder.gbt_regressor_model(**{**cs.GBT, "n_trees": trees}),
+                                  f"{d}/{name}.onnx")
+            itt.load_model(name, f"{d}/{name}.onnx")
+        before = set(getattr(conn, "_device_plan_cache", {}))
+        conn.execute(cs.SQL_D.replace("'gbt'", f"'{name}'"))
+        new = [k for k in conn._device_plan_cache if k not in before]
+        if len(new) != 1 or conn._exec_path != "device_plan_cuda":
+            raise RuntimeError(f"{trees} trees: path {conn._exec_path}, {len(new)} plans")
+        xc = conn._device_plan_cache[new[0]][0]
+        plan = conn._device_plan_cache[new[0]][1].plan
+        outs = {}
+        for route, budget in (("shared", fs.SMEM_LIMIT), ("device", 0)):
+            fs.TWO_BLOCK_SMEM = budget   # the records' budget in smem_layout
+            try:
+                packed = fs.pack_plan(plan, dev)
+            finally:
+                fs.TWO_BLOCK_SMEM = two_blocks
+            if fs.forest_routes(packed)[0]["records"] != route:
+                raise RuntimeError(f"{trees} trees: {fs.forest_routes(packed)}, not {route}")
+
+            def call(packed=packed):
+                return fs.fused_sql(packed, xc, N)
+
+            outs[route] = {k: t.cpu().numpy() for k, t in call().items()}
+            per_call = float(np.median(cs.device_ms(torch, call)))
+            queued = _queued_ms(torch, call, 100)
+            grid, per_sm = fs.plan_grid(packed, N, dev)
+            print(f"{tag} K4 {trees} trees, records {route}: {per_call:.4f} ms per call (median "
+                  f"of 25, events around each call), {queued:.4f} ms queued (100 calls); grid "
+                  f"{grid} blocks, resident {per_sm} a SM, {packed.smem_bytes} B of shared "
+                  f"memory", flush=True)
+        a, b = outs["shared"], outs["device"]
+        for k in a:
+            same = (np.allclose(a[k], b[k], rtol=1e-12, atol=1e-9) if k in _SUM_KEYS
+                    else np.array_equal(a[k], b[k], equal_nan=a[k].dtype.kind == "f"))
+            if not same:
+                raise RuntimeError(f"{trees} trees: {k} differs between the routes")
+        print(f"{tag} K4 {trees} trees: outputs of both routes equal (sums within rtol 1e-12)",
+              flush=True)
+
+
+def sass_report(roots) -> None:
+    """Per checkout, each kernel instance of its built ``fused_sql`` library:
+    SASS instructions, LDL, STL and CALL (``cuobjdump --dump-sass``)."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))))
+    import subprocess
+
+    from infera_tpu_torch.ops import _kernels
+
+    for root in roots:
+        lib = os.path.join(root, "infera_tpu_torch", "_build", "libfused_sql.so")
+        sass = subprocess.run([_kernels._cuda_tool("cuobjdump"), "--dump-sass", lib],
+                              check=True, capture_output=True, text=True).stdout
+        counts = {op: _kernels.count_sass(sass, op) for op in ("", "LDL", "STL", "CALL")}
+        for fn in counts[""]:
+            print(f"{root} {fn[:48]}: {counts[''][fn]} instructions, {counts['LDL'][fn]} LDL, "
+                  f"{counts['STL'][fn]} STL, {counts['CALL'][fn]} CALL", flush=True)
 
 
 def _side(tag: str) -> str:
@@ -425,11 +529,15 @@ def compare(out_dir: str, tags) -> bool:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if argv[:1] == ["run"] and len(argv) in (4, 5) and argv[4:] in ([], ["sql"]):
+    if argv[:1] == ["run"] and (len(argv) == 4 or argv[4:] == ["routes"]
+                                or argv[4:5] == ["sql"]):
         run(*argv[1:])
         return 0
     if argv[:1] == ["compare"] and len(argv) >= 3:
         return 0 if compare(argv[1], argv[2:]) else 1
+    if argv[:1] == ["sass"] and len(argv) >= 2:
+        sass_report(argv[1:])
+        return 0
     print(__doc__, file=sys.stderr)
     return 2
 

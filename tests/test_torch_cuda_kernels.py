@@ -12,8 +12,10 @@ f32 and bf16 on the rows a WHERE keeps (none, one, about half, every row)
 and on every row where the WHERE reads the prediction (f32 without a
 softmax bit for bit), an f32 and a bf16 slot in one plan, and the SQL
 flagship through Connection.execute; for K4,
-regressors and classifiers over heap and non-heap trees, a NaN feature, and
-tree queries through Connection.execute; for K5, a permuted 1:1 key, keys
+regressors and classifiers (binary, 3 and 6 classes) over heap and non-heap
+trees, 61 trees, a NaN feature, on every route (records in shared or device
+memory, and without the feature tile) at 1,000,003 rows, run-to-run equality, and tree queries
+through Connection.execute; for K5, a permuted 1:1 key, keys
 with no dim row, negative keys, outer masking over NaN dim values, an MLP
 over dim columns (in f32 and bf16), ragged row counts, the no-fallback rule and join queries
 through Connection.execute; for K2 b–e (the aggregate tail), every tail
@@ -577,12 +579,15 @@ def _forest_slot(kind, d_in, seed):
     from infera_tpu_torch.onnx import builder, ml_ops
 
     if kind.startswith("clf"):
-        # clf2: one score column, expanded to (-s, s) over two labels
-        labels = [5] if kind == "clf2" else [7, 19, 42]
+        # clf2: one score column, expanded to (-s, s) over two labels; clf6:
+        # six classes, past the class sums K4 keeps in registers
+        labels = {"clf2": [5], "clf6": [2, 3, 5, 7, 11, 13]}.get(kind, [7, 19, 42])
         model = builder.gbt_classifier_model(n_features=d_in, n_trees=16, depth=5,
                                              n_classes=len(labels), labels=labels, seed=seed)
     else:
-        model = builder.gbt_regressor_model(n_features=d_in, n_trees=24, depth=6, seed=seed)
+        # reg61: 61 trees, no multiple of the trees a thread walks at once
+        model = builder.gbt_regressor_model(n_features=d_in, n_trees=61 if kind == "reg61" else 24,
+                                            depth=6, seed=seed)
     if kind in ("reg_shuffled_lt", "clf_shuffled"):
         model = _shuffled_tree_model(model, seed, "BRANCH_LT" if kind.startswith("reg") else
                                      "BRANCH_LEQ")
@@ -613,18 +618,49 @@ def _forest_plan(slot, G=64):
                         strides=[1], n_groups=G, consts=consts, preds=[slot])
 
 
-FOREST_KINDS = ["reg", "reg_logistic", "reg_shuffled_lt", "clf", "clf_shuffled", "clf2"]
+FOREST_KINDS = ["reg", "reg_logistic", "reg_shuffled_lt", "reg61", "clf", "clf_shuffled", "clf2",
+                "clf6"]
+# where K4 reads a forest (fused_sql.forest_routes): the records (and leaf
+# weights) in shared memory as the plan places them, in device memory, or
+# in device memory without the feature tile (each node's program)
+FOREST_ROUTES = ["shared", "device", "programs"]
 
 
+def _route(packed, route):
+    """The packed plan with its forest read from ``route``: the kernel takes
+    the placement from the plan's words, so clearing a descriptor's
+    shared-memory offsets (or the feature tile's) moves the walk to device
+    memory (or the interpreted path). A plan past two blocks' share of an
+    SM keeps its records in device memory; for the shared route it is
+    packed again with one block's 227 KB as their budget."""
+    words = packed.words
+    d = int(words[fs.H_PREDS])
+    if route == "shared" and int(words[d + fs.F_REC_SMEM]) < 0:
+        two_blocks, fs.TWO_BLOCK_SMEM = fs.TWO_BLOCK_SMEM, fs.SMEM_LIMIT
+        try:
+            packed = fs.pack_plan(packed.plan, words.device)
+        finally:
+            fs.TWO_BLOCK_SMEM = two_blocks
+        words = packed.words
+    if route == "shared":
+        assert int(words[d + fs.F_REC_SMEM]) >= 0
+    if route in ("device", "programs"):
+        words[d + fs.F_REC_SMEM] = words[d + fs.F_W_SMEM] = -1
+    if route == "programs":
+        words[fs.H_FTILE] = -1
+    return packed
+
+
+@pytest.mark.parametrize("route", FOREST_ROUTES)
 @pytest.mark.parametrize("kind", FOREST_KINDS)
-def test_k4_forest_matches_plain(cuda, kind):
+def test_k4_forest_matches_plain(cuda, kind, route):
     """Each row's prediction is the plain version's bit for bit (leaf weights
     added in the same tree order; a row with NaN in one feature sees NaN at
     the nodes of the others), but for logistic, whose exp differs from
     torch's by an ulp or two. So counts, flags, min and max are exact and
-    the f64 sums differ only in their order."""
+    the f64 sums differ only in their order; on every route."""
     n = 1_000_003
-    packed = fs.pack_plan(_forest_plan(_forest_slot(kind, 7, seed=21)), cuda)
+    packed = _route(fs.pack_plan(_forest_plan(_forest_slot(kind, 7, seed=21)), cuda), route)
     xc = _sql_block(n, 12, cuda)
     before = dict(fs.fused_sql.launches)
     got = fs.fused_sql(packed, xc, n)
@@ -638,29 +674,33 @@ def test_k4_forest_matches_plain(cuda, kind):
         _assert_k2_close(got, want, sum_rtol=1e-12)
 
 
-def test_k4_predictions_equal_plain_bit_for_bit(cuda):
+@pytest.mark.parametrize("route", FOREST_ROUTES)
+@pytest.mark.parametrize("kind", ["reg_shuffled_lt", "reg61", "clf6", "clf2"])
+def test_k4_predictions_equal_plain_bit_for_bit(cuda, kind, route):
     """The forest's per-row values through a plan whose min and max keep
     every row: one group per row of a 4096-row block."""
     n = 4096
-    slot = _forest_slot("reg_shuffled_lt", 7, seed=5)
+    slot = _forest_slot(kind, 7, seed=5)
     xc = _sql_block(n, 13, cuda)
     xc[0] = torch.arange(n, device=cuda, dtype=torch.float32)
     plan = fs.FusedPlan(where=None, keys=[[(fs.COL, 0)]], sums=[], mins=[[(fs.PRED, 0)]],
                         maxs=[], strides=[1], n_groups=n, consts=[], preds=[slot])
-    packed = fs.pack_plan(plan, cuda)
+    packed = _route(fs.pack_plan(plan, cuda), route)
     got = fs.fused_sql(packed, xc, n)["mm"][0]
     want = fs.forest_plain(slot, packed.slots[0], xc[[1, 2, 3, 4, 5, 1, 2]])
     assert torch.equal(got, want)
 
 
-def test_k4_sums_are_the_same_from_run_to_run(cuda):
-    packed = fs.pack_plan(_forest_plan(_forest_slot("reg", 16, seed=2)), cuda)
-    xc = _sql_block(300_000, 14, cuda)
-    first = fs.fused_sql(packed, xc, 300_000)
-    for _ in range(2):
-        again = fs.fused_sql(packed, xc, 300_000)
-        for k in first:
-            assert torch.equal(first[k], again[k])
+@pytest.mark.parametrize("route", ["shared", "device"])
+def test_k4_sums_are_the_same_from_run_to_run(cuda, route):
+    for kind in ("reg", "clf6"):
+        packed = _route(fs.pack_plan(_forest_plan(_forest_slot(kind, 16, seed=2)), cuda), route)
+        xc = _sql_block(1_000_003, 14, cuda)
+        first = fs.fused_sql(packed, xc, 1_000_003)
+        for _ in range(2):
+            again = fs.fused_sql(packed, xc, 1_000_003)
+            for k in first:
+                assert torch.equal(first[k], again[k])
 
 
 def test_k4_tree_plan_raises_without_its_library(cuda, monkeypatch, tmp_path):

@@ -208,11 +208,11 @@ def test_header_word_turns_the_kept_rows_on(name):
                                             ((4, 32, 1), True, True), ((8, 4), True, True)])
 def test_the_wide_instance_runs_the_128_column_passes_and_bf16(dims, bf16, wide):
     """K2's kWide instance (2 blocks an SM) for a bf16 slot or an f32 layer
-    of 128 columns or more (pad8); the other one (3 blocks) for the rest,
-    and for a plan without an MLP slot."""
+    of 128 columns or more (pad8), and for a forest slot (K4); the other one
+    (3 blocks) for the rest, and for a plan without a prediction slot."""
     plan = _plan(GT0, [_mlp((4, 32, 1)), _mlp(dims, bf16)], [0.0])
     assert fs.wide_instance(plan) == wide
-    assert not fs.wide_instance(_plan(GT0, [_forest()], [0.0]))
+    assert fs.wide_instance(_plan(GT0, [_forest()], [0.0]))    # K4 lives there alone
     assert not fs.wide_instance(CASES["no prediction slot"][0])
 
 

@@ -187,11 +187,18 @@ def test_plan_carries_one_forest_slot_per_distinct_call(both):
     assert progs == [[(fs.PRED, 0)], [(fs.PRED, 0)], [(fs.PRED, 1)]]
     assert [type(s) for s in low.preds] == [fs.ForestSlot, fs.ForestSlot]
     assert low.preds[1].out_col == 2 and low.preds[1].bias == np.float32(0.125)
-    # the forest's tables stay in device memory: the budget holds only its
-    # prediction row
+    # no MLP tiles; K4's feature tile of the 4 features, then each forest's
+    # records (a regressor's leaf weights lie in them) in shared memory
     plan = low.fused_plan(None, [], [], [], [], [], 1, dp.get_table_block(
         port.catalog.get("big"), "cpu")[1])
-    assert fs.smem_layout(plan, 0, 0)["act0"] == fs.smem_layout(plan, 0, 0)["pred"]
+    lay = fs.smem_layout(plan, 0, 0)
+    assert lay["act0"] == lay["pred"]
+    gbt, gbm = plan.forests
+    assert gbt.smem_bytes() == (12 * 31 * 8, 0) and gbm.smem_bytes() == (9 * 31 * 8, 0)
+    rec0 = lay["ftile"] + 4 * 4 * fs.SLOT_ROWS
+    rec1 = rec0 + fs._align16(12 * 31 * 8)
+    assert lay["forests"] == [(rec0, -1), (rec1, -1)]
+    assert lay["total"] == rec1 + fs._align16(9 * 31 * 8)
 
 
 def _nonfinite_tables(n, seed=31):
