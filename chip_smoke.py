@@ -117,7 +117,23 @@ card, builds every kernel of ``infera_tpu_torch/csrc`` with nvcc (sm_90a), and:
    beside their bounds, plain versions and PyTorch chains (K8a with its
    ring's buffers and bytes in flight), and K7a bf16's time is split by
    stage;
-11. prints the ``{"kernels": [...]}`` line, the card's name and power limit,
+11. the ONNX phase, which launches no kernel of the port (``infera_tpu``
+   computes these ops in XLA, outside any Pallas kernel; the port in torch
+   ops, Conv in cuDNN without TF32): the MobileNetV3-Small stand-in
+   (``onnx.builder.mobilenet_like_model``, 1000 classes) through
+   ``load_model`` / ``predict_from_blob`` on a seeded 602,112-byte image
+   and the zero blob, and ``predict`` of 64 images (the fixed-batch path);
+   the transformer encoder at ``onnx.builder``'s widths over 32,768 rows at f32,
+   bf16 and int8, and through SQL ``infera_predict_from_blob``; the If,
+   Loop (both paths) and Scan graphs. Each output is held against the same
+   port on the CPU (same graph, same seeded input): f32 within 1e-5 of the
+   output's largest magnitude, bf16 and int8 within their rounding-flip
+   bounds (1e-2 and 2e-2 at the worst, 5e-4 and 1e-3 on average). It prints
+   MobileNet's host-clock ms a call at batch 1 (median of 20) and images/s
+   at batch 64, the encoder's rows/s at each precision, one
+   ``observability.trace`` window of MobileNet at batch 1 with its idle
+   share, and the phase's wall time;
+12. prints the ``{"kernels": [...]}`` line, the card's name and power limit,
    and last ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero without the ``ok`` line. The script
@@ -1682,6 +1698,129 @@ def profile_phase(torch, itt, x_dev, peaks, device) -> list:
     return rows
 
 
+ONNX_F32 = 1e-5                                # of max|y|: the repo's parity bound
+ONNX_BOUNDS = {"f32": (ONNX_F32, ONNX_F32),      # (worst, mean) of max|y|
+               "bf16": (1e-2, 5e-4), "int8": (2e-2, 1e-3)}
+N_ENCODER = 32_768
+
+
+def onnx_close(key, got, want, precision="f32") -> float:
+    """Hold a card output to the CPU's: the f32 bound, or under bf16 and
+    int8 the bounds of a rounding that goes the other way (a one-ulp
+    difference in an f32 activation moves a value across a bf16 or int8
+    boundary; each flip moves an output by one step of its operand)."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    check(got.shape == want.shape, f"{key}: shape {got.shape} vs the CPU's {want.shape}")
+    check(bool(np.all(np.isfinite(got))), f"{key}: non-finite outputs")
+    scale = max(float(np.abs(want).max()), 1e-30)
+    err = np.abs(got - want)
+    worst, mean = ONNX_BOUNDS[precision]
+    check(float(err.max()) <= worst * scale and float(err.mean()) <= mean * scale,
+          f"{key}: max err {float(err.max()) / scale:.3e}, mean {float(err.mean()) / scale:.3e} "
+          f"of max|y| against the CPU")
+    return float(err.max()) / scale
+
+
+def onnx_phase(torch, itt, device) -> None:
+    """The ONNX engine on the card: the MobileNetV3-Small stand-in, the
+    transformer encoder and the control-flow graphs through the entry points
+    a user calls, each held against the same port on the CPU. No kernel of
+    the port runs here (K6's count must not move)."""
+    from infera_tpu_torch import observability as obs
+    from infera_tpu_torch.onnx import builder, proto
+    from infera_tpu_torch.onnx.executor import compile_model_bytes
+    from infera_tpu_torch.ops.fused_mlp import fused_mlp
+    from infera_tpu_torch.sql import Connection
+    from infera_tpu_torch.testing import profile_query as pq
+
+    t_phase = time.perf_counter()
+    check(torch.backends.cudnn.allow_tf32 is False and
+          torch.backends.cuda.matmul.allow_tf32 is False, "TF32 is on")
+    k6_before = fused_mlp.launches
+    rng = np.random.default_rng(15)
+    with tempfile.TemporaryDirectory() as d:
+        # ------------------------------------------------ MobileNetV3-Small
+        mnv3 = builder.mobilenet_like_model()
+        proto.save_model_file(mnv3, f"{d}/mnv3.onnx")
+        itt.load_model("mnv3", f"{d}/mnv3.onnx")
+        image = rng.standard_normal(3 * 224 * 224).astype("<f4")
+        batch = rng.standard_normal((64, 3 * 224 * 224)).astype(np.float32)
+        blob = image.tobytes()
+        check(len(blob) == 602_112, "the stand-in's blob is 602,112 bytes")
+        one = itt.predict_from_blob("mnv3", blob)
+        zero = itt.predict_from_blob("mnv3", bytes(602_112))
+        many = itt.predict("mnv3", batch)
+        check((one.rows, one.cols, many.rows, many.cols) == (1, 1000, 64, 1000),
+              f"MobileNet shapes {one.rows}x{one.cols}, {many.rows}x{many.cols}")
+        cpu = compile_model_bytes(mnv3.serialize(), "mnv3-cpu", device="cpu")
+        errs = [onnx_close("MobileNet b1", one.data.reshape(1, 1000),
+                           cpu.run(image.reshape(1, 3, 224, 224))[0]),
+                onnx_close("MobileNet zeros", zero.data.reshape(1, 1000),
+                           cpu.run(np.zeros((1, 3, 224, 224), np.float32))[0]),
+                onnx_close("MobileNet b64", many.data.reshape(64, 1000),
+                           cpu.run(batch.reshape(64, 3, 224, 224))[0])]
+        b1_ms = host_ms(torch, lambda: itt.predict_from_blob("mnv3", blob), runs=20)
+        b64_ms = host_ms(torch, lambda: itt.predict("mnv3", batch), runs=5)
+        print(f"ONNX MobileNet stand-in: batch 1 {b1_ms:.3f} ms a call on the host clock "
+              f"(predict_from_blob, median of 20), batch 64 {b64_ms:.3f} ms = "
+              f"{64 / b64_ms * 1e3:,.1f} images/s; max err against the CPU (of max|y|) "
+              f"b1 {errs[0]:.3e}, zeros {errs[1]:.3e}, b64 {errs[2]:.3e}")
+        with obs.trace(f"{d}/mnv3_trace") as prof:
+            for _ in range(5):
+                with obs.annotate("mobilenet b1"):
+                    itt.predict_from_blob("mnv3", blob)
+            torch.cuda.synchronize()
+        trace_report(pq, "MobileNet batch 1 (5 calls)", prof, f"{d}/mnv3_trace",
+                     {"mobilenet b1": 5})
+
+        # ------------------------------------------------ transformer encoder
+        enc = builder.transformer_encoder_model()  # seq 16, d_model 64, 4 heads, 2 layers
+        proto.save_model_file(enc, f"{d}/enc.onnx")
+        x = rng.standard_normal((N_ENCODER, 16 * 64)).astype(np.float32)
+        for precision in ("f32", "bf16", "int8"):
+            name = f"enc-{precision}"
+            itt.load_model(name, f"{d}/enc.onnx", precision)
+            got = itt.predict(name, x)  # the first call calibrates int8
+            want = compile_model_bytes(enc.serialize(), "cpu", precision, device="cpu").run(x)[0]
+            err = onnx_close(f"encoder {precision}", got.data.reshape(N_ENCODER, 8), want,
+                             precision)
+            ms = host_ms(torch, lambda name=name: itt.predict(name, x), runs=5)
+            print(f"ONNX transformer encoder {precision} @ {N_ENCODER} rows: {ms:.3f} ms = "
+                  f"{N_ENCODER / ms * 1e3:,.0f} rows/s on the host clock; max err against the "
+                  f"CPU {err:.3e} of max|y|")
+        conn = Connection()
+        conn.execute(f"select infera_load_model('tfenc', '{d}/enc.onnx')")
+        rows = conn.execute("select infera_predict_from_blob('tfenc', "
+                            f"cast(repeat(chr(0), {16 * 64 * 4}) as blob)) r").rows
+        want = compile_model_bytes(enc.serialize(), "cpu", device="cpu").run(
+            np.zeros((1, 16 * 64), np.float32))[0]
+        err = onnx_close("encoder SQL blob", np.asarray(rows[0][0], np.float32), want[0])
+        print(f"ONNX transformer encoder through SQL infera_predict_from_blob: 8 outputs, "
+              f"max err against the CPU {err:.3e} of max|y|")
+
+    # ------------------------------------------------ If / Loop / Scan
+    graphs = {
+        "if (runtime, then)": (builder.if_model(), np.abs(rng.standard_normal((3, 4)))),
+        "if (runtime, else)": (builder.if_model(), -np.abs(rng.standard_normal((3, 4)))),
+        "if (static)": (builder.if_model(static_cond=True), rng.standard_normal((3, 4))),
+        "loop (while)": (builder.loop_model(trips=5), rng.standard_normal((3, 4))),
+        "loop (scan outputs)": (builder.loop_model(trips=4, scan_output=True),
+                                rng.standard_normal((3, 4))),
+        "scan": (builder.scan_model(), rng.standard_normal((6, 4))),
+    }
+    for key, (model, xg) in graphs.items():
+        xg = xg.astype(np.float32)
+        outs = [compile_model_bytes(model.serialize(), key, device=dev).run(xg)
+                for dev in (device, "cpu")]
+        for g, w in zip(*outs):
+            onnx_close(f"ONNX {key}", g.cpu().numpy(), w.numpy())
+    print(f"ONNX control flow: {', '.join(graphs)} equal the CPU's")
+    torch.cuda.synchronize()
+    check(fused_mlp.launches == k6_before, "the ONNX phase launched K6")
+    print(f"ONNX phase: {time.perf_counter() - t_phase:.1f} s on the host clock; no kernel "
+          f"of the port launched (torch ops, Conv in cuDNN without TF32)")
+
+
 def mma_report(torch, _kernels, device) -> None:
     """The tensor-core paths: HMMA in the SASS (cuobjdump) of the bf16
     kernels of K1, K7a and K8b and none in the f32 and int8 ones, IMMA in
@@ -2068,6 +2207,7 @@ def main() -> int:
     rows += join_phase(torch, itt, peaks, device)
     rows += tail_phase(torch, itt, x_rows, peaks, device)
     rows += profile_phase(torch, itt, x_dev, peaks, device)
+    onnx_phase(torch, itt, device)
 
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())

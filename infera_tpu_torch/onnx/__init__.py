@@ -1,7 +1,8 @@
 """ONNX subsystem: dependency-free protobuf codec, PyTorch op implementations
-(the standard ops and the ai.onnx.ml ops) and the eager graph executor."""
+(the core standard ops, If/Loop/Scan, HardSwish and the ai.onnx.ml ops) and
+the eager graph executor."""
 
-from . import builder, ml_ops, ops, proto  # noqa: F401
+from . import builder, control_flow, ml_ops, ops, ops_extra, proto  # noqa: F401
 from .executor import (  # noqa: F401
     CompiledOnnxModel,
     compile_model_bytes,

@@ -3,10 +3,20 @@
 Counterpart of ``infera_tpu/onnx/executor.py``. The graph runs node by node
 on tensors of the model's device; there is no per-shape compile cache,
 because PyTorch runs eagerly. Initializers move to the device once, when the
-model is loaded. A graph that matches the fused-MLP pattern carries an
-``mlp_plan`` and runs through kernel K6 (``fusion.maybe_run_fused``) at f32,
-or through the fused int8 chain (``fusion.maybe_run_int8_fused``) at int8
-once the first call has calibrated the activation scales.
+model is loaded, those of If/Loop/Scan subgraphs included. A graph that
+matches the fused-MLP pattern carries an ``mlp_plan`` and runs through
+kernel K6 (``fusion.maybe_run_fused``) at f32, or through the fused int8
+chain (``fusion.maybe_run_int8_fused``) at int8 once the first call has
+calibrated the activation scales.
+
+Static values follow ``infera_tpu``: a value is statically known when it is
+host numpy. Initializers are (their host copy stands in the value table and
+their device copy is found by identity), and so are the outputs of
+Shape/Size/Constant/Range, and of the ops that apply numpy to a numpy input
+(Identity, Reciprocal, Cast, Sum, Mean, Slice, Dropout). Shape-carrying
+inputs (Reshape targets, Slice bounds, axes, ...) are read from there and
+never from a device tensor. Any other op gets its numpy inputs as device
+tensors, moved once and cached on the node (``_Ctx.tensor``).
 
 Not in this slice: ``run_data_parallel``.
 """
@@ -14,6 +24,7 @@ Not in this slice: ``run_data_parallel``.
 from __future__ import annotations
 
 import threading
+from collections import ChainMap
 
 import numpy as np
 import torch
@@ -21,33 +32,113 @@ import torch
 from ..device import get_device
 from ..errors import OnnxError
 from . import proto
-from .ops import get_impl
+from .ops import device_dtype, get_impl
 
 VALID_PRECISIONS = ("f32", "bf16", "int8")
 
+def _to_tensor(value, device: torch.device) -> torch.Tensor:
+    """``value`` on ``device``, in the dtype it takes there (``device_dtype``)."""
+    if isinstance(value, torch.Tensor):
+        if value.dtype == torch.float64:
+            value = value.float()
+        return value.to(device)
+    arr = np.asarray(value)
+    dtype = device_dtype(arr.dtype)
+    if dtype != arr.dtype:
+        arr = arr.astype(dtype)
+    if not arr.flags.writeable:  # torch refuses to alias a read-only buffer
+        arr = arr.copy()
+    return torch.as_tensor(arr, device=device)
+
+
+def _subgraphs(graph: proto.Graph):
+    """Every subgraph of ``graph``'s nodes (If branches, Loop/Scan bodies),
+    at any depth."""
+    for node in graph.nodes:
+        for a in node.attributes.values():
+            for g in ([a.g] if a.type == proto.AttrType.GRAPH else
+                      a.graphs if a.type == proto.AttrType.GRAPHS else []):
+                if g is not None:
+                    yield g
+                    yield from _subgraphs(g)
+
 
 class _Ctx:
-    """Per-run context handed to op impls: the model's matmul precision
-    policy (f32 parity / bf16 / int8), its static initializers as numpy
-    arrays, and whether this run is the int8 calibrating pass."""
+    """Per-run context handed to op impls: static-value lookup, numpy to
+    device tensors, subgraph execution, the model's matmul precision policy
+    (f32 parity / bf16 / int8) and whether this run is the int8
+    calibrating pass."""
 
-    def __init__(self, matmul_precision: str = "f32", static: dict | None = None,
-                 calibrating: bool = False):
-        self.matmul_precision = matmul_precision
-        self._static = static or {}
+    def __init__(self, model: "CompiledOnnxModel", values, calibrating: bool = False):
+        self.model = model
+        self._values = values
+        self.device = model.device
+        self.matmul_precision = model.precision
         self.calibrating = calibrating
 
-    def static(self, name: str):
-        """The initializer ``name`` as numpy, or None for a computed value."""
-        return self._static.get(name)
+    def as_static(self, value):
+        """Return a numpy array if the value (or the value named so) is
+        statically known, else None."""
+        if isinstance(value, str):
+            value = self._values.get(value)
+        if isinstance(value, np.ndarray):
+            return value
+        if np.isscalar(value):
+            return np.asarray(value)
+        return None
+
+    def tensor(self, node, slot, value):
+        """``value`` as a tensor on the model's device. An initializer's is
+        the one moved at load; any other numpy value moves once and is
+        cached on ``node`` under ``slot``, reused while the value is the
+        same (a Shape output is a new array of equal values on each call)."""
+        if value is None or isinstance(value, torch.Tensor):
+            return value
+        hit = self.model._device_copies.get(id(value))
+        if hit is not None and hit[0] is value:
+            return hit[1]
+        arr = np.asarray(value)
+        cache = node.__dict__.setdefault("_infera_dev", {})
+        key = (slot, str(self.device))
+        entry = cache.get(key)
+        if entry is not None and (entry[0] is value or (
+                entry[0].shape == arr.shape and entry[0].dtype == arr.dtype
+                and np.array_equal(entry[0], arr))):
+            return entry[1]
+        t = _to_tensor(arr, self.device)
+        cache[key] = (arr, t)
+        return t
+
+    def run_subgraph(self, graph: proto.Graph, inputs: list) -> list:
+        """Execute a nested graph (If branch, Loop/Scan body) with ONNX
+        outer-scope capture: names not bound by the subgraph resolve against
+        this context's values. ``inputs`` bind positionally to graph.inputs.
+        The returned values may be numpy (static), as the parent's are."""
+        values = ChainMap(dict(self.model._host[id(graph)]), self._values)
+        for vi, arr in zip(graph.inputs, inputs):
+            values[vi.name] = arr
+        order = graph.__dict__.get("_infera_order")
+        if order is None:
+            order = _toposort(graph, extra_available=set(self._values))
+            graph._infera_order = order
+        _run_nodes(order, values, _Ctx(self.model, values, self.calibrating))
+        outs = []
+        for v in graph.outputs:
+            if v.name not in values:
+                raise OnnxError(f"subgraph '{graph.name}' missing output '{v.name}'")
+            outs.append(values[v.name])
+        return outs
 
 
-def _toposort(graph: proto.Graph) -> list:
+def _toposort(graph: proto.Graph, extra_available: set | None = None) -> list:
     """Topologically order nodes (ONNX graphs are usually ordered, but not
-    guaranteed)."""
+    guaranteed). ``extra_available`` marks names resolvable from an outer
+    scope (subgraph execution)."""
     produced = set(graph.initializers)
     produced.update(v.name for v in graph.inputs)
     produced.add("")  # optional inputs
+    if extra_available:
+        produced.update(extra_available)
     remaining = list(graph.nodes)
     ordered = []
     while remaining:
@@ -67,24 +158,21 @@ def _toposort(graph: proto.Graph) -> list:
     return ordered
 
 
-def _run_nodes(ordered: list, values: dict, ctx: _Ctx) -> None:
-    """Execute the ordered nodes against ``values`` (mutated in place)."""
+def _run_nodes(ordered: list, values, ctx: _Ctx) -> None:
+    """Execute the ordered nodes against ``values`` (mutated in place). An
+    op registered with ``host=True`` takes its inputs as they are (numpy
+    stays numpy); any other op takes device tensors, but for the inputs it
+    reads statically (its ``static`` positions), which it resolves by name."""
     for node in ordered:
         impl = get_impl(node.domain, node.op_type)
         inputs = [values[i] if i else None for i in node.inputs]
+        if not impl.host:
+            inputs = [v if k in impl.static else ctx.tensor(node, k, v)
+                      for k, v in enumerate(inputs)]
         outputs = impl(node, inputs, ctx)
         for out_name, out_val in zip(node.outputs, outputs):
             if out_name:
                 values[out_name] = out_val
-
-
-def _to_tensor(value, device: torch.device) -> torch.Tensor:
-    if isinstance(value, torch.Tensor):
-        return value.to(device)
-    arr = np.asarray(value)
-    if not arr.flags.writeable:  # torch refuses to alias a read-only buffer
-        arr = arr.copy()
-    return torch.as_tensor(arr, device=device)
 
 
 class CompiledOnnxModel:
@@ -118,13 +206,22 @@ class CompiledOnnxModel:
             int(d) if d is not None and d > 0 else -1
             for d in self.runtime_inputs[0].shape
         ]
-        self._initializers = {
-            name: _to_tensor(t.array, self.device)
-            for name, t in self.graph.initializers.items()
-        }
-        # the int8 policy quantizes static weights on the host, as infera_tpu
-        self._static = ({name: np.asarray(t.array) for name, t in self.graph.initializers.items()}
-                        if precision == "int8" else {})
+        # every initializer, subgraphs' included, keeps a host copy (the
+        # static value ops read, and the int8 policy quantizes) and moves to
+        # the device once, here; _Ctx.tensor finds the device copy by identity
+        graphs = [self.graph, *_subgraphs(self.graph)]
+        self._host = {id(g): {n: np.asarray(t.array) for n, t in g.initializers.items()}
+                      for g in graphs}
+        self._device_copies = {id(a): (a, _to_tensor(a, self.device))
+                               for host in self._host.values() for a in host.values()}
+        self._initializers = {n: self._device_copies[id(a)][1]
+                              for n, a in self._host[id(self.graph)].items()}
+        from .control_flow import check_branches
+
+        for g in graphs:
+            for node in g.nodes:
+                if node.op_type == "If":
+                    check_branches(node)
         self._lock = threading.Lock()
         self._calibrating = False
         self._int8_calibrated = False
@@ -146,16 +243,18 @@ class CompiledOnnxModel:
                             if precision == "f32" else None)
 
     def _run_graph(self, *args) -> list:
-        """Execute the graph given positional runtime inputs (tensors)."""
-        values: dict = dict(self._initializers)
+        """Execute the graph given positional runtime inputs (tensors).
+        Outputs that are static values come back as tensors too."""
+        values: dict = dict(self._host[id(self.graph)])
         for vi, arr in zip(self.runtime_inputs, args):
             values[vi.name] = arr
-        _run_nodes(self.nodes, values, _Ctx(self.precision, self._static, self._calibrating))
+        ctx = _Ctx(self, values, self._calibrating)
+        _run_nodes(self.nodes, values, ctx)
         outs = []
         for v in self.graph.outputs:
             if v.name not in values:
                 raise OnnxError(f"model '{self.name}' missing output '{v.name}'")
-            outs.append(values[v.name])
+            outs.append(ctx.tensor(self.graph, v.name, values[v.name]))
         return outs
 
     def _infer_output_shape(self) -> list[int]:
@@ -193,7 +292,7 @@ class CompiledOnnxModel:
             self._calibrating = True
             try:
                 self._run_graph(*sample)
-            except (OnnxError, RuntimeError, ValueError, IndexError):
+            except (OnnxError, RuntimeError, ValueError, IndexError, TypeError):
                 pass
             finally:
                 self._calibrating = False
