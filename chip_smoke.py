@@ -40,7 +40,9 @@ card, builds every kernel of ``infera_tpu_torch/csrc`` with nvcc (sm_90a), and:
    alone (two keys, min, max, count, HAVING) over the first table. Each
    must run on
    ``device_plan_cuda`` with K2 launched and give the host executor's rows
-   (the same catalog with ``INFERA_PALLAS_SQL=0``); it prints each query's
+   (a second Connection over the same catalog with the device tiers turned
+   away, ``host_rows``, as ``infera_tpu``'s tests reach the host; the
+   same in steps 6–8); it prints each query's
    steady time on the host clock and its phases, holds K2 against its plain
    version on the emitted plans at 1,048,576 and 1,000,003 rows, and times
    K2, its plain version and a PyTorch library chain; for each plan with an
@@ -82,7 +84,19 @@ card, builds every kernel of ``infera_tpu_torch/csrc`` with nvcc (sm_90a), and:
    cached and give the host executor's rows; each plan is held against its
    plain version at 1,048,576 and 1,000,003 rows and timed beside its
    bound, its plain version and a PyTorch chain; the SUM(BIGINT) overflow
-   must raise the host's message;
+   must raise the host's message; then the torch program
+   (``device_plan_phase``, ``_exec_path == "device_plan"``, torch ops and
+   no kernel of the port, so the kernels line gains no row) over the same
+   ``big`` table and a table ``t`` of 1,048,576 rows: M (median and
+   quantiles), N (approx_count_distinct, the host's HLL bit for bit), O (a
+   MODE that ties in every group, which K2 declines), P (query A's MLP
+   loaded as int8, which K2 declines; held to the same program on the CPU),
+   Q (query A with ``INFERA_PALLAS_SQL=0``, held to K2's rows), R (4,096
+   groups) and S (ORDER BY of wide integers and of f64 keys past f32's
+   range, sorted on the card in the host executor: DuckDB's order). Each
+   runs on its path with rows equal to the host executor's, prints its
+   end-to-end time (median of 5) and phases and the host's time once, and
+   M prints the device's idle share in a traced window of five calls;
 9. the rest of the bench form and the int8 policy: with the launch counts of
    K7a (f32, bf16), K7b, K1 (f32, bf16) and K3 set to 0 just before and read
    just after, ``infera_tpu_torch.bench.bench_cuda`` runs all eight impls
@@ -223,6 +237,30 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def host_rows(conn, queries: dict, path: str = "host") -> tuple:
+    """Each query's rows from the host executor over ``conn``'s catalog: a
+    second Connection with the device tiers turned away, as
+    ``infera_tpu``'s own tests reach the host (a join's host path over a
+    large side is the device sort-join, ``path`` "device_join"). Returns
+    (rows, host-clock ms) by query."""
+    from infera_tpu_torch.sql import Connection, device_join_plan, device_plan
+
+    host = Connection(conn.catalog)
+    saved = device_plan.try_execute_on_device, device_join_plan.try_execute_join_on_device
+    device_plan.try_execute_on_device = lambda *a, **k: None
+    device_join_plan.try_execute_join_on_device = lambda *a, **k: None
+    rows, ms = {}, {}
+    try:
+        for key, q in queries.items():
+            t = time.perf_counter()
+            rows[key] = host.execute(q).rows
+            ms[key] = (time.perf_counter() - t) * 1e3
+            check(host._exec_path == path, f"host query {key} ran on {host._exec_path}")
+    finally:
+        device_plan.try_execute_on_device, device_join_plan.try_execute_join_on_device = saved
+    return rows, ms
+
+
 def sql_split(torch, key, packed, xc, n, dim_xc=None, int_xc=None) -> None:
     """Print where one K2/K5 call of a plan spends its time: the main kernel
     and the fold alone (CUDA events around each launch, median of 25), the
@@ -307,6 +345,11 @@ SQL_TOL = {"A": (None, None, 1e-6, 1e-6), "B-f32": (None, None, 1e-5, 1e-5),
 SQL_SHAPE = {"A": (64, 64, 1), "B-f32": (64, 64, 1), "B-bf16": (64, 64, 1), "C": (320, 512, 2)}
 
 
+BIG_TABLE = ("create table big as select x % 64 as g, x % 5 as h, (x % 100)::float / 10.0 as f1, "
+             "((x + 3) % 50)::float / 5.0 as f2, ((x * 7) % 30)::float / 3.0 as f3, "
+             "((x * 11) % 90)::float / 9.0 as f4 from range({n}) r(x)")
+
+
 def sql_phase(torch, itt, x_rows, peaks, device) -> list:
     """Queries A and B through Connection.execute on the card; returns the
     K2 rows of the kernels line."""
@@ -323,10 +366,7 @@ def sql_phase(torch, itt, x_rows, peaks, device) -> list:
     os.environ.pop("INFERA_PALLAS_SQL", None)   # the default: the kernel tier on CUDA
     conn = Connection()
     t0 = time.perf_counter()
-    conn.execute("create table big as select x % 64 as g, x % 5 as h, "
-                 "(x % 100)::float / 10.0 as f1, "
-                 "((x + 3) % 50)::float / 5.0 as f2, ((x * 7) % 30)::float / 3.0 as f3, "
-                 f"((x * 11) % 90)::float / 9.0 as f4 from range({n}) r(x)")
+    conn.execute(BIG_TABLE.format(n=n))
     wide = {f"c{k}": Column(np.ascontiguousarray(x_rows[:, k]), T.FLOAT) for k in range(32)}
     wide["g"] = Column(np.arange(n, dtype=np.int64) % 64, T.BIGINT)
     conn.register_table("wide", Table(wide))
@@ -357,10 +397,7 @@ def sql_phase(torch, itt, x_rows, peaks, device) -> list:
         check(k > 0, f"K2 was not launched by query {key}")
 
     # ---------------------------------------------------------------- rows vs the host
-    os.environ["INFERA_PALLAS_SQL"] = "0"
-    host = {key: conn.execute(q).rows for key, q in queries.items()}
-    check(conn._exec_path == "host", "INFERA_PALLAS_SQL=0 did not select the host executor")
-    os.environ.pop("INFERA_PALLAS_SQL")
+    host, _ = host_rows(conn, queries)
     for key, rows in out.items():
         n_rows = SQL_SHAPE[key][0]
         check(len(rows) == len(host[key]) == n_rows, f"query {key}: {len(rows)} groups")
@@ -605,10 +642,7 @@ def tree_phase(torch, itt, x_rows, peaks, device) -> list:
     for key, k in launches.items():
         check(k > 0, f"K4 was not launched by query {key}")
 
-    os.environ["INFERA_PALLAS_SQL"] = "0"
-    host = {key: conn.execute(q).rows for key, q in queries.items()}
-    check(conn._exec_path == "host", "INFERA_PALLAS_SQL=0 did not select the host executor")
-    os.environ.pop("INFERA_PALLAS_SQL")
+    host, _ = host_rows(conn, queries)
     for key, rows in out.items():
         check(len(rows) == len(host[key]) == 64, f"query {key}: {len(rows)} groups")
         worst = 0.0
@@ -842,15 +876,10 @@ def join_phase(torch, itt, peaks, device) -> list:
         check(k == 1, f"query {key} launched K5 {k} times, not once")
 
     # ---------------------------------------------------------------- rows vs the host
-    os.environ["INFERA_PALLAS_SQL"] = "0"
-    host = {}
-    for key, q in queries.items():
-        t = time.perf_counter()
-        host[key] = conn.execute(q).rows
-        check(conn._exec_path == "device_join", f"host query {key} ran on {conn._exec_path}")
-        print(f"host executor, query {key}: {(time.perf_counter() - t) * 1e3:.1f} ms on the "
-              f"host clock through the device sort-join")
-    os.environ.pop("INFERA_PALLAS_SQL")
+    host, host_ms_ = host_rows(conn, queries, "device_join")
+    for key, ms in host_ms_.items():
+        print(f"host executor, query {key}: {ms:.1f} ms on the host clock through the device "
+              f"sort-join")
     for key, rows in out.items():
         check(len(rows) == len(host[key]) == JOIN_GROUPS[key], f"query {key}: {len(rows)} rows")
         worst = 0.0
@@ -1097,15 +1126,9 @@ def tail_phase(torch, itt, x_rows, peaks, device) -> list:
     print("tail queries again, their probes cached: one K2 launch each")
 
     # ---------------------------------------------------------------- rows vs the host
-    os.environ["INFERA_PALLAS_SQL"] = "0"
-    host = {}
-    for key, q in queries.items():
-        t = time.perf_counter()
-        host[key] = conn.execute(q).rows
-        check(conn._exec_path == "host", f"host query {key} ran on {conn._exec_path}")
-        print(f"host executor, query {key}: {(time.perf_counter() - t) * 1e3:.1f} ms on the "
-              f"host clock")
-    os.environ.pop("INFERA_PALLAS_SQL")
+    host, host_ms_ = host_rows(conn, queries)
+    for key, ms in host_ms_.items():
+        print(f"host executor, query {key}: {ms:.1f} ms on the host clock")
     for key, rows in out.items():
         check(len(rows) == 64, f"query {key}: {len(rows)} groups")
         worst = compare_rows(key, rows, host[key], TAIL_TOL[key])
@@ -1119,20 +1142,20 @@ def tail_phase(torch, itt, x_rows, peaks, device) -> list:
                  "from range(16384) r(x)")
     q_ov = "select g, sum(v) from ov group by g"
     messages = {}
-    for mode in ("auto", "0"):
-        os.environ["INFERA_PALLAS_SQL"] = mode
-        before = fs.fused_sql.launches["int_sum"]
+    before = fs.fused_sql.launches["int_sum"]
+    for tier, run in (("K2", lambda: conn.execute(q_ov)),
+                      ("host", lambda: host_rows(conn, {"ov": q_ov}))):
         try:
-            conn.execute(q_ov)
-            messages[mode] = None
+            run()
+            messages[tier] = None
         except SqlError as e:
-            messages[mode] = (str(e), fs.fused_sql.launches["int_sum"] - before)
-    os.environ.pop("INFERA_PALLAS_SQL")
-    check(messages["auto"] is not None and messages["auto"][1] == 1,
-          f"SUM(BIGINT) overflow on the kernel tier: {messages['auto']}")
-    check(messages["0"] is not None and messages["auto"][0] == messages["0"][0],
+            messages[tier] = str(e)
+    k2_ov = fs.fused_sql.launches["int_sum"] - before
+    check(messages["K2"] is not None and k2_ov == 1,
+          f"SUM(BIGINT) overflow on the kernel tier: {messages['K2']}, {k2_ov} launches")
+    check(messages["host"] is not None and messages["K2"] == messages["host"],
           f"overflow messages differ: {messages}")
-    print(f"SUM(BIGINT) overflow: K2 raised the host's message {messages['0'][0]!r}")
+    print(f"SUM(BIGINT) overflow: K2 raised the host's message {messages['host']!r}")
 
     # ---------------------------------------------------------------- steady time, phases
     for key, q in queries.items():
@@ -1481,6 +1504,199 @@ def bench_phase(torch, itt, params, x_rows, x_dev, peaks, device, f32_predict_ms
     print(f"engine predict @ {n} rows on the host clock: int8 {int8_ms:.3f} ms "
           f"({n / int8_ms * 1e3:,.0f} rows/s), f32 {f32_predict_ms:.3f} ms")
     return rows, {k: launches[k] for k in ("K1-f32", "K1-bf16", "K3")}
+
+
+# ---------------------------------------------------------------- the torch program (P4a)
+# The program tier between K2 and the host (``sql/device_plan.py``,
+# ``_exec_path == "device_plan"``): queries K2 declines, over sql_phase's
+# ``big`` table and ``t``. O's WHERE leaves every group a tie (without it the
+# 16,384 rows of a group split 5,462 / 5,461 / 5,461 and K2 takes the MODE).
+DP_T = ("create table t as select x % 64 as g, x % 4096 as k, x % 6 as m, (x * 13) % 101 as iv, "
+        "((x * 13) % 1000003)::float as hv, (x % 40)::float / 4.0 - 3.0 as v "
+        "from range({n}) r(x)")
+DP_SORT = ("create table f6 as select (x * 1000003) % 7 + 1152921504606846976 as k, x "
+           "from range({n}) r(x)",
+           "create table r13 as select x, case when x % 3 = 0 then 1e300 * (x % 7 + 1) "
+           "else x::double end as v from range({n}) r(x)")
+DP_QUERIES = {
+    "M": ("select g, median(f1), quantile_cont(f2, 0.75), quantile_disc(f3, 0.25) from big "
+          "where f4 > 1.0 group by g order by g"),
+    "N": ("select g, approx_count_distinct(hv), approx_count_distinct(iv) from t group by g "
+          "order by g"),
+    "O": "select g, mode(m) from t where k < 4032 group by g order by g",
+    "P": SQL_A.replace("'m'", "'m8'"),
+    "Q": SQL_A,
+    "R": "select k, count(*), sum(v), min(v) from t group by k order by k",
+}
+DP_S = {"S-F6": "select k, x from f6 order by k desc limit 3",
+        "S-R13": "select x, v from r13 order by v desc limit 8"}
+# per column None (exact) or the relative tolerance: M the f32 block's
+# values (tests/test_device_plan.py's 1e-6); N, O, R keys, counts, HLL
+# estimates, modes, quarter sums and minima exact; P the int8 graph on the
+# card against the same program on the CPU; Q A's (the program against K2)
+DP_TOL = {"M": (None, 1e-6, 1e-6, 1e-6), "N": (None, None, None), "O": (None, None),
+          "P": (None, None, 1e-4, 1e-12), "Q": SQL_TOL["A"], "R": (None, None, None, None)}
+
+
+def device_plan_expected_sorts(n: int) -> dict:
+    """S's rows in DuckDB's order (numpy's stable sort of the exact keys)."""
+    x = np.arange(n)
+    k = (x * 1000003) % 7 + (1 << 60)
+    v = np.where(x % 3 == 0, 1e300 * (x % 7 + 1), x.astype(np.float64))
+    top_k = np.argsort(-k, kind="stable")[:3]
+    top_v = np.argsort(-v, kind="stable")[:8]
+    return {"S-F6": [(int(k[i]), int(i)) for i in top_k],
+            "S-R13": [(int(i), float(v[i])) for i in top_v]}
+
+
+def device_plan_phase(torch, itt, device) -> None:
+    """Queries M–S through ``Connection.execute`` on the card: each on the
+    torch program (``device_plan``; S's ORDER BY in the host executor with
+    its sort on the card), rows held to the host executor's (P to the same
+    program on the CPU, Q to K2's rows), end-to-end times and phases, the
+    host's time once, and for M the device's idle share in a traced window.
+    The program launches no kernel of the port: the kernels line gains no
+    row."""
+    with tempfile.TemporaryDirectory() as d:
+        _device_plan_queries(torch, itt, device, d)
+
+
+def _device_plan_queries(torch, itt, device, d) -> None:
+    import os
+
+    from infera_tpu_torch import observability as obs
+    from infera_tpu_torch.onnx import builder, proto
+    from infera_tpu_torch.ops import fused_sql as fs
+    from infera_tpu_torch.ops import sort as sort_mod
+    from infera_tpu_torch.sql import Connection
+    from infera_tpu_torch.testing import profile_query as pq
+
+    n = N_MAIN
+    t0 = time.perf_counter()
+    os.environ.pop("INFERA_PALLAS_SQL", None)
+    conn = Connection()
+    conn.execute(BIG_TABLE.format(n=n))
+    conn.execute(DP_T.format(n=n))
+    for sql in DP_SORT:
+        conn.execute(sql.format(n=n))
+    proto.save_model_file(builder.mlp_model(in_dim=4, hidden=(32,), out_dim=1), f"{d}/m.onnx")
+    itt.load_model("m", f"{d}/m.onnx")
+    itt.load_model("m8", f"{d}/m.onnx", "int8")
+    print(f"device-plan tables and models: {time.perf_counter() - t0:.2f} s on the host clock")
+
+    def run(key, q, path="device_plan"):
+        mode = "0" if key == "Q" else None
+        if mode:
+            os.environ["INFERA_PALLAS_SQL"] = mode
+        try:
+            rows = conn.execute(q).rows
+            torch.cuda.synchronize()
+        finally:
+            os.environ.pop("INFERA_PALLAS_SQL", None)
+        check(conn._exec_path == path, f"query {key} ran on {conn._exec_path}")
+        return rows
+
+    # ---------------------------------------------------------------- M–R on the program
+    k2_before = sum(fs.fused_sql.launches.values())
+    out = {key: run(key, q) for key, q in DP_QUERIES.items()}
+    print(f"device-plan queries M-R: path device_plan each; K2 launches meanwhile "
+          f"{sum(fs.fused_sql.launches.values()) - k2_before} (the group-key and domain "
+          f"probes where K2 takes them)")
+    # P on the CPU before the card's int8 model calibrates (the host's
+    # predict would): the same uncalibrated graph policy on both
+    itt.set_device("cpu")
+    try:
+        itt.load_model("m8", f"{d}/m.onnx", "int8")
+        cpu = Connection(conn.catalog)
+        p_cpu = cpu.execute(DP_QUERIES["P"]).rows
+        check(cpu._exec_path == "device_plan", f"query P on the CPU ran on {cpu._exec_path}")
+    finally:
+        itt.set_device(device)
+        itt.load_model("m8", f"{d}/m.onnx", "int8")
+    worst = compare_rows("P", out["P"], p_cpu, DP_TOL["P"])
+    print(f"query P (int8 model; K2 declines int8): 64 groups equal the same program on the "
+          f"CPU, worst relative difference {worst:.3e}")
+    # A's model ends in a softmax over one class (1.0 on every row): the same
+    # query over the MLP without it shows the int8 policy's values
+    proto.save_model_file(builder.mlp_model(in_dim=4, hidden=(32,), out_dim=1, softmax=False),
+                          f"{d}/mr.onnx")
+    q_raw = DP_QUERIES["P"].replace("'m8'", "'m8r'")
+    raw = {}
+    for dev in (torch.device("cpu"), device):
+        itt.set_device(dev)
+        itt.load_model("m8r", f"{d}/mr.onnx", "int8")
+        raw[dev.type] = Connection(conn.catalog).execute(q_raw).rows
+    worst = compare_rows("P", raw["cuda" if device.type == "cuda" else "cpu"], raw["cpu"],
+                         DP_TOL["P"])
+    print(f"query P over the MLP without its softmax (int8): the card's 64 groups equal the "
+          f"CPU's, worst relative difference {worst:.3e}: {raw['cpu'][0]}")
+    k2_rows = run("A", SQL_A, "device_plan_cuda")
+    worst = compare_rows("Q", out["Q"], k2_rows, DP_TOL["Q"])
+    print(f"query Q (A with INFERA_PALLAS_SQL=0): the program's 64 groups equal K2's, worst "
+          f"relative difference {worst:.3e}")
+
+    # ---------------------------------------------------------------- S: the device sort
+    calls = {"n": 0}
+    argsort = sort_mod.argsort_device
+
+    def counted(*a, **k):
+        calls["n"] += 1
+        return argsort(*a, **k)
+
+    sort_mod.argsort_device = counted
+    try:
+        s_out = {key: run(key, q, "host") for key, q in DP_S.items()}
+    finally:
+        sort_mod.argsort_device = argsort
+    check(calls["n"] == len(DP_S), f"the device sort ran {calls['n']} times")
+    want = device_plan_expected_sorts(n)
+    for key, rows in s_out.items():
+        check(rows == want[key], f"query {key}: {rows} vs {want[key]}")
+        print(f"query {key}: ORDER BY on the card (argsort_device), rows in DuckDB's order: "
+              f"{rows[:3]}")
+
+    # ---------------------------------------------------------------- times, then the host
+    # end to end as the other phases time it: Connection.execute, without
+    # rendering the rows to Python (R's 4,096 rows take ~25 ms to render);
+    # A on K2 beside Q, the same plan on the program
+    for key, q in {**DP_QUERIES, "A": SQL_A, **DP_S}.items():
+        path = "host" if key in DP_S else "device_plan_cuda" if key == "A" else "device_plan"
+        run(key, q, path)
+        times = []
+        for _ in range(5):
+            if key == "Q":
+                os.environ["INFERA_PALLAS_SQL"] = "0"
+            t = time.perf_counter()
+            conn.execute(q)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            os.environ.pop("INFERA_PALLAS_SQL", None)
+            check(conn._exec_path == path, f"query {key} ran on {conn._exec_path}")
+        print(f"query {key} end to end: median {float(np.median(times)):.3f} ms of 5 on the "
+              f"host clock ({n / np.median(times) * 1e3:,.0f} rows/s), path {path}; phases "
+              f"{conn._last_phases}")
+    host, host_ms_ = host_rows(conn, DP_QUERIES)
+    for key, rows in out.items():
+        ms = host_ms_[key]
+        if key == "P":   # the host's calibrated fused int8 chain against the graph's policy
+            rel = max(abs(a[2] - b[2]) / abs(b[2]) for a, b in zip(rows, host[key]))
+            print(f"query P: the host executor ({ms:.1f} ms on the host clock) runs the "
+                  f"calibrated fused int8 chain, the program the graph's dynamic int8 policy "
+                  f"(by design): averages differ by up to {rel:.3e} relative")
+            continue
+        worst = compare_rows(key, rows, host[key], DP_TOL[key])
+        print(f"query {key}: path device_plan, {len(rows)} rows equal the host executor's "
+              f"({ms:.1f} ms on the host clock), worst relative difference {worst:.3e}: "
+              f"{rows[0]}")
+
+    # ---------------------------------------------------------------- M's trace window
+    with tempfile.TemporaryDirectory() as td:
+        with obs.trace(f"{td}/query_m") as prof:
+            for _ in range(5):
+                with obs.annotate("query M"):
+                    conn.execute(DP_QUERIES["M"])
+            torch.cuda.synchronize()
+        trace_report(pq, "query M (5 steady executions)", prof, f"{td}/query_m", {"query M": 5})
 
 
 def trace_report(pq, name, prof, log_dir, spans):
@@ -2206,6 +2422,7 @@ def main() -> int:
     rows += tree_phase(torch, itt, x_rows, peaks, device)
     rows += join_phase(torch, itt, peaks, device)
     rows += tail_phase(torch, itt, x_rows, peaks, device)
+    device_plan_phase(torch, itt, device)
     rows += profile_phase(torch, itt, x_dev, peaks, device)
     onnx_phase(torch, itt, device)
 

@@ -22,6 +22,8 @@ run in full f32 by default (TF32 is off, see the package's ``__init__``).
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -178,7 +180,21 @@ def _cast(node, inputs, ctx):
     x = inputs[0]
     if _is_host(x):
         return [np.asarray(x).astype(dtype)]
+    if x.is_floating_point() and np.dtype(dtype).kind in "iu":
+        return [_saturating_cast(x, dtype)]
     return [x.to(torch_dtype(dtype))]
+
+
+def _saturating_cast(x: torch.Tensor, dtype: np.dtype) -> torch.Tensor:
+    """A float tensor to the integer type ``dtype`` as XLA's convert does
+    it: NaN to 0, the rest truncated toward zero and clamped to the range
+    of ``dtype`` itself (uint16's, not the int32 it is carried in)."""
+    info = np.iinfo(np.dtype(dtype))
+    hi = min(int(info.max), int(np.iinfo(device_dtype(dtype)).max))  # uint64 is int64 here
+    y = torch.trunc(x)
+    out = torch.where(torch.isnan(y), 0.0, y).to(torch_dtype(dtype))
+    out = torch.where(y >= float(hi + 1), hi, out)
+    return torch.where(y < float(info.min), int(info.min), out)
 
 
 # ---------------------------------------------------------------------------
@@ -194,7 +210,19 @@ register("Sub")(_binary(torch.sub))
 register("Mul")(_binary(torch.mul))
 register("Div")(_binary(torch.div))  # true division, integers too
 register("Pow")(_binary(torch.pow))
-register("Mod")(_binary(torch.remainder))  # floor-mod as jnp.mod; no fmod
+
+
+@register("Mod")
+def _mod(node, inputs, ctx):
+    """Floor-mod as ``jnp.mod`` (the fmod attribute is ignored, as there):
+    an integer divided by zero gives 0, a float NaN."""
+    a, b = inputs
+    if a.is_floating_point() or b.is_floating_point():
+        return [torch.remainder(a, b)]
+    zero = b == 0
+    return [torch.where(zero, 0, torch.remainder(a, torch.where(zero, 1, b)))]
+
+
 register("Equal")(_binary(torch.eq))
 register("Greater")(_binary(torch.gt))
 register("GreaterOrEqual")(_binary(torch.ge))
@@ -876,7 +904,11 @@ def _gelu(node, inputs, ctx):
     approx = node.attr("approximate", "none")
     if isinstance(approx, bytes):
         approx = approx.decode()
-    return [F.gelu(inputs[0], approximate="tanh" if approx == "tanh" else "none")]
+    x = inputs[0]
+    if approx == "tanh":
+        return [F.gelu(x, approximate="tanh")]
+    # jax.nn.gelu's exact form: +inf gives +inf where F.gelu gives NaN
+    return [0.5 * x * torch.erfc(x * -math.sqrt(0.5))]
 
 
 @register("LRN")

@@ -24,7 +24,8 @@ register("Cosh")(_unary(torch.cosh))
 register("Asinh")(_unary(torch.asinh))
 register("Acosh")(_unary(torch.acosh))
 register("Atanh")(_unary(torch.atanh))
-register("Sign")(_unary(torch.sign))
+# jnp.sign: NaN stays NaN and a zero keeps its sign (torch.sign gives 0, +0)
+register("Sign")(_unary(lambda x: torch.where((x == 0) | torch.isnan(x), x, torch.sign(x))))
 register("IsNaN")(_unary(torch.isnan))
 register("HardSwish")(_unary(lambda x: x * torch.clamp(x / 6.0 + 0.5, 0.0, 1.0)))
 register("Mish")(_unary(lambda x: x * torch.tanh(torch.logaddexp(x, torch.zeros_like(x)))))

@@ -778,46 +778,60 @@ def eval_program(code, consts, xc: torch.Tensor, n: int, preds: list,
         elif op == PRED:
             st.append(preds[arg])
         elif op in _UNARY:
-            a = st.pop()
-            if op == NEG:
-                r = -a
-            elif op == NOT:
-                r = (~_truthy(a)).to(f32)
-            elif op == CAST_INT:
-                r = torch.trunc(a)
-            elif op == CAST_FLOAT:
-                r = a
-            else:
-                r = {ABS: torch.abs, SQRT: torch.sqrt, FLOOR: torch.floor, CEIL: torch.ceil,
-                     ROUND: torch.round, EXP: torch.exp, LOG: torch.log, LOG2: torch.log2}[op](a)
-            st.append(r)
+            st.append(apply_unary(op, st.pop()))
         elif op == BETWEEN:
             hi, lo, v = st.pop(), st.pop(), st.pop()
-            st.append(((v >= lo) & (v <= hi)).to(f32))
+            st.append(between(v, lo, hi))
         else:
             b, a = st.pop(), st.pop()
-            if op == ADD:
-                r = a + b
-            elif op == SUB:
-                r = a - b
-            elif op == MUL:
-                r = a * b
-            elif op == DIV:
-                r = a / b
-            elif op == MOD:
-                # floor-mod as jnp.mod: C's fmod, moved to the divisor's sign
-                m = torch.fmod(a, b)
-                r = torch.where((m != 0) & ((m < 0) != (b < 0)), m + b, m)
-            elif op == AND:
-                r = (_truthy(a) & _truthy(b)).to(f32)
-            elif op == OR:
-                r = (_truthy(a) | _truthy(b)).to(f32)
-            else:
-                r = {EQ: torch.eq, NE: torch.ne, LT: torch.lt, LE: torch.le, GT: torch.gt,
-                     GE: torch.ge}[op](a, b).to(f32)
-            st.append(r)
+            st.append(apply_binary(op, a, b))
     (v,) = st
     return v.to(f32).expand(n).contiguous() if v.dim() == 0 else v.to(f32)
+
+
+_MATH = {ABS: torch.abs, SQRT: torch.sqrt, FLOOR: torch.floor, CEIL: torch.ceil,
+         ROUND: torch.round, EXP: torch.exp, LOG: torch.log, LOG2: torch.log2}
+_COMPARE = {EQ: torch.eq, NE: torch.ne, LT: torch.lt, LE: torch.le, GT: torch.gt, GE: torch.ge}
+
+
+def apply_unary(op: int, a: torch.Tensor) -> torch.Tensor:
+    """A unary opcode over f32 values, as the kernel computes it (a cast to
+    an integer type truncates and stays f32; ``round`` is half to even)."""
+    if op == NEG:
+        return -a
+    if op == NOT:
+        return (~_truthy(a)).to(torch.float32)
+    if op == CAST_INT:
+        return torch.trunc(a)
+    if op == CAST_FLOAT:
+        return a
+    return _MATH[op](a)
+
+
+def apply_binary(op: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """A binary opcode over f32 values, as the kernel computes it (``/`` in
+    f32, ``%`` a floor-mod, comparisons and AND/OR as 1.0 or 0.0)."""
+    if op == ADD:
+        return a + b
+    if op == SUB:
+        return a - b
+    if op == MUL:
+        return a * b
+    if op == DIV:
+        return a / b
+    if op == MOD:
+        # floor-mod as jnp.mod: C's fmod, moved to the divisor's sign
+        m = torch.fmod(a, b)
+        return torch.where((m != 0) & ((m < 0) != (b < 0)), m + b, m)
+    if op == AND:
+        return (_truthy(a) & _truthy(b)).to(torch.float32)
+    if op == OR:
+        return (_truthy(a) | _truthy(b)).to(torch.float32)
+    return _COMPARE[op](a, b).to(torch.float32)
+
+
+def between(v: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    return ((v >= lo) & (v <= hi)).to(torch.float32)
 
 
 def _dense_fma(wt: torch.Tensor, h: torch.Tensor) -> torch.Tensor:

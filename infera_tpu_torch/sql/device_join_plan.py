@@ -43,6 +43,7 @@ from .device_plan import (
     _assemble_result,
     _find_aggs,
     _group_keys_int32_safe,
+    _int_range,
     _ms,
     _packed,
     _ProgramLowerer,
@@ -56,16 +57,6 @@ DIM_MAX_KEY = 1 << 22
 # (PALLAS_MAX_COLS): the fact and dim columns it reads and the match row
 _MAX_BLOCK_ROWS = 64
 _MATCHED = [(FS.MATCHED, 0)]
-
-
-def _int_range(col) -> tuple:
-    """(min, max) of a non-empty integer column, cached on the column as
-    ``device_plan``'s block check caches it."""
-    rng = getattr(col, "_int_range", None)
-    if rng is None:
-        rng = (int(col.data.min()), int(col.data.max()))
-        col._int_range = rng
-    return rng
 
 
 def _dim_key_lookup(col):

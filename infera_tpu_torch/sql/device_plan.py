@@ -1,41 +1,53 @@
-"""Fused device execution of SQL queries: the planner and the kernel tier.
+"""Fused device execution of SQL queries: the planner, kernel K2 and the
+torch program.
 
-Counterpart of ``infera_tpu/sql/device_plan.py`` (its planner, its
-``_PallasLowerer`` and ``_try_pallas_fused``). For the query shapes the
+Counterpart of ``infera_tpu/sql/device_plan.py``. For the query shapes the
 benchmarks care about — aggregates over a scan of one table with a numeric
 WHERE filter, optional GROUP BY over up to 4 integer-valued keys
 (mixed-radix combined key), and ``infera_predict`` /
-``infera_predict_multi_list(...)[k]`` calls in expressions — the whole plan
-runs as ONE launch of kernel K2 (``ops/fused_sql.py``): the table lives on
-the card as one stacked f32 block, every MLP (K2′) and every tree ensemble
-(K4) runs inside the kernel, and only the per-group results return to the
-host.
+``infera_predict_multi_list(...)[k]`` calls in expressions — the table
+lives on the device as one stacked f32 block (``get_table_block``; integer
+columns past +-2**24 as an int64 block, ``get_int_block``) and only the
+per-group results return to the host. Two tiers run a plan, in
+``infera_tpu``'s order:
 
-The planner lowers each expression to a postfix program (``_ProgramLowerer``)
-in place of ``infera_tpu``'s JAX closures. The kernel tier carries every
-aggregate ``infera_tpu``'s Pallas tier carries (``_KERNEL_AGGS``): count,
-sum, avg/mean, min, max and the group key on K2's core slots, and the
-aggregate tail (slot families b–e): the variance family, count_if,
-bool_and/or and product lowered onto the sum, min and max slots; exact
-int64 sum/avg/min/max over a plain integer column (the int64 block,
-``get_int_block``); COUNT/SUM/AVG(DISTINCT) and MODE over a probed small
-integer domain; arg_min/arg_max. Anything else — median, quantiles,
-approx_count_distinct, a tied MODE, a window, a model that is neither an
-MLP nor a forest the kernel takes (``infera_tpu``'s declines: branch modes,
-tree sizes, post transforms), a plan over the shared-memory budget, a key
-guard that trips — returns None and the host executor answers, so
-semantics never regress. ``infera_tpu``'s XLA tier between the two (a
-torch-op program here) is not in the port yet.
+1. **Kernel K2** (``ops/fused_sql.py``; path ``device_plan_cuda``), where
+   ``FS.tier_enabled``: the planner's expressions become postfix programs
+   (``_ProgramLowerer``, the counterpart of ``_PallasLowerer``) that the
+   kernel interprets per row, every MLP (K2′) and forest (K4) inside it.
+   It carries ``infera_tpu``'s Pallas aggregates (``_KERNEL_AGGS``) and
+   declines the rest — median, quantiles, approx_count_distinct, a MODE
+   that ties, more than 512 groups, a plan over its shared-memory budget,
+   a model that is neither an f32/bf16 MLP nor a forest it takes.
+2. **The torch program** (``_build_program``; path ``device_plan``),
+   ``infera_tpu``'s fused XLA program as eager torch ops on the port's
+   device, for every plan K2 declines or with K2 off: ``_Lowerer`` builds
+   torch closures with K2's f32 semantics, ``infera_predict`` runs the
+   model's graph on the ONNX engine, sums run in f64 and integer
+   aggregates in int64 (``sql/int_agg.py``, ``ops/gemm_groupby.py``),
+   median and quantiles from one stable sort, the HLL with the host's
+   hash bit for bit (``ops/hashing.py``), MODE with the host's tie-break;
+   up to ``MAX_GROUPS`` groups. All results come back in one copy.
 
-Path selection reads ``INFERA_PALLAS_SQL`` as ``infera_tpu`` does
-(``ops/fused_sql.fused_sql_mode``): unset, the tier is on when the device is
-CUDA; "0" turns it off; "1" turns it on, and on the CPU it then runs K2's
-plain version (the tests' hook, as interpret mode is for Pallas).
+A key guard that trips in either tier (a fractional key, a key past
+f32's exact integers, two keys in one bucket), a NULL-producing group, a
+value outside a DISTINCT/MODE domain or a NaN arg order sends the query to
+the host executor, as does anything the planner declines (a window, an
+integer column past +-2**24 inside an expression, which ``infera_tpu``
+reads as int32: R10), so semantics never regress.
+
+``INFERA_PALLAS_SQL`` switches K2 only, as ``infera_tpu``'s switches its
+Pallas kernel (``ops/fused_sql.fused_sql_mode``): unset, K2 is on when the
+device is CUDA; "0" turns it off; "1" turns it on, and on the CPU it then
+runs K2's plain version (the tests' hook, as interpret mode is for
+Pallas). The program runs on the port's device (``get_device()``): the
+card by default, the CPU where the caller asks for it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 
 import numpy as np
@@ -44,10 +56,13 @@ import torch
 from ..columnar import Column, Table
 from ..columnar import types as T
 from ..device import get_device
-from ..errors import SqlError
+from ..errors import OnnxError, SqlError
 from ..onnx import ml_ops as ML
 from ..onnx.fusion import detect_tree
+from ..ops.aggregate import hll_estimate_from_hist
 from ..ops import fused_sql as FS
+from ..ops import gemm_groupby as GG
+from ..ops import hashing as H
 from ..registry import MODELS
 from . import ast as A
 from . import int_agg
@@ -64,13 +79,13 @@ _AGG_NAMES = {"count", "sum", "avg", "mean", "min", "max",
               "arg_min", "arg_max", "min_by", "max_by",
               "approx_count_distinct"}
 
-# quantile family: name -> continuous interpolation? (planned by
-# infera_tpu for its XLA program; the port's host executor answers them)
+# quantile family: name -> continuous interpolation? (the program's sort)
 _QUANTILE_FAMILY = {"quantile_cont": True, "percentile_cont": True,
                     "quantile_disc": False, "quantile": False,
                     "percentile_disc": False}
 
-# variance family: (ddof, apply_sqrt) — shifted (sum, sum of squares) slots
+# variance family: (ddof, apply_sqrt) — K2's shifted (sum, sum of squares)
+# slots, the program's two f64 passes
 _VAR_FAMILY = {
     "stddev": (1, True), "stddev_samp": (1, True), "stddev_pop": (0, True),
     "var_samp": (1, False), "variance": (1, False), "var_pop": (0, False),
@@ -113,6 +128,29 @@ def _decoded(attr):
 _TABLE_BLOCK_CACHE: dict = {}
 
 
+def _int_range(col) -> tuple:
+    """(min, max) of an integer column, cached on the column."""
+    rng = getattr(col, "_int_range", None)
+    if rng is None:
+        d = col.data
+        rng = (int(d.min()), int(d.max())) if d.size else (0, 0)
+        col._int_range = rng
+    return rng
+
+
+def _f32_exact(col) -> bool:
+    """False for an f64 column holding a value f32 does not hold exactly
+    (cached on the column, as infera_tpu's HLL planner caches it)."""
+    d = col.data
+    if d.dtype.kind != "f" or d.dtype.itemsize <= 4 or not d.size:
+        return True
+    exact = getattr(col, "_f32_exact", None)
+    if exact is None:
+        exact = bool(np.all(d.astype(np.float32).astype(np.float64) == d))
+        col._f32_exact = exact
+    return exact
+
+
 def _block_eligible(col) -> bool:
     d = col.data
     if getattr(col, "validity", None) is not None:
@@ -120,13 +158,8 @@ def _block_eligible(col) -> bool:
     if d.dtype.kind == "f":
         return True
     if d.dtype.kind in "iu":
-        if not d.size:
-            return True
-        rng = getattr(col, "_int_range", None)
-        if rng is None:
-            rng = (int(d.min()), int(d.max()))
-            col._int_range = rng
-        return rng[0] >= -(1 << 24) and rng[1] <= (1 << 24)
+        lo, hi = _int_range(col)
+        return lo >= -(1 << 24) and hi <= (1 << 24)
     return False
 
 
@@ -198,23 +231,41 @@ def get_int_block(table, device, keys: list) -> torch.Tensor:
     return ent[1]
 
 
-class _ProgramLowerer:
-    """AST → postfix program (a list of ``(op, arg)``; ``ops/fused_sql.py``
-    holds the opcodes). Counterpart of ``infera_tpu``'s ``_Lowerer`` and
-    ``_PallasLowerer``: the cases of ``lower`` are theirs, and where they
-    built a JAX closure this emits instructions. COL args are column keys
-    until ``resolve`` maps them to rows of the table block. ``infera_predict``
-    lowers to ``PRED j``: prediction slot j, run inside the kernel, an MLP
-    slot (K2′) over the model's ``mlp_plan`` or a forest slot (K4) over its
-    tree ensemble; one slot per distinct call."""
+def device_column_array(key: str, block, n: int) -> torch.Tensor:
+    """THE device array of one column in the program: its row of the shared
+    f32 table block (``get_table_block``), rows [0, n). A column the block
+    leaves out (an integer past +-2**24, a column with NULLs) is read only
+    by the exact int slots and the HLL (``get_int_block``); anywhere else
+    the plan declines it, as infera_tpu's int32 upload would wrap it (R10)."""
+    row = None if block is None else block[1].get(key)
+    if row is None:
+        raise _Unsupported(f"column {key} is not in the table block")
+    return block[0][row, :n]
 
-    def __init__(self, table: Table):
+
+def _full(v: torch.Tensor, n: int) -> torch.Tensor:
+    """A closure's value over the n rows (a constant is 0-dim)."""
+    return v.expand(n) if v.dim() == 0 else v
+
+
+class _Lowerer:
+    """AST → torch closure over a dict of device columns (``infera_tpu``'s
+    ``_Lowerer``): ``fn(cols)`` gives an f32 tensor over the table's rows,
+    or a 0-dim one for a constant. The cases of ``lower`` are
+    ``infera_tpu``'s, with the semantics K2's programs have
+    (``fused_sql.apply_unary``/``apply_binary``): f32 ``/``, floor ``%``,
+    casts to an integer type that truncate and stay f32, half-to-even
+    ``round``, comparisons as 1.0/0.0. Columns are rows of the f32 table
+    block. ``infera_predict`` runs the port's ONNX engine
+    (``CompiledOnnxModel._run_graph``) on the stacked ``[n, d]`` features,
+    so any model the engine runs can sit inside a plan; a call the plan
+    makes twice runs once. Windows raise ``_Unsupported`` (ROADMAP P9)."""
+
+    def __init__(self, table: Table, device=None):
         self.table = table
+        self.device = device
         self.used_columns: dict = {}
         self.models: dict = {}
-        self.consts: list = []
-        self.preds: list = []   # prediction slots (MLP or forest), PRED j's order
-        self._slots: dict = {}  # repr of a predict call -> slot index
 
     def _column(self, name: str, qualifier):
         key = f"{qualifier}.{name}" if qualifier else name
@@ -243,6 +294,132 @@ class _ProgramLowerer:
             raise _Unsupported(f"column {name} not device-eligible")
         self.used_columns[key] = col
         return key
+
+    def _const(self, v: float):
+        c = float(np.float32(v))
+        dev = self.device
+        return lambda cols: torch.full((), c, dtype=torch.float32, device=dev)
+
+    def lower(self, expr: A.Expr):
+        """Return fn(cols) -> f32 tensor [n] (or 0-dim)."""
+        if isinstance(expr, A.Literal):
+            if expr.value is None or isinstance(expr.value, str):
+                raise _Unsupported("non-numeric literal")
+            return self._const(float(expr.value))
+        if isinstance(expr, A.ColumnRef):
+            key = self._column(expr.name, expr.table)
+            if not _block_eligible(self.table.columns[key]):
+                raise _Unsupported(f"column {key} is past f32's exact integers")
+            return lambda cols: cols[key]
+        if isinstance(expr, A.Cast):
+            tname = expr.type_name.upper()
+            if tname not in (
+                "FLOAT", "REAL", "DOUBLE", "INTEGER", "INT", "BIGINT", "DECIMAL",
+            ):
+                raise _Unsupported(f"cast to {expr.type_name}")
+            inner = self.lower(expr.operand)
+            op = FS.CAST_INT if tname in ("INTEGER", "INT", "BIGINT") else FS.CAST_FLOAT
+            return lambda cols: FS.apply_unary(op, inner(cols))
+        if isinstance(expr, A.Unary):
+            inner = self.lower(expr.operand)
+            op = {"-": FS.NEG, "NOT": FS.NOT}.get(expr.op)
+            if op is None:
+                raise _Unsupported(f"unary {expr.op}")
+            return lambda cols: FS.apply_unary(op, inner(cols))
+        if isinstance(expr, A.Binary):
+            op = FS.BINARY_OPS.get(expr.op)
+            if op is None:
+                raise _Unsupported(f"binary {expr.op}")
+            left, right = self.lower(expr.left), self.lower(expr.right)
+            return lambda cols: FS.apply_binary(op, left(cols), right(cols))
+        if isinstance(expr, A.Between):
+            v, lo, hi = (self.lower(e) for e in (expr.operand, expr.low, expr.high))
+            if expr.negated:
+                return lambda cols: FS.apply_unary(FS.NOT, FS.between(v(cols), lo(cols), hi(cols)))
+            return lambda cols: FS.between(v(cols), lo(cols), hi(cols))
+        if isinstance(expr, A.FuncCall):
+            name = expr.name.lower()
+            if name == "infera_predict":
+                return self._lower_predict(expr)
+            if name == "list_extract":
+                # infera_predict_multi_list(...)[k] — a multi-output model's
+                # k-th (1-based) output column, fused into the device plan
+                inner, idx = expr.args[0], expr.args[1]
+                if (isinstance(inner, A.FuncCall)
+                        and inner.name.lower() == "infera_predict_multi_list"
+                        and isinstance(idx, A.Literal)
+                        and isinstance(idx.value, (int, float))
+                        and not isinstance(idx.value, bool)):
+                    return self._lower_predict(inner, out_col=int(idx.value) - 1)
+                raise _Unsupported("list_extract outside predict_multi_list")
+            if name in FS.SCALAR_OPS:
+                inner = self.lower(expr.args[0])
+                op = FS.SCALAR_OPS[name]
+                return lambda cols: FS.apply_unary(op, inner(cols))
+            raise _Unsupported(f"function {name}")
+        if isinstance(expr, A.WindowFunc):
+            raise _Unsupported("window functions in the program (ROADMAP P9)")
+        raise _Unsupported(type(expr).__name__)
+
+    def _lower_predict(self, expr: A.FuncCall, out_col: int | None = None):
+        """infera_predict (out_col None → requires a 1-column output) or an
+        infera_predict_multi_list element (0-based out_col) through the
+        model's graph."""
+        if (not expr.args or not isinstance(expr.args[0], A.Literal)
+                or not isinstance(expr.args[0].value, str)):
+            raise _Unsupported("infera_predict needs a constant model name")
+        model_name = expr.args[0].value
+        model = MODELS.get(model_name)
+        if model is None:
+            raise _Unsupported(f"model {model_name} not loaded at plan time")
+        if out_col is not None and out_col < 0:
+            raise _Unsupported("list index < 1")
+        if torch.device(model.device).type != torch.device(self.device).type:
+            raise _Unsupported(f"model {model_name} lives on {model.device}")
+        feature_fns = [self.lower(a) for a in expr.args[1:]]
+        inner = model.input_shape[1:]
+        if inner and all(d > 0 for d in inner) and int(np.prod(inner)) != len(feature_fns):
+            raise _Unsupported("feature count mismatch (host path reports it)")
+        self.models[model_name] = model
+        call = (model_name, id(model), out_col, repr(expr.args[1:]))
+
+        def run(cols):
+            done = cols["__pred__"]
+            if call not in done:
+                n = cols["__n__"]
+                feats = torch.stack([_full(f(cols), n).float() for f in feature_fns], dim=1)
+                out = model._run_graph(feats)[0]
+                if out_col is not None:
+                    out = out.reshape(out.shape[0], -1)
+                    if out_col >= out.shape[1]:
+                        raise _Unsupported("list index beyond model output width")
+                    out = out[:, out_col]
+                elif out.dim() > 1:
+                    if out.shape[1] != 1:
+                        raise _Unsupported("multi-output model under infera_predict")
+                    out = out[:, 0]
+                done[call] = out.to(torch.float32)
+            return done[call]
+
+        return run
+
+
+class _ProgramLowerer(_Lowerer):
+    """AST → postfix program (a list of ``(op, arg)``; ``ops/fused_sql.py``
+    holds the opcodes): the lowering of K2's plans, counterpart of
+    ``infera_tpu``'s ``_PallasLowerer``. The cases of ``lower`` are
+    ``_Lowerer``'s, and where it builds a torch closure this emits
+    instructions. COL args are column keys until ``resolve`` maps them to
+    rows of the table block. ``infera_predict`` lowers to ``PRED j``:
+    prediction slot j, run inside the kernel, an MLP slot (K2′) over the
+    model's ``mlp_plan`` or a forest slot (K4) over its tree ensemble; one
+    slot per distinct call."""
+
+    def __init__(self, table: Table):
+        super().__init__(table)
+        self.consts: list = []
+        self.preds: list = []   # prediction slots (MLP or forest), PRED j's order
+        self._slots: dict = {}  # repr of a predict call -> slot index
 
     def _const(self, v: float) -> list:
         self.consts.append(float(np.float32(v)))
@@ -477,14 +654,20 @@ def _packed(conn, plan_key, plan: FS.FusedPlan, block_xc, lookup=None,
     return ent[1]
 
 
+# _try_cuda_fused's answer when a guard of K2 tripped: the host answers
+_TRIPPED = object()
+
+
 def _try_cuda_fused(conn, sel, table, n, n_groups, strides, agg_plans, items_plan,
                     having_aggs, plan_key, block, dist_domains):
     """Lower the fused plan onto K2's slots, as ``infera_tpu``'s
     ``_try_pallas_fused`` lowers it onto its Pallas kernel, and run it.
-    Returns the _assemble_result 5-tuple, or None when the plan does not fit
-    the kernel (an aggregate outside ``_KERNEL_AGGS``, group count, value
-    domain, column cap, shared-memory budget), a guard trips or a MODE ties
-    in a live group: the host executor then answers. A kernel that fails to
+    Returns the _assemble_result 5-tuple; None when K2 declines the plan
+    (an aggregate outside ``_KERNEL_AGGS``, an expression or model it does
+    not lower, group count, value domain, column cap, shared-memory budget,
+    a MODE that ties in a live group), and the torch program runs it;
+    ``_TRIPPED`` when a key reached past f32's exact integers or an arg
+    slot met a NaN, and the host executor answers. A kernel that fails to
     build or launch raises."""
     if not 1 <= n_groups <= FS.MAX_GROUPS:
         return None
@@ -565,7 +748,7 @@ def _try_cuda_fused(conn, sel, table, n, n_groups, strides, agg_plans, items_pla
     packed = _packed(conn, plan_key, plan, xc, int_xc=int_xc)
     res = FS.execute_fused_plan(packed, xc, n, int_xc=int_xc)
     if res is None:
-        return None
+        return _TRIPPED
     results: list = []
     for spec, si in slot_map:
         if spec == "key":
@@ -590,8 +773,8 @@ def _try_cuda_fused(conn, sel, table, n, n_groups, strides, agg_plans, items_pla
             results.append((res["argrids"][si],))
         elif spec == "mode":
             # unique max only: a tie needs the host's first-occurrence
-            # tie-break (infera_tpu's XLA program); a dead group (count 0)
-            # "ties" at 0 and is ignored
+            # tie-break, which the torch program carries; a dead group
+            # (count 0) "ties" at 0 and is ignored
             mval, mcount, ties, bad = res["dists"][si]
             if bool(((ties > 1) & (res["count"] > 0)).any()):
                 return None
@@ -602,6 +785,209 @@ def _try_cuda_fused(conn, sel, table, n, n_groups, strides, agg_plans, items_pla
         else:  # dsum / davg
             results.append(res["dists"][si])
     return (results, res["count"], res["kmins"], res["kmaxs"], res["fracs"])
+
+
+# --- the torch program: infera_tpu's fused XLA program as eager torch ops --
+
+_INT = "#i64"   # the key suffix of a column's int64 block row in the cols dict
+_HLL_B = 2048   # registers a group (ops/aggregate._HLL_B)
+_HLL_HIST = 55  # register values 0..54
+
+
+def _bit_length(v: torch.Tensor) -> torch.Tensor:
+    """Exact bit length of non-negative int64 values (no float log2, which
+    rounds near powers of two)."""
+    n = torch.zeros_like(v)
+    for shift in (32, 16, 8, 4, 2, 1):
+        top = v >> shift
+        hit = top > 0
+        n = n + hit.long() * shift
+        v = torch.where(hit, top, v)
+    return n + (v > 0).long()
+
+
+def _hll_hist(x: torch.Tensor, dtype: str, mask, keys, G: int) -> torch.Tensor:
+    """[G, 55] int64 histogram of each group's 2048 HLL registers, the
+    host's (``ops/aggregate._agg_approx_count_distinct``) bit for bit: the
+    splitmix64 hash of the value's host bits, bucket = its low 11 bits,
+    register = 54 - bit length of the other 53."""
+    h = H.splitmix64_device(H.value_bits64_device(x, dtype))
+    rho = 54 - _bit_length((h >> 11) & ((1 << 53) - 1))
+    cell = torch.where(mask, keys * _HLL_B + (h & (_HLL_B - 1)), G * _HLL_B)
+    regs = torch.zeros(G * _HLL_B + 1, dtype=torch.int64, device=x.device)
+    regs = regs.scatter_reduce_(0, cell, rho, "amax")[:-1]
+    group = torch.arange(G * _HLL_B, device=x.device) // _HLL_B
+    (hist,) = GG.segment_sum_int_exact([torch.ones_like(regs)], group * _HLL_HIST + regs,
+                                       G * _HLL_HIST)
+    return hist.view(G, _HLL_HIST)
+
+
+def _group_sorted(v: torch.Tensor, slot: torch.Tensor, count: torch.Tensor) -> tuple:
+    """The selected rows' values sorted by (group, value) with one stable
+    sort, as ``jnp.lexsort((vals, keys))``: (sorted values, each group's
+    first position). NaN sorts last in its group, -0.0 ties +0.0."""
+    c = torch.where(torch.isnan(v), math.nan, v + 0.0)
+    bits = c.view(torch.int32).long() & 0xFFFFFFFF
+    order_key = torch.where(bits >= 1 << 31, bits ^ 0xFFFFFFFF, bits | 1 << 31)
+    perm = torch.sort(slot * (1 << 32) + order_key, stable=True).indices
+    return v[perm], torch.cumsum(count, 0) - count
+
+
+def _build_program(where_fn, key_fns, strides, n_groups, agg_plans, dist_domains, n, device):
+    """``infera_tpu``'s fused program (``sql/device_plan.py`` ``program``)
+    as eager torch ops over one device: the WHERE mask, the mixed-radix key
+    mod ``n_groups``, the key guards, then one entry per agg_plans entry in
+    ``_finalize_agg``'s shapes. Sums run in f64 (no compensated pairs), the
+    variance family in two f64 passes, integer aggregates in int64.
+    Returns fn(cols) -> (results, group count, key mins, key maxs,
+    fractional-key flags, trip): ``trip`` is set when a key reached past
+    f32's exact integers (two keys could share a bucket unseen) or an arg
+    slot met a NaN (the host lets a NaN win only as its group's first row);
+    the host executor then answers."""
+    G = n_groups
+    f32 = torch.float32
+
+    def program(cols):
+        cols = dict(cols, __n__=n, __pred__={})
+        if where_fn is None:
+            mask = torch.ones(n, dtype=torch.bool, device=device)
+        else:
+            mask = _full(where_fn(cols), n) != 0   # NaN is true, as jnp.asarray(v, bool)
+        keys = torch.zeros(n, dtype=torch.int64, device=device)
+        trip = torch.zeros((), dtype=torch.bool, device=device)
+        raws, fracs = [], []
+        for kf, stride in zip(key_fns, strides):
+            r = _full(kf(cols), n)
+            ri = FS.key_to_int32(r)
+            # the int32 wrap of infera_tpu's sum is the same modulo 2**k
+            keys = keys + ri * (stride & 0x7FFFFFFF)
+            fracs.append((mask & (r != ri.to(f32))).any())
+            trip = trip | (mask & (r.abs() >= FS.F32_EXACT)).any()
+            raws.append(ri)
+        keys = torch.remainder(keys, G)
+        slot = torch.where(mask, keys, G)   # G: a row the WHERE drops
+        (count,) = GG.segment_sum_int_exact([torch.ones_like(slot)], slot, G)
+        guards = [GG.segment_minmax_int32(ri, keys, G, mask) for ri in raws]
+        rows = torch.arange(n, dtype=torch.int64, device=device)
+        outs = []
+        for ai, (name, fn) in enumerate(agg_plans):
+            if name == "key":
+                outs.append(guards[fn][1])
+                continue
+            if name in ("count", "count_star"):
+                # device-eligible columns carry no NULLs
+                outs.append(count)
+                continue
+            if name in ("isum", "iavg"):
+                outs.append(int_agg.device_limb_sums(cols[fn + _INT], mask, keys, G))
+                continue
+            if name in ("imin", "imax"):
+                outs.append(int_agg.device_lex_minmax(cols[fn + _INT], mask, keys, G,
+                                                      name == "imin"))
+                continue
+            if name == "hll":
+                ckey, dt = fn
+                x = cols[ckey] if dt.startswith("float") else cols[ckey + _INT]
+                outs.append(_hll_hist(x, dt, mask, keys, G))
+                continue
+            vfn = fn[0] if name in ("var", "quantile", "argmn", "argmx") else fn
+            v = _full(vfn(cols), n)
+            if name in ("sum", "avg", "mean"):
+                outs.append((GG.segment_sum(v, slot, G), 0.0))
+            elif name == "var":
+                # two passes in f64: a constant group's deviations are 0
+                v = v.double()
+                mean = GG.segment_sum(v, slot, G) / count.clamp(min=1)
+                d = v - mean[keys]
+                outs.append(tuple(GG.segment_sum([d, d * d], slot, G)))
+            elif name in ("median", "quantile"):
+                svals, start = _group_sorted(v, slot, count)
+
+                def at(r):
+                    return svals[(start + r.clamp(min=0)).clamp(0, n - 1)]
+
+                if name == "median":
+                    outs.append((at((count - 1) // 2), at(count // 2)))
+                elif fn[2]:   # continuous: (floor value, ceil value, fraction)
+                    pos = fn[1] * (count.double() - 1.0)
+                    lo = torch.floor(pos).long()
+                    outs.append((at(lo), at(torch.minimum(lo + 1, count - 1)),
+                                 pos - lo.double()))
+                else:         # discrete: the ceil(q*n)-1 element
+                    outs.append((at(torch.ceil(fn[1] * count.double()).long() - 1),))
+            elif name == "cif":
+                outs.append((GG.segment_sum(v != 0, slot, G), 0.0))
+            elif name in ("band", "bor", "min", "max"):
+                if name in ("band", "bor"):
+                    v = (v != 0).to(f32)
+                (mn,), (mx,) = GG.segment_minmax([v], slot, G)
+                outs.append(mn if name in ("band", "min") else mx)
+            elif name == "prod":
+                # negatives, zeros, and the sum of log2|v| over the others
+                lv = torch.where(v != 0, torch.log2(v.double().abs()), 0.0)
+                outs.append(tuple(GG.segment_sum([v < 0, v == 0, lv], slot, G)) + (0.0,))
+            elif name in ("argmn", "argmx"):
+                # the smallest row id at the extreme (K2 d's word order)
+                is_min = name == "argmn"
+                nan = torch.isnan(v)
+                trip = trip | (mask & nan).any()
+                empty = torch.iinfo(torch.int64).max if is_min else torch.iinfo(torch.int64).min
+                w = torch.where(nan, empty, FS.arg_words(v, rows, is_min))
+                best = GG.segment_extreme_int64(w, slot, G, None, is_min)
+                low = best & ((1 << FS.ROW_BITS) - 1)
+                rid = low if is_min else (1 << FS.ROW_BITS) - 1 - low
+                outs.append((torch.where(best == empty, -1, rid),))
+            elif name == "mode":
+                outs.append(int_agg.device_mode(v, mask, keys, G, dist_domains[ai], rows))
+            else:  # dcount / dsum / davg
+                pres, bad = int_agg.device_presence(v, mask, keys, G, dist_domains[ai])
+                dcount, dsum = int_agg.presence_reduce(pres, dist_domains[ai])
+                outs.append((dcount, bad) if name == "dcount" else (dcount, dsum, bad))
+        return (outs, count, [g[0] for g in guards], [g[1] for g in guards], fracs, trip)
+
+    return program
+
+
+def _to_host(tree):
+    """Every tensor of a nested list/tuple structure read back in ONE
+    device-to-host copy (each leaf's bits as int64, concatenated), the
+    structure rebuilt with numpy arrays of the leaves' dtypes."""
+    leaves: list = []
+
+    def flat(x):
+        if isinstance(x, torch.Tensor):
+            leaves.append(x)
+        elif isinstance(x, (list, tuple)):
+            for y in x:
+                flat(y)
+
+    flat(tree)
+    words = []
+    for t in leaves:
+        t = t.reshape(-1)
+        if t.is_floating_point():
+            t = t.double().view(torch.int64)
+        words.append(t.long())
+    host = torch.cat(words).cpu().numpy() if words else np.zeros(0, np.int64)
+    it = iter(leaves)
+    pos = 0
+
+    def build(x):
+        nonlocal pos
+        if isinstance(x, torch.Tensor):
+            t = next(it)
+            a = host[pos:pos + t.numel()]
+            pos += t.numel()
+            if t.is_floating_point():
+                a = a.view(np.float64).astype(str(t.dtype).replace("torch.", ""))
+            elif t.dtype == torch.bool:
+                a = a != 0
+            return a.reshape(tuple(t.shape))
+        if isinstance(x, (list, tuple)):
+            return type(x)(build(y) for y in x)
+        return x
+
+    return build(tree)
 
 
 def _having_supported(expr: A.Expr) -> bool:
@@ -683,11 +1069,8 @@ def _group_keys_int32_safe(lowerer, group_by) -> bool:
                    else lowerer.table.columns[key])
             d = col.data
             if d.dtype.kind in "iu" and d.dtype.itemsize > 4 and d.size:
-                rng = getattr(col, "_int_range", None)
-                if rng is None:
-                    rng = (int(d.min()), int(d.max()))
-                    col._int_range = rng
-                if rng[0] < -(1 << 31) or rng[1] >= (1 << 31):
+                lo, hi = _int_range(col)
+                if lo < -(1 << 31) or hi >= (1 << 31):
                     return False
     return True
 
@@ -762,7 +1145,20 @@ def _finalize_agg(pname, payload, res, group_count):
         var = (s2 - s * s / np.where(c == 0, 1.0, c)) / np.where(bad, 1.0, c - ddof)
         var = np.maximum(var, 0.0)
         return (np.sqrt(var) if sq else var), T.DOUBLE, bad
+    if pname == "median":
+        lo, hi = res
+        vals = (np.asarray(lo, np.float64) + np.asarray(hi, np.float64)) / 2.0
+        return vals, T.DOUBLE, empty
+    if pname == "quantile":
+        if len(res) == 3:  # continuous: (floor value, ceil value, fraction)
+            lo, hi, frac = (np.asarray(a, np.float64) for a in res)
+            with np.errstate(invalid="ignore"):
+                return lo + (hi - lo) * frac, T.DOUBLE, empty
+        return np.asarray(res[0], np.float64), T.DOUBLE, empty
+    if pname == "hll":
+        return hll_estimate_from_hist(res), T.BIGINT, empty
     if pname == "mode":
+        # K2's unique maximum, or the program's tie-break by first occurrence
         mode_v, mcount, bad = res
         if bad:
             return None  # fractional / out-of-domain values → host
@@ -890,20 +1286,57 @@ def _ms(t0: float) -> float:
     return round((time.perf_counter() - t0) * 1e3, 3)
 
 
+def _ms(t0: float) -> float:
+    return round((time.perf_counter() - t0) * 1e3, 3)
+
+
+def _kernel_lowers(table: Table, sel: A.Select, agg_plans, nodes) -> bool:
+    """Whether K2 can take the plan as far as the plan alone tells (its
+    aggregate kinds, its expressions, its models); the group count and the
+    shared-memory budget are known only at run time."""
+    if any(p[0] not in _KERNEL_AGGS for p in agg_plans):
+        return False
+    low = _ProgramLowerer(table)
+    try:
+        for e in [sel.where, *sel.group_by]:
+            if e is not None:
+                low.lower(e)
+        for (pname, _), node in zip(agg_plans, nodes):
+            if pname in ("argmn", "argmx"):
+                low.lower(node.args[1])
+            elif pname not in ("key", "count_star", "isum", "iavg", "imin", "imax"):
+                low.lower(node.args[0])
+    except _Unsupported:
+        return False
+    return True
+
+
 def try_execute_on_device(conn, sel: A.Select, table: Table,
                           analyze_only: bool = False):
-    """Run the SELECT as kernel K2; returns a Table or None.
+    """Run the SELECT on the device; returns a Table or None (the host
+    executor answers).
 
-    With ``analyze_only`` returns True/None after eligibility checking +
-    lowering, without touching the device (used by EXPLAIN).
+    The tiers run in ``infera_tpu``'s order: kernel K2 where
+    ``FS.tier_enabled`` (``conn._cuda_plan_used``; path
+    ``device_plan_cuda``), then the torch program for a plan K2 declines or
+    with K2 off (path ``device_plan``); a key guard that trips in either
+    tier, a NULL-producing group or a value outside a DISTINCT/MODE domain
+    sends the query to the host. A planning decline (``_Unsupported``, or
+    the engine's own OnnxError/SqlError) goes to the host, which raises the
+    user's message; a CUDA error propagates.
+
+    With ``analyze_only`` returns the tier's name ("kernel K2" or "torch
+    program") or None after eligibility checking and lowering, without
+    touching the device (used by EXPLAIN).
 
     Records a per-phase wall-clock breakdown on ``conn._last_phases``
-    (plan_ms, upload_ms, probe_ms, exec_ms: K2 with its fold and the read
+    (plan_ms, upload_ms, probe_ms, exec_ms: the tier's run with the read
     back of the group table, assemble_ms) — surfaced through METRICS and
     EXPLAIN ANALYZE."""
     t0 = time.perf_counter()
     phases: dict = {}
     conn._last_phases = None
+    conn._cuda_plan_used = False
     if (
         sel.from_ is None
         or table.num_rows < MIN_DEVICE_ROWS
@@ -911,11 +1344,6 @@ def try_execute_on_device(conn, sel: A.Select, table: Table,
         or sel.distinct
         or len(sel.group_by) > 4  # mixed-radix combined-key bound
     ):
-        return None
-    if FS.fused_sql_mode() == "0":
-        return None
-    device = get_device()
-    if not FS.tier_enabled(device):
         return None
     # HAVING: aggregates compute on device as hidden outputs; the predicate
     # itself evaluates host-side over the (tiny) per-group result arrays
@@ -941,82 +1369,42 @@ def try_execute_on_device(conn, sel: A.Select, table: Table,
         else:
             return None
 
-    lowerer = _ProgramLowerer(table)
+    device = get_device()
+    lowerer = _Lowerer(table, device)
+
+    def _column_type(e):
+        return table.columns[lowerer._column(e.name, e.table)]
+
+    def _refs_ok(expr: A.Expr, int_ok) -> bool:
+        """Every column the expression reads outside a prediction is a
+        float (or DECIMAL) column, or an integer column ``int_ok`` admits."""
+        if isinstance(expr, A.ColumnRef):
+            try:
+                col = _column_type(expr)
+            except _Unsupported:
+                return False
+            t = col.sql_type
+            return t.is_float or t.name == "DECIMAL" or int_ok(col)
+        if isinstance(expr, A.FuncCall):
+            if expr.name.lower() == "infera_predict":
+                return True  # prediction output is f32 by construction
+            return all(_refs_ok(a, int_ok) for a in expr.args if isinstance(a, A.Expr))
+        return all(_refs_ok(c, int_ok) for c in
+                   (getattr(expr, a, None) for a in ("operand", "left", "right", "low", "high"))
+                   if isinstance(c, A.Expr))
 
     def _float_only(expr: A.Expr) -> bool:
-        """sum/avg/min/max run in f32 on device — only allow when every
+        """sum/avg/min/max run on f32 values — only allow when every
         referenced column is already a float type (integer sums need exact
         arithmetic; the host path keeps those)."""
-        ok = True
-
-        def walk(e):
-            nonlocal ok
-            if isinstance(e, A.ColumnRef):
-                try:
-                    key = lowerer._column(e.name, e.table)
-                except _Unsupported:
-                    ok = False
-                    return
-                t = table.columns[key].sql_type
-                if not (t.is_float or t.name == "DECIMAL"):
-                    ok = False
-            if isinstance(e, A.FuncCall):
-                if e.name.lower() == "infera_predict":
-                    return  # prediction output is f32 by construction
-                for a in e.args:
-                    if isinstance(a, A.Expr):
-                        walk(a)
-                return
-            for attr in ("operand", "left", "right", "low", "high"):
-                child = getattr(e, attr, None)
-                if isinstance(child, A.Expr):
-                    walk(child)
-
-        walk(expr)
-        return ok
+        return _refs_ok(expr, lambda col: False)
 
     def _f32_safe(expr: A.Expr) -> bool:
         """Like _float_only, but additionally admits integer columns whose
-        probed value range fits f32 exactly (|v| <= 2^24) — var/stddev over
-        small-int columns lose nothing to the f32 carrier."""
-        ok = True
-
-        def walk(e):
-            nonlocal ok
-            if isinstance(e, A.ColumnRef):
-                try:
-                    key = lowerer._column(e.name, e.table)
-                except _Unsupported:
-                    ok = False
-                    return
-                col = table.columns[key]
-                t = col.sql_type
-                if t.is_float or t.name == "DECIMAL":
-                    return
-                d = col.data
-                if d.dtype.kind in "iu" and d.size:
-                    rng = getattr(col, "_int_range", None)
-                    if rng is None:
-                        rng = (int(d.min()), int(d.max()))
-                        col._int_range = rng
-                    if rng[0] >= -(1 << 24) and rng[1] <= (1 << 24):
-                        return
-                ok = False
-                return
-            if isinstance(e, A.FuncCall):
-                if e.name.lower() == "infera_predict":
-                    return
-                for a in e.args:
-                    if isinstance(a, A.Expr):
-                        walk(a)
-                return
-            for attr in ("operand", "left", "right", "low", "high"):
-                child = getattr(e, attr, None)
-                if isinstance(child, A.Expr):
-                    walk(child)
-
-        walk(expr)
-        return ok
+        value range fits f32 exactly (|v| <= 2^24) — var/stddev, medians
+        and orders over small-int columns lose nothing to the f32 block."""
+        return _refs_ok(expr, lambda col: col.data.dtype.kind in "iu" and col.data.size > 0
+                        and _block_eligible(col))
 
     def _f64_refs_f32_exact(expr: A.Expr) -> bool:
         """Every f64 column the expression reads outside a prediction holds
@@ -1030,25 +1418,17 @@ def try_execute_on_device(conn, sel: A.Select, table: Table,
                 return True
             return all(_f64_refs_f32_exact(a) for a in expr.args if isinstance(a, A.Expr))
         if isinstance(expr, A.ColumnRef):
-            col = table.columns[lowerer._column(expr.name, expr.table)]
-            d = col.data
-            if d.dtype.kind == "f" and d.dtype.itemsize > 4 and d.size:
-                exact = getattr(col, "_f32_exact", None)
-                if exact is None:
-                    exact = bool(np.all(d.astype(np.float32).astype(np.float64) == d))
-                    col._f32_exact = exact
-                return exact
-            return True
+            return _f32_exact(_column_type(expr))
         return all(_f64_refs_f32_exact(c) for c in
                    (getattr(expr, a, None) for a in ("operand", "left", "right", "low", "high"))
                    if isinstance(c, A.Expr))
 
     def _order_is_exact_on_card(expr: A.Expr) -> bool:
         """An arg slot's order value is a column, a prediction or the
-        negation of one. K2 evaluates a computed order expression in f32
-        where the host evaluates it in f64, so rows whose values differ
-        below f32 precision would tie on the card and the smallest row id
-        would win (R8); a negation is exact in both."""
+        negation of one. A computed order expression is evaluated in f32
+        on the device where the host evaluates it in f64, so rows whose
+        values differ below f32 precision would tie there and the smallest
+        row id would win (R8); a negation is exact in both."""
         if isinstance(expr, A.Unary) and expr.op == "-":
             return _order_is_exact_on_card(expr.operand)
         if isinstance(expr, A.FuncCall):
@@ -1061,15 +1441,14 @@ def try_execute_on_device(conn, sel: A.Select, table: Table,
         """One aggregate call -> agg_plans entry, or None (host path); the
         planner of infera_tpu's ``_plan_one_agg``.
 
-        Entry shapes: (name, program) float aggs; ("count_star", None);
+        Entry shapes: (name, fn) float aggs; ("count_star", None);
         ("isum"|"iavg"|"imin"|"imax", col_key) exact int64 over a plain
-        integer column (the int block); ("var", (program, ddof, sqrt,
-        shift)) variance family via shifted (sum, sum^2) slots;
-        ("dcount"|"dsum"|"davg"|"mode", program) DISTINCT and MODE via the
+        integer column (the int block); ("var", (fn, ddof, sqrt, shift))
+        variance family; ("median", fn) and ("quantile", (fn, q, cont)) by
+        one sort; ("hll", (col_key, dtype)) approx_count_distinct;
+        ("dcount"|"dsum"|"davg"|"mode", fn) DISTINCT and MODE via the
         [G, V] counts (V probed after analyze_only); ("argmn"|"argmx",
-        (program, arg column)). Median, quantiles and approx_count_distinct
-        run in infera_tpu's XLA program, which the port does not have: the
-        host answers them."""
+        (fn, arg column))."""
         name = node.name.lower()
         if node.is_star or not node.args:
             if name != "count" or node.distinct:
@@ -1085,28 +1464,48 @@ def try_execute_on_device(conn, sel: A.Select, table: Table,
                 return None  # DISTINCT var/stddev stays on the host path
             # min/max are distinct-insensitive — plan as plain min/max
         if name == "mode":
-            # counts-matrix mode over a probed small-int domain, unique max
-            # only; domain probed below with the DISTINCT machinery
+            # counts-matrix mode over a probed small-int domain (tie-break =
+            # earliest first occurrence); domain probed below with the
+            # DISTINCT machinery
             return ("mode", lowerer.lower(arg))
-        if name == "median" or name in _QUANTILE_FAMILY or name == "approx_count_distinct":
-            return None
+        if name == "median":
+            # one sort by (group, value), then the middle gathers
+            if not _f32_safe(arg):
+                return None
+            return ("median", lowerer.lower(arg))
+        if name in _QUANTILE_FAMILY:
+            # the median's sort, ranks from a literal fraction; a bad
+            # fraction goes to the host, which raises the error
+            if len(node.args) != 2:
+                return None
+            qlit = node.args[1]
+            if not (isinstance(qlit, A.Literal) and isinstance(qlit.value, (int, float))
+                    and not isinstance(qlit.value, bool)):
+                return None
+            q = float(qlit.value)
+            if not (0.0 <= q <= 1.0) or not _f32_safe(arg):
+                return None
+            return ("quantile", (lowerer.lower(arg), q, _QUANTILE_FAMILY[name]))
         if name in _VAR_FAMILY:
             if not _f32_safe(arg):
                 return None
-            code = lowerer.lower(arg)
-            # shift by a sample mean for conditioning: var is shift-
+            fn = lowerer.lower(arg)
+            # K2 shifts by a sample mean for conditioning: var is shift-
             # invariant, and |x - mean| << |x| keeps s^2 - s*s/c from
-            # cancelling
+            # cancelling (the program centres on each group's mean instead)
             shift = 0.0
             if isinstance(arg, A.ColumnRef):
-                col = table.columns[lowerer._column(arg.name, arg.table)]
+                col = _column_type(arg)
                 shift = getattr(col, "_var_shift", None)
                 if shift is None:
-                    head = col.data[:4096]
-                    shift = float(head.astype(np.float64).mean()) if len(head) else 0.0
+                    # finite values only: infera_tpu's mean of a head holding
+                    # a NaN makes every group's variance NaN (R14)
+                    head = col.data[:4096].astype(np.float64)
+                    head = head[np.isfinite(head)]
+                    shift = float(head.mean()) if len(head) else 0.0
                     col._var_shift = shift
             ddof, sq = _VAR_FAMILY[name]
-            return ("var", (code, ddof, sq, np.float32(shift)))
+            return ("var", (fn, ddof, sq, np.float32(shift)))
         if name in ("count_if", "countif"):
             return ("cif", lowerer.lower(arg))
         if name in ("bool_and", "bool_or"):
@@ -1119,7 +1518,7 @@ def try_execute_on_device(conn, sel: A.Select, table: Table,
                 return None
             return ("prod", lowerer.lower(arg))
         if name in ("arg_min", "arg_max", "min_by", "max_by"):
-            # value of args[0] at the extreme of args[1]: the kernel finds
+            # value of args[0] at the extreme of args[1]: the device finds
             # the winning ROW ID, the host gathers the arg — so the returned
             # column may be ANY type incl. strings
             if len(node.args) != 2 or not isinstance(node.args[0], A.ColumnRef):
@@ -1138,8 +1537,23 @@ def try_execute_on_device(conn, sel: A.Select, table: Table,
                 return None
             is_min = name in ("arg_min", "min_by")
             return ("argmn" if is_min else "argmx", (lowerer.lower(order), acol))
+        if name == "approx_count_distinct":
+            # the host's splitmix64 HLL, bit for bit: an integer column
+            # within int32's range (infera_tpu's bound) from the int block,
+            # a float column from the f32 block when its values are f32-exact
+            if not isinstance(arg, A.ColumnRef):
+                return None
+            key = lowerer._column(arg.name, arg.table)
+            col = table.columns[key]
+            d = col.data
+            if d.dtype.kind in "iu":
+                lo, hi = _int_range(col)
+                if lo < -(1 << 31) or hi >= (1 << 31):
+                    return None
+            elif d.dtype.kind != "f" or not _f32_exact(col):
+                return None
+            return ("hll", (key, str(d.dtype)))
         # exact int64: sum/avg/min/max over a plain no-NULL integer column
-        # (a window never lowers: the kernel tier has none)
         if name in ("sum", "avg", "mean", "min", "max") and isinstance(arg, A.ColumnRef):
             key = lowerer._column(arg.name, arg.table)
             col = table.columns[key]
@@ -1153,10 +1567,9 @@ def try_execute_on_device(conn, sel: A.Select, table: Table,
         return (name, lowerer.lower(arg))
 
     try:
-        key_progs = [lowerer.lower(g) for g in sel.group_by]
-        if sel.where is not None:
-            lowerer.lower(sel.where)
-        if key_progs and not _group_keys_int32_safe(lowerer, sel.group_by):
+        where_fn = lowerer.lower(sel.where) if sel.where is not None else None
+        key_fns = [lowerer.lower(g) for g in sel.group_by]
+        if key_fns and not _group_keys_int32_safe(lowerer, sel.group_by):
             return None
         agg_plans = []
         for kind, node in items_plan:
@@ -1175,103 +1588,119 @@ def try_execute_on_device(conn, sel: A.Select, table: Table,
                 return None
             agg_plans.append(plan)
             having_plan.append((node, len(agg_plans) - 1))
-    except _Unsupported:
+    except (_Unsupported, OnnxError, SqlError):
         return None
+    nodes = [node for _k, node in items_plan] + list(having_aggs)
+    kernel_on = FS.tier_enabled(device)
 
     if analyze_only:
-        return True
+        return ("kernel K2" if kernel_on and _kernel_lowers(table, sel, agg_plans, nodes)
+                else "torch program")
     phases["plan_ms"] = _ms(t0)
     t0 = time.perf_counter()
     block = get_table_block(table, device)
-    if block is None:
+    xc = None if block is None else block[0]
+    try:
+        cols = {k: device_column_array(k, block, n) for k, c in lowerer.used_columns.items()
+                if _block_eligible(c)}
+    except _Unsupported:
         return None
-    xc, row_map = block
+    int_keys = sorted({p[1] for p in agg_plans if p[0] in _INT_AGGS}
+                      | {p[1][0] for p in agg_plans
+                         if p[0] == "hll" and not p[1][1].startswith("float")})
+    if int_keys:
+        int_xc = get_int_block(table, device, int_keys)
+        cols.update({k + _INT: int_xc[i, :n] for i, k in enumerate(int_keys)})
     phases["upload_ms"] = _ms(t0)
     t0 = time.perf_counter()
 
     # --- value probes (cached): one max per key expression and DISTINCT/
-    # MODE argument over the block, each a K2 launch, for the adaptive
-    # group-key radices and value domains
+    # MODE argument, for the adaptive group-key radices and value domains;
+    # each a K2 launch where K2 is on and takes it, else torch ops
     kmax_cache = getattr(conn, "_device_plan_kmax_cache", None)
     if kmax_cache is None:
         kmax_cache = {}
         conn._device_plan_kmax_cache = kmax_cache
 
-    def _probe_max(tag, code):
-        """max(int32(program), 0) over every row of the table, cached per
-        (tag, block), or None when its plan does not fit the kernel. One K2
-        launch (on the CPU, its plain version) of a one-group plan whose max
-        slot reads the program with NaN as 0, as key_to_int32 reads it; the
-        conversion toward zero is monotone, so int32 of the max is the max
-        of int32. The plan keeps only the prediction slots the program
-        reads (and the earlier ones their features may read)."""
+    def _probe_max(tag, expr, fn):
+        """max(int32(expr), 0) over every row of the table (NaN read as 0),
+        cached per (tag, block)."""
         probe_key = (tag, id(xc))
         got = kmax_cache.get(probe_key)
         if got is None:
-            prog = code + code + [(FS.NE, 0)] + lowerer._const(0.0) + code + [(FS.SEL, 0)]
-            plan = lowerer.fused_plan(None, [], [], [], [prog], [], 1, row_map)
-            last = max((arg for op, arg in prog if op == FS.PRED), default=-1)
-            plan = dataclasses.replace(plan, preds=plan.preds[:last + 1])
-            if not FS.smem_fits(plan):
-                return None
-            top = FS.fused_sql(FS.pack_plan(plan, xc.device), xc, n)["mm"][0]
-            got = (xc, int(FS.key_to_int32(top).clamp(min=0)[0]))
+            top = _kernel_probe(expr) if kernel_on else None
+            if top is None:
+                v = _full(fn(dict(cols, __n__=n, __pred__={})), n)
+                top = int(FS.key_to_int32(v).clamp(min=0).max())
+            got = (xc, top)
             if len(kmax_cache) >= 64:
                 kmax_cache.pop(next(iter(kmax_cache)))
             kmax_cache[probe_key] = got  # the VALUE pins the block
         return got[1]
 
+    def _kernel_probe(expr):
+        """The probe as one K2 launch (on the CPU, its plain version) of a
+        one-group plan whose max slot reads the program with NaN as 0, as
+        key_to_int32 reads it; the conversion toward zero is monotone, so
+        int32 of the max is the max of int32. None when K2 does not lower
+        the expression or the plan does not fit."""
+        if block is None:
+            return None
+        low = _ProgramLowerer(table)
+        try:
+            code = low.lower(expr)
+            prog = code + code + [(FS.NE, 0)] + low._const(0.0) + code + [(FS.SEL, 0)]
+            plan = low.fused_plan(None, [], [], [], [prog], [], 1, block[1])
+        except _Unsupported:
+            return None
+        if not FS.smem_fits(plan):
+            return None
+        top = FS.fused_sql(FS.pack_plan(plan, xc.device), xc, n)["mm"][0]
+        return int(FS.key_to_int32(top).clamp(min=0)[0])
+
     n_groups = 1
     strides = []
-    if key_progs:
-        # Adaptive segment count, sized to the actual combined key domain
-        # (one device max per key, bucketed to a power of two and cached in
-        # the plan key). Multi-key GROUP BY packs the keys mixed-radix
-        # (radix_i = kmax_i + 1); domains beyond MAX_GROUPS wrap and rely on
-        # the collision guard.
-        try:
-            radices = []
-            for gi, kp in enumerate(key_progs):
-                kmax = _probe_max(repr(sel.group_by[gi]), kp)
-                if kmax is None:
-                    return None
-                radices.append(kmax + 1)
-        except _Unsupported:
-            return None
-        domain = 1
-        for r in radices:
-            domain = min(domain * r, 1 << 40)
-        # mixed-radix strides, last key contiguous
-        strides = [1] * len(radices)
-        for i in range(len(radices) - 2, -1, -1):
-            strides[i] = strides[i + 1] * radices[i + 1]
-        n_groups = 8
-        while n_groups < domain and n_groups < MAX_GROUPS:
-            n_groups <<= 1
+    try:
+        if key_fns:
+            # Adaptive segment count, sized to the actual combined key domain
+            # (bucketed to a power of two and cached in the plan key).
+            # Multi-key GROUP BY packs the keys mixed-radix (radix_i = kmax_i
+            # + 1); domains beyond MAX_GROUPS wrap and rely on the collision
+            # guard.
+            radices = [_probe_max(repr(g), g, kf) + 1 for g, kf in zip(sel.group_by, key_fns)]
+            domain = 1
+            for r in radices:
+                domain = min(domain * r, 1 << 40)
+            # mixed-radix strides, last key contiguous
+            strides = [1] * len(radices)
+            for i in range(len(radices) - 2, -1, -1):
+                strides[i] = strides[i + 1] * radices[i + 1]
+            n_groups = 8
+            while n_groups < domain and n_groups < MAX_GROUPS:
+                n_groups <<= 1
 
-    # --- DISTINCT value domains: probe max(expr), pick V = next pow2; the
-    # counts matrix is [n_groups, V] so cap the product; negative or
-    # fractional values are caught in the kernel by the invalid flag (guard
-    # -> host), oversized domains are rejected here
-    dist_domains: dict = {}
-    for ai, (pname, code) in enumerate(agg_plans):
-        if pname not in ("dcount", "dsum", "davg", "mode"):
-            continue
-        try:
-            vmax = _probe_max((f"dist{ai}", repr(sel)), code)
-        except _Unsupported:
-            return None
-        if vmax is None:
-            return None
-        v_dom = 8
-        while v_dom <= vmax:
-            v_dom <<= 1
-        if pname in ("dsum", "davg") and v_dom > int_agg.MAX_DISTINCT_SUM_DOMAIN:
-            return None  # infera_tpu's limb-matmul exactness bound
-        mats = 2 if pname == "mode" else 1  # infera_tpu's mode carries two
-        if n_groups * v_dom * mats > int_agg.MAX_PRESENCE_ELEMS:
-            return None
-        dist_domains[ai] = v_dom
+        # --- DISTINCT value domains: probe max(expr), pick V = next pow2;
+        # the counts matrix is [n_groups, V] so cap the product; negative or
+        # fractional values raise the invalid flag (guard -> host), oversized
+        # domains are rejected here
+        dist_domains: dict = {}
+        for ai, ((pname, fn), node) in enumerate(zip(agg_plans, nodes)):
+            if pname == "hll" and n_groups * _HLL_B > (1 << 22):
+                return None  # infera_tpu's register-table bound
+            if pname not in ("dcount", "dsum", "davg", "mode"):
+                continue
+            vmax = _probe_max((f"dist{ai}", repr(sel)), node.args[0], fn)
+            v_dom = 8
+            while v_dom <= vmax:
+                v_dom <<= 1
+            if pname in ("dsum", "davg") and v_dom > int_agg.MAX_DISTINCT_SUM_DOMAIN:
+                return None  # infera_tpu's limb-matmul exactness bound
+            mats = 2 if pname == "mode" else 1  # infera_tpu's mode carries two
+            if n_groups * v_dom * mats > int_agg.MAX_PRESENCE_ELEMS:
+                return None
+            dist_domains[ai] = v_dom
+    except (_Unsupported, OnnxError):
+        return None
     phases["probe_ms"] = _ms(t0)
     t0 = time.perf_counter()
 
@@ -1285,14 +1714,45 @@ def try_execute_on_device(conn, sel: A.Select, table: Table,
         tuple(sorted(dist_domains.items())),
         id(xc),
     )
-    out = _try_cuda_fused(conn, sel, table, n, n_groups, strides, agg_plans, items_plan,
-                          having_aggs, plan_key, block, dist_domains)
+    if kernel_on and block is not None:
+        out = _try_cuda_fused(conn, sel, table, n, n_groups, strides, agg_plans, items_plan,
+                              having_aggs, plan_key, block, dist_domains)
+        if out is _TRIPPED:
+            return None
+        if out is not None:
+            phases["exec_ms"] = _ms(t0)
+            t0 = time.perf_counter()
+            out_table = _assemble_result(sel, items_plan, agg_plans, having_plan, *out,
+                                         has_keys=bool(key_fns))
+            phases["assemble_ms"] = _ms(t0)
+            if out_table is not None:
+                conn._cuda_plan_used = True
+                conn._last_phases = phases
+            return out_table  # None: a guard tripped, the program would trip it too
+
+    # --- the torch program, cached per plan key (the VALUE pins the block)
+    cache = getattr(conn, "_device_program_cache", None)
+    if cache is None:
+        cache = {}
+        conn._device_program_cache = cache
+    ent = cache.get(plan_key)
+    if ent is None:
+        ent = (xc, _build_program(where_fn, key_fns, strides, n_groups, agg_plans,
+                                  dist_domains, n, device))
+        if len(cache) >= 16:
+            cache.pop(next(iter(cache)))
+        cache[plan_key] = ent
+    try:
+        results, group_count, key_mins, key_maxs, fracs, trip = _to_host(ent[1](cols))
+    except (_Unsupported, OnnxError):
+        return None
     phases["exec_ms"] = _ms(t0)
-    if out is None:
+    if trip:
         return None
     t0 = time.perf_counter()
-    out_table = _assemble_result(sel, items_plan, agg_plans, having_plan, *out,
-                                 has_keys=bool(key_progs))
+    out_table = _assemble_result(sel, items_plan, agg_plans, having_plan, results,
+                                 group_count, key_mins, key_maxs, fracs,
+                                 has_keys=bool(key_fns))
     phases["assemble_ms"] = _ms(t0)
     if out_table is not None:
         conn._last_phases = phases

@@ -10,16 +10,19 @@ expressions (constant NULL model name → NULL prediction,
 test_edge_cases.test), volatile infera_* functions re-evaluated at every call
 site, and DuckDB-style value rendering for the test harness.
 
-Two device tiers: ``device_join_plan.try_execute_join_on_device`` runs a
+The device tiers: ``device_join_plan.try_execute_join_on_device`` runs a
 fact→dimension join with its aggregates as kernel K5 on CUDA
 (``_exec_path == "device_join_plan_cuda"``), before any join materializes;
 ``device_plan.try_execute_on_device`` runs an aggregate over one scanned
-table as kernel K2 (``"device_plan_cuda"``). Every other query, and every
-plan those tiers decline, runs on the host operators (numpy), where a join
-over large keys takes the sort-join of ``ops/device_join.py`` in torch ops
-(``"device_join"``). The window-fusion, streaming, shuffle and mesh tiers
-of ``infera_tpu``, and its XLA join program, come in later slices of the
-port.
+table as kernel K2 (``"device_plan_cuda"``) or, where K2 is off or declines
+the plan, as the torch program, ``infera_tpu``'s fused XLA program in
+eager torch ops (``"device_plan"``). Every other query, and every plan
+those tiers decline, runs on the host operators (numpy), where a join over
+large keys takes the sort-join of ``ops/device_join.py`` in torch ops
+(``"device_join"``) and an ORDER BY of 2**15 numeric rows or more sorts on
+the device (``ops/sort.py``). The window-fusion, streaming, shuffle and
+mesh tiers of ``infera_tpu``, and its XLA join program, come in later
+slices of the port.
 """
 
 from __future__ import annotations
@@ -415,23 +418,22 @@ class Connection:
         has_agg = bool(sel.group_by) or any(
             _contains_aggregate(i.expr) for i in sel.items
         )
-        device = False
+        tier = None  # the device tier the plan takes, by name
         if isinstance(sel.from_, A.BaseTable):
             from .device_plan import try_execute_on_device
 
             try:
                 table = _qualify(self.catalog.get(sel.from_.name),
                                  sel.from_.alias or sel.from_.name)
-                device = bool(
-                    try_execute_on_device(self, sel, table, analyze_only=True)
-                )
+                tier = try_execute_on_device(self, sel, table, analyze_only=True)
             except SqlError:
                 pass
         elif isinstance(sel.from_, A.Join):
             from .device_join_plan import try_execute_join_on_device
 
             try:
-                device = bool(try_execute_join_on_device(self, sel, analyze_only=True))
+                if try_execute_join_on_device(self, sel, analyze_only=True):
+                    tier = "kernel K5"
             except SqlError:
                 pass
         lines.append(f"{pad}PROJECT [{len(sel.items)} exprs]"
@@ -443,10 +445,8 @@ class Connection:
                 lines.append(
                     f"{pad}  GROUPING SETS [{len(gs)} sets → UNION ALL]")
             lines.append(f"{pad}  AGGREGATE [group keys: {keys}]"
-                         + ((" ← fused device plan (kernel K5)"
-                             if isinstance(sel.from_, A.Join)
-                             else " ← fused device plan (kernel K2)")
-                            if device else " ← host/hybrid operators"))
+                         + (f" ← fused device plan ({tier})" if tier
+                            else " ← host/hybrid operators"))
         if sel.order_by:
             lines.append(f"{pad}  ORDER BY [{len(sel.order_by)} keys]")
         if sel.where is not None:
@@ -596,17 +596,18 @@ class Connection:
             scope = _dummy_scope()
 
         # 1b. fused device path: aggregates over a single large numeric scan
-        # (incl. infera_predict) run as kernel K2 (device_plan.py); ineligible
-        # plans fall through to the host operators. A MATERIALIZED
-        # subquery/VALUES result is just a Table — the fused plan serves the
-        # aggregate over it the same way.
+        # (incl. infera_predict) run as kernel K2 or the torch program
+        # (device_plan.py); ineligible plans fall through to the host
+        # operators. A MATERIALIZED subquery/VALUES result is just a Table —
+        # the fused plan serves the aggregate over it the same way.
         if isinstance(sel.from_, (A.BaseTable, A.TableFunction,
                                   A.SubqueryRef, A.ValuesRef)):
             from .device_plan import try_execute_on_device
 
             fused = try_execute_on_device(self, sel, scope.table)
             if fused is not None:
-                self._exec_path = "device_plan_cuda"
+                self._exec_path = ("device_plan_cuda" if self._cuda_plan_used
+                                   else "device_plan")
                 try:
                     if sel.order_by:
                         fused = self._order_by(

@@ -304,6 +304,22 @@ def test_query_sums_are_the_same_from_run_to_run(cuda):
 # --------------------------------------------------------------------------- K2 / K2'
 
 
+def _host_rows(conn, q, monkeypatch, path="host"):
+    """The host executor's rows over ``conn``'s catalog: a second
+    Connection with the device tiers turned away, as infera_tpu's own tests
+    reach the host (tests/test_agg_tail_device.py:20-27); a join's host
+    path over a large side is the device sort-join."""
+    from infera_tpu_torch.sql import Connection, device_join_plan, device_plan
+
+    host = Connection(conn.catalog)
+    with monkeypatch.context() as m:
+        m.setattr(device_plan, "try_execute_on_device", lambda *a, **k: None)
+        m.setattr(device_join_plan, "try_execute_join_on_device", lambda *a, **k: None)
+        rows = host.execute(q).rows
+    assert host._exec_path == path
+    return rows
+
+
 def _sql_block(n, seed, cuda):
     """Rows of a table block: 0 an integer key in [0, 40), 1 normal values,
     2 normal values with NaN in every 997th row, 3 values in [-9, 9] with
@@ -531,9 +547,7 @@ def test_k2_sql_flagship_on_the_card(cuda, monkeypatch, tmp_path):
         assert conn._exec_path == "device_plan_cuda"
         # the group-key probe, then the plan
         assert fs.fused_sql.launches["f32"] == before + 2
-        monkeypatch.setenv("INFERA_PALLAS_SQL", "0")
-        host = conn.execute(q).rows
-        assert conn._exec_path == "host"
+        host = _host_rows(conn, q, monkeypatch)
         assert len(rows) == len(host) == 64
         for a, b in zip(rows, host):
             assert a[:2] == b[:2]
@@ -773,9 +787,7 @@ def test_k4_sql_tree_query_on_the_card(cuda, monkeypatch, tmp_path, model):
         rows = conn.execute(q).rows
         assert conn._exec_path == "device_plan_cuda"
         assert fs.fused_sql.launches["forest"] == before + 1
-        monkeypatch.setenv("INFERA_PALLAS_SQL", "0")
-        host = conn.execute(q).rows
-        assert conn._exec_path == "host"
+        host = _host_rows(conn, q, monkeypatch)
         assert len(rows) == len(host) == 64
         for a, b in zip(rows, host):
             assert a[:2] == b[:2]
@@ -953,9 +965,7 @@ def test_k5_sql_join_on_the_card(cuda, monkeypatch, q):
         rows = conn.execute(q).rows
         assert conn._exec_path == "device_join_plan_cuda"
         assert fs.fused_sql.launches["join"] == before + 1
-        monkeypatch.setenv("INFERA_PALLAS_SQL", "0")
-        host = conn.execute(q).rows
-        assert conn._exec_path == "device_join"
+        host = _host_rows(conn, q, monkeypatch, "device_join")
         assert len(rows) == len(host)
         for a, b in zip(rows, host):
             for x, y in zip(a, b):
@@ -1087,8 +1097,7 @@ def test_k2_group_key_probe_is_a_launch(cuda, monkeypatch, tmp_path):
             rows = conn.execute(q).rows
             assert conn._exec_path == "device_plan_cuda"
             assert fs.fused_sql.launches["f32"] == before + 2   # the probe, then the plan
-        monkeypatch.setenv("INFERA_PALLAS_SQL", "0")
-        assert rows == conn.execute(q).rows
+        assert rows == _host_rows(conn, q, monkeypatch)
     finally:
         MODELS.clear()
         itt.set_device(None)
@@ -1129,9 +1138,7 @@ def test_k2_tail_sql_on_the_card(cuda, monkeypatch, q):
         rows = conn.execute(q).rows
         assert conn._exec_path == "device_plan_cuda"
         assert fs.fused_sql.launches["f32"] == before + 1
-        monkeypatch.setenv("INFERA_PALLAS_SQL", "0")
-        host = conn.execute(q).rows
-        assert conn._exec_path == "host"
+        host = _host_rows(conn, q, monkeypatch)
         assert len(rows) == len(host) == 64
         for a, b in zip(rows, host):
             for x, y in zip(a, b):

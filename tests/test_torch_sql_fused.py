@@ -63,10 +63,14 @@ def both(clean_registry, monkeypatch, tmp_path):
 
 
 def _host_rows(port, q, monkeypatch):
-    monkeypatch.setenv("INFERA_PALLAS_SQL", "0")
-    rows = port.execute(q).rows
-    assert port._exec_path == "host"
-    monkeypatch.setenv("INFERA_PALLAS_SQL", "1")
+    """The port's host executor's rows: a second Connection over the same
+    catalog with the device plan turned away (infera_tpu's own route,
+    tests/test_agg_tail_device.py:20-27)."""
+    host = Connection(port.catalog)
+    with monkeypatch.context() as m:
+        m.setattr(dp, "try_execute_on_device", lambda *a, **k: None)
+        rows = host.execute(q).rows
+    assert host._exec_path == "host"
     return rows
 
 
@@ -123,22 +127,30 @@ def test_predict_calls_share_one_mlp_slot(both):
     assert len(low.preds) == 1
 
 
-@pytest.mark.parametrize("q", [
-    "select g, median(f1) from big group by g order by g",      # infera_tpu's XLA program
-    "select g, quantile_cont(f2, 0.75) from big group by g order by g",
-    "select g, approx_count_distinct(f3) from big group by g order by g",
-    "select f1, count(*) from big group by f1 order by f1",     # fractional key
+@pytest.mark.parametrize("q,path", [
+    # infera_tpu's XLA program: the port's torch program
+    ("select g, median(f1) from big group by g order by g", "device_plan"),
+    ("select g, quantile_cont(f2, 0.75) from big group by g order by g", "device_plan"),
+    # f3 = k / 3.0 holds doubles f32 cannot: the device HLL would merge them
+    ("select g, approx_count_distinct(f3) from big group by g order by g", "host"),
+    ("select f1, count(*) from big group by f1 order by f1", "host"),   # fractional key
 ])
-def test_outside_the_core_slots_the_host_answers(both, monkeypatch, q):
+def test_outside_the_core_slots_the_host_answers(both, monkeypatch, q, path):
     """What the kernel tier declines (the tail's families run in it:
-    tests/test_torch_sql_tail.py) the host executor answers."""
+    tests/test_torch_sql_tail.py) the torch program answers, or where a
+    guard trips or an argument is not f32-exact the host executor. The
+    port's host rows equal infera_tpu's host rows (1e-12), and the port's
+    rows equal its host's (the program's medians are the f32 table block's
+    values: tests/test_device_plan.py's 1e-6)."""
     port, ref, _ = both
     rows = port.execute(q).rows
-    assert port._exec_path == "host"
+    assert port._exec_path == path
+    host = _host_rows(port, q, monkeypatch)
+    _assert_rows_close(rows, host, 1e-6 if path == "device_plan" else 1e-12)
     import infera_tpu.sql.device_plan as ref_dp
 
     monkeypatch.setattr(ref_dp, "try_execute_on_device", lambda *a, **k: None)
-    _assert_rows_close(rows, ref.execute(q).rows, 1e-12)
+    _assert_rows_close(host, ref.execute(q).rows, 1e-12)
 
 
 def test_key_beyond_f32_integers_goes_to_host(both):
@@ -223,6 +235,39 @@ def test_program_evaluator_equals_the_reference_closures(expr):
     np.testing.assert_array_equal(got, want)
 
 
+def _closure_values(expr):
+    """The torch program's closure (``device_plan._Lowerer``) and
+    infera_tpu's, over the same f32 columns."""
+    import jax.numpy as jnp
+
+    port_t, ref_t, n = _tables()
+    sql = f"select {expr} from t"
+    low = dp._Lowerer(port_t, torch.device("cpu"))
+    fn = low.lower(parse_one(sql).items[0].expr)
+    block = dp.get_table_block(port_t, torch.device("cpu"))
+    cols = {k: dp.device_column_array(k, block, n) for k in low.used_columns}
+    got = fn(dict(cols, __n__=n, __pred__={})).expand(n).numpy()
+    ref_low = RefLowerer(ref_t)
+    ref_fn = ref_low.lower(ref_parse_one(sql).items[0].expr)
+    ref_cols = {k: jnp.asarray(np.asarray(c.data, np.float32))
+                for k, c in ref_low.used_columns.items()}
+    want = np.broadcast_to(np.asarray(ref_fn(ref_cols)).astype(np.float32), (n,))
+    return got, want
+
+
+@pytest.mark.parametrize("expr", EXPRS)
+def test_program_closures_equal_the_reference_closures(expr):
+    """The torch program's closures, f32 op for op: bit-equal values."""
+    got, want = _closure_values(expr)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("expr", LIBRARY)
+def test_program_closures_library_functions_within_a_few_ulp(expr):
+    got, want = _closure_values(expr)
+    np.testing.assert_allclose(got, want, rtol=5e-7, atol=0)
+
+
 @pytest.mark.parametrize("expr", LIBRARY)
 def test_library_functions_within_a_few_ulp(expr):
     # torch's and XLA's exp, log and sqrt come from different libraries:
@@ -305,11 +350,13 @@ def test_smem_budget_of_the_bench_plan():
     assert not fs.smem_fits(plan)
 
 
-def test_a_plan_over_the_budget_runs_on_the_host(both):
+def test_a_plan_over_the_budget_runs_on_the_host(both, monkeypatch):
     port, _, tmp_path = both
     path = tmp_path / "wide.onnx"
     proto.save_model_file(builder.mlp_model(in_dim=4, hidden=(256, 256), out_dim=1), path)
     itt.load_model("wide", str(path))
     q = "select g, avg(infera_predict('wide', f1, f2, f3, f4)) from big group by g order by g"
-    port.execute(q)
-    assert port._exec_path == "host"
+    rows = port.execute(q).rows
+    # K2 declines the plan: the torch program runs the model's graph
+    assert port._exec_path == "device_plan"
+    _assert_rows_close(rows, _host_rows(port, q, monkeypatch), 1e-5)

@@ -132,7 +132,9 @@ def test_mesh_is_refused_with_a_clear_error():
 
 
 def test_explain_names_the_kernel_tier(monkeypatch):
-    """EXPLAIN reports the fused plan only where the kernel tier is on."""
+    """EXPLAIN names the tier the plan takes: kernel K2 where it is on, the
+    torch program where it is off (``INFERA_PALLAS_SQL=0`` turns off K2
+    only), the host where neither takes the plan."""
     import infera_tpu_torch as itt
 
     itt.set_device("cpu")
@@ -143,6 +145,8 @@ def test_explain_names_the_kernel_tier(monkeypatch):
         monkeypatch.setenv("INFERA_PALLAS_SQL", "1")
         assert "kernel K2" in "\n".join(r[0] for r in conn.execute(q).rows)
         monkeypatch.setenv("INFERA_PALLAS_SQL", "0")
+        assert "torch program" in "\n".join(r[0] for r in conn.execute(q).rows)
+        q = "explain select g, sum(f) from e group by g having g > 1"
         assert "host/hybrid" in "\n".join(r[0] for r in conn.execute(q).rows)
     finally:
         itt.set_device(None)

@@ -10,9 +10,10 @@ interpret mode) must run on ``device_plan_cuda`` and give the port's host
 rows and ``infera_tpu``'s rows at the tolerance of the reference test it
 ports (``tests/test_pallas_sql.py:188-275,472-500``,
 ``tests/test_device_plan.py:371-520``); where ``infera_tpu`` sends a query
-to its XLA program (``device_plan``) the port's host executor answers with
-the same rows. The plain version's new families are held to numpy per-group
-references."""
+to its XLA program (``device_plan``) the port's torch program answers
+(``device_plan``) with the same rows. The port's host rows come from a
+second Connection over the same catalog with the device plan turned away.
+The plain version's new families are held to numpy per-group references."""
 
 import numpy as np
 import pytest
@@ -80,10 +81,14 @@ def both7(clean_registry, monkeypatch):
 
 
 def _host_rows(port, q, monkeypatch):
-    monkeypatch.setenv("INFERA_PALLAS_SQL", "0")
-    rows = port.execute(q).rows
-    assert port._exec_path == "host"
-    monkeypatch.setenv("INFERA_PALLAS_SQL", "1")
+    """The port's host executor's rows: a second Connection over the same
+    catalog with the device plan turned away (infera_tpu's own route,
+    tests/test_agg_tail_device.py:20-27)."""
+    host = Connection(port.catalog)
+    with monkeypatch.context() as m:
+        m.setattr(dp, "try_execute_on_device", lambda *a, **k: None)
+        rows = host.execute(q).rows
+    assert host._exec_path == "host"
     return rows
 
 
@@ -99,7 +104,7 @@ def _assert_rows_close(rows, want, rel):
 
 
 # where infera_tpu's rows come from -> where the port's must
-PATHS = {"device_plan_pallas": "device_plan_cuda", "device_plan": "host", "host": "host"}
+PATHS = {"device_plan_pallas": "device_plan_cuda", "device_plan": "device_plan", "host": "host"}
 
 
 def _run_both(port, ref, q, monkeypatch, rel):
@@ -224,8 +229,9 @@ def test_mode_unique_max_in_the_kernel(both, monkeypatch):
 
 
 def test_mode_tie_goes_to_the_host(both, monkeypatch):
-    """A tied MODE needs the host's first-occurrence tie-break: infera_tpu
-    runs its XLA program, the port its host executor."""
+    """A tied MODE needs the host's first-occurrence tie-break, which K2
+    does not carry: infera_tpu runs its XLA program, the port its torch
+    program."""
     port, ref = both
     for conn in (port, ref):
         conn.execute(f"create table mtie as select x % 4 as mg, x % 5 as v from range({N}) r(x)")
@@ -326,8 +332,8 @@ def test_min_max_are_distinct_insensitive(both7, monkeypatch):
     "select g, approx_count_distinct(f1) from big group by g order by g",
 ])
 def test_infera_tpus_xla_aggregates_go_to_the_host(both7, monkeypatch, q):
-    """Median, quantiles and HLL run in infera_tpu's XLA program (P4): the
-    port's host executor answers with the same rows, to the XLA program's f32
+    """Median, quantiles and HLL run in infera_tpu's XLA program: the port's
+    torch program answers with the same rows, to the XLA program's f32
     (pytest.approx's default, as tests/test_device_plan.py:457-489)."""
     port, ref = both7
     _, ref_path = _run_both(port, ref, q, monkeypatch, 1e-6)
@@ -460,19 +466,21 @@ def test_an_empty_global_group_renders_null(both, monkeypatch, q):
 
 def test_a_plan_over_the_smem_budget_runs_on_the_host(both):
     """24 exact int64 sums at 512 groups need 24 x 10 KB of accumulators,
-    over one block's 227 KB."""
+    over one block's 227 KB: K2 declines the plan and the torch program
+    runs it."""
     port, _ = both
     port.execute(f"create table s5 as select x % 500 as k, x % 5 as h from range({N}) r(x)")
-    for slots, path in ((24, "host"), (20, "device_plan_cuda")):
+    for slots, path in ((24, "device_plan"), (20, "device_plan_cuda")):
         port.execute("select k, " + ", ".join(["sum(h)"] * slots) + " from s5 group by k")
         assert port._exec_path == path
 
 
 @pytest.mark.parametrize("case", ["domain", "limb_rows", "int_product"])
 def test_infera_tpus_declines_are_kept(both, monkeypatch, case):
-    """A DISTINCT domain over 512 values, an integer sum over more rows than
-    MAX_LIMB_ROWS (patched small on both sides) and a product over an integer
-    column run outside the kernel in both packages, with the same rows."""
+    """A DISTINCT domain over 512 values (the torch program, as infera_tpu's
+    XLA program), an integer sum over more rows than MAX_LIMB_ROWS (patched
+    small on both sides) and a product over an integer column (the host) run
+    outside the kernel in both packages, with the same rows."""
     port, ref = both
     if case == "limb_rows":
         monkeypatch.setattr(int_agg, "MAX_LIMB_ROWS", 1000)
@@ -483,7 +491,7 @@ def test_infera_tpus_declines_are_kept(both, monkeypatch, case):
          "limb_rows": "select g, sum(k), avg(k) from dk group by g order by g",
          "int_product": "select g, product(k % 2 + 1) from dk group by g order by g"}[case]
     rows, ref_path = _run_both(port, ref, q, monkeypatch, 1e-12)
-    assert port._exec_path == "host"
+    assert port._exec_path == ("device_plan" if case == "domain" else "host")
     assert ref_path != "device_plan_pallas"
 
 

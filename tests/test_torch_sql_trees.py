@@ -100,10 +100,14 @@ def both(clean_registry, monkeypatch, tmp_path):
 
 
 def _host_rows(port, q, monkeypatch):
-    monkeypatch.setenv("INFERA_PALLAS_SQL", "0")
-    rows = port.execute(q).rows
-    assert port._exec_path == "host"
-    monkeypatch.setenv("INFERA_PALLAS_SQL", "1")
+    """The port's host executor's rows: a second Connection over the same
+    catalog with the device plan turned away (infera_tpu's own route,
+    tests/test_agg_tail_device.py:20-27)."""
+    host = Connection(port.catalog)
+    with monkeypatch.context() as m:
+        m.setattr(dp, "try_execute_on_device", lambda *a, **k: None)
+        rows = host.execute(q).rows
+    assert host._exec_path == "host"
     return rows
 
 
@@ -163,15 +167,16 @@ def test_tree_queries_match_host_and_reference(both, monkeypatch, name):
 def test_declined_forests_leave_the_kernel_tier(both, monkeypatch, model):
     """A BRANCH_GT forest, a depth-8 tree (over 128 leaves) and a
     SOFTMAX_ZERO classifier: infera_tpu's kernel declines them (its XLA
-    tier answers) and so does the port's (its host executor answers, until
-    the port has that tier), with the same rows."""
+    tier answers) and so does the port's (its torch program answers, the
+    model's graph on the engine), with the host's rows."""
     port, ref = both
     q = f"select g, count(*), avg({_p(model)}), max({_p(model)}) from big group by g order by g"
     rows = port.execute(q).rows
-    assert port._exec_path == "host"
+    assert port._exec_path == "device_plan"
     ref_rows = ref.execute(q).rows
     assert ref._exec_path == "device_plan"
     _assert_rows_close(rows, ref_rows, 1e-5)
+    _assert_rows_close(rows, _host_rows(port, q, monkeypatch), 1e-5)
 
 
 def test_plan_carries_one_forest_slot_per_distinct_call(both):
