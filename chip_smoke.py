@@ -131,7 +131,21 @@ card, builds every kernel of ``infera_tpu_torch/csrc`` with nvcc (sm_90a), and:
    beside their bounds, plain versions and PyTorch chains (K8a with its
    ring's buffers and bytes in flight), and K7a bf16's time is split by
    stage;
-11. the ONNX phase, which launches no kernel of the port (``infera_tpu``
+11. the device tiers beside K5 and K2 (``device_tiers_phase``; torch ops,
+   no kernel of the port, so the kernels line gains no row): query T (F's
+   join and map grouped by a fact column into 4,096 groups, which K5
+   declines) and U, V (G-LEFT and G-FULL with ``INFERA_PALLAS_SQL=0``) on
+   the torch join program (``device_join_plan``; U and V also held to K5's
+   rows on the same plan), W1-W5 (``tests/test_window_frames.py``'s
+   windowed subqueries over a 1,048,576-row table of 64 partitions) with
+   their windows in the torch program (``device_plan``), and Y (a running
+   sum and rank with ``INFERA_WINDOW_DEVICE=1``, held to the host route).
+   Each runs through ``Connection.execute`` on its path with rows equal to
+   the host executor's, prints its end-to-end time (median of 5) and
+   phases and the host's time once; W1's window is split by CUDA events
+   (the sort, the run boundaries, one segmented scan), and W1 and U are
+   traced over five calls each for the device's idle share;
+12. the ONNX phase, which launches no kernel of the port (``infera_tpu``
    computes these ops in XLA, outside any Pallas kernel; the port in torch
    ops, Conv in cuDNN without TF32): the MobileNetV3-Small stand-in
    (``onnx.builder.mobilenet_like_model``, 1000 classes) through
@@ -147,7 +161,7 @@ card, builds every kernel of ``infera_tpu_torch/csrc`` with nvcc (sm_90a), and:
    at batch 64, the encoder's rows/s at each precision, one
    ``observability.trace`` window of MobileNet at batch 1 with its idle
    share, and the phase's wall time;
-12. prints the ``{"kernels": [...]}`` line, the card's name and power limit,
+13. prints the ``{"kernels": [...]}`` line, the card's name and power limit,
    and last ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero without the ``ok`` line. The script
@@ -820,23 +834,15 @@ def fma_map(x: np.ndarray, w: np.ndarray, b: np.ndarray) -> np.ndarray:
     return acc + b.astype(np.float32)
 
 
-def join_phase(torch, itt, peaks, device) -> list:
-    """Config 3 on the card: query F (the multi-output map joined back to
-    its source) and the outer joins G-LEFT, G-FULL and H through
-    Connection.execute, each one launch of K5; returns the K5 rows of the
-    kernels line."""
-    import os
-
+def config3_tables(itt, conn, n, grp=None) -> tuple:
+    """Config 3's tables through ``register_table``/``execute`` on ``conn``
+    and its model ``m3``: src (a permuted id, x0..x7 from a seed; with
+    ``grp``, a column grp = row % grp), meta (id, w, cat = id % 16), fact
+    (k = x % 1100, v, og) and dim (k < 1000, w). Returns (ids, x, mid)."""
     from infera_tpu_torch.columnar import Column, Table
     from infera_tpu_torch.columnar import types as T
     from infera_tpu_torch.onnx import builder, proto
-    from infera_tpu_torch.ops import fused_sql as fs
-    from infera_tpu_torch.registry import MODELS
-    from infera_tpu_torch.sql import Connection, device_plan
 
-    n = N_MAIN
-    os.environ.pop("INFERA_PALLAS_SQL", None)
-    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as d:
         proto.save_model_file(
             builder.mlp_model(in_dim=8, hidden=(), out_dim=4, softmax=False, seed=0),
@@ -847,9 +853,10 @@ def join_phase(torch, itt, peaks, device) -> list:
     x = rng.standard_normal((n, 8), dtype=np.float32)
     mid = np.arange(n, dtype=np.int64)
     w_meta = np.random.default_rng(1).standard_normal(n, dtype=np.float32)
-    conn = Connection()
     src = {"id": Column(ids, T.BIGINT)}
     src.update({f"x{k}": Column(np.ascontiguousarray(x[:, k]), T.FLOAT) for k in range(8)})
+    if grp is not None:
+        src["grp"] = Column(mid % grp, T.BIGINT)
     conn.register_table("src", Table(src))
     conn.register_table("meta", Table({"id": Column(mid, T.BIGINT),
                                        "w": Column(w_meta, T.FLOAT),
@@ -857,6 +864,25 @@ def join_phase(torch, itt, peaks, device) -> list:
     conn.execute(f"create table fact as select x % 1100 as k, (x % 40)::float / 4.0 as v, "
                  f"x % 6 as og from range({n}) r(x)")
     conn.execute("create table dim as select x as k, (x * 2)::float as w from range(1000) r(x)")
+    return ids, x, mid
+
+
+def join_phase(torch, itt, peaks, device) -> list:
+    """Config 3 on the card: query F (the multi-output map joined back to
+    its source) and the outer joins G-LEFT, G-FULL and H through
+    Connection.execute, each one launch of K5; returns the K5 rows of the
+    kernels line."""
+    import os
+
+    from infera_tpu_torch.ops import fused_sql as fs
+    from infera_tpu_torch.registry import MODELS
+    from infera_tpu_torch.sql import Connection
+
+    n = N_MAIN
+    os.environ.pop("INFERA_PALLAS_SQL", None)
+    t0 = time.perf_counter()
+    conn = Connection()
+    ids, x, mid = config3_tables(itt, conn, n)
     print(f"join tables and model: {time.perf_counter() - t0:.2f} s on the host clock")
     queries = {"F": SQL_F, "G-LEFT": SQL_G.format(kind="left"),
                "G-FULL": SQL_G.format(kind="full"), "H": SQL_H}
@@ -1048,16 +1074,18 @@ TAIL_KERNELS = {"I": ("K2 b sum-slot families", "infera_tpu/sql/device_plan.py:9
 
 
 def compare_rows(key, rows, host, tols) -> float:
-    """Rows against the host's, per column exact or within its relative
-    tolerance; returns the largest relative difference seen."""
+    """Rows against the host's, per column exact (None), within a relative
+    tolerance, or within (relative, absolute); returns the largest relative
+    difference seen."""
     check(len(rows) == len(host), f"query {key}: {len(rows)} rows vs host {len(host)}")
     worst = 0.0
     for a, b in zip(rows, host):
-        for x, y, rel in zip(a, b, tols, strict=True):
-            if rel is None:
+        for x, y, tol in zip(a, b, tols, strict=True):
+            if tol is None:
                 check(x == y, f"query {key}: {a} vs host {b}")
                 continue
-            check(np.isfinite(x) and abs(x - y) <= rel * abs(y) + 1e-12,
+            rel, atol = tol if isinstance(tol, tuple) else (tol, 1e-12)
+            check(np.isfinite(x) and abs(x - y) <= rel * abs(y) + atol,
                   f"query {key}: {x} vs host {y}")
             worst = max(worst, abs(x - y) / max(abs(y), 1e-30))
     return worst
@@ -1697,6 +1725,193 @@ def _device_plan_queries(torch, itt, device, d) -> None:
                     conn.execute(DP_QUERIES["M"])
             torch.cuda.synchronize()
         trace_report(pq, "query M (5 steady executions)", prof, f"{td}/query_m", {"query M": 5})
+
+
+# The device-plan tiers beside K5 and K2 (``sql/device_join_plan.py``'s
+# torch join program, ``_exec_path == "device_join_plan"``; windows in the
+# torch program, ``"device_plan"``; the device window route): T is query F's
+# join grouped by a fact column into 4,096 groups, which K5 declines; U and V
+# are G-LEFT and G-FULL with INFERA_PALLAS_SQL=0; W1-W5 are
+# tests/test_window_frames.py's fused queries over wt (64 partitions); Y is
+# that test's device-route queries with INFERA_WINDOW_DEVICE=1.
+DT_JOIN = {"T": SQL_F.replace("cat", "grp"), "U": SQL_G.format(kind="left"),
+           "V": SQL_G.format(kind="full")}
+DT_WT = ("create table wt as select x % 64 as p, x % 5 as g, (x * 2654435761) % 9973 as k, "
+         "((x * 13) % 97)::float - 48.0 as v from range({n}) r(x)")
+DT_WINDOWS = {
+    "W1": ("select g, avg(w) a, max(w) m from (select g, sum(v) over (partition by p order by "
+           "k) as w from wt) sub group by g order by g"),
+    "W2": ("select g, avg(r) s from (select g, rank() over (partition by p order by k) as r "
+           "from wt) sub group by g order by g"),
+    "W3": ("select count(*), avg(w) from (select min(v) over (partition by p order by k) as w, "
+           "v from wt) sub where w < -20.0"),
+    "W4": ("select g, avg(w) from (select g, avg(v) over (partition by p order by k rows "
+           "between unbounded preceding and current row) as w from wt) sub group by g "
+           "order by g"),
+    "W5": ("select g, sum(w) from (select g, max(v) over (partition by p) as w from wt) sub "
+           "group by g order by g"),
+}
+DT_ROUTE = {"Y-sum": "select sum(v) over (partition by p order by k) s from wt",
+            "Y-rank": "select rank() over (partition by p order by k) r from wt"}
+# per column None (exact), the relative tolerance, or (relative, absolute)
+# against the host: T's keys and counts exact; its map runs through the ONNX
+# engine's matmul where the host's runs through K6, so a prediction may be
+# one rounding (~1e-7) apart, which a group's average (~128 kept rows) and
+# its cancelling sum of P(2) * w show as an absolute difference of up to
+# ~1e-7 and ~1e-5; U and V as G; W tests/test_window_frames.py's 1e-6 (the
+# f32 carrier of the window against the host's f64), Y that test's 1e-5
+DT_TOL = {"T": (None, None, (1e-5, 1e-6), (1e-5, 1e-4), (1e-6, 1e-6)), "U": JOIN_TOL["G-LEFT"],
+          "V": JOIN_TOL["G-FULL"], "W1": (None, 1e-6, 1e-6), "W2": (None, 1e-6),
+          "W3": (None, 1e-6), "W4": (None, 1e-6), "W5": (None, 1e-6)}
+
+
+def device_tiers_phase(torch, itt, device) -> None:
+    """Queries T, U, V (the torch join program) and W1-W5, Y (windows)
+    through ``Connection.execute`` at 1,048,576 rows: each on its path with
+    rows equal to the host executor's (U and V also to K5's on the same
+    plan, Y to the host route), its end-to-end time (median of 5 after one
+    warm-up) and phases, the host executor's time once, K5's time on U's
+    and V's plans, W1's window split (sort, run boundaries, scan) by CUDA
+    events, and W1's and U's idle shares in traced windows of five calls.
+    No kernel of the port runs in these tiers: the kernels line gains no
+    row."""
+    import os
+
+    from infera_tpu_torch import observability as obs
+    from infera_tpu_torch.ops import sort as sort_mod
+    from infera_tpu_torch.ops import window as win
+    from infera_tpu_torch.sql import Connection
+    from infera_tpu_torch.testing import profile_query as pq
+
+    n = N_MAIN
+    t0 = time.perf_counter()
+    os.environ.pop("INFERA_PALLAS_SQL", None)
+    os.environ.pop("INFERA_WINDOW_DEVICE", None)
+    conn = Connection()
+    config3_tables(itt, conn, n, grp=4096)
+    conn.execute(DT_WT.format(n=n))
+    print(f"device-tier tables and model: {time.perf_counter() - t0:.2f} s on the host clock")
+    env = {"T": {}, "U": {"INFERA_PALLAS_SQL": "0"}, "V": {"INFERA_PALLAS_SQL": "0"},
+           "U-K5": {}, "V-K5": {}, "Y-sum": {"INFERA_WINDOW_DEVICE": "1"},
+           "Y-rank": {"INFERA_WINDOW_DEVICE": "1"}}
+    paths = {"T": "device_join_plan", "U": "device_join_plan", "V": "device_join_plan",
+             "U-K5": "device_join_plan_cuda", "V-K5": "device_join_plan_cuda",
+             **dict.fromkeys(DT_WINDOWS, "device_plan"), **dict.fromkeys(DT_ROUTE, "host")}
+    queries = {**DT_JOIN, "U-K5": DT_JOIN["U"], "V-K5": DT_JOIN["V"], **DT_WINDOWS, **DT_ROUTE}
+
+    def run(key):
+        os.environ.update(env.get(key, {}))
+        try:
+            res = conn.execute(queries[key])
+            torch.cuda.synchronize()
+        finally:
+            for var in env.get(key, {}):
+                os.environ.pop(var, None)
+        check(conn._exec_path == paths[key], f"query {key} ran on {conn._exec_path}")
+        return res
+
+    # ---------------------------------------------------------------- each on its path
+    calls = {"route": 0}
+    route_fn, sort_fn = win.window_device, sort_mod.lexsort_device
+
+    def counted(*a, **k):
+        calls["route"] += 1
+        return route_fn(*a, **k)
+
+    win.window_device = counted
+    try:
+        out = {key: run(key) for key in queries}
+    finally:
+        win.window_device = route_fn
+    check(calls["route"] == len(DT_ROUTE), f"the device window route ran {calls['route']} times")
+    rows = {key: out[key].rows for key in (*DT_JOIN, "U-K5", "V-K5", *DT_WINDOWS)}
+    print(f"device-tier queries: T, U, V on device_join_plan (U and V also on K5), W1-W5 on "
+          f"device_plan, Y through the device window route ({calls['route']} windows)")
+
+    # ---------------------------------------------------------------- rows
+    host, host_ms_ = host_rows(conn, DT_JOIN, "device_join")
+    host_w, host_w_ms = host_rows(conn, DT_WINDOWS)
+    host.update(host_w)
+    host_ms_.update(host_w_ms)
+    for key in (*DT_JOIN, *DT_WINDOWS):
+        worst = compare_rows(key, rows[key], host[key], DT_TOL[key])
+        print(f"query {key}: path {paths[key]}, {len(rows[key])} rows equal the host "
+              f"executor's ({host_ms_[key]:.1f} ms on the host clock), worst relative "
+              f"difference {worst:.3e}: {rows[key][0]}")
+    check(len(rows["T"]) > 512, f"query T: {len(rows['T'])} groups, K5 takes up to 512")
+    for key in ("U", "V"):
+        worst = compare_rows(key, rows[key], rows[f"{key}-K5"], DT_TOL[key])
+        print(f"query {key}: the program's rows equal K5's on the same plan, worst relative "
+              f"difference {worst:.3e}")
+    for key in DT_ROUTE:
+        os.environ["INFERA_WINDOW_DEVICE"] = "0"
+        try:
+            t = time.perf_counter()
+            off = conn.execute(queries[key])
+            off_ms = (time.perf_counter() - t) * 1e3
+        finally:
+            os.environ.pop("INFERA_WINDOW_DEVICE", None)
+        a = next(iter(out[key].table.columns.values())).data
+        b = next(iter(off.table.columns.values())).data
+        check(a.dtype == b.dtype and len(a) == n, f"query {key}: {a.dtype} vs host {b.dtype}")
+        np.testing.assert_allclose(a, b, rtol=1e-5)
+        err = float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+        print(f"query {key}: {n} rows through the device route equal the host route "
+              f"({off_ms:.1f} ms on the host clock) within {err:.3e} relative")
+
+    # ---------------------------------------------------------------- times
+    for key in queries:
+        run(key)
+        times = []
+        for _ in range(5):
+            t = time.perf_counter()
+            run(key)
+            times.append((time.perf_counter() - t) * 1e3)
+        med = float(np.median(times))
+        print(f"query {key} end to end: median {med:.3f} ms of 5 on the host clock "
+              f"({n / med * 1e3:,.0f} rows/s), path {paths[key]}; phases {conn._last_phases}")
+
+    # ---------------------------------------------------------------- W1's window split
+    table = conn.catalog.get("wt")
+    p = torch.as_tensor(table.columns["p"].data, device=device).float()
+    k = torch.as_tensor(table.columns["k"].data, device=device).float()
+    v = torch.as_tensor(table.columns["v"].data, device=device).float()
+    order = sort_fn([p, k])
+    idx = torch.arange(n, device=device)
+    gchg = win._changes([p[order]], n, device)
+    kchg = win._changes([p[order], k[order]], n, device)
+    v_s = v[order].double()
+    total = np.median(device_ms(torch, lambda: win.window_device([p], [k], v, "sum",
+                                                                 "default"), runs=10))
+    srt = np.median(device_ms(torch, lambda: sort_fn([p, k]), runs=10))
+    runs = np.median(device_ms(torch, lambda: (win._runs(gchg, idx), win._runs(kchg, idx)),
+                               runs=10))
+    scan = np.median(device_ms(torch, lambda: win._seg_scan(v_s, gchg, torch.add), runs=10))
+    print(f"window W1 split (CUDA events, median of 10): window_device {total:.4f} ms, of it "
+          f"the two-level stable sort {srt:.4f} ms, the partition and peer runs {runs:.4f} ms "
+          f"and one segmented f64 scan {scan:.4f} ms ({(n - 1).bit_length()} doubling steps)")
+
+    # ---------------------------------------------------------------- W1's trace window
+    with tempfile.TemporaryDirectory() as td:
+        with obs.trace(f"{td}/query_w1") as prof:
+            for _ in range(5):
+                with obs.annotate("query W1"):
+                    conn.execute(DT_WINDOWS["W1"])
+            torch.cuda.synchronize()
+        trace_report(pq, "query W1 (5 steady executions)", prof, f"{td}/query_w1",
+                     {"query W1": 5})
+        run("U")
+        os.environ["INFERA_PALLAS_SQL"] = "0"
+        try:
+            with obs.trace(f"{td}/query_u") as prof:
+                for _ in range(5):
+                    with obs.annotate("query U"):
+                        conn.execute(DT_JOIN["U"])
+                torch.cuda.synchronize()
+        finally:
+            os.environ.pop("INFERA_PALLAS_SQL", None)
+        trace_report(pq, "query U (5 steady executions)", prof, f"{td}/query_u",
+                     {"query U": 5})
 
 
 def trace_report(pq, name, prof, log_dir, spans):
@@ -2424,6 +2639,10 @@ def main() -> int:
     rows += tail_phase(torch, itt, x_rows, peaks, device)
     device_plan_phase(torch, itt, device)
     rows += profile_phase(torch, itt, x_dev, peaks, device)
+    # after the profiling path: with one more trace window before its own,
+    # torch.profiler dropped one of K7a bf16's 20 records in each of three
+    # windows on an NVIDIA H100 80GB HBM3 (700 W)
+    device_tiers_phase(torch, itt, device)
     onnx_phase(torch, itt, device)
 
     print(json.dumps({"kernels": rows}))

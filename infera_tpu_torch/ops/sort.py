@@ -45,6 +45,18 @@ def _levels(key: np.ndarray, asc: bool, nulls_first: bool, valid, device) -> lis
     return [(ok if nulls_first else ~ok).to(torch.int8), torch.where(ok, v, 0)]
 
 
+def lexsort_device(levels: list) -> torch.Tensor:
+    """Stable lexicographic argsort of device tensors of one length, most
+    significant level first: one stable ``torch.sort`` a level, least
+    significant first, so rows that tie on every level keep their order.
+    A float level sorts NaN last; give it one NaN and one zero first, as
+    ``_levels`` does."""
+    order = torch.arange(len(levels[0]), device=levels[0].device)
+    for lv in reversed(levels):
+        order = order[torch.sort(lv[order], stable=True).indices]
+    return order
+
+
 def argsort_device(keys: list, ascending: list, nulls_first: list,
                    valid_masks: list, head: int | None = None) -> np.ndarray:
     """Composite stable argsort of numeric key columns on the device, in
@@ -54,9 +66,7 @@ def argsort_device(keys: list, ascending: list, nulls_first: list,
     levels = []
     for key, asc, nf, valid in zip(keys, ascending, nulls_first, valid_masks):
         levels += _levels(np.asarray(key), asc, nf, valid, device)
-    order = torch.arange(len(keys[0]), device=device)
-    for lv in reversed(levels):
-        order = order[torch.sort(lv[order], stable=True).indices]
+    order = lexsort_device(levels)
     if head is not None:
         order = order[:head]
     return order.cpu().numpy()

@@ -23,18 +23,25 @@ the window FRAME, defaulting to RANGE UNBOUNDED PRECEDING..CURRENT ROW
 when ORDER BY is present (running aggregates including peer rows), else
 the whole partition. SUM over an integer column stays BIGINT.
 
-This is the host half of ``infera_tpu/ops/window.py``; its opt-in device
-route (``INFERA_WINDOW_DEVICE=1``) comes with the port's device windows.
+A device route (``INFERA_WINDOW_DEVICE=1``) runs ranking and running
+aggregates on the port's device (``window_device``, which the fused device
+plan's windows run too); it stays opt-in, as in ``infera_tpu``, because
+the [n]-row result comes back to the host.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
+import torch
 
 from ..columnar import Column, infer_sql_type
 from ..columnar import types as T
+from ..device import get_device
 from ..errors import SqlError
 from .aggregate import group_ids_host
+from .sort import lexsort_device
 
 WINDOW_FUNCTIONS = frozenset({
     "row_number", "rank", "dense_rank", "ntile",
@@ -45,6 +52,9 @@ WINDOW_FUNCTIONS = frozenset({
 
 _FRAMED = frozenset({"count", "sum", "avg", "mean", "min", "max",
                      "first_value", "last_value", "nth_value"})
+
+# device route threshold (rows) when INFERA_WINDOW_DEVICE=1
+DEVICE_WINDOW_MIN_ROWS = 1 << 17
 
 def _segmented_extreme_scan(vals, pstart, is_min):
     """Inclusive running min/max within partitions via doubling (Hillis-
@@ -321,11 +331,199 @@ def _frame_bounds_vec(ctx, wf, frame, n):
     return lo, hi
 
 
+def _seg_scan(v: torch.Tensor, heads: torch.Tensor, op) -> torch.Tensor:
+    """Inclusive scan of ``op`` within the segments that ``heads`` starts,
+    by doubling (Hillis-Steele): ceil(log2 n) passes of one ``torch.where``
+    over a shifted view. Each output combines its segment's values so far
+    in a tree of depth ceil(log2 m) for a segment of m rows, so an f64 sum
+    is within ceil(log2 m) * 2**-53 of the sum of the |values| it covers
+    (no global prefix is subtracted). ``torch.maximum``/``minimum`` carry a
+    NaN forward, as ``jnp.maximum``."""
+    x, f = v, heads
+    d = 1
+    while d < len(v):
+        x = torch.cat([x[:d], torch.where(f[d:], x[d:], op(x[:-d], x[d:]))])
+        f = torch.cat([f[:d], f[d:] | f[:-d]])
+        d <<= 1
+    return x
+
+
+def _sort_level(v: torch.Tensor) -> torch.Tensor:
+    """A key as the device sorts and compares it: a float with one NaN and
+    one zero (NaN last, -0.0 ties 0.0, as ``lax.sort``), an integer as is."""
+    if v.is_floating_point():
+        return torch.where(torch.isnan(v), float("nan"), v + 0.0)
+    return v
+
+
+def _changes(sorted_keys: list, n: int, device) -> torch.Tensor:
+    """[n] bool: row i starts a run of equal keys (row 0 always); ``!=``,
+    so each NaN row starts its own."""
+    chg = torch.ones(n, dtype=torch.bool, device=device)
+    if n > 1:
+        rest = torch.zeros(n - 1, dtype=torch.bool, device=device)
+        for k in sorted_keys:
+            rest |= k[1:] != k[:-1]
+        chg[1:] = rest
+    return chg
+
+
+def window_device(parts: list, orders: list, arg, name: str, fkind: str) -> torch.Tensor:
+    """One window over [n] device tensors, in row order: ``infera_tpu``'s
+    device window (``sql/device_plan.py`` ``_run_window``) in torch ops.
+    One stable lexicographic sort by (partition keys, order keys) — a
+    descending key comes negated — keeps equal rows in row order; then each
+    row's partition and peer run (``_runs``), and the frame end per
+    ``fkind``: "default" (RANGE with peers), "rows_cur" (ROWS UNBOUNDED
+    PRECEDING..CURRENT ROW) or "whole" (the partition). row_number, rank,
+    dense_rank and count come as int64 (count counts rows); sum and avg as
+    f64 from segmented f64 scans (``_seg_scan``), min and max in ``arg``'s
+    dtype."""
+    ref = (parts + orders + [arg])[0]
+    n, device = len(ref), ref.device
+    levels = [_sort_level(k) for k in parts + orders]
+    order = lexsort_device(levels) if levels else torch.arange(n, device=device)
+    s_keys = [lv[order] for lv in levels]
+    idx = torch.arange(n, device=device)
+    gchg = _changes(s_keys[:len(parts)], n, device)
+    kchg = gchg | _changes(s_keys[len(parts):], n, device) if orders else gchg
+    pstart, pend, _ = _runs(gchg, idx)
+    peer_lo, peer_hi, peer = _runs(kchg, idx)
+    hi = {"whole": pend, "default": peer_hi, "rows_cur": idx}[fkind]
+    if name == "row_number":
+        out = idx - pstart + 1
+    elif name == "rank":
+        out = peer_lo - pstart + 1
+    elif name == "dense_rank":
+        out = peer - peer[pstart] + 1
+    elif name == "count":
+        out = hi - pstart + 1
+    elif name in ("min", "max"):
+        op = torch.minimum if name == "min" else torch.maximum
+        out = _seg_scan(arg[order], gchg, op)[hi]
+    else:
+        out = _seg_scan(arg[order].double(), gchg, torch.add)[hi]
+        if name != "sum":  # avg / mean
+            out = out / (hi - pstart + 1)
+    res = torch.empty_like(out)
+    res[order] = out
+    return res
+
+
+def _runs(chg: torch.Tensor, idx: torch.Tensor) -> tuple:
+    """Each row's run of equal keys (``chg`` starts one): (its first row,
+    its last row, the run's number). Every run's first row is scattered to
+    the run's slot (the other rows to slots of their own past the end), so
+    a run ends where the next one starts. ``torch.cummax``/``cummin`` did
+    this in 2.8 ms each over 2**20 rows (their CUDA kernel scans the row
+    with its indices; NVIDIA H100 80GB HBM3 at 700.00 W, ``chip_smoke.py``),
+    the scatter in a few kernels that read the rows once."""
+    n = len(chg)
+    run = torch.cumsum(chg.long(), 0) - 1
+    first = torch.full((2 * n + 1,), n, dtype=torch.int64, device=chg.device)
+    first.scatter_(0, torch.where(chg, run, n + 1 + idx), idx)
+    return first[run], first[run + 1] - 1, run
+
+
+def _try_device_window(wf, scope, eval_fn, n, name) -> Column | None:
+    """Device route for ranking and running aggregates (``infera_tpu``'s,
+    with its eligibility): one partition key and one ascending order key,
+    both int32-range integers without NULLs, the default running frame,
+    through ``window_device`` on the port's device. Sums and averages add
+    in f64 where ``infera_tpu`` adds in f32, but an integer SUM whose rows
+    could pass 2**24 goes to the host as there; so does a float argument
+    with a NaN or an infinity (the host's prefix sums carry it into every
+    later partition, ROADMAP R15). None: the host answers."""
+    if name not in ("row_number", "rank", "dense_rank", "sum", "avg",
+                    "mean", "count"):
+        return None
+    if name in ("sum", "avg", "mean", "count") and wf.frame is not None:
+        return None  # default running frame only
+    if not wf.order_by:
+        return None
+
+    def i32_col(e):
+        col = eval_fn(e, scope)
+        d = col.data
+        if col.validity is not None or d.dtype.kind not in "iu" or not d.size:
+            return None
+        rng = getattr(col, "_int_range", None)
+        if rng is None:
+            rng = (int(d.min()), int(d.max()))
+            col._int_range = rng
+        if rng[0] < -(1 << 31) or rng[1] >= (1 << 31):
+            return None
+        return d.astype(np.int64)
+
+    parts = []
+    for e in wf.partition_by:
+        c = i32_col(e)
+        if c is None:
+            return None
+        parts.append(c)
+    if len(parts) > 1:
+        return None
+    keys = []
+    for item in wf.order_by:
+        if not item.ascending:
+            return None
+        c = i32_col(item.expr)
+        if c is None:
+            return None
+        keys.append(c)
+    if len(keys) != 1:
+        return None
+    arg = None
+    arg_is_int = False
+    if name in ("sum", "avg", "mean", "count"):
+        if not wf.args:
+            if name != "count":
+                return None
+        else:
+            # count(v) counts rows: v has no NULL to skip
+            acol = eval_fn(wf.args[0], scope)
+            if acol.validity is not None or not acol.sql_type.is_numeric:
+                return None
+            arg_is_int = acol.sql_type.is_integer
+            if arg_is_int and name == "sum" and acol.data.size:
+                # infera_tpu's bound for its f32 scan: a running BIGINT sum
+                # past 2^24 goes to the host's exact path
+                amax = int(np.abs(acol.data).max())
+                if amax * len(acol.data) >= (1 << 24):
+                    return None
+            if name != "count":
+                arg = np.asarray(acol.data, np.float32)
+                if not arg_is_int and not np.isfinite(arg).all():
+                    return None
+
+    device = get_device()
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    out = window_device([dev(p) for p in parts], [dev(keys[0])],
+                        None if arg is None else dev(arg), name, "default")
+    return _device_window_result(name, out.cpu().numpy(), arg_is_int)
+
+
+def _device_window_result(name, out, arg_is_int):
+    if name in ("row_number", "rank", "dense_rank", "count"):
+        return Column(out.astype(np.int64), T.BIGINT)
+    if name == "sum" and arg_is_int:
+        return Column(np.rint(out).astype(np.int64), T.BIGINT)
+    return Column(out.astype(np.float64), T.DOUBLE)
+
+
 def eval_window(wf, scope, eval_fn) -> Column:
     n = scope.num_rows
     name = wf.name.lower()
     if name not in WINDOW_FUNCTIONS:
         raise SqlError(f"Catalog Error: window function {wf.name} does not exist")
+
+    if window_device_enabled() and n >= DEVICE_WINDOW_MIN_ROWS:
+        dev = _try_device_window(wf, scope, eval_fn, n, name)
+        if dev is not None:
+            return dev
 
     ctx = _order_arrays(wf, scope, eval_fn, n)
     order = ctx["order"]
@@ -496,3 +694,9 @@ def eval_window(wf, scope, eval_fn) -> Column:
             result = np.where(validity, result, 0).astype(np.int64)
     return Column(result, out_type, validity)
 
+
+def window_device_enabled() -> bool:
+    """INFERA_WINDOW_DEVICE=1 routes ranking and running aggregates through
+    the device (``_try_device_window``). Opt-in, as in ``infera_tpu``: the
+    [n]-row result comes back to the host."""
+    return os.environ.get("INFERA_WINDOW_DEVICE", "0") == "1"

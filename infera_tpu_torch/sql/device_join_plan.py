@@ -1,29 +1,41 @@
-"""Fused device execution of fact→dimension joins (BASELINE config 3): K5.
+"""Fused device execution of fact→dimension joins (BASELINE config 3): K5,
+then the torch join program.
 
 Counterpart of ``infera_tpu/sql/device_join_plan.py``. Query shape: a large
 fact table INNER/LEFT/RIGHT/FULL-joined to a dimension table on a unique
 non-negative integer key, with aggregates (and an optional GROUP BY) over
 columns from either side, ``infera_predict`` of a model over the fact row
 included. The dim key column becomes a dense lookup (key → dim row, −1 for
-no row) and the whole query runs as ONE launch of kernel K5
-(``ops/fused_sql.py``: K2 with the join prologue inside it). The joined
-relation never exists: each fact row looks up its dim row in the kernel,
-and the dim columns are read from the dim table's own block.
+no row) and the joined relation never exists. Two tiers run a plan, in
+``infera_tpu``'s order:
 
-INNER ANDs ``MATCHED`` into the WHERE program. LEFT/RIGHT/FULL keep every
-fact row and apply only the user WHERE; an aggregate over a dim-side
-expression ("matched" validity) selects its input with ``SEL(MATCHED, v,
-0)`` for sums and ``SEL(MATCHED, v, ±inf)`` for min/max, and a shared
-matched-count sum slot carries its non-NULL count. FULL adds the dim rows
-no fact row matched on the host (``_combine_full_phantom``).
+1. **Kernel K5** (``ops/fused_sql.py``: K2 with the join prologue inside
+   it; path ``device_join_plan_cuda``), where ``FS.tier_enabled``: each
+   fact row looks up its dim row in the kernel, and the dim columns are
+   read from the dim table's own block. INNER ANDs ``MATCHED`` into the
+   WHERE program. LEFT/RIGHT/FULL keep every fact row and apply only the
+   user WHERE; an aggregate over a dim-side expression ("matched"
+   validity) selects its input with ``SEL(MATCHED, v, 0)`` for sums and
+   ``SEL(MATCHED, v, ±inf)`` for min/max, and a shared matched-count sum
+   slot carries its non-NULL count. It declines what ``infera_tpu``'s
+   ``_try_pallas_join`` declines: more than 512 groups, an integer column
+   past ±2**24 (the fact key included), more than 64 block rows, a plan
+   over its shared-memory budget. One widening: ``coalesce(dim_expr, x)``
+   lowers to ``SEL(MATCHED, dim_expr, x)`` in the kernel, where
+   ``infera_tpu``'s Pallas lowerer leaves it to its XLA program.
+2. **The torch join program** (path ``device_join_plan``),
+   ``infera_tpu``'s XLA join program as eager torch ops, for every plan K5
+   declines or with K5 off: ``sql/device_plan._build_program`` with a
+   prologue that gathers the dim rows through the lookup (the fact key read
+   exactly, from the int64 block past ±2**24) and the per-aggregate
+   validity, so the join and single-table programs share one aggregate
+   tail.
 
-Path: ``device_join_plan_cuda``. ``infera_tpu``'s mesh branch (P13) and its
-XLA join program (P4) are not in the port: where ``infera_tpu`` would run
-them, this tier returns None and the host executor answers. So does every
-shape outside the tier, with the same declines as ``infera_tpu``'s
-``_try_pallas_join``. One widening: ``coalesce(dim_expr, x)`` lowers to
-``SEL(MATCHED, dim_expr, x)`` in the kernel, where ``infera_tpu``'s Pallas
-lowerer leaves it to its XLA program.
+A key guard that trips after K5 ran sends the query to the host, since the
+program's bucketing would trip it too. FULL adds the dim rows no fact row
+matched on the host (``_combine_full_phantom``) after either tier.
+``infera_tpu``'s mesh branch (P13) is not in the port; every shape outside
+the tier answers on the host executor.
 """
 
 from __future__ import annotations
@@ -32,25 +44,34 @@ import math
 import time
 
 import numpy as np
+import torch
 
 from ..device import get_device
+from ..errors import OnnxError, SqlError
 from ..ops import fused_sql as FS
 from . import ast as A
 from .device_plan import (
     _AGG_NAMES,
+    _INT,
+    _TRIPPED,
     MAX_GROUPS,
     MIN_DEVICE_ROWS,
     _assemble_result,
+    _block_eligible,
+    _build_program,
     _find_aggs,
     _group_keys_int32_safe,
     _int_range,
+    _Lowerer,
     _ms,
     _packed,
     _ProgramLowerer,
+    _to_host,
     _Unsupported,
+    device_column_array,
+    get_int_block,
     get_table_block,
 )
-
 DIM_MAX_ROWS = 1 << 20
 DIM_MAX_KEY = 1 << 22
 # infera_tpu's kernel declines a join plan over this many block rows
@@ -79,9 +100,10 @@ def _dim_key_lookup(col):
 
 
 class _TwoSidedColumns:
-    """Fact/dim column resolution: fact columns resolve through the base
-    lowerer (next in the MRO), dim columns become "__dim__.<key>" entries
-    that the kernel reads through the row's dim row."""
+    """Fact/dim column resolution shared by the join lowerers: fact columns
+    resolve through the base lowerer (next in the MRO), dim columns become
+    "__dim__.<key>" entries that K5 reads through the row's dim row and the
+    program's prologue gathers."""
 
     def _init_two_sided(self, dim, fact_names: set, dim_names: set):
         self.dim = dim
@@ -118,17 +140,6 @@ class _TwoSidedColumns:
         self.dim_used[key] = col
         return key
 
-
-class _JoinProgramLowerer(_TwoSidedColumns, _ProgramLowerer):
-    """The port's ``_ProgramLowerer`` over both sides of the join, with the
-    outer-join NULL-validity lattice. Dim columns lower to ``COL
-    "__dim__.<key>"`` and resolve to ``DIM`` rows of the dim block."""
-
-    def __init__(self, fact, fact_names: set, dim, dim_names: set):
-        _ProgramLowerer.__init__(self, fact)
-        self._init_two_sided(dim, fact_names, dim_names)
-        self.dim_row_map: dict = {}   # "__dim__.<key>" -> dim block row, set before fused_plan
-
     def col_for_key(self, key: str):
         if key in self.dim_used:
             return self.dim_used[key]
@@ -160,6 +171,44 @@ class _JoinProgramLowerer(_TwoSidedColumns, _ProgramLowerer):
                 out = "matched"
         return out
 
+    def _lower_window(self, wf):
+        # the join tiers see the fact rows before the join drops any; a
+        # window over the joined rows stays on the host
+        raise _Unsupported("window functions over a join")
+
+
+class _JoinLowerer(_TwoSidedColumns, _Lowerer):
+    """The program's lowering over both sides of the join (``infera_tpu``'s
+    ``_JoinLowerer``): torch closures, dim columns read from the cols the
+    prologue gathers, ``coalesce`` of a dim-valued first argument through
+    ``cols["__matched__"]``."""
+
+    def __init__(self, fact, fact_names: set, dim, dim_names: set, device):
+        _Lowerer.__init__(self, fact, device)
+        self._init_two_sided(dim, fact_names, dim_names)
+
+    def lower(self, expr):
+        if (isinstance(expr, A.FuncCall) and expr.name.lower() == "coalesce"
+                and len(expr.args) == 2):
+            a0, a1 = expr.args
+            f0, f1 = self.lower(a0), self.lower(a1)
+            if self.validity(a0) == "all":
+                return f0  # never NULL → first argument wins everywhere
+            # dim-valued first argument: unmatched rows take the fallback
+            return lambda cols: torch.where(cols["__matched__"], f0(cols), f1(cols))
+        return super().lower(expr)
+
+
+class _JoinProgramLowerer(_TwoSidedColumns, _ProgramLowerer):
+    """The port's ``_ProgramLowerer`` over both sides of the join, for K5.
+    Dim columns lower to ``COL "__dim__.<key>"`` and resolve to ``DIM``
+    rows of the dim block."""
+
+    def __init__(self, fact, fact_names: set, dim, dim_names: set):
+        _ProgramLowerer.__init__(self, fact)
+        self._init_two_sided(dim, fact_names, dim_names)
+        self.dim_row_map: dict = {}   # "__dim__.<key>" -> dim block row, set before fused_plan
+
     def lower(self, expr) -> list:
         if (isinstance(expr, A.FuncCall) and expr.name.lower() == "coalesce"
                 and len(expr.args) == 2):
@@ -181,25 +230,24 @@ class _JoinProgramLowerer(_TwoSidedColumns, _ProgramLowerer):
         return super()._resolve(op, arg, row_map)
 
 
-def _try_cuda_join(conn, sel, fact, fnames, dim, dnames, fkey_ref, lookup, kmax_dim, n,
-                   n_groups, strides, agg_plans, items_plan, plan_key, blocks, outer=False,
-                   agg_validity=None):
-    """Lower the join plan onto K5 and run it. INNER folds ``MATCHED`` into
-    the WHERE program; LEFT/RIGHT/FULL keep unmatched rows and route every
-    matched-validity aggregate through ``SEL(MATCHED, ...)``, with a shared
-    matched-count slot carrying the per-group non-NULL count the finalize
-    divides by. Returns the _assemble_result 5-tuple, or None where
-    ``infera_tpu``'s ``_try_pallas_join`` declines or the key guard trips.
-    A kernel that fails to build or launch raises."""
-    if not (1 <= n_groups <= FS.MAX_GROUPS) or n < MIN_DEVICE_ROWS:
+def _lower_k5(sel, fact, fnames, dim, dnames, fkey_ref, n_groups, agg_plans, items_plan,
+              outer, agg_validity):
+    """K5's lowering of the plan, as ``infera_tpu``'s ``_try_pallas_join``
+    lowers it onto its Pallas kernel: (lowerer, WHERE, keys, sums, mins,
+    maxs, slot map), COL keys not yet resolved; None where K5 declines the
+    plan as far as the plan alone tells (its aggregate kinds, group count,
+    expressions, integer columns past ±2**24, block rows). INNER folds
+    ``MATCHED`` into the WHERE program; LEFT/RIGHT/FULL keep unmatched rows
+    and route every matched-validity aggregate through ``SEL(MATCHED,
+    ...)``, with a shared matched-count slot carrying the per-group
+    non-NULL count the finalize divides by."""
+    if not 1 <= n_groups <= FS.MAX_GROUPS:
         return None
     ok_names = {"key", "count_star", "count", "count_matched", "sum",
                 "avg", "mean", "min", "max"}
     if any(p[0] not in ok_names for p in agg_plans):
         return None
-    validity = agg_validity or ["all"] * len(agg_plans)
     low = _JoinProgramLowerer(fact, fnames, dim, dnames)
-    (xc, row_map), (dim_xc, dim_rows) = blocks
     try:
         fact_key = low._column(fkey_ref.name, fkey_ref.table)
         if fact_key.startswith("__dim__."):
@@ -219,7 +267,7 @@ def _try_cuda_join(conn, sel, fact, fnames, dim, dnames, fkey_ref, lookup, kmax_
             return wm_slot[0]
 
         nodes = [node for _k, node in items_plan]
-        for (pname, payload), node, val in zip(agg_plans, nodes, validity):
+        for (pname, payload), node, val in zip(agg_plans, nodes, agg_validity):
             if pname == "key":
                 slot_map.append(("key", payload, None))
                 continue
@@ -257,6 +305,16 @@ def _try_cuda_join(conn, sel, fact, fnames, dim, dnames, fkey_ref, lookup, kmax_
         where = base_where  # only the user WHERE masks
     else:
         where = _MATCHED if base_where is None else _MATCHED + base_where + [(FS.AND, 0)]
+    return low, fact_key, where, keys, sums, mins, maxs, slot_map
+
+
+def _try_cuda_join(conn, k5, dim, lookup, kmax_dim, n, n_groups, strides, plan_key, blocks):
+    """Run K5 on the plan ``_lower_k5`` gave. Returns the _assemble_result
+    5-tuple; None when the plan is over K5's shared-memory budget (the
+    program runs it); ``_TRIPPED`` when the key guard tripped (the host
+    answers). A kernel that fails to build or launch raises."""
+    low, fact_key, where, keys, sums, mins, maxs, slot_map = k5
+    (xc, row_map), (dim_xc, dim_rows) = blocks
     low.dim_row_map = {"__dim__." + k: r for k, r in dim_rows.items()}
     try:
         spec = FS.JoinSpec(fact_key=row_map[fact_key], kmax=kmax_dim, n_dim=dim.num_rows,
@@ -270,7 +328,7 @@ def _try_cuda_join(conn, sel, fact, fnames, dim, dnames, fkey_ref, lookup, kmax_
     packed = _packed(conn, plan_key + (id(xc), id(dim_xc)), plan, xc, lookup, dim_xc)
     res = FS.execute_fused_plan(packed, xc, n, dim_xc)
     if res is None:
-        return None
+        return _TRIPPED
 
     def fold64(i):
         s, c = res["sums"][i]
@@ -299,15 +357,78 @@ def _try_cuda_join(conn, sel, fact, fnames, dim, dnames, fkey_ref, lookup, kmax_
     return (results, res["count"], res["kmins"], res["kmaxs"], res["fracs"])
 
 
-def try_execute_join_on_device(conn, sel: A.Select, analyze_only: bool = False):
-    """Run a fact→dim join-aggregate SELECT as kernel K5; a Table or None.
+def _run_join_program(conn, lowerer, fact, fact_key, blocks, lookup, kmax_dim, n, outer,
+                      where_fn, key_fns, strides, n_groups, agg_plans, agg_validity,
+                      plan_key, device, phases):
+    """The torch join program (``infera_tpu``'s XLA join ``program``):
+    ``_build_program`` behind a prologue that reads the fact key (from the
+    f32 block, or exactly from the int64 block past ±2**24), looks up each
+    row's dim row on the device (``in_range & ridx >= 0`` is the match),
+    gathers every dim column the plan reads through it and publishes the
+    match as ``cols["__matched__"]``; INNER's base mask is the match, an
+    outer join's every row. Cached per plan key with the blocks and the
+    lookup it reads. Returns the _assemble_result 5-tuple, or None where a
+    guard tripped or the engine declined (the host answers)."""
+    t0 = time.perf_counter()
+    (xc, _), (dim_xc, dim_rows) = blocks
+    cols = {k: device_column_array(k, blocks[0], n)
+            for k, c in lowerer.used_columns.items() if _block_eligible(c)}
+    if fact_key not in cols:
+        cols[fact_key + _INT] = get_int_block(fact, device, [fact_key])[0, :n]
+    cache = getattr(conn, "_device_program_cache", None)
+    if cache is None:
+        cache = {}
+        conn._device_program_cache = cache
+    key = plan_key + (id(xc), id(dim_xc), id(lookup))
+    ent = cache.get(key)
+    if ent is None:
+        lookup_t = torch.from_numpy(lookup.astype(np.int64)).to(device)
+        gathers = [(dk, dim_rows[dk[len("__dim__."):]]) for dk in sorted(lowerer.dim_used)]
 
-    With ``analyze_only`` returns True/None after eligibility checking and
-    lowering, without touching the device (EXPLAIN). Records the phases
-    (plan_ms, upload_ms, exec_ms: K5 with its fold and the read back,
-    assemble_ms, and phantom_ms for FULL) on ``conn._last_phases``."""
+        def prologue(c):
+            fk = c[fact_key].long() if fact_key in c else c[fact_key + _INT]
+            ridx = lookup_t[fk.clamp(0, kmax_dim)]
+            matched = (fk >= 0) & (fk <= kmax_dim) & (ridx >= 0)
+            ridx = torch.where(matched, ridx, 0)
+            for dk, row in gathers:
+                c[dk] = dim_xc[row].index_select(0, ridx)
+            c["__matched__"] = matched
+            # an outer join keeps its unmatched rows: their gathers read dim
+            # row 0, which every matched-validity aggregate drops
+            return None if outer else matched
+
+        ent = (xc, dim_xc, lookup, _build_program(
+            where_fn, key_fns, strides, n_groups, agg_plans, {}, n, device,
+            prologue=prologue, validity=agg_validity))
+        if len(cache) >= 16:
+            cache.pop(next(iter(cache)))
+        cache[key] = ent  # the VALUE pins the blocks and the lookup
+    phases["upload_ms"] += _ms(t0)
+    t0 = time.perf_counter()
+    try:
+        results, count, kmins, kmaxs, fracs, trip = _to_host(ent[3](cols))
+    except (_Unsupported, OnnxError):
+        return None
+    phases["exec_ms"] = _ms(t0)
+    return None if trip else (results, count, kmins, kmaxs, fracs)
+
+
+def try_execute_join_on_device(conn, sel: A.Select, analyze_only: bool = False):
+    """Run a fact→dim join-aggregate SELECT on the device; a Table or None
+    (the host executor answers).
+
+    The tiers run in ``infera_tpu``'s order: kernel K5 where
+    ``FS.tier_enabled`` (``conn._cuda_plan_used``; path
+    ``device_join_plan_cuda``), then the torch join program for a plan K5
+    declines or with K5 off (path ``device_join_plan``). With
+    ``analyze_only`` returns the tier's name ("kernel K5" or "torch join
+    program") or None after eligibility checking and lowering, without
+    touching the device (EXPLAIN). Records the phases (plan_ms, upload_ms,
+    exec_ms: the tier's run with the read back, assemble_ms, and phantom_ms
+    for FULL) on ``conn._last_phases``."""
     t0 = time.perf_counter()
     phases: dict = {}
+    conn._cuda_plan_used = False
     j = sel.from_
     if (
         not isinstance(j, A.Join)
@@ -321,8 +442,8 @@ def try_execute_join_on_device(conn, sel: A.Select, analyze_only: bool = False):
         return None
     outer = j.kind != "INNER"
     full = j.kind == "FULL"
-    # FULL runs as the kernel's LEFT pass plus the phantom side on the host:
-    # dim rows with no fact match, every fact column NULL
+    # FULL runs as a LEFT pass on the device plus the phantom side on the
+    # host: dim rows with no fact match, every fact column NULL
     cond = j.on
     if j.using and len(j.using) == 1 and cond is None:
         cond = A.Binary("=", A.ColumnRef(j.using[0], j.left.alias or j.left.name),
@@ -375,7 +496,7 @@ def try_execute_join_on_device(conn, sel: A.Select, analyze_only: bool = False):
             continue
         if dk.data.dtype.kind not in "iu" or fk.data.dtype.kind not in "iu":
             continue
-        # fact keys outside int32 would alias mod 2**32 in the kernel's
+        # fact keys outside int32 would alias mod 2**32 in infera_tpu's
         # int32 lookup and spuriously match dim keys
         if fk.data.size and (
             _int_range(fk)[0] < -(1 << 31) or _int_range(fk)[1] >= (1 << 31)
@@ -386,10 +507,7 @@ def try_execute_join_on_device(conn, sel: A.Select, analyze_only: bool = False):
             continue  # out of range, or duplicate dim keys (row expansion)
         plan = (fact, fnames, fkey_ref, dim, dnames, dim_keys)
         break
-    if plan is None or FS.fused_sql_mode() == "0":
-        return None
-    device = get_device()
-    if not FS.tier_enabled(device):
+    if plan is None:
         return None
     fact, fnames, fkey_ref, dim, dnames, (dvals, kmax_dim, lookup) = plan
 
@@ -410,10 +528,11 @@ def try_execute_join_on_device(conn, sel: A.Select, analyze_only: bool = False):
         else:
             return None
 
-    lowerer = _JoinProgramLowerer(fact, fnames, dim, dnames)
+    device = get_device()
+    lowerer = _JoinLowerer(fact, fnames, dim, dnames, device)
 
     def _float_only(expr: A.Expr) -> bool:
-        """sum/avg/min/max run in f32 on the card: only over float columns
+        """sum/avg/min/max run on f32 values: only over float columns
         (integer sums need exact arithmetic; the host keeps those)."""
         ok = True
 
@@ -451,10 +570,9 @@ def try_execute_join_on_device(conn, sel: A.Select, analyze_only: bool = False):
             # three-valued logic over NULL-able predicates (e.g. dim_col
             # inside OR) is beyond the static lattice — host path
             return None
-        if sel.where is not None:
-            lowerer.lower(sel.where)
-        key_progs = [lowerer.lower(g) for g in sel.group_by]
-        if key_progs and not _group_keys_int32_safe(lowerer, sel.group_by):
+        where_fn = lowerer.lower(sel.where) if sel.where is not None else None
+        key_fns = [lowerer.lower(g) for g in sel.group_by]
+        if key_fns and not _group_keys_int32_safe(lowerer, sel.group_by):
             return None
         if outer and any(lowerer.validity(g) == "matched" for g in sel.group_by):
             return None  # NULL group keys for unmatched rows → host
@@ -486,26 +604,21 @@ def try_execute_join_on_device(conn, sel: A.Select, analyze_only: bool = False):
                     continue
                 agg_plans.append((name, lowerer.lower(node.args[0])))
                 agg_validity.append(v)
-    except _Unsupported:
+    except (_Unsupported, OnnxError, SqlError):
         return None
 
-    if analyze_only:
-        return True
-
     n = fact.num_rows
-
     # group sizing: plain column refs probe host-side; anything else uses
     # the guarded MAX_GROUPS fallback
     n_groups = 1
-    strides = [1] * len(key_progs)
-    if key_progs:
+    strides = [1] * len(key_fns)
+    if key_fns:
         try:
             radices = []
             for g in sel.group_by:
                 if not isinstance(g, A.ColumnRef):
                     raise ValueError
-                key = lowerer._column(g.name, g.table)
-                col = lowerer.col_for_key(key)
+                col = lowerer.col_for_key(lowerer._column(g.name, g.table))
                 if not len(col.data):
                     kmax = 0
                 elif col.data.dtype.kind in "iu":
@@ -522,9 +635,16 @@ def try_execute_join_on_device(conn, sel: A.Select, analyze_only: bool = False):
             while n_groups < domain and n_groups < MAX_GROUPS:
                 n_groups <<= 1
         except ValueError:
-            for i in range(len(key_progs) - 2, -1, -1):
+            for i in range(len(key_fns) - 2, -1, -1):
                 strides[i] = strides[i + 1] * MAX_GROUPS
             n_groups = MAX_GROUPS
+
+    k5 = None
+    if FS.tier_enabled(device):
+        k5 = _lower_k5(sel, fact, fnames, dim, dnames, fkey_ref, n_groups, agg_plans,
+                       items_plan, outer, agg_validity)
+    if analyze_only:
+        return "kernel K5" if k5 is not None else "torch join program"
 
     plan_key = (
         "join", repr(sel),
@@ -538,28 +658,39 @@ def try_execute_join_on_device(conn, sel: A.Select, analyze_only: bool = False):
     phases["plan_ms"] = _ms(t0)
     t0 = time.perf_counter()
     blocks = (get_table_block(fact, device), get_table_block(dim, device))
-    if blocks[0] is None or blocks[1] is None:
-        return None
     phases["upload_ms"] = _ms(t0)
     t0 = time.perf_counter()
-    out = _try_cuda_join(conn, sel, fact, fnames, dim, dnames, fkey_ref, lookup, kmax_dim, n,
-                         n_groups, strides, agg_plans, items_plan, plan_key, blocks,
-                         outer=outer, agg_validity=agg_validity)
-    phases["exec_ms"] = _ms(t0)
+    out = None
+    if k5 is not None and blocks[0] is not None:
+        out = _try_cuda_join(conn, k5, dim, lookup, kmax_dim, n, n_groups, strides,
+                             plan_key, blocks)
+        if out is _TRIPPED:
+            return None  # the program's bucketing would trip the same guard
+        phases["exec_ms"] = _ms(t0)
+        conn._cuda_plan_used = out is not None
     if out is None:
-        return None
+        # the dim key keeps the dim block; a fact table of wide integers
+        # alone has none
+        blocks = ((None, {}) if blocks[0] is None else blocks[0], blocks[1])
+        out = _run_join_program(conn, lowerer, fact, fact_key, blocks, lookup, kmax_dim, n,
+                                outer, where_fn, key_fns, strides, n_groups, agg_plans,
+                                agg_validity, plan_key, device, phases)
+        if out is None:
+            return None
     t0 = time.perf_counter()
     out_table = _assemble_result(sel, items_plan, agg_plans, [], *out,
-                                 has_keys=bool(key_progs))
+                                 has_keys=bool(key_fns))
     phases["assemble_ms"] = _ms(t0)
     if out_table is None:
-        return None  # collision/frac guard → host path
+        conn._cuda_plan_used = False
+        return None  # collision/frac guard or a NULL-producing group → host path
     if full:
         t0 = time.perf_counter()
         try:
             out_table = _combine_full_phantom(conn, sel, out_table, items_plan, lowerer, fact,
                                               fnames, fact_key, dim, dnames, dvals)
         except Exception:
+            conn._cuda_plan_used = False
             return None  # a phantom-side oddity (host evaluation) → host path, as infera_tpu
         phases["phantom_ms"] = _ms(t0)
     conn._last_phases = phases

@@ -29,12 +29,20 @@ per-group results return to the host. Two tiers run a plan, in
    hash bit for bit (``ops/hashing.py``), MODE with the host's tie-break;
    up to ``MAX_GROUPS`` groups. All results come back in one copy.
 
+Windows (``_Lowerer._lower_window``; a windowed subquery that
+``sql/window_fusion.py`` flattens into its outer aggregate) run in the
+program only: one stable device sort and segmented scans a window
+(``ops/window.window_device``); K2 declines them, as ``infera_tpu``'s
+Pallas kernel does. The join tier (``sql/device_join_plan.py``) runs its
+program through ``_build_program`` too, with a join prologue and
+per-aggregate validity.
+
 A key guard that trips in either tier (a fractional key, a key past
 f32's exact integers, two keys in one bucket), a NULL-producing group, a
-value outside a DISTINCT/MODE domain or a NaN arg order sends the query to
-the host executor, as does anything the planner declines (a window, an
-integer column past +-2**24 inside an expression, which ``infera_tpu``
-reads as int32: R10), so semantics never regress.
+value outside a DISTINCT/MODE domain, a NaN arg order or a window value
+that is not finite sends the query to the host executor, as does anything
+the planner declines (an integer column past +-2**24 inside an expression,
+which ``infera_tpu`` reads as int32: R10), so semantics never regress.
 
 ``INFERA_PALLAS_SQL`` switches K2 only, as ``infera_tpu``'s switches its
 Pallas kernel (``ops/fused_sql.fused_sql_mode``): unset, K2 is on when the
@@ -63,6 +71,7 @@ from ..ops.aggregate import hll_estimate_from_hist
 from ..ops import fused_sql as FS
 from ..ops import gemm_groupby as GG
 from ..ops import hashing as H
+from ..ops.window import window_device
 from ..registry import MODELS
 from . import ast as A
 from . import int_agg
@@ -112,6 +121,15 @@ MAX_GROUPS = 1 << 16
 
 class _Unsupported(Exception):
     pass
+
+
+def _contains_int_window(e) -> bool:
+    """True when the expression contains an integer-valued window (ranking
+    or count): a SUM/MIN/MAX over it renders BIGINT on the host, which the
+    f32 carrier would demote to DOUBLE."""
+    return A.contains_node(
+        e, lambda x: isinstance(x, A.WindowFunc) and x.name.lower() in (
+            "row_number", "rank", "dense_rank", "ntile", "count"))
 
 
 def _decoded(attr):
@@ -259,7 +277,7 @@ class _Lowerer:
     block. ``infera_predict`` runs the port's ONNX engine
     (``CompiledOnnxModel._run_graph``) on the stacked ``[n, d]`` features,
     so any model the engine runs can sit inside a plan; a call the plan
-    makes twice runs once. Windows raise ``_Unsupported`` (ROADMAP P9)."""
+    makes twice runs once. A window runs ``_lower_window``."""
 
     def __init__(self, table: Table, device=None):
         self.table = table
@@ -295,6 +313,10 @@ class _Lowerer:
         self.used_columns[key] = col
         return key
 
+    def col_for_key(self, key: str):
+        """The Column a key from ``_column`` names."""
+        return self.table.columns[key]
+
     def _const(self, v: float):
         c = float(np.float32(v))
         dev = self.device
@@ -308,7 +330,7 @@ class _Lowerer:
             return self._const(float(expr.value))
         if isinstance(expr, A.ColumnRef):
             key = self._column(expr.name, expr.table)
-            if not _block_eligible(self.table.columns[key]):
+            if not _block_eligible(self.col_for_key(key)):
                 raise _Unsupported(f"column {key} is past f32's exact integers")
             return lambda cols: cols[key]
         if isinstance(expr, A.Cast):
@@ -358,13 +380,85 @@ class _Lowerer:
                 return lambda cols: FS.apply_unary(op, inner(cols))
             raise _Unsupported(f"function {name}")
         if isinstance(expr, A.WindowFunc):
-            raise _Unsupported("window functions in the program (ROADMAP P9)")
+            return self._lower_window(expr)
         raise _Unsupported(type(expr).__name__)
+
+    # the window names the program computes (infera_tpu's _WIN_OK)
+    _WIN_OK = frozenset({"row_number", "rank", "dense_rank", "count",
+                         "sum", "avg", "mean", "min", "max"})
+
+    def _lower_window(self, wf: A.WindowFunc):
+        """A window's closure (``infera_tpu``'s ``_lower_window``): the
+        default RANGE frame (peers), ROWS UNBOUNDED PRECEDING..CURRENT ROW
+        and the whole partition; any other frame raises, and the host keeps
+        it. Its argument must read float columns only (an integer window
+        sum would lose BIGINT exactness in the f32 carrier), its keys
+        columns that f32 holds exactly (integers within +-2**24 and f64
+        columns of f32 values, so no two of the host's keys meet). It runs
+        once an execution however often the plan reads it."""
+        name = wf.name.lower()
+        if name not in self._WIN_OK:
+            raise _Unsupported(f"window {name}")
+        frame = wf.frame
+        if not wf.order_by:
+            fkind = "whole"
+        elif frame is None:
+            fkind = "default"
+        else:
+            unit, start, end = frame
+            if start == "unbounded_preceding" and end == "current":
+                fkind = "default" if unit == "range" else "rows_cur"
+            elif start == "unbounded_preceding" and end == "unbounded_following":
+                fkind = "whole"
+            else:
+                raise _Unsupported("window frame")
+        if name in ("row_number", "rank", "dense_rank"):
+            arg_fn = None
+        elif not wf.args:
+            if name != "count":
+                raise _Unsupported(f"window {name} without argument")
+            arg_fn = None
+        else:
+            self._require_float_refs(wf.args[0])
+            arg_fn = self.lower(wf.args[0])
+        for e in [*wf.partition_by, *(oi.expr for oi in wf.order_by)]:
+            self._require_f32_exact_refs(e)
+        part_fns = [self.lower(e) for e in wf.partition_by]
+        ord_specs = [(self.lower(oi.expr), oi.ascending) for oi in wf.order_by]
+        wf_key = repr(wf)
+
+        def run(cols):
+            done = cols.setdefault("__window__", {})
+            if wf_key not in done:
+                done[wf_key] = _run_window(cols, part_fns, ord_specs, arg_fn, name, fkind)
+            return done[wf_key]
+
+        return run
+
+    def _require_float_refs(self, e):
+        refs: list = []
+        _find_column_refs(e, refs)
+        for r in refs:
+            t = self.col_for_key(self._column(r.name, r.table)).sql_type
+            if not (t.is_float or t.name == "DECIMAL"):
+                raise _Unsupported("integer window argument (host path)")
+
+    def _require_f32_exact_refs(self, e):
+        refs: list = []
+        _find_column_refs(e, refs)
+        for r in refs:
+            col = self.col_for_key(self._column(r.name, r.table))
+            if col.data.dtype.kind in "iu" and col.data.size:
+                lo, hi = _int_range(col)
+                if lo < -(1 << 24) or hi > (1 << 24):
+                    raise _Unsupported("window key beyond f32 exactness")
+            elif not _f32_exact(col):
+                raise _Unsupported("window key of f64 values f32 does not hold")
 
     def _lower_predict(self, expr: A.FuncCall, out_col: int | None = None):
         """infera_predict (out_col None → requires a 1-column output) or an
         infera_predict_multi_list element (0-based out_col) through the
-        model's graph."""
+        model's graph, which runs once for every element the plan reads."""
         if (not expr.args or not isinstance(expr.args[0], A.Literal)
                 or not isinstance(expr.args[0].value, str)):
             raise _Unsupported("infera_predict needs a constant model name")
@@ -381,25 +475,25 @@ class _Lowerer:
         if inner and all(d > 0 for d in inner) and int(np.prod(inner)) != len(feature_fns):
             raise _Unsupported("feature count mismatch (host path reports it)")
         self.models[model_name] = model
-        call = (model_name, id(model), out_col, repr(expr.args[1:]))
+        call = (model_name, id(model), repr(expr.args[1:]))
 
         def run(cols):
             done = cols["__pred__"]
             if call not in done:
                 n = cols["__n__"]
                 feats = torch.stack([_full(f(cols), n).float() for f in feature_fns], dim=1)
-                out = model._run_graph(feats)[0]
-                if out_col is not None:
-                    out = out.reshape(out.shape[0], -1)
-                    if out_col >= out.shape[1]:
-                        raise _Unsupported("list index beyond model output width")
-                    out = out[:, out_col]
-                elif out.dim() > 1:
-                    if out.shape[1] != 1:
-                        raise _Unsupported("multi-output model under infera_predict")
-                    out = out[:, 0]
-                done[call] = out.to(torch.float32)
-            return done[call]
+                done[call] = model._run_graph(feats)[0]
+            out = done[call]
+            if out_col is not None:
+                out = out.reshape(out.shape[0], -1)
+                if out_col >= out.shape[1]:
+                    raise _Unsupported("list index beyond model output width")
+                out = out[:, out_col]
+            elif out.dim() > 1:
+                if out.shape[1] != 1:
+                    raise _Unsupported("multi-output model under infera_predict")
+                out = out[:, 0]
+            return out.to(torch.float32)
 
         return run
 
@@ -476,8 +570,15 @@ class _ProgramLowerer(_Lowerer):
             if name in FS.SCALAR_OPS:
                 return self.lower(expr.args[0]) + [(FS.SCALAR_OPS[name], 0)]
             raise _Unsupported(f"function {name}")
-        # windows need a global sort — impossible inside the row-local kernel
+        if isinstance(expr, A.WindowFunc):
+            return self._lower_window(expr)
         raise _Unsupported(type(expr).__name__)
+
+    def _lower_window(self, wf):
+        # a window needs a global sort, which the row-local kernel has not;
+        # the torch program carries it (infera_tpu's _PallasLowerer declines
+        # it the same way)
+        raise _Unsupported("window functions stay on the torch program")
 
     def _lower_predict(self, expr: A.FuncCall, out_col: int | None = None) -> list:
         """Prediction slot for infera_predict (out_col None → requires a
@@ -833,26 +934,59 @@ def _group_sorted(v: torch.Tensor, slot: torch.Tensor, count: torch.Tensor) -> t
     return v[perm], torch.cumsum(count, 0) - count
 
 
-def _build_program(where_fn, key_fns, strides, n_groups, agg_plans, dist_domains, n, device):
+def _run_window(cols, part_fns, ord_specs, arg_fn, name, fkind) -> torch.Tensor:
+    """One window of the program, f32 in row order (``infera_tpu``'s f32
+    carrier): its keys and argument evaluated over the rows, then
+    ``ops/window.window_device``. A sum, average, minimum or maximum that
+    is not finite somewhere adds a trip to ``cols["__trip__"]``: the host
+    renders such a minimum or maximum NULL and carries a NaN or infinite
+    prefix sum into later partitions (ROADMAP R15), so the host answers."""
+    n = cols["__n__"]
+    parts = [f(cols) for f in part_fns]
+    orders = [f(cols) if asc else -f(cols) for f, asc in ord_specs]
+    av = None if arg_fn is None else arg_fn(cols)
+    if all(v.dim() == 0 for v in parts + orders + ([] if av is None else [av])):
+        raise _Unsupported("window over constants")
+    out = window_device([_full(v, n) for v in parts], [_full(v, n) for v in orders],
+                        None if av is None else _full(av, n), name, fkind).float()
+    if name in ("sum", "avg", "mean", "min", "max"):
+        cols.setdefault("__trip__", []).append(~torch.isfinite(out).all())
+    return out
+
+
+def _build_program(where_fn, key_fns, strides, n_groups, agg_plans, dist_domains, n, device,
+                   prologue=None, validity=None):
     """``infera_tpu``'s fused program (``sql/device_plan.py`` ``program``)
     as eager torch ops over one device: the WHERE mask, the mixed-radix key
     mod ``n_groups``, the key guards, then one entry per agg_plans entry in
     ``_finalize_agg``'s shapes. Sums run in f64 (no compensated pairs), the
     variance family in two f64 passes, integer aggregates in int64.
+
+    The join tier's program (``infera_tpu``'s ``device_join_plan``
+    ``program``) is this one with ``prologue(cols)``, run first: it fills
+    the columns it gathers and ``cols["__matched__"]`` and returns the base
+    mask (None: every row); and ``validity``, one "all" or "matched" per
+    agg_plans entry: a "matched" sum, min or max reads only the rows
+    ``__matched__`` keeps and carries their count, in K5's
+    ``(sum, comp, count)`` and ``(value, count)`` shapes, and
+    "count_matched" is that count alone.
+
     Returns fn(cols) -> (results, group count, key mins, key maxs,
     fractional-key flags, trip): ``trip`` is set when a key reached past
-    f32's exact integers (two keys could share a bucket unseen) or an arg
-    slot met a NaN (the host lets a NaN win only as its group's first row);
-    the host executor then answers."""
+    f32's exact integers (two keys could share a bucket unseen), an arg
+    slot met a NaN (the host lets a NaN win only as its group's first row)
+    or a window tripped (``_run_window``); the host executor then
+    answers."""
     G = n_groups
     f32 = torch.float32
 
     def program(cols):
         cols = dict(cols, __n__=n, __pred__={})
-        if where_fn is None:
-            mask = torch.ones(n, dtype=torch.bool, device=device)
-        else:
-            mask = _full(where_fn(cols), n) != 0   # NaN is true, as jnp.asarray(v, bool)
+        base = None if prologue is None else prologue(cols)
+        mask = torch.ones(n, dtype=torch.bool, device=device) if base is None else base
+        if where_fn is not None:
+            # NaN is true, as jnp.asarray(v, bool)
+            mask = mask & (_full(where_fn(cols), n) != 0)
         keys = torch.zeros(n, dtype=torch.int64, device=device)
         trip = torch.zeros((), dtype=torch.bool, device=device)
         raws, fracs = [], []
@@ -869,6 +1003,14 @@ def _build_program(where_fn, key_fns, strides, n_groups, agg_plans, dist_domains
         (count,) = GG.segment_sum_int_exact([torch.ones_like(slot)], slot, G)
         guards = [GG.segment_minmax_int32(ri, keys, G, mask) for ri in raws]
         rows = torch.arange(n, dtype=torch.int64, device=device)
+        matched: list = []   # (slot of the rows __matched__ keeps, their count)
+
+        def matched_slot():
+            if not matched:
+                ms = torch.where(mask & cols["__matched__"], keys, G)
+                matched.append((ms, GG.segment_sum_int_exact([torch.ones_like(ms)], ms, G)[0]))
+            return matched[0]
+
         outs = []
         for ai, (name, fn) in enumerate(agg_plans):
             if name == "key":
@@ -877,6 +1019,9 @@ def _build_program(where_fn, key_fns, strides, n_groups, agg_plans, dist_domains
             if name in ("count", "count_star"):
                 # device-eligible columns carry no NULLs
                 outs.append(count)
+                continue
+            if name == "count_matched":
+                outs.append(matched_slot()[1])
                 continue
             if name in ("isum", "iavg"):
                 outs.append(int_agg.device_limb_sums(cols[fn + _INT], mask, keys, G))
@@ -892,6 +1037,16 @@ def _build_program(where_fn, key_fns, strides, n_groups, agg_plans, dist_domains
                 continue
             vfn = fn[0] if name in ("var", "quantile", "argmn", "argmx") else fn
             v = _full(vfn(cols), n)
+            if validity is not None and validity[ai] == "matched":
+                # a dropped row's gathers read dim row 0, maybe a NaN: the
+                # slot drops it rather than multiplying it by 0
+                ms, mcount = matched_slot()
+                if name in ("sum", "avg", "mean"):
+                    outs.append((GG.segment_sum(v, ms, G), 0.0, mcount))
+                else:
+                    (mn,), (mx,) = GG.segment_minmax([v], ms, G)
+                    outs.append((mn if name == "min" else mx, mcount))
+                continue
             if name in ("sum", "avg", "mean"):
                 outs.append((GG.segment_sum(v, slot, G), 0.0))
             elif name == "var":
@@ -943,6 +1098,8 @@ def _build_program(where_fn, key_fns, strides, n_groups, agg_plans, dist_domains
                 pres, bad = int_agg.device_presence(v, mask, keys, G, dist_domains[ai])
                 dcount, dsum = int_agg.presence_reduce(pres, dist_domains[ai])
                 outs.append((dcount, bad) if name == "dcount" else (dcount, dsum, bad))
+        for t in cols.get("__trip__", ()):
+            trip = trip | t
         return (outs, count, [g[0] for g in guards], [g[1] for g in guards], fracs, trip)
 
     return program
@@ -1065,8 +1222,7 @@ def _group_keys_int32_safe(lowerer, group_by) -> bool:
                 key = lowerer._column(e.name, e.table)
             except _Unsupported:
                 return False
-            col = (lowerer.col_for_key(key) if hasattr(lowerer, "col_for_key")
-                   else lowerer.table.columns[key])
+            col = lowerer.col_for_key(key)
             d = col.data
             if d.dtype.kind in "iu" and d.dtype.itemsize > 4 and d.size:
                 lo, hi = _int_range(col)
@@ -1280,10 +1436,6 @@ def _assemble_result(sel: A.Select, items_plan, agg_plans, having_plan,
         else:
             out_cols[name] = Column(vals, styp)
     return Table(out_cols)
-
-
-def _ms(t0: float) -> float:
-    return round((time.perf_counter() - t0) * 1e3, 3)
 
 
 def _ms(t0: float) -> float:
@@ -1553,6 +1705,8 @@ def try_execute_on_device(conn, sel: A.Select, table: Table,
             elif d.dtype.kind != "f" or not _f32_exact(col):
                 return None
             return ("hll", (key, str(d.dtype)))
+        if name in ("sum", "min", "max") and _contains_int_window(arg):
+            return None  # the host keeps the BIGINT typing of ranking windows
         # exact int64: sum/avg/min/max over a plain no-NULL integer column
         if name in ("sum", "avg", "mean", "min", "max") and isinstance(arg, A.ColumnRef):
             key = lowerer._column(arg.name, arg.table)

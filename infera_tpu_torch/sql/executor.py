@@ -11,18 +11,22 @@ test_edge_cases.test), volatile infera_* functions re-evaluated at every call
 site, and DuckDB-style value rendering for the test harness.
 
 The device tiers: ``device_join_plan.try_execute_join_on_device`` runs a
-fact→dimension join with its aggregates as kernel K5 on CUDA
-(``_exec_path == "device_join_plan_cuda"``), before any join materializes;
-``device_plan.try_execute_on_device`` runs an aggregate over one scanned
-table as kernel K2 (``"device_plan_cuda"``) or, where K2 is off or declines
-the plan, as the torch program, ``infera_tpu``'s fused XLA program in
-eager torch ops (``"device_plan"``). Every other query, and every plan
-those tiers decline, runs on the host operators (numpy), where a join over
-large keys takes the sort-join of ``ops/device_join.py`` in torch ops
-(``"device_join"``) and an ORDER BY of 2**15 numeric rows or more sorts on
-the device (``ops/sort.py``). The window-fusion, streaming, shuffle and
-mesh tiers of ``infera_tpu``, and its XLA join program, come in later
-slices of the port.
+fact→dimension join with its aggregates, before any join materializes, as
+kernel K5 on CUDA (``_exec_path == "device_join_plan_cuda"``) or, where K5
+is off or declines the plan, as the torch join program
+(``"device_join_plan"``); ``device_plan.try_execute_on_device`` runs an
+aggregate over one scanned table as kernel K2 (``"device_plan_cuda"``) or,
+where K2 is off or declines the plan, as the torch program,
+``infera_tpu``'s fused XLA program in eager torch ops (``"device_plan"``),
+and so does an aggregate over a windowed subquery that
+``window_fusion.flatten_windowed_scan`` folds into one scan, its windows
+computed in the program. Every other query, and every plan those tiers
+decline, runs on the host operators (numpy), where a join over large keys
+takes the sort-join of ``ops/device_join.py`` in torch ops
+(``"device_join"``), an ORDER BY of 2**15 numeric rows or more sorts on
+the device (``ops/sort.py``) and a window may take the opt-in device route
+of ``ops/window.py``. The streaming, shuffle and mesh tiers of
+``infera_tpu`` come in later slices of the port.
 """
 
 from __future__ import annotations
@@ -428,12 +432,25 @@ class Connection:
                 tier = try_execute_on_device(self, sel, table, analyze_only=True)
             except SqlError:
                 pass
+        elif isinstance(sel.from_, A.SubqueryRef):
+            # windowed-subquery fusion: the flattened plan's tier
+            from .device_plan import try_execute_on_device
+            from .window_fusion import flatten_windowed_scan
+
+            flat = flatten_windowed_scan(sel)
+            if flat is not None and isinstance(flat.from_, A.BaseTable):
+                try:
+                    table = _qualify(self.catalog.get(flat.from_.name),
+                                     flat.from_.alias or flat.from_.name)
+                    if try_execute_on_device(self, flat, table, analyze_only=True):
+                        tier = "window computed in-program"
+                except SqlError:
+                    pass
         elif isinstance(sel.from_, A.Join):
             from .device_join_plan import try_execute_join_on_device
 
             try:
-                if try_execute_join_on_device(self, sel, analyze_only=True):
-                    tier = "kernel K5"
+                tier = try_execute_join_on_device(self, sel, analyze_only=True)
             except SqlError:
                 pass
         lines.append(f"{pad}PROJECT [{len(sel.items)} exprs]"
@@ -561,33 +578,66 @@ class Connection:
             out = out.slice(0, op.limit)
         return out
 
+    def _finish_fused(self, sel: A.Select, fused: Table):
+        """A device tier's group table with the SELECT's ORDER BY, OFFSET
+        and LIMIT applied; None (the host answers) when ORDER BY names
+        something outside the output."""
+        try:
+            if sel.order_by:
+                fused = self._order_by(fused, sel.order_by, Scope(fused),
+                                       head=_head_rows(sel))
+        except SqlError:
+            self._exec_path = "host"
+            return None
+        if sel.offset is not None or sel.limit is not None:
+            start = sel.offset or 0
+            stop = start + sel.limit if sel.limit is not None else fused.num_rows
+            fused = fused.slice(start, stop)
+        return fused
+
     def _execute_select(self, sel: A.Select) -> Table:
         if getattr(sel, "group_sets", None):
             return self._execute_grouping_sets(sel)
         # 1a. fused join plan — BEFORE the host join materializes: a
         # fact-to-dimension join + aggregates runs as kernel K5 with a dense
-        # key lookup inside it (BASELINE config 3)
+        # key lookup inside it, or as the torch join program (BASELINE
+        # config 3)
         if isinstance(sel.from_, A.Join):
             from .device_join_plan import try_execute_join_on_device
 
             fused = try_execute_join_on_device(self, sel)
             if fused is not None:
-                try:
-                    if sel.order_by:
-                        fused = self._order_by(
-                            fused, sel.order_by, Scope(fused),
-                            head=_head_rows(sel))
-                except SqlError:
-                    fused = None  # ORDER BY outside the output → host path
-                    self._exec_path = "host"
+                path = ("device_join_plan_cuda" if self._cuda_plan_used
+                        else "device_join_plan")
+                fused = self._finish_fused(sel, fused)
                 if fused is not None:
-                    if sel.offset is not None or sel.limit is not None:
-                        start = sel.offset or 0
-                        stop = (start + sel.limit if sel.limit is not None
-                                else fused.num_rows)
-                        fused = fused.slice(start, stop)
-                    self._exec_path = "device_join_plan_cuda"
+                    self._exec_path = path
                     return fused
+
+        # 1a'. windowed-subquery fusion: flatten an eligible window-bearing
+        # subquery scan into the fused device plan BEFORE the host executes
+        # the inner projection — the [n]-row window result stays on the
+        # device inside the torch program and only the [G] group table
+        # returns (sql/window_fusion.py)
+        if isinstance(sel.from_, A.SubqueryRef):
+            from .device_plan import try_execute_on_device
+            from .window_fusion import flatten_windowed_scan
+
+            flat = flatten_windowed_scan(sel)
+            if flat is not None and isinstance(flat.from_, (A.BaseTable, A.TableFunction)):
+                try:
+                    base = self._execute_from(flat.from_)
+                except SqlError:
+                    base = None
+                fused = None if base is None else try_execute_on_device(self, flat, base)
+                if fused is not None:
+                    # K2 declines windows; it takes a flattened query that
+                    # reads none of the subquery's windows
+                    path = "device_plan_cuda" if self._cuda_plan_used else "device_plan"
+                    fused = self._finish_fused(flat, fused)
+                    if fused is not None:
+                        self._exec_path = path
+                        return fused
 
         # 1. FROM
         if sel.from_ is not None:
@@ -606,22 +656,10 @@ class Connection:
 
             fused = try_execute_on_device(self, sel, scope.table)
             if fused is not None:
-                self._exec_path = ("device_plan_cuda" if self._cuda_plan_used
-                                   else "device_plan")
-                try:
-                    if sel.order_by:
-                        fused = self._order_by(
-                            fused, sel.order_by, Scope(fused),
-                            head=_head_rows(sel))
-                except SqlError:
-                    fused = None  # ORDER BY outside the output → host path
-                    self._exec_path = "host"
+                path = "device_plan_cuda" if self._cuda_plan_used else "device_plan"
+                fused = self._finish_fused(sel, fused)
                 if fused is not None:
-                    if sel.offset is not None or sel.limit is not None:
-                        start = sel.offset or 0
-                        stop = (start + sel.limit if sel.limit is not None
-                                else fused.num_rows)
-                        fused = fused.slice(start, stop)
+                    self._exec_path = path
                     return fused
 
         # 2. WHERE

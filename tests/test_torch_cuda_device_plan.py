@@ -7,14 +7,18 @@ on each device over the same catalog and models (Q with
 ``INFERA_PALLAS_SQL=0``, its plan the one K2 runs by default; S's ORDER BY
 through the host executor, its sort on the device), on the path the phase
 checks, with rows equal at ``chip_smoke.DP_TOL``'s tolerances (S exact);
-and ``testing/plan_fuzz``'s random queries through K2 and the program on
-the card against the host."""
+the device-tier queries T, U, V (the torch join program), W1-W5 (windows
+in the program) and Y (the device window route) the same way at
+``chip_smoke.DT_TOL``'s; and ``testing/plan_fuzz``'s random aggregates,
+joins and windowed subqueries through K2, K5 and the programs on the card
+against the host."""
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (BIG_TABLE, DP_QUERIES, DP_S, DP_SORT, DP_T, DP_TOL, compare_rows,
+from chip_smoke import (BIG_TABLE, DP_QUERIES, DP_S, DP_SORT, DP_T, DP_TOL, DT_JOIN, DT_ROUTE,
+                        DT_TOL, DT_WINDOWS, DT_WT, compare_rows, config3_tables,
                         device_plan_expected_sorts)
 
 pytestmark = pytest.mark.cuda
@@ -93,3 +97,61 @@ def test_random_plans_on_the_card_equal_the_host(cuda, monkeypatch):
     assert not [m for r in results for m in r["mismatches"]]
     assert all(r["paths"].get("device_plan_cuda", 0) and r["paths"].get("device_plan", 0)
                for r in results)
+
+
+@pytest.mark.parametrize("key", [*DT_JOIN, *DT_WINDOWS, *DT_ROUTE])
+def test_device_tiers_on_the_card_equal_the_cpu(cuda, monkeypatch, key):
+    import infera_tpu_torch as itt
+    from infera_tpu_torch.ops import window as W
+    from infera_tpu_torch.registry import MODELS
+    from infera_tpu_torch.sql import Connection
+
+    monkeypatch.setattr(W, "DEVICE_WINDOW_MIN_ROWS", 1 << 10)
+    monkeypatch.delenv("INFERA_PALLAS_SQL", raising=False)
+    if key in ("U", "V"):
+        monkeypatch.setenv("INFERA_PALLAS_SQL", "0")
+    if key in DT_ROUTE:
+        monkeypatch.setenv("INFERA_WINDOW_DEVICE", "1")
+    q = {**DT_JOIN, **DT_WINDOWS, **DT_ROUTE}[key]
+    path = ("device_join_plan" if key in DT_JOIN else "host" if key in DT_ROUTE
+            else "device_plan")
+    out = []   # the card's, then the CPU's
+    try:
+        for device in (cuda, torch.device("cpu")):
+            itt.set_device(device)
+            MODELS.clear()
+            conn = Connection()
+            config3_tables(itt, conn, N, grp=4096)
+            conn.execute(DT_WT.format(n=N))
+            res = conn.execute(q)
+            assert conn._exec_path == path
+            out.append(res)
+    finally:
+        MODELS.clear()
+        itt.set_device(None)
+    card, cpu = out
+    if key in DT_ROUTE:
+        a, b = (next(iter(r.table.columns.values())).data for r in (card, cpu))
+        np.testing.assert_allclose(a, b, rtol=1e-5)
+    else:
+        assert len(card.rows) > 0
+        compare_rows(key, card.rows, cpu.rows, DT_TOL[key])
+
+
+@pytest.mark.parametrize("kind", ["join", "window"])
+def test_random_joins_and_windows_on_the_card_equal_the_host(cuda, monkeypatch, kind):
+    """testing/plan_fuzz's random fact→dim joins (through K5 and the join
+    program) and windowed subqueries (the program) on the card: the host's
+    rows (four seeds of 100 queries)."""
+    import infera_tpu_torch as itt
+    from infera_tpu_torch.testing import plan_fuzz
+
+    monkeypatch.delenv("INFERA_PALLAS_SQL", raising=False)
+    itt.set_device(cuda)
+    try:
+        results = [plan_fuzz.run_seed(seed, 20000, 100, kind) for seed in range(4)]
+    finally:
+        itt.set_device(None)
+    assert not [m for r in results for m in r["mismatches"]]
+    program = "device_join_plan" if kind == "join" else "device_plan"
+    assert all(r["paths"].get(program, 0) for r in results)

@@ -30,6 +30,7 @@ sys.exit(1 if bad else 0)
     "infera_tpu_torch.sql",
     "infera_tpu_torch.sql.device_plan",
     "infera_tpu_torch.sql.device_join_plan",
+    "infera_tpu_torch.sql.window_fusion",
     "infera_tpu_torch.sql.shell",
     "infera_tpu_torch.sql.csv_io",
     "infera_tpu_torch.columnar.diskfile",
@@ -44,6 +45,7 @@ sys.exit(1 if bad else 0)
     "infera_tpu_torch.testing.profile_query",
     "infera_tpu_torch.testing.benchmarks",
     "infera_tpu_torch.testing.ab_kernels",
+    "infera_tpu_torch.testing.plan_fuzz",
     "chip_smoke",
 ])
 def test_fresh_import_pulls_in_no_jax(module):

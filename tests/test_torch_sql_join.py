@@ -5,14 +5,16 @@ version (``ops/fused_sql.fused_sql_plain`` with the join prologue): the
 orientation, the declines, the dense lookup, the outer-join validity
 lattice, the matched-count slot, the result assembly and the FULL join's
 phantom side are the ones the card runs. Every query here gives, on the
-port, the rows of its host executor (``INFERA_PALLAS_SQL=0``, whose joins of
-2**14 rows and more take the sort-join of ``ops/device_join``) and of
-``infera_tpu`` (its Pallas kernel in interpret mode, as its own tests run
-it): keys and counts exact, sums and averages rel 1e-5. The port's path is
-``device_join_plan_cuda`` exactly where ``infera_tpu``'s is
-``device_join_plan_pallas``, and where ``infera_tpu`` lowers a ``coalesce``
-of a join to its XLA join program (the port lowers it to ``SEL`` in the
-kernel); elsewhere both packages answer on their host executors."""
+port, the rows of its host executor (a second Connection with both device
+tiers turned away, whose joins of 2**14 rows and more take the sort-join of
+``ops/device_join``) and of ``infera_tpu`` (its Pallas kernel in interpret
+mode, as its own tests run it): keys and counts exact, sums and averages
+rel 1e-5. The port's path is ``infera_tpu``'s, mapped:
+``device_join_plan_pallas`` → ``device_join_plan_cuda``,
+``device_join_plan`` (its XLA join program) → ``device_join_plan`` (the
+torch join program), but where ``infera_tpu`` lowers a ``coalesce`` of a
+join to its XLA program the port lowers it to ``SEL`` in the kernel; the
+host elsewhere."""
 
 import numpy as np
 import pytest
@@ -118,19 +120,34 @@ def both(tmp_path_factory):
     itt.set_device(None)
 
 
+def _host_run(port, q, monkeypatch):
+    """(rows, path) of the port's host executor over the same catalog: both
+    device tiers turned away, as ``tests/test_path_equivalence.py`` and
+    ``chip_smoke.host_rows`` reach the host."""
+    host = Connection(port.catalog)
+    with monkeypatch.context() as m:
+        m.setattr(dp, "try_execute_on_device", lambda *a, **k: None)
+        m.setattr(djp, "try_execute_join_on_device", lambda *a, **k: None)
+        rows = host.execute(q).rows
+    assert host._exec_path in ("host", "device_join")
+    return rows, host._exec_path
+
+
 def _run(both, q, monkeypatch):
     """(kernel-tier rows, path) and (host rows, path) of the port, and
-    infera_tpu's (rows, path), all with the kernel tiers forced on but the
-    port's host run."""
+    infera_tpu's (rows, path), the kernel tiers forced on."""
     port, ref = both
     monkeypatch.setenv("INFERA_PALLAS_SQL", "1")
     got = (port.execute(q).rows, port._exec_path)
     want = (ref.execute(q).rows, ref._exec_path)
-    monkeypatch.setenv("INFERA_PALLAS_SQL", "0")
-    host = (port.execute(q).rows, port._exec_path)
-    monkeypatch.setenv("INFERA_PALLAS_SQL", "1")
-    assert host[1] in ("host", "device_join")
-    return got, host, want
+    return got, _host_run(port, q, monkeypatch), want
+
+
+def _port_path(rpath, q):
+    """The port's path for ``infera_tpu``'s path ``rpath`` on query ``q``."""
+    if rpath == "device_join_plan_pallas" or (rpath == "device_join_plan" and "coalesce" in q):
+        return CUDA_PATH
+    return rpath
 
 
 def _assert_rows_close(rows, want, rel=1e-5):
@@ -145,13 +162,12 @@ def _assert_rows_close(rows, want, rel=1e-5):
 
 
 def _check(both, q, monkeypatch, on_kernel=True):
-    """The port's rows equal its host rows and infera_tpu's; its path is the
-    kernel tier exactly where infera_tpu's is (its XLA program for a
-    ``coalesce``), and is asserted to be (``on_kernel``) or not."""
+    """The port's rows equal its host rows and infera_tpu's; its path is
+    infera_tpu's mapped (``_port_path``), and is asserted to be the kernel
+    tier (``on_kernel``) or the host's."""
     (rows, path), (hrows, hpath), (rrows, rpath) = _run(both, q, monkeypatch)
-    ref_kernel = rpath == "device_join_plan_pallas" or (
-        rpath == "device_join_plan" and "coalesce" in q)
-    assert (path == CUDA_PATH) == ref_kernel == on_kernel, (path, rpath)
+    assert path == _port_path(rpath, q), (path, rpath)
+    assert (path == CUDA_PATH) == on_kernel, (path, rpath)
     if not on_kernel:
         assert path == hpath
     _assert_rows_close(rows, hrows)
@@ -328,8 +344,7 @@ def test_matched_min_max_near_5e9_are_held_to_host(both, monkeypatch):
     monkeypatch.setenv("INFERA_PALLAS_SQL", "1")
     rows = port.execute(q).rows
     assert port._exec_path == CUDA_PATH
-    monkeypatch.setenv("INFERA_PALLAS_SQL", "0")
-    _assert_rows_close(rows, port.execute(q).rows, rel=1e-7)
+    _assert_rows_close(rows, _host_run(port, q, monkeypatch)[0], rel=1e-7)
     assert rows[0][1] > 4.9e9 and rows[0][3] < -4.9e9
 
 
@@ -360,7 +375,11 @@ def test_explain_and_phases_of_the_join_tier(both, monkeypatch):
     assert set(port._last_phases) == {"plan_ms", "upload_ms", "exec_ms", "assemble_ms",
                                       "phantom_ms"}
     monkeypatch.setenv("INFERA_PALLAS_SQL", "0")
-    assert "host/hybrid" in "\n".join(r[0] for r in port.execute("explain " + q).rows)
+    assert "torch join program" in "\n".join(r[0] for r in port.execute("explain " + q).rows)
+    port.execute(q)
+    assert port._exec_path == "device_join_plan"
+    assert set(port._last_phases) == {"plan_ms", "upload_ms", "exec_ms", "assemble_ms",
+                                      "phantom_ms"}
 
 
 def test_join_plan_carries_the_join_opcodes(both, monkeypatch):
