@@ -161,7 +161,26 @@ card, builds every kernel of ``infera_tpu_torch/csrc`` with nvcc (sm_90a), and:
    at batch 64, the encoder's rows/s at each precision, one
    ``observability.trace`` window of MobileNet at batch 1 with its idle
    share, and the phase's wall time;
-13. prints the ``{"kernels": [...]}`` line, the card's name and power limit,
+13. the rest of ONNX (``onnx_rest_phase``; torch ops, no kernel of the port:
+   K6's count must not move): every case of
+   ``infera_tpu_torch.testing.onnx_cases`` (the ops of ``infera_tpu``'s
+   ``ops_extra.py``, ``rnn_ops.py``, ``sequence_ops.py`` and
+   ``signal_vision_ops.py``) on the card against the CPU from the same bytes
+   and inputs, at the case's tolerance, with the same refusal prefix, or, for
+   the random ops, their properties; then three models built from seeds with
+   ``onnx.proto`` at full width, each against the same graph on the CPU: the
+   config-2 MLP as onnxruntime's ``quantize_dynamic`` writes it
+   (``quantize_dynamic_mlp``) over 1,048,576 rows through ``load_model`` /
+   ``predict``, within 1e-5 of the CPU's largest magnitude; the LSTM of
+   pytorch/examples ``word_language_model`` at its defaults
+   (``lstm_lm_model``) at batch 20 against the CPU and at batch 256, whose
+   first 20 sequences must equal batch 20's, with a trace window of 5 calls
+   at batch 20 and its idle share; Whisper's log-mel front end over 16
+   30-s clips (``logmel_model``), its mel power within 1e-5 and its log-mel's
+   worst difference printed. Each prints ms a call on the host clock (median
+   of 5 after one warm-up), rows, tokens or clips a second and device ms by
+   CUDA events, beside the card's name and power limit;
+14. prints the ``{"kernels": [...]}`` line, the card's name and power limit,
    and last ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero without the ``ok`` line. The script
@@ -2252,6 +2271,246 @@ def onnx_phase(torch, itt, device) -> None:
           f"of the port launched (torch ops, Conv in cuDNN without TF32)")
 
 
+# ------------------------------------------------------------------ P12b's models
+# Each graph is built from a seed with onnx.proto, at full width in the
+# ONNX phase and at small widths in tests/test_torch_onnx_models_p12b.py.
+
+
+def _onnx_node(op, ins, outs, **attrs):
+    from infera_tpu_torch.onnx.proto import Attribute, Node
+
+    return Node(op_type=op, inputs=list(ins), outputs=list(outs), name=f"{op.lower()}_{outs[0]}",
+                attributes={k: Attribute.make(k, v) for k, v in attrs.items()})
+
+
+def _onnx_model(name, nodes, inits, inputs, outputs):
+    from infera_tpu_torch.onnx.proto import Graph, Model, Tensor
+
+    g = Graph(name=name, nodes=nodes,
+              initializers={k: Tensor.from_array(k, np.asarray(v)) for k, v in inits.items()},
+              inputs=inputs, outputs=outputs)
+    return Model(graph=g, opset_imports=[("", 17)])
+
+
+def quantize_dynamic_mlp(model):
+    """The MLP ``model`` (``onnx.builder.mlp_model``: Gemm and Relu layers,
+    then Softmax) as onnxruntime's ``quantize_dynamic`` writes it: each
+    layer DynamicQuantizeLinear (uint8) → MatMulInteger against per-tensor
+    symmetric int8 weights (zero point 0) → Cast → Mul by x_scale · w_scale
+    → Add bias (→ Relu)."""
+    from infera_tpu_torch.onnx.proto import DataType, ValueInfo
+
+    src = model.graph
+    w = {k: t.array for k, t in src.initializers.items()}
+    nodes, inits, prev, li = [], {}, src.inputs[0].name, 0
+    for n in src.nodes:
+        if n.op_type == "Gemm":
+            wf = np.asarray(w[n.inputs[1]], np.float32)
+            scale = np.float32(np.abs(wf).max() / 127.0)
+            inits.update({f"Wq{li}": np.clip(np.rint(wf / scale), -127, 127).astype(np.int8),
+                          f"Wz{li}": np.asarray(0, np.int8), f"Ws{li}": np.asarray(scale, np.float32),
+                          f"B{li}": np.asarray(w[n.inputs[2]], np.float32)})
+            nodes += [_onnx_node("DynamicQuantizeLinear", [prev], [f"q{li}", f"qs{li}", f"qz{li}"]),
+                      _onnx_node("MatMulInteger", [f"q{li}", f"Wq{li}", f"qz{li}", f"Wz{li}"], [f"acc{li}"]),
+                      _onnx_node("Cast", [f"acc{li}"], [f"accf{li}"], to=DataType.FLOAT),
+                      _onnx_node("Mul", [f"qs{li}", f"Ws{li}"], [f"s{li}"]),
+                      _onnx_node("Mul", [f"accf{li}", f"s{li}"], [f"y{li}"]),
+                      _onnx_node("Add", [f"y{li}", f"B{li}"], [f"H{li}"])]
+            prev = f"H{li}"
+            li += 1
+        elif n.op_type in ("Relu", "Softmax"):
+            nodes.append(_onnx_node(n.op_type, [prev], [n.outputs[0]],
+                                    **({"axis": -1} if n.op_type == "Softmax" else {})))
+            prev = n.outputs[0]
+    return _onnx_model("MlpDynamicQuantized", nodes, inits, src.inputs,
+                       [ValueInfo(name=prev, elem_type=DataType.FLOAT, shape=src.outputs[0].shape)])
+
+
+def lstm_lm_model(seed=0, vocab=33278, emsize=200, nhid=200, nlayers=2, bptt=35):
+    """pytorch/examples ``word_language_model``'s LSTM at its defaults
+    (``main.py``: ``--emsize 200 --nhid 200 --nlayers 2 --bptt 35``, the
+    WikiText-2 vocabulary of 33,278 tokens): int64 tokens [bptt, batch] →
+    Gather of the embedding → LSTM → Squeeze, ``nlayers`` times → MatMul +
+    Add, logits [bptt, batch, vocab]. Its initialisation: the embedding and
+    decoder uniform in ±0.1, the decoder bias 0, the LSTM's weights uniform
+    in ±1/√nhid; zero initial states."""
+    from infera_tpu_torch.onnx.proto import DataType, ValueInfo
+
+    rng = np.random.default_rng(seed)
+    k = 1.0 / np.sqrt(nhid)
+    inits = {"emb": rng.uniform(-0.1, 0.1, (vocab, emsize)).astype(np.float32),
+             "dec_w": rng.uniform(-0.1, 0.1, (nhid, vocab)).astype(np.float32),
+             "dec_b": np.zeros(vocab, np.float32), "axis1": np.asarray([1], np.int64)}
+    nodes = [_onnx_node("Gather", ["emb", "tokens"], ["h_in0"])]
+    width = emsize
+    for layer in range(nlayers):
+        inits[f"W{layer}"] = rng.uniform(-k, k, (1, 4 * nhid, width)).astype(np.float32)
+        inits[f"R{layer}"] = rng.uniform(-k, k, (1, 4 * nhid, nhid)).astype(np.float32)
+        inits[f"B{layer}"] = rng.uniform(-k, k, (1, 8 * nhid)).astype(np.float32)
+        nodes += [_onnx_node("LSTM", [f"h_in{layer}", f"W{layer}", f"R{layer}", f"B{layer}"],
+                             [f"y{layer}"], hidden_size=nhid),
+                  _onnx_node("Squeeze", [f"y{layer}", "axis1"], [f"h_in{layer + 1}"])]
+        width = nhid
+    nodes += [_onnx_node("MatMul", [f"h_in{nlayers}", "dec_w"], ["logits_mm"]),
+              _onnx_node("Add", ["logits_mm", "dec_b"], ["logits"])]
+    return _onnx_model("WordLanguageModelLSTM", nodes, inits,
+                       [ValueInfo(name="tokens", elem_type=DataType.INT64, shape=[bptt, -1])],
+                       [ValueInfo(name="logits", elem_type=DataType.FLOAT, shape=[bptt, -1, vocab])])
+
+
+def logmel_model(n_fft=400, hop=160, n_mels=80, sample_rate=16000, f_max=8000.0, samples=480000):
+    """Whisper's log-mel front end at ``whisper/audio.py``'s widths (16 kHz,
+    ``N_FFT`` 400, ``HOP_LENGTH`` 160, ``N_MELS`` 80, 30-s chunks of 480,000
+    samples): signal [clips, samples] → Pad reflect by n_fft/2 on the sample
+    axis → STFT with an n_fft-point periodic Hann window, onesided → power
+    (re² + im²) → MatMul with MelWeightMatrix(n_mels, n_fft, sample_rate, 0,
+    f_max) → Max with 1e-10 → Log. Outputs: the log-mel and the mel power."""
+    from infera_tpu_torch.onnx.proto import DataType, ValueInfo
+
+    half = n_fft // 2
+    inits = {"pads": np.asarray([0, half, 0, half], np.int64), "axis2": np.asarray([2], np.int64),
+             "hop": np.asarray(hop, np.int64), "axis_last": np.asarray([-1], np.int64),
+             "window": (0.5 - 0.5 * np.cos(2 * np.pi * np.arange(n_fft) / n_fft)).astype(np.float32),
+             "n_mels": np.asarray(n_mels, np.int64), "n_fft": np.asarray(n_fft, np.int64),
+             "rate": np.asarray(sample_rate, np.int64), "f_lo": np.asarray(0.0, np.float32),
+             "f_hi": np.asarray(f_max, np.float32), "floor": np.asarray(1e-10, np.float32)}
+    nodes = [_onnx_node("Pad", ["audio", "pads"], ["padded"], mode="reflect"),
+             _onnx_node("Unsqueeze", ["padded", "axis2"], ["signal"]),
+             _onnx_node("STFT", ["signal", "hop", "window"], ["spec"]),
+             _onnx_node("Mul", ["spec", "spec"], ["sq"]),
+             _onnx_node("ReduceSum", ["sq", "axis_last"], ["power"], keepdims=0),
+             _onnx_node("MelWeightMatrix", ["n_mels", "n_fft", "rate", "f_lo", "f_hi"], ["mel_w"]),
+             _onnx_node("MatMul", ["power", "mel_w"], ["mel"]),
+             _onnx_node("Max", ["mel", "floor"], ["mel_c"]),
+             _onnx_node("Log", ["mel_c"], ["logmel"])]
+    return _onnx_model("LogMelFrontEnd", nodes, inits,
+                       [ValueInfo(name="audio", elem_type=DataType.FLOAT, shape=[-1, samples])],
+                       [ValueInfo(name="logmel", elem_type=DataType.FLOAT, shape=[-1, -1, n_mels]),
+                        ValueInfo(name="mel", elem_type=DataType.FLOAT, shape=[-1, -1, n_mels])])
+
+
+N_QMLP = 1 << 20          # rows of the dynamically quantized config-2 MLP
+LM_BATCH, LM_WIDE = 20, 256  # word_language_model's --batch_size, and a wide batch
+N_CLIPS = 16              # 30-s clips of the log-mel front end
+
+
+def onnx_rest_phase(torch, itt, device) -> None:
+    """The rest of ONNX on the card (P12b; torch ops, no kernel of the port,
+    K6's count must not move): every case of
+    ``infera_tpu_torch.testing.onnx_cases`` on the card against the CPU, then
+    three models at full width, each against the port on the CPU: the
+    config-2 MLP as onnxruntime's ``quantize_dynamic`` writes it over
+    1,048,576 rows through ``load_model`` + ``predict``, the
+    ``word_language_model`` LSTM at its defaults (batch 20 against the CPU,
+    batch 256 for throughput, its first 20 sequences against batch 20's), and
+    Whisper's log-mel front end over 16 clips of 30 s."""
+    from infera_tpu_torch import observability as obs
+    from infera_tpu_torch.errors import OnnxError
+    from infera_tpu_torch.onnx import builder, proto
+    from infera_tpu_torch.onnx.executor import compile_model_bytes
+    from infera_tpu_torch.ops.fused_mlp import fused_mlp
+    from infera_tpu_torch.testing import onnx_cases
+    from infera_tpu_torch.testing import profile_query as pq
+
+    t_phase = time.perf_counter()
+    card = nvidia_smi()
+    k6_before = fused_mlp.launches
+
+    # ------------------------------------------------ the op sweep
+    kinds = {"values": 0, "refusals": 0, "random": 0}
+    for cid, case in onnx_cases.CASES.items():
+        data = case.model().serialize()
+        want = onnx_cases.run_case(compile_model_bytes, OnnxError, data, case.feeds, device="cpu")
+        got = onnx_cases.run_case(compile_model_bytes, OnnxError, data, case.feeds, device=device)
+        try:
+            onnx_cases.check_case(case, got, want)
+        except AssertionError as e:
+            raise AssertionError(f"ONNX case {cid} on the card: {e}") from None
+        kinds["refusals" if case.refuse else "random" if case.props else "values"] += 1
+    torch.cuda.synchronize()
+    print(f"ONNX rest op sweep: {len(onnx_cases.CASES)} cases on the card equal the CPU's "
+          f"({kinds['values']} at their tolerances, {kinds['refusals']} refused with the same "
+          f"prefix, {kinds['random']} random ops held to their properties)")
+
+    def report(key, ms, dev_ms, unit, per_call, err):
+        print(f"ONNX {key}: {ms:.3f} ms a call on the host clock (median of 5 after one warm-up) "
+              f"= {per_call / ms * 1e3:,.1f} {unit}/s; device {dev_ms:.4f} ms a call by CUDA events "
+              f"(median of 5); max err against the CPU {err:.3e} of max|y|; card {card}")
+
+    rng = np.random.default_rng(18)
+    with tempfile.TemporaryDirectory() as d:
+        # ------------------------------------------------ dynamically quantized MLP
+        qmlp = quantize_dynamic_mlp(
+            builder.mlp_model(in_dim=32, hidden=(128, 128), out_dim=16, softmax=True))
+        proto.save_model_file(qmlp, f"{d}/mlp_qdyn.onnx")
+        itt.load_model("mlp_qdyn", f"{d}/mlp_qdyn.onnx")
+        x = rng.standard_normal((N_QMLP, 32)).astype(np.float32)
+        got = itt.predict("mlp_qdyn", x)
+        check((got.rows, got.cols) == (N_QMLP, 16), f"quantized MLP shape {got.rows}x{got.cols}")
+        cpu = compile_model_bytes(qmlp.serialize(), "qmlp-cpu", device="cpu")
+        err = onnx_close("quantized MLP", got.data.reshape(N_QMLP, 16), cpu.run(x)[0])
+        ms = host_ms(torch, lambda: itt.predict("mlp_qdyn", x), runs=5)
+        card_model = compile_model_bytes(qmlp.serialize(), "qmlp", device=device)
+        x_dev = torch.as_tensor(x, device=device)
+        dev_ms = float(np.median(device_ms(torch, lambda: card_model.run(x_dev), runs=5)))
+        report(f"dynamically quantized MLP 32-128-128-16 @ {N_QMLP} rows (load_model + predict)",
+               ms, dev_ms, "rows", N_QMLP, err)
+
+    # ------------------------------------------------ word_language_model LSTM
+    lm = lstm_lm_model(seed=0)
+    lm_card = compile_model_bytes(lm.serialize(), "lm", device=device)
+    lm_cpu = compile_model_bytes(lm.serialize(), "lm-cpu", device="cpu")
+    tokens = rng.integers(0, 33278, (35, LM_WIDE)).astype(np.int64)
+    narrow = tokens[:, :LM_BATCH]
+    got20 = lm_card.run(narrow)[0].cpu().numpy()
+    check(got20.shape == (35, LM_BATCH, 33278), f"LM logits shape {got20.shape}")
+    err = onnx_close("LSTM LM batch 20", got20, lm_cpu.run(narrow)[0].numpy())
+    wide = lm_card.run(tokens)[0]
+    err_wide = onnx_close("LSTM LM batch 256, first 20", wide[:, :LM_BATCH].cpu().numpy(), got20)
+    del wide
+    t20 = torch.as_tensor(narrow, device=device)
+    t256 = torch.as_tensor(tokens, device=device)
+    for b, tk in ((LM_BATCH, t20), (LM_WIDE, t256)):
+        ms = host_ms(torch, lambda tk=tk: lm_card.run(tk), runs=5)
+        dev_ms = float(np.median(device_ms(torch, lambda tk=tk: lm_card.run(tk), runs=5)))
+        report(f"LSTM LM (emsize 200, nhid 200, 2 layers, bptt 35, vocab 33278) batch {b}", ms,
+               dev_ms, "tokens", 35 * b, err if b == LM_BATCH else err_wide)
+    with tempfile.TemporaryDirectory() as d:
+        with obs.trace(f"{d}/lm_trace") as prof:
+            for _ in range(5):
+                with obs.annotate("lstm lm b20"):
+                    lm_card.run(t20)
+            torch.cuda.synchronize()
+        trace_report(pq, "LSTM LM batch 20 (5 calls)", prof, f"{d}/lm_trace", {"lstm lm b20": 5})
+
+    # ------------------------------------------------ Whisper's log-mel front end
+    fe = logmel_model()
+    fe_card = compile_model_bytes(fe.serialize(), "logmel", device=device)
+    audio = (rng.standard_normal((N_CLIPS, 480000)) * 0.1).astype(np.float32)
+    got_log, got_mel = (t.cpu().numpy() for t in fe_card.run(audio))
+    want_log, want_mel = (t.numpy() for t in
+                          compile_model_bytes(fe.serialize(), "logmel-cpu", device="cpu").run(audio))
+    check(got_mel.shape == (N_CLIPS, 3001, 80), f"log-mel shape {got_mel.shape}")
+    err = onnx_close("log-mel front end, mel power", got_mel, want_mel)
+    check(bool(np.all(np.isfinite(got_log))), "log-mel: non-finite values")
+    log_err = float(np.abs(got_log - want_log).max())
+    print(f"ONNX log-mel front end: the log-mel's worst difference against the CPU {log_err:.3e} "
+          f"({log_err / float(np.abs(want_log).max()):.3e} of max|y|; not held: the log of the "
+          f"faintest bins magnifies the f32 DFT's rounding), at the bin of mel power "
+          f"{float(want_mel.reshape(-1)[np.argmax(np.abs(got_log - want_log))]):.3e} against a "
+          f"peak of {float(want_mel.max()):.3e}")
+    a_dev = torch.as_tensor(audio, device=device)
+    ms = host_ms(torch, lambda: fe_card.run(audio), runs=5)
+    dev_ms = float(np.median(device_ms(torch, lambda: fe_card.run(a_dev), runs=5)))
+    report(f"log-mel front end (n_fft 400, hop 160, 80 mels) @ {N_CLIPS} clips of 480,000 samples",
+           ms, dev_ms, "clips", N_CLIPS, err)
+
+    torch.cuda.synchronize()
+    check(fused_mlp.launches == k6_before, "the ONNX rest phase launched K6")
+    print(f"ONNX rest phase: {time.perf_counter() - t_phase:.1f} s on the host clock; no kernel "
+          f"of the port launched (torch ops)")
+
+
 def mma_report(torch, _kernels, device) -> None:
     """The tensor-core paths: HMMA in the SASS (cuobjdump) of the bf16
     kernels of K1, K7a and K8b and none in the f32 and int8 ones, IMMA in
@@ -2644,6 +2903,7 @@ def main() -> int:
     # windows on an NVIDIA H100 80GB HBM3 (700 W)
     device_tiers_phase(torch, itt, device)
     onnx_phase(torch, itt, device)
+    onnx_rest_phase(torch, itt, device)
 
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())

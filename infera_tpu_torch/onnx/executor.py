@@ -18,7 +18,9 @@ inputs (Reshape targets, Slice bounds, axes, ...) are read from there and
 never from a device tensor. Any other op gets its numpy inputs as device
 tensors, moved once and cached on the node (``_Ctx.tensor``).
 
-Not in this slice: ``run_data_parallel``.
+Sequence values (Python tuples, ``sequence_ops.py``) pass between the ops
+that take them; a sequence as a graph output is refused with
+``infera_tpu``'s message. Not in this slice: ``run_data_parallel``.
 """
 
 from __future__ import annotations
@@ -254,6 +256,11 @@ class CompiledOnnxModel:
         for v in self.graph.outputs:
             if v.name not in values:
                 raise OnnxError(f"model '{self.name}' missing output '{v.name}'")
+            if isinstance(values[v.name], tuple):
+                # a sequence has no tensor shape to hand back
+                raise OnnxError(
+                    f"model '{self.name}' output '{v.name}' is a sequence; "
+                    f"concat it (ConcatFromSequence) to a tensor output")
             outs.append(ctx.tensor(self.graph, v.name, values[v.name]))
         return outs
 

@@ -66,6 +66,18 @@ def _static_ints(ctx, node: Node, value, what: str) -> list:
     return [int(v) for v in np.asarray(arr).reshape(-1)]
 
 
+def _node_const(node: Node, ctx, key, make) -> torch.Tensor:
+    """A constant the op builds on the host from its static shapes and
+    attributes (``make()``, numpy), moved to the model's device once and
+    kept on the node under ``key``."""
+    cache = node.__dict__.setdefault("_infera_const", {})
+    full = (key, str(ctx.device))
+    t = cache.get(full)
+    if t is None:
+        t = cache[full] = torch.as_tensor(np.ascontiguousarray(make()), device=ctx.device)
+    return t
+
+
 def _is_host(value) -> bool:
     return isinstance(value, np.ndarray) or np.isscalar(value)
 

@@ -4,12 +4,19 @@ These need a CUDA card and skip without one. On the card:
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda_onnx.py`` (no
 JAX is imported). Every case of ``test_torch_onnx_ops.py`` runs on the card
 and on the CPU from the same bytes and inputs, at that file's tolerances;
-the refusals must raise the same message prefix. The models: the
-MobileNetV3-Small stand-in at batch 1 and 2, the transformer encoder at
-``onnx.builder``'s widths in f32, bf16 and int8, and the If, Loop (both
-paths) and Scan graphs, at ``test_torch_onnx_models.py``'s bounds. Conv runs without
-TF32: the flags stay off, and a convolution whose products TF32 would round
-(operands one part in 2^13 from 1) matches an f64 sum to 1e-6.
+the refusals must raise the same message prefix; so does every case of
+``infera_tpu_torch.testing.onnx_cases`` (the rest of ONNX; the random ops
+held to their properties). The models: the MobileNetV3-Small stand-in at
+batch 1 and 2, the transformer encoder at ``onnx.builder``'s widths in f32,
+bf16 and int8, and the If, Loop (both paths) and Scan graphs, at
+``test_torch_onnx_models.py``'s bounds; the dynamically quantized config-2
+MLP, the LSTM language model and the log-mel front end of ``chip_smoke``
+at their full widths (fewer rows, sequences and clips) within 1e-5 of the
+CPU's largest magnitude (for the log-mel front end, its mel power; the log
+magnifies the f32 DFT's rounding in the faintest bins, so it is held to the
+log of the card's own mel power). Conv runs without TF32: the flags stay off, and
+a convolution whose products TF32 would round (operands one part in 2^13
+from 1) matches an f64 sum to 1e-6.
 """
 
 import numpy as np
@@ -20,6 +27,7 @@ import infera_tpu_torch  # noqa: F401  (sets the TF32 flags)
 from infera_tpu_torch.errors import OnnxError
 from infera_tpu_torch.onnx import builder
 from infera_tpu_torch.onnx.executor import compile_model_bytes
+from infera_tpu_torch.testing.onnx_cases import CASES as EXTRA_CASES
 from test_torch_onnx_ops import CASES, check_case, run_case
 
 pytestmark = pytest.mark.cuda
@@ -38,6 +46,15 @@ def cuda():
 @pytest.mark.parametrize("cid", list(CASES))
 def test_op_on_the_card(cuda, cid):
     case = CASES[cid]
+    data = case.model().serialize()
+    want = run_case(compile_model_bytes, OnnxError, data, case.feeds, device="cpu")
+    got = run_case(compile_model_bytes, OnnxError, data, case.feeds, device=cuda)
+    check_case(case, got, want)
+
+
+@pytest.mark.parametrize("cid", list(EXTRA_CASES))
+def test_extra_op_on_the_card(cuda, cid):
+    case = EXTRA_CASES[cid]
     data = case.model().serialize()
     want = run_case(compile_model_bytes, OnnxError, data, case.feeds, device="cpu")
     got = run_case(compile_model_bytes, OnnxError, data, case.feeds, device=cuda)
@@ -103,3 +120,31 @@ def test_conv_runs_without_tf32(cuda):
     assert torch.backends.cudnn.allow_tf32 is False
     # TF32 keeps 10 bits of each operand: the 2^-13 parts would be lost
     np.testing.assert_allclose(got.cpu().numpy(), want, rtol=1e-6)
+
+
+def _p12b_models():
+    from chip_smoke import logmel_model, lstm_lm_model, quantize_dynamic_mlp
+
+    rng = np.random.default_rng(18)
+    mlp = builder.mlp_model(in_dim=32, hidden=(128, 128), out_dim=16, softmax=True)
+    return {
+        "quantized-mlp": (quantize_dynamic_mlp(mlp), rng.standard_normal((4096, 32)).astype(np.float32)),
+        "lstm-lm": (lstm_lm_model(seed=0), rng.integers(0, 33278, (35, 2)).astype(np.int64)),
+        "logmel": (logmel_model(), rng.standard_normal((1, 480000)).astype(np.float32) * 0.1),
+    }
+
+
+@pytest.mark.parametrize("name", ["quantized-mlp", "lstm-lm", "logmel"])
+def test_p12b_model_on_the_card(cuda, name):
+    model, x = _p12b_models()[name]
+    got, want = _card_and_cpu(model, x)
+    for k, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape and np.all(np.isfinite(g))
+        scale = float(np.abs(w).max())
+        if name == "logmel" and k == 0:
+            # the log magnifies the f32 DFT's rounding in the faintest bins:
+            # held to the log of the card's own mel power instead
+            np.testing.assert_allclose(g, np.log(np.maximum(got[1], np.float32(1e-10))),
+                                       rtol=1e-6, atol=1e-5)
+            continue
+        assert float(np.abs(g - w).max()) <= F32_MODEL * scale, float(np.abs(g - w).max()) / scale

@@ -27,6 +27,11 @@ sys.exit(1 if bad else 0)
     "infera_tpu_torch.ops.fused_query",
     "infera_tpu_torch.ops.fused_sql",
     "infera_tpu_torch.onnx.ml_ops",
+    "infera_tpu_torch.onnx.ops_extra",
+    "infera_tpu_torch.onnx.rnn_ops",
+    "infera_tpu_torch.onnx.sequence_ops",
+    "infera_tpu_torch.onnx.signal_vision_ops",
+    "infera_tpu_torch.testing.onnx_cases",
     "infera_tpu_torch.sql",
     "infera_tpu_torch.sql.device_plan",
     "infera_tpu_torch.sql.device_join_plan",

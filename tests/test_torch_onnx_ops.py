@@ -26,26 +26,25 @@ them on the card against the port on the CPU.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
-
 import numpy as np
 import pytest
 
 from infera_tpu_torch.errors import OnnxError
 from infera_tpu_torch.onnx.executor import compile_model_bytes as port_compile
-from infera_tpu_torch.onnx.proto import (
-    Attribute,
-    DataType,
-    Graph,
-    Model,
-    Node,
-    Tensor,
-    ValueInfo,
+from infera_tpu_torch.onnx.proto import DataType, Graph
+from infera_tpu_torch.testing.onnx_cases import (  # noqa: F401  (the harness, shared)
+    EXACT,
+    ROUNDING,
+    SUMS,
+    TRANSCENDENTAL,
+    Case,
+    assert_same,
+    check_case,
+    graph,
+    node,
+    run_case,
+    vi,
 )
-from infera_tpu_torch.onnx.proto import _DT_FROM_NP
-
-EXACT, TRANSCENDENTAL, SUMS = 0.0, 1e-6, 1e-5
-ROUNDING = TRANSCENDENTAL  # XLA's FMA contraction and reciprocal products
 
 RNG = np.random.default_rng(20261018)
 
@@ -60,46 +59,6 @@ def i64(*shape, lo=-9, hi=10):
 
 def bools(*shape):
     return RNG.random(shape) < 0.5
-
-
-def node(op, ins, outs=("Y",), name=None, **attrs):
-    return Node(op_type=op, inputs=list(ins), outputs=list(outs), name=name or op.lower(),
-                attributes={k: Attribute.make(k, v) for k, v in attrs.items()})
-
-
-def vi(name, arr=None, shape=None, dt=DataType.FLOAT):
-    if arr is not None:
-        return ValueInfo(name=name, elem_type=_DT_FROM_NP[np.asarray(arr).dtype],
-                         shape=list(np.shape(arr)))
-    return ValueInfo(name=name, elem_type=dt, shape=list(shape))
-
-
-def graph(nodes, feeds=(), inits=None, outputs=("Y",), name="g", out_vis=None):
-    return Graph(
-        name=name, nodes=list(nodes),
-        initializers={k: Tensor.from_array(k, np.asarray(v)) for k, v in (inits or {}).items()},
-        inputs=[vi(k, v) for k, v in feeds],
-        outputs=out_vis or [vi(o, shape=[-1]) for o in outputs])
-
-
-@dataclass
-class Case:
-    nodes: list
-    feeds: dict
-    inits: dict = field(default_factory=dict)
-    outputs: tuple = ("Y",)
-    tol: float = EXACT
-    refuse: str | None = None  # the message prefix both packages raise
-    signed_zeros: bool = False  # zeros must keep their sign too
-    # the port's output where infera_tpu's 64-bit values are int32 (x64 is
-    # off there: ROADMAP Queue 3, "64-bit values"), and the positions where
-    # infera_tpu's int32 differs from it
-    expect: np.ndarray | None = None
-    x64: tuple = ()
-
-    def model(self) -> Model:
-        return Model(graph=graph(self.nodes, self.feeds.items(), self.inits, self.outputs),
-                     opset_imports=[("", 17)])
 
 
 CASES: dict = {}
@@ -518,52 +477,6 @@ add("Scan-unequal-lengths-refused",
     refuse="scan got values with different leading axis sizes")
 
 
-def run_case(compile_fn, errors, data, feeds, **kw):
-    """The outputs as numpy, or the error ``errors`` names."""
-    try:
-        model = compile_fn(data, "t", **kw)
-        return [o.cpu().numpy() if hasattr(o, "cpu") else np.asarray(o)
-                for o in model.run(*feeds.values())]
-    except errors as e:
-        return e
-
-
-def check_case(case, got, want, errors=(OnnxError, OnnxError)):
-    """``got`` against ``want``: both refused with the case's prefix, or
-    every output within the case's tolerance."""
-    if case.refuse is not None:
-        prefix = "ONNX error: " + case.refuse
-        for out, err in zip((want, got), errors):
-            assert isinstance(out, err), out
-            assert str(out).startswith(prefix), str(out)
-        return
-    assert not isinstance(want, Exception), want
-    assert not isinstance(got, Exception), got
-    assert len(got) == len(want) == len(case.outputs)
-    for name, g, w in zip(case.outputs, got, want):
-        assert_same(g, w, case.tol, name)
-        if case.signed_zeros:
-            zero = np.asarray(w) == 0
-            np.testing.assert_array_equal(np.signbit(g)[zero], np.signbit(w)[zero], err_msg=name)
-
-
-def assert_same(got, want, tol, what=""):
-    """``got`` (the port) against ``want`` (infera_tpu): shape, kind and the
-    values within ``tol`` (0: exact; NaN equals NaN)."""
-    got, want = np.asarray(got), np.asarray(want)
-    assert got.shape == want.shape, (what, got.shape, want.shape)
-    family = {"u": "i", "i": "i"}
-    assert family.get(got.dtype.kind, got.dtype.kind) == family.get(want.dtype.kind, want.dtype.kind), \
-        (what, got.dtype, want.dtype)
-    if want.dtype.kind == "f":
-        assert got.dtype == want.dtype, (what, got.dtype, want.dtype)
-    if tol == EXACT:
-        np.testing.assert_array_equal(got, want, err_msg=what)
-    else:
-        scale = float(np.nanmax(np.abs(want))) if want.size else 0.0
-        np.testing.assert_allclose(got, want, rtol=tol, atol=tol * scale, err_msg=what)
-
-
 @pytest.mark.parametrize("cid", list(CASES))
 def test_op_matches_infera_tpu(cid):
     from infera_tpu.errors import OnnxError as RefOnnxError
@@ -600,7 +513,10 @@ def test_every_core_op_is_registered_and_has_a_case():
     assert {"Conv", "Reshape", "If", "Loop", "Scan", "HardSwish"} <= ref
     missing = sorted(op for op in ref if ("", op) not in port_ops.OP_IMPLS)
     assert not missing, missing
+    # no op beyond infera_tpu's: the rest of its op set is ops_extra.py's,
+    # rnn_ops.py's, sequence_ops.py's and signal_vision_ops.py's
+    # (test_torch_onnx_extra.py)
     ported = {op for (domain, op) in port_ops.OP_IMPLS if domain == ""}
-    assert ported == ref  # no op beyond infera_tpu's core set yet
+    assert ported == {op for (domain, op) in ref_ops.OP_IMPLS if domain == ""}
     covered = {n.op_type for case in CASES.values() for n in case.nodes}
     assert not sorted(ref - covered), sorted(ref - covered)
