@@ -180,7 +180,21 @@ card, builds every kernel of ``infera_tpu_torch/csrc`` with nvcc (sm_90a), and:
    worst difference printed. Each prints ms a call on the host clock (median
    of 5 after one warm-up), rows, tokens or clips a second and device ms by
    CUDA events, beside the card's name and power limit;
-14. prints the ``{"kernels": [...]}`` line, the card's name and power limit,
+14. the streaming and shuffle tiers (``stream_phase``; torch ops and copies,
+   no kernel of the port, so the kernels line gains no row): S1, the
+   ``testing/billion_stream`` table of 134,230,073 rows (2,147,681,168 bytes)
+   written to a temporary directory through ``np.memmap`` and aggregated
+   from it by ``read_columnar`` on ``streaming_plan``, equal to its closed
+   form (counts and int64 sums exact, float sums within 1e-9), with ms end
+   to end, rows/s, GB/s of the file, the phases (the host's copies into the
+   pinned slots, the uploads and the compute apart) and the device's peak
+   allocation, below half the file; S2, query A's MLP over a 4,206,649-row
+   table on ``streaming_plan``, rows equal to the host executor's; Z1-Z3,
+   config 5 at ``e2e_eval.eval_shuffle_join``'s shape (two 16,777,216-row
+   tables, a hot key on a tenth of each side) on ``shuffle_join``, equal to
+   the numpy per-key oracle (Z1's 2,815,029,434,989 pairs exact, sums
+   within 1e-9), first and steady ms, input rows/s, phases and peak;
+15. prints the ``{"kernels": [...]}`` line, the card's name and power limit,
    and last ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero without the ``ok`` line. The script
@@ -272,16 +286,20 @@ def check(cond: bool, what: str) -> None:
 
 def host_rows(conn, queries: dict, path: str = "host") -> tuple:
     """Each query's rows from the host executor over ``conn``'s catalog: a
-    second Connection with the device tiers turned away, as
+    second Connection with the device tiers (the streaming, device-plan and
+    join entries; the shuffle join sits behind the last) turned away, as
     ``infera_tpu``'s own tests reach the host (a join's host path over a
     large side is the device sort-join, ``path`` "device_join"). Returns
     (rows, host-clock ms) by query."""
-    from infera_tpu_torch.sql import Connection, device_join_plan, device_plan
+    from infera_tpu_torch.sql import Connection, device_join_plan, device_plan, streaming_plan
 
     host = Connection(conn.catalog)
-    saved = device_plan.try_execute_on_device, device_join_plan.try_execute_join_on_device
-    device_plan.try_execute_on_device = lambda *a, **k: None
-    device_join_plan.try_execute_join_on_device = lambda *a, **k: None
+    tiers = ((device_plan, "try_execute_on_device"),
+             (device_join_plan, "try_execute_join_on_device"),
+             (streaming_plan, "try_execute_streaming"))
+    saved = [getattr(mod, name) for mod, name in tiers]
+    for mod, name in tiers:
+        setattr(mod, name, lambda *a, **k: None)
     rows, ms = {}, {}
     try:
         for key, q in queries.items():
@@ -290,7 +308,8 @@ def host_rows(conn, queries: dict, path: str = "host") -> tuple:
             ms[key] = (time.perf_counter() - t) * 1e3
             check(host._exec_path == path, f"host query {key} ran on {host._exec_path}")
     finally:
-        device_plan.try_execute_on_device, device_join_plan.try_execute_join_on_device = saved
+        for (mod, name), fn in zip(tiers, saved):
+            setattr(mod, name, fn)
     return rows, ms
 
 
@@ -2511,6 +2530,209 @@ def onnx_rest_phase(torch, itt, device) -> None:
           f"of the port launched (torch ops)")
 
 
+N_STREAM = (1 << 27) + 12_345          # S1: billion_stream's table, 2,147,681,168 bytes
+N_STREAM_MODEL = (1 << 22) + 12_345    # S2: query A's table, past STREAM_MIN_ROWS
+N_SHUFFLE = 1 << 24                    # Z1-Z3: e2e_eval.eval_shuffle_join's sides
+SHUFFLE_PAIRS = 2_815_029_434_989      # Z1's pair count at N_SHUFFLE (numpy per-key oracle)
+SQL_Z = {"Z1": "select count(*) c, sum(v) sv, sum(w) sw from fa join fb on fa.k = fb.k",
+         "Z2": "select g, count(*) c, min(w) mnw, max(v) mxv, avg(w) aw from fa join fb "
+               "on fa.k = fb.k group by g order by g",
+         "Z3": "select sum(v * w) svw, count(*) c from fa join fb on fa.k = fb.k"}
+
+
+def shuffle_tables(n: int) -> tuple:
+    """``e2e_eval.eval_shuffle_join``'s two tables at n rows a side (config
+    5): keys mod 1,000,003 with a hot key 7 on every tenth row of each side,
+    ``g = x % 64``, f32 values. Returns (ka, kb, g, v, w) in numpy."""
+    x = np.arange(n, dtype=np.int64)
+    ka = np.where(x % 10 == 3, 7, (x * 2654435761) % 1_000_003)
+    kb = np.where(x % 10 == 6, 7, (x * 40503) % 1_000_003)
+    v = (x % 40).astype(np.float32) / np.float32(4.0)
+    w = (x % 90).astype(np.float32) / np.float32(9.0)
+    return ka, kb, x % 64, v, w
+
+
+def register_shuffle_tables(conn, n: int) -> tuple:
+    from infera_tpu_torch.columnar import Column, Table
+    from infera_tpu_torch.columnar import types as T
+
+    ka, kb, g, v, w = shuffle_tables(n)
+    conn.register_table("fa", Table({"k": Column(ka, T.BIGINT), "g": Column(g, T.BIGINT),
+                                     "v": Column(v, T.FLOAT)}))
+    conn.register_table("fb", Table({"k": Column(kb, T.BIGINT), "w": Column(w, T.FLOAT)}))
+    return ka, kb, g, v, w
+
+
+def shuffle_oracle(ka, kb, g, v, w) -> dict:
+    """Z1-Z3's rows from per-key partials of B (``np.bincount`` with
+    weights; minima by one sort), from the tables' own f32 values widened
+    to f64; no pair is built. ``g`` must be ``x % G`` over a multiple of G
+    rows (the groups are the columns of a reshape)."""
+    v, w = v.astype(np.float64), w.astype(np.float64)
+    size = int(max(ka.max(), kb.max())) + 1
+    cnt = np.bincount(kb, minlength=size)
+    sw = np.bincount(kb, weights=w, minlength=size)
+    order = np.argsort(kb, kind="stable")
+    ks = kb[order]
+    starts = np.flatnonzero(np.r_[True, ks[1:] != ks[:-1]])
+    mn = np.full(size, np.inf)
+    mn[ks[starts]] = np.minimum.reduceat(w[order], starts)
+    pa = cnt[ka]
+    G = int(g.max()) + 1
+    live = pa > 0
+    gc = np.bincount(g, weights=pa.astype(np.float64), minlength=G)
+    gsw = np.bincount(g, weights=sw[ka], minlength=G)
+    gmn = np.where(live, mn[ka], np.inf).reshape(-1, G).min(axis=0)
+    gmx = np.where(live, v, -np.inf).reshape(-1, G).max(axis=0)
+    # a group's pair count is an f64 sum of integers below 2**53: exact
+    grouped = [(k, int(gc[k]), gmn[k], gmx[k], gsw[k] / gc[k]) for k in range(G) if gc[k] > 0]
+    return {"Z1": [(int(pa.sum()), float((v * pa).sum()), float(sw[ka].sum()))],
+            "Z2": grouped,
+            "Z3": [(float((v * sw[ka]).sum()), int(pa.sum()))]}
+
+
+def stream_timed(torch, conn, q, runs):
+    """(rows, host-clock ms of each run ended by a synchronise, the last
+    run's phases, the device's peak allocation over the runs)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, rows = [], None
+    for _ in range(runs):
+        t = time.perf_counter()
+        rows = conn.execute(q).rows
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return rows, times, conn._last_phases, torch.cuda.max_memory_allocated()
+
+
+def stream_phase(torch, itt, device) -> None:
+    """The streaming and shuffle tiers on the card (torch ops and the copy
+    engine, no kernel of the port: the kernels line gains no row): S1 and
+    S2 (``stream_out_of_core``, ``stream_model``), then Z1-Z3
+    (``shuffle_config5``)."""
+    import os
+
+    from infera_tpu_torch.sql import device_plan as dp
+
+    t_phase = time.perf_counter()
+    card = nvidia_smi()
+    os.environ.pop("INFERA_PALLAS_SQL", None)
+    dp._TABLE_BLOCK_CACHE.clear()
+    dp._INT_BLOCK_CACHE.clear()
+    torch.cuda.empty_cache()
+    stream_out_of_core(torch, card)
+    stream_model(torch, itt, card)
+    shuffle_config5(torch, card)
+    print(f"stream phase: {time.perf_counter() - t_phase:.1f} s on the host clock; no kernel of "
+          f"the port launched (torch ops and copies)")
+
+
+def stream_out_of_core(torch, card) -> None:
+    """S1: ``testing/billion_stream``'s table at 2**27 + 12,345 rows written
+    to a temporary directory through ``np.memmap`` and scanned from it by
+    ``read_columnar`` on ``streaming_plan``: counts and int64 sums past 2**53
+    exact against the closed form, float sums within 1e-9; ms end to end
+    (median of 3 after one warm-up), rows/s and GB/s of the file, the phases
+    with the copies split from the compute, and the device's peak
+    allocation over a query, below half the file's bytes."""
+    import shutil
+
+    from infera_tpu_torch.sql import Connection
+    from infera_tpu_torch.testing import billion_stream as bs
+
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/billion"
+        need = N_STREAM * 16
+        free = shutil.disk_usage(d).free
+        print(f"S1 temporary directory: {free:,} bytes free, {need:,} needed")
+        check(free > need + (256 << 20), f"S1: {free:,} bytes free where {need:,} are needed")
+        t = time.perf_counter()
+        nbytes = bs.write_table(path, N_STREAM)
+        print(f"S1 table written ({nbytes:,} bytes, {N_STREAM:,} rows) in "
+              f"{time.perf_counter() - t:.2f} s on the host clock")
+        conn = Connection()
+        q = bs.QUERY.format(path=path)
+        bs.check_rows(conn.execute(q).rows, N_STREAM)   # the warm-up
+        check(conn._exec_path == "streaming_plan", f"S1 ran on {conn._exec_path}")
+        base = torch.cuda.memory_allocated()
+        rows, times, phases, peak = stream_timed(torch, conn, q, 3)
+        bs.check_rows(rows, N_STREAM)
+        check(conn._exec_path == "streaming_plan", f"S1 ran on {conn._exec_path}")
+        check(peak < nbytes / 2, f"S1: the device's peak {peak:,} bytes is not below half of "
+              f"the file's {nbytes:,}")
+    ms = float(np.median(times))
+    print(f"S1 streaming_plan over read_columnar ({N_STREAM:,} rows, 16 groups): {ms:.3f} ms "
+          f"end to end (median of 3 after one warm-up; file in the page cache, warm) = "
+          f"{N_STREAM / ms * 1e3:,.0f} rows/s = {nbytes / ms / 1e6:.3f} GB/s of the file; "
+          f"counts and int64 sums (to {max(r[2] for r in rows):,}) equal the closed form, "
+          f"float sums within 1e-9; card {card}")
+    print(f"S1 phases (last run): {phases}; stage_ms copies the chunks into the pinned slots "
+          f"(host clock), upload_ms and compute_ms are device time by CUDA events; card {card}")
+    print(f"S1 device memory: peak {peak:,} bytes over the query ({peak - base:,} above the "
+          f"{base:,} allocated before it) against a {nbytes:,}-byte file; card {card}")
+
+
+def stream_model(torch, itt, card) -> None:
+    """S2: query A's 4-32-1 MLP in ``avg(infera_predict(...))`` under a
+    WHERE over a 4,206,649-row (2**22 + 12,345) table on ``streaming_plan``,
+    rows equal to the host executor's; ms (median of 5 after one warm-up)."""
+    from infera_tpu_torch.onnx import builder, proto
+    from infera_tpu_torch.ops.fused_mlp import fused_mlp
+    from infera_tpu_torch.sql import Connection
+
+    with tempfile.TemporaryDirectory() as d:
+        proto.save_model_file(builder.mlp_model(in_dim=4, hidden=(32,), out_dim=1), f"{d}/m.onnx")
+        itt.load_model("m", f"{d}/m.onnx")
+    conn = Connection()
+    conn.execute(BIG_TABLE.format(n=N_STREAM_MODEL))
+    k6 = fused_mlp.launches
+    rows, times, phases, peak = stream_timed(torch, conn, SQL_A, 6)
+    k6 = fused_mlp.launches - k6
+    check(conn._exec_path == "streaming_plan", f"S2 ran on {conn._exec_path}")
+    host, host_ms_ = host_rows(conn, {"S2": SQL_A})
+    worst = compare_rows("S2", rows, host["S2"], SQL_TOL["A"])
+    ms = float(np.median(times[1:]))
+    print(f"S2 streaming_plan, query A's 4-32-1 MLP over {N_STREAM_MODEL:,} rows: {ms:.3f} ms end "
+          f"to end (median of 5 after one warm-up) = {N_STREAM_MODEL / ms * 1e3:,.0f} rows/s; "
+          f"rows equal the host's (worst rel {worst:.3e}; host {host_ms_['S2']:.1f} ms once); "
+          f"phases {phases}; peak {peak:,} bytes; K6 launches over the 6 runs {k6}; card {card}")
+
+
+def shuffle_config5(torch, card) -> None:
+    """Z1-Z3: config 5 at ``e2e_eval.eval_shuffle_join``'s shape (two
+    16,777,216-row tables, a hot key on a tenth of each side) on
+    ``shuffle_join``, held to the numpy per-key oracle: Z1's
+    2,815,029,434,989 pairs exact, sums within 1e-9 (an f64 sum's atomics
+    add in no fixed order, so runs differ in their last bits); first and
+    steady ms (median of 3), input rows/s, the phases and the peak
+    allocation."""
+    from infera_tpu_torch.sql import Connection
+
+    conn = Connection()
+    t = time.perf_counter()
+    tables = register_shuffle_tables(conn, N_SHUFFLE)
+    want = shuffle_oracle(*tables)
+    check(want["Z1"][0][0] == SHUFFLE_PAIRS, f"Z1 oracle pairs {want['Z1'][0][0]}")
+    hot = int((tables[0] == 7).sum()), int((tables[1] == 7).sum())
+    print(f"Z tables ({N_SHUFFLE:,} rows a side, hot key 7 on {hot[0]:,} and {hot[1]:,} rows) "
+          f"and the oracle in {time.perf_counter() - t:.1f} s on the host clock")
+    del tables
+    ztol = {"Z1": (None, 1e-9, 1e-9), "Z2": (None, None, 1e-9, 1e-9, 1e-9), "Z3": (1e-9, None)}
+    for key, q in SQL_Z.items():
+        first, first_ms, first_phases, first_peak = stream_timed(torch, conn, q, 1)
+        check(conn._exec_path == "shuffle_join", f"{key} ran on {conn._exec_path}")
+        worst = compare_rows(key, first, want[key], ztol[key])
+        rows, times, phases, peak = stream_timed(torch, conn, q, 3)
+        worst = max(worst, compare_rows(key, rows, want[key], ztol[key]))
+        ms = float(np.median(times))
+        print(f"{key} shuffle_join ({len(rows)} rows): first {first_ms[0]:.3f} ms, steady "
+              f"{ms:.3f} ms (median of 3) = {2 * N_SHUFFLE / ms * 1e3:,.0f} input rows/s; equal to "
+              f"the numpy per-key oracle (worst rel {worst:.3e}); peak {max(peak, first_peak):,} "
+              f"bytes; card {card}")
+        print(f"{key} phases: first {first_phases}; steady {phases}; card {card}")
+    print(f"Z1 pairs: {want['Z1'][0][0]:,} counted exactly, none built; card {card}")
+
+
 def mma_report(torch, _kernels, device) -> None:
     """The tensor-core paths: HMMA in the SASS (cuobjdump) of the bf16
     kernels of K1, K7a and K8b and none in the f32 and int8 ones, IMMA in
@@ -2904,6 +3126,7 @@ def main() -> int:
     device_tiers_phase(torch, itt, device)
     onnx_phase(torch, itt, device)
     onnx_rest_phase(torch, itt, device)
+    stream_phase(torch, itt, device)
 
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())

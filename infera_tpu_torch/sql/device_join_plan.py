@@ -34,8 +34,10 @@ no row) and the joined relation never exists. Two tiers run a plan, in
 A key guard that trips after K5 ran sends the query to the host, since the
 program's bucketing would trip it too. FULL adds the dim rows no fact row
 matched on the host (``_combine_full_phantom``) after either tier.
-``infera_tpu``'s mesh branch (P13) is not in the port; every shape outside
-the tier answers on the host executor.
+``infera_tpu``'s mesh branch (P13) is not in the port. An INNER join the
+two tiers decline goes on to the big×big shuffle join
+(``sql/shuffle_join_plan.py``) behind the same entry; every other shape
+answers on the host executor.
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ from ..device import get_device
 from ..errors import OnnxError, SqlError
 from ..ops import fused_sql as FS
 from . import ast as A
+from . import shuffle_join_plan
 from .device_plan import (
     _AGG_NAMES,
     _INT,
@@ -414,8 +417,32 @@ def _run_join_program(conn, lowerer, fact, fact_key, blocks, lookup, kmax_dim, n
 
 
 def try_execute_join_on_device(conn, sel: A.Select, analyze_only: bool = False):
+    """Run a join-aggregate SELECT on the device; a Table or None (the host
+    executor answers).
+
+    The join tiers in ``infera_tpu``'s order: the fact→dim tiers
+    (``_try_join_tiers``: K5, then the torch join program), then, for a
+    join they decline, the big×big shuffle join
+    (``shuffle_join_plan.try_execute_shuffle_join``, looked up at call time;
+    ``conn._shuffle_join_used``, path ``shuffle_join``). ``infera_tpu``'s
+    executor calls the two in turn; here one entry holds both, so a caller
+    that turns the join tiers away reaches the host join. With
+    ``analyze_only`` returns the tier's name ("kernel K5", "torch join
+    program" or "shuffle join") or None."""
+    conn._shuffle_join_used = False
+    out = _try_join_tiers(conn, sel, analyze_only)
+    if out is not None:
+        return out
+    out = shuffle_join_plan.try_execute_shuffle_join(conn, sel, analyze_only)
+    if analyze_only:
+        return "shuffle join" if out else None
+    conn._shuffle_join_used = out is not None
+    return out
+
+
+def _try_join_tiers(conn, sel: A.Select, analyze_only: bool = False):
     """Run a fact→dim join-aggregate SELECT on the device; a Table or None
-    (the host executor answers).
+    (the shuffle join or the host executor answers).
 
     The tiers run in ``infera_tpu``'s order: kernel K5 where
     ``FS.tier_enabled`` (``conn._cuda_plan_used``; path

@@ -25,8 +25,18 @@ decline, runs on the host operators (numpy), where a join over large keys
 takes the sort-join of ``ops/device_join.py`` in torch ops
 (``"device_join"``), an ORDER BY of 2**15 numeric rows or more sorts on
 the device (``ops/sort.py``) and a window may take the opt-in device route
-of ``ops/window.py``. The streaming, shuffle and mesh tiers of
-``infera_tpu`` come in later slices of the port.
+of ``ops/window.py``.
+
+From ``streaming_plan.STREAM_MIN_ROWS`` rows an aggregate over one table
+tries ``streaming_plan.try_execute_streaming`` first (``"streaming_plan"``:
+fixed-size chunks through the device, memmap columns read from disk, the
+partials folded on the device), then the device plan, as ``infera_tpu``
+does. An INNER join of two large tables with duplicate keys that the
+fact→dim join tiers decline runs ``shuffle_join_plan.try_execute_shuffle_join``
+behind the same entry, ``device_join_plan.try_execute_join_on_device``
+(``"shuffle_join"``: per-key partials of one side, the other streamed
+through them, no pair built). The mesh tiers of ``infera_tpu`` come in a
+later slice of the port.
 """
 
 from __future__ import annotations
@@ -450,6 +460,7 @@ class Connection:
             from .device_join_plan import try_execute_join_on_device
 
             try:
+                # K5, the torch join program or the shuffle join
                 tier = try_execute_join_on_device(self, sel, analyze_only=True)
             except SqlError:
                 pass
@@ -605,9 +616,12 @@ class Connection:
         if isinstance(sel.from_, A.Join):
             from .device_join_plan import try_execute_join_on_device
 
+            # a join the fact→dim tiers decline goes on to the big×big
+            # shuffle join (BASELINE config 5) behind the same entry
             fused = try_execute_join_on_device(self, sel)
             if fused is not None:
-                path = ("device_join_plan_cuda" if self._cuda_plan_used
+                path = ("shuffle_join" if getattr(self, "_shuffle_join_used", False)
+                        else "device_join_plan_cuda" if self._cuda_plan_used
                         else "device_join_plan")
                 fused = self._finish_fused(sel, fused)
                 if fused is not None:
@@ -652,11 +666,19 @@ class Connection:
         # the fused plan serves the aggregate over it the same way.
         if isinstance(sel.from_, (A.BaseTable, A.TableFunction,
                                   A.SubqueryRef, A.ValuesRef)):
+            from . import streaming_plan
             from .device_plan import try_execute_on_device
 
-            fused = try_execute_on_device(self, sel, scope.table)
+            fused, path = None, "streaming_plan"
+            if scope.table.num_rows >= streaming_plan.STREAM_MIN_ROWS:
+                # chunked fused aggregation: a fixed device footprint, exact
+                # past the device plan's 2**24-row bound
+                fused = streaming_plan.try_execute_streaming(self, sel, scope.table)
+            if fused is None:
+                fused = try_execute_on_device(self, sel, scope.table)
+                if fused is not None:
+                    path = "device_plan_cuda" if self._cuda_plan_used else "device_plan"
             if fused is not None:
-                path = "device_plan_cuda" if self._cuda_plan_used else "device_plan"
                 fused = self._finish_fused(sel, fused)
                 if fused is not None:
                     self._exec_path = path

@@ -51,6 +51,10 @@ sys.exit(1 if bad else 0)
     "infera_tpu_torch.testing.benchmarks",
     "infera_tpu_torch.testing.ab_kernels",
     "infera_tpu_torch.testing.plan_fuzz",
+    "infera_tpu_torch.ops.streaming",
+    "infera_tpu_torch.sql.streaming_plan",
+    "infera_tpu_torch.sql.shuffle_join_plan",
+    "infera_tpu_torch.testing.billion_stream",
     "chip_smoke",
 ])
 def test_fresh_import_pulls_in_no_jax(module):
