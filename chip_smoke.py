@@ -2733,6 +2733,203 @@ def shuffle_config5(torch, card) -> None:
     print(f"Z1 pairs: {want['Z1'][0][0]:,} counted exactly, none built; card {card}")
 
 
+# the mesh phase (ROADMAP P13a): set_mesh(8), eight logical shards on the one
+# card; each query on the path infera_tpu's mesh takes for the same plan
+# (tests/test_torch_mesh_plan.py establishes it on the CPU), with its
+# tolerance against the host executor from the phase that runs it on one device
+MESH_SHARDS = 8
+
+
+def mesh_queries() -> dict:
+    """{key: (query, path, tolerances against the host)} of the mesh phase
+    over chip_smoke's tables (big, tail, t, config 3's)."""
+    return {"A": (SQL_A, "device_plan_mesh", SQL_TOL["A"]),
+            "C": (SQL_C, "device_plan_mesh", SQL_TOL["C"]),
+            "I": (SQL_I, "device_plan_mesh", TAIL_TOL["I"]),
+            "J": (SQL_J, "device_plan_mesh", TAIL_TOL["J"]),
+            "L": (SQL_L, "device_plan_mesh", TAIL_TOL["L"]),
+            "M": (DP_QUERIES["M"], "device_plan_mesh", DP_TOL["M"]),
+            "N": (DP_QUERIES["N"], "device_plan_mesh", DP_TOL["N"]),
+            "F": (SQL_F, "device_join_plan_mesh", JOIN_TOL["F"]),
+            "G-LEFT": (SQL_G.format(kind="left"), "device_join_plan_mesh", JOIN_TOL["G-LEFT"])}
+
+
+def mesh_timed(torch, conn, q, runs: int = 5):
+    """(rows, median host-clock ms of ``runs`` calls after one warm-up, each
+    ended by a synchronise, the last run's phases and path, the device's
+    peak allocation over the timed runs)."""
+    rows = conn.execute(q).rows
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(runs):
+        t = time.perf_counter()
+        rows = conn.execute(q).rows
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return (rows, float(np.median(times)), dict(conn._last_phases or {}), conn._exec_path,
+            torch.cuda.max_memory_allocated())
+
+
+def mesh_phase(torch, itt, device) -> None:
+    """The data-parallel mesh on the card (ROADMAP P13a; torch ops, no kernel
+    of the port: the kernels line gains no row): ``set_mesh(8)``, eight
+    logical shards on the one card. Queries A, C, I, J, L, M, N, F and
+    G-LEFT over 1,048,576 rows on the paths ``infera_tpu``'s mesh takes
+    (``mesh_queries``), rows equal to the host executor's, no K2 or K5
+    launch; S2 on ``streaming_plan_mesh``; Z1 on ``shuffle_join_mesh``
+    against the numpy per-key oracle; ``run_data_parallel`` of the config-2
+    MLP against the single-device ``predict``; ``bench_config5_distributed``
+    and ``bench_scaling``. Each with its host-clock time (median of 5 after
+    one warm-up), its phases and the exchange's share, the peak allocation
+    and the single-device time of the same work beside it. On one card the
+    shards run one after another: the times price the exchange and the
+    merge, not scaling."""
+    import os
+
+    from infera_tpu_torch.onnx import builder, proto
+    from infera_tpu_torch.ops import fused_sql as fs
+    from infera_tpu_torch.registry import MODELS
+    from infera_tpu_torch.sql import Connection
+    from infera_tpu_torch.testing import benchmarks as bm
+
+    t_phase = time.perf_counter()
+    card = nvidia_smi()
+    os.environ.pop("INFERA_PALLAS_SQL", None)
+    n = N_MAIN
+    with tempfile.TemporaryDirectory() as d:
+        for name, model in (("m", builder.mlp_model(in_dim=4, hidden=(32,), out_dim=1)),
+                            ("mt", builder.mlp_model(in_dim=4, hidden=(32,), out_dim=1,
+                                                     softmax=False)),
+                            ("mlp", builder.mlp_model(in_dim=32, hidden=(128, 128), out_dim=16,
+                                                      softmax=True))):
+            proto.save_model_file(model, f"{d}/{name}.onnx")
+            itt.load_model(name, f"{d}/{name}.onnx")
+    one = Connection()
+    for sql in (BIG_TABLE, TAIL_TABLE, DP_T):
+        one.execute(sql.format(n=n))
+    config3_tables(itt, one, n)
+    conn = Connection(one.catalog)
+    conn.set_mesh(MESH_SHARDS)
+    mesh = conn._mesh
+    check(all(dv.type == device.type for dv in mesh.devices.flat),
+          f"a shard of the mesh is off the {device.type} device: {list(mesh.devices.flat)}")
+    print(f"mesh: {mesh.shape['dp']} shards on {sorted({str(dv) for dv in mesh.devices.flat})}, "
+          f"{mesh.n_physical} physical device(s) behind them (logical shards, run one after "
+          f"another); tables in {time.perf_counter() - t_phase:.1f} s; card {card}")
+
+    queries = mesh_queries()
+    out = {}
+    for key, (q, path, _tol) in queries.items():
+        k2 = sum(fs.fused_sql.launches.values())
+        rows, ms, phases, got_path, peak = mesh_timed(torch, conn, q)
+        launched = sum(fs.fused_sql.launches.values()) - k2
+        if conn._mesh_decline is not None:
+            print(f"mesh {key}: declined ({conn._mesh_decline}); ran on {got_path}")
+        check(got_path == path, f"mesh query {key} ran on {got_path}, not {path}")
+        check(launched == 0, f"mesh query {key} launched K2/K5 {launched} times")
+        _rows1, ms1, _p1, path1, _pk1 = mesh_timed(torch, one, q)
+        out[key] = (rows, ms, phases, peak, ms1, path1)
+    single = {k: v for k, v in queries.items() if v[1] == "device_plan_mesh"}
+    joins = {k: v for k, v in queries.items() if v[1] != "device_plan_mesh"}
+    host, host_ms_ = host_rows(conn, {k: v[0] for k, v in single.items()})
+    host_j, host_j_ms = host_rows(conn, {k: v[0] for k, v in joins.items()}, "device_join")
+    host.update(host_j)
+    host_ms_.update(host_j_ms)
+    for key, (rows, ms, phases, peak, ms1, path1) in out.items():
+        worst = compare_rows(key, rows, host[key], queries[key][2])
+        share = phases.get("mesh_exchange_ms", 0.0) / max(phases.get("mesh_exec_ms", 0.0), 1e-9)
+        print(f"mesh {key} {queries[key][1]}: median {ms:.3f} ms of 5 on the host clock "
+              f"({n / ms * 1e3:,.0f} rows/s); single device ({path1}) {ms1:.3f} ms; rows equal "
+              f"the host's (worst rel {worst:.3e}; host {host_ms_[key]:.1f} ms once); K2/K5 "
+              f"launches 0; peak {peak:,} bytes; card {card}")
+        print(f"mesh {key} phases: {phases}; exchange {100 * share:.1f} % of mesh_exec_ms")
+
+    # S2: query A's MLP streamed over 4,206,649 rows on the mesh
+    s2 = Connection()
+    s2.execute(BIG_TABLE.format(n=N_STREAM_MODEL))
+    s2_one = Connection(s2.catalog)
+    s2.set_mesh(MESH_SHARDS)
+    rows, ms, phases, path, peak = mesh_timed(torch, s2, SQL_A)
+    check(path == "streaming_plan_mesh", f"S2 ran on {path}")
+    _r1, ms1, _p1, path1, _pk = mesh_timed(torch, s2_one, SQL_A)
+    check(path1 == "streaming_plan", f"S2 on one device ran on {path1}")
+    host, host_ms_ = host_rows(s2, {"S2": SQL_A})
+    worst = compare_rows("S2", rows, host["S2"], SQL_TOL["A"])
+    print(f"mesh S2 streaming_plan_mesh ({N_STREAM_MODEL:,} rows): median {ms:.3f} ms of 5 on "
+          f"the host clock ({N_STREAM_MODEL / ms * 1e3:,.0f} rows/s); single device "
+          f"(streaming_plan) {ms1:.3f} ms; rows equal the host's (worst rel {worst:.3e}; host "
+          f"{host_ms_['S2']:.1f} ms once); peak {peak:,} bytes; phases {phases}; card {card}")
+    del s2, s2_one
+
+    # Z1: config 5's shuffle join on the mesh, pairs exact
+    z = Connection()
+    tables = register_shuffle_tables(z, N_SHUFFLE)
+    want = shuffle_oracle(*tables)["Z1"]
+    del tables
+    z_one = Connection(z.catalog)
+    z.set_mesh(MESH_SHARDS)
+    t = time.perf_counter()
+    first = z.execute(SQL_Z["Z1"]).rows
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t) * 1e3
+    first_phases = dict(z._last_phases)
+    rows, ms, phases, path, peak = mesh_timed(torch, z, SQL_Z["Z1"])
+    check(path == "shuffle_join_mesh", f"Z1 ran on {path}")
+    check(rows[0][0] == first[0][0] == SHUFFLE_PAIRS, f"Z1 pairs {rows[0][0]}")
+    worst = max(compare_rows("Z1", first, want, (None, 1e-9, 1e-9)),
+                compare_rows("Z1", rows, want, (None, 1e-9, 1e-9)))
+    _r1, ms1, _p1, path1, _pk = mesh_timed(torch, z_one, SQL_Z["Z1"], 3)
+    check(path1 == "shuffle_join", f"Z1 on one device ran on {path1}")
+    share = phases.get("mesh_exchange_ms", 0.0) / max(phases.get("a_stream_ms", 0.0), 1e-9)
+    print(f"mesh Z1 shuffle_join_mesh ({N_SHUFFLE:,} rows a side): first {first_ms:.3f} ms, "
+          f"median {ms:.3f} ms of 5 after it ({2 * N_SHUFFLE / ms * 1e3:,.0f} input rows/s); "
+          f"single device (shuffle_join) {ms1:.3f} ms (median of 3); {rows[0][0]:,} pairs "
+          f"exact, sums within 1e-9 of the oracle (worst rel {worst:.3e}); peak {peak:,} "
+          f"bytes; card {card}")
+    print(f"mesh Z1 phases: first {first_phases}; steady {phases}; the A pass's exchange "
+          f"{100 * share:.1f} % of a_stream_ms")
+    del z, z_one
+
+    # run_data_parallel of the config-2 MLP against the single-device predict
+    x = np.random.default_rng(1).standard_normal((n, 32)).astype(np.float32)
+    model = MODELS.get("mlp")
+    torch.cuda.reset_peak_memory_stats()
+    got = model.run_data_parallel(mesh, x)[0]
+    want = itt.predict("mlp", x).data.reshape(n, 16)
+    err = float(np.abs(got.cpu().numpy() - want).max())
+    check(err <= 1e-5, f"run_data_parallel differs from predict by {err:.3e}")
+    dp_ms = host_ms(torch, lambda: model.run_data_parallel(mesh, x), 5)
+    one_ms = host_ms(torch, lambda: itt.predict("mlp", x), 5)
+    print(f"mesh run_data_parallel of the 32-128-128-16 softmax MLP over {n:,} rows: "
+          f"{dp_ms:.3f} ms (median of 5 on the host clock) = {n / dp_ms * 1e3:,.0f} rows/s; "
+          f"single-device predict (K6) {one_ms:.3f} ms; max abs difference {err:.3e}; peak "
+          f"{torch.cuda.max_memory_allocated():,} bytes; card {card}")
+
+    # config 5's distributed step and the scaling harness (its dp1 is the
+    # step on one device)
+    torch.cuda.reset_peak_memory_stats()
+    res = bm.bench_config5_distributed(rows_per_dev=65_536, n_devices=MESH_SHARDS, device=device)
+    sums, counts, total = res.output
+    check(bool(torch.isfinite(sums).all()) and float(counts.sum()) == float(total),
+          "config 5: counts do not add up to the selected rows")
+    one = bm.bench_config5_distributed(rows_per_dev=65_536 * MESH_SHARDS, n_devices=1,
+                                       device=device)
+    check(float(one.output[2]) == float(total), "config 5: one device selects other rows")
+    print(f"mesh {res.name}: {res.rows_per_s:,.0f} rows/s ({res.rows:,} rows, "
+          f"{res.seconds * 1e3:.3f} ms a step, the harness's own timer); the same rows on "
+          f"one device {one.seconds * 1e3:.3f} ms; peak {torch.cuda.max_memory_allocated():,} "
+          f"bytes; {res.detail}; card {card}")
+    torch.cuda.reset_peak_memory_stats()
+    for r in bm.bench_scaling(device=device):
+        print(f"mesh {r.name}: {r.rows_per_s:,.0f} rows/s ({r.rows:,} rows, "
+              f"{r.seconds * 1e3:.3f} ms a step); {r.detail}; card {card}")
+    print(f"mesh scaling: peak {torch.cuda.max_memory_allocated():,} bytes over the four "
+          f"meshes; card {card}")
+    print(f"mesh phase: {time.perf_counter() - t_phase:.1f} s on the host clock; no kernel of "
+          f"the port launched (torch ops)")
+
+
 def mma_report(torch, _kernels, device) -> None:
     """The tensor-core paths: HMMA in the SASS (cuobjdump) of the bf16
     kernels of K1, K7a and K8b and none in the f32 and int8 ones, IMMA in
@@ -3127,6 +3324,7 @@ def main() -> int:
     onnx_phase(torch, itt, device)
     onnx_rest_phase(torch, itt, device)
     stream_phase(torch, itt, device)
+    mesh_phase(torch, itt, device)
 
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())

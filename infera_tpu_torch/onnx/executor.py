@@ -53,6 +53,10 @@ def _to_tensor(value, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(arr, device=device)
 
 
+def _cuda_index(device: torch.device) -> int:
+    return device.index if device.index is not None else torch.cuda.current_device()
+
+
 def _subgraphs(graph: proto.Graph):
     """Every subgraph of ``graph``'s nodes (If branches, Loop/Scan bodies),
     at any depth."""
@@ -331,6 +335,47 @@ class CompiledOnnxModel:
             raise
         except Exception as e:
             raise OnnxError(str(e))
+
+
+    def run_data_parallel(self, mesh, *arrays) -> list:
+        """Run with the batch dimension sharded over the mesh's dp axis
+        (``parallel/mesh.py``): each local shard's rows run the graph
+        (``_run_graph``, as ``infera_tpu`` jits it) on the shard's device,
+        the weights replicated there, and the outputs come back concatenated
+        in row order (gathered over the process group, if any). The row
+        count must divide by dp, as ``infera_tpu``'s sharding requires."""
+        from ..parallel import mesh as M
+
+        dp = mesh.shape["dp"]
+        for a in arrays:
+            if a.shape[0] % dp:
+                raise OnnxError(f"data-parallel run of '{self.name}': {a.shape[0]} rows do not "
+                                f"split evenly over the mesh's {dp} shards")
+        per = arrays[0].shape[0] // dp
+        outs = []
+        for s, dev in zip(mesh.local, mesh.local_devices):
+            model = self._replica(dev)
+            part = [_to_tensor(a[s * per:(s + 1) * per], dev) for a in arrays]
+            try:
+                outs.append(model._run_graph(*part))
+            except OnnxError:
+                raise
+            except Exception as e:
+                raise OnnxError(str(e))
+        return [M.all_gather(mesh, [o[i] for o in outs])[0] for i in range(len(outs[0]))]
+
+    def _replica(self, device: torch.device) -> "CompiledOnnxModel":
+        """This model with its weights on ``device`` (itself on its own)."""
+        device = torch.device(device)
+        if device.type == self.device.type and (
+                device.type != "cuda" or _cuda_index(device) == _cuda_index(self.device)):
+            return self
+        with self._lock:
+            replicas = self.__dict__.setdefault("_replicas", {})
+            key = str(device)
+            if key not in replicas:
+                replicas[key] = CompiledOnnxModel(self.model, self.name, self.precision, device)
+            return replicas[key]
 
 
 def compile_model_file(path, name: str, precision: str = "f32",

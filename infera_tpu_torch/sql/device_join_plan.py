@@ -34,7 +34,10 @@ no row) and the joined relation never exists. Two tiers run a plan, in
 A key guard that trips after K5 ran sends the query to the host, since the
 program's bucketing would trip it too. FULL adds the dim rows no fact row
 matched on the host (``_combine_full_phantom``) after either tier.
-``infera_tpu``'s mesh branch (P13) is not in the port. An INNER join the
+With a mesh set (``sql/mesh_plan.py``; path ``device_join_plan_mesh``) K5
+does not run: the join program runs over the shards, the fact rows sharded
+and the dim block and lookup replicated, outer joins through the matched-row
+validity; a plan the mesh declines runs the program. An INNER join the
 two tiers decline goes on to the big×big shuffle join
 (``sql/shuffle_join_plan.py``) behind the same entry; every other shape
 answers on the host executor.
@@ -52,6 +55,7 @@ from ..device import get_device
 from ..errors import OnnxError, SqlError
 from ..ops import fused_sql as FS
 from . import ast as A
+from . import mesh_plan as MP
 from . import shuffle_join_plan
 from .device_plan import (
     _AGG_NAMES,
@@ -360,6 +364,51 @@ def _try_cuda_join(conn, k5, dim, lookup, kmax_dim, n, n_groups, strides, plan_k
     return (results, res["count"], res["kmins"], res["kmaxs"], res["fracs"])
 
 
+def _join_prologue(lowerer, dim_rows, fact_key, kmax_dim, outer):
+    """The join program's prologue over ``cols``: reads the fact key (the
+    f32 block's row, or exactly the int64 one past ±2**24), looks up each
+    row's dim row in ``cols["__lookup__"]`` (``in_range & ridx >= 0`` is the
+    match), gathers every dim column the plan reads from
+    ``cols["__dimxc__"]``, publishes the match as ``cols["__matched__"]``
+    and returns the base mask: the match for INNER, None (every row) for an
+    outer join."""
+    gathers = [(dk, dim_rows[dk[len("__dim__."):]]) for dk in sorted(lowerer.dim_used)]
+
+    def prologue(c):
+        lookup_t, dim_xc = c["__lookup__"], c["__dimxc__"]
+        fk = c[fact_key].long() if fact_key in c else c[fact_key + _INT]
+        ridx = lookup_t[fk.clamp(0, kmax_dim)]
+        matched = (fk >= 0) & (fk <= kmax_dim) & (ridx >= 0)
+        ridx = torch.where(matched, ridx, 0)
+        for dk, row in gathers:
+            c[dk] = dim_xc[row].index_select(0, ridx)
+        c["__matched__"] = matched
+        # an outer join keeps its unmatched rows: their gathers read dim
+        # row 0, which every matched-validity aggregate drops
+        return None if outer else matched
+
+    return prologue
+
+
+def _run_join_mesh(conn, mesh, lowerer, fact, fact_key, blocks, lookup, kmax_dim, n, outer,
+                   where_fn, key_fns, strides, n_groups, agg_plans, agg_validity, phases):
+    """The join program over the mesh (``infera_tpu``'s mesh branch of the
+    join tier): the fact rows row-sharded, the dim block and the key lookup
+    replicated, the prologue on each shard, the aggregate tail merged
+    through the partial-table exchange (``sql/mesh_plan.py``). Returns the
+    _assemble_result 5-tuple, or None where a guard tripped."""
+    (xc, fact_rows), (dim_xc, dim_rows) = blocks
+    sharded = {k: (c, "f32") for k, c in lowerer.used_columns.items() if _block_eligible(c)}
+    if fact_key not in sharded:
+        sharded[fact_key + _INT] = (fact.columns[fact_key], "i64")
+    replicated = {"__lookup__": torch.from_numpy(lookup.astype(np.int64)), "__dimxc__": dim_xc}
+    return MP.execute_fused_on_mesh(
+        conn, mesh, n=n, sharded=sharded, replicated=replicated,
+        prologue=_join_prologue(lowerer, dim_rows, fact_key, kmax_dim, outer),
+        where_fn=where_fn, key_fns=key_fns, strides=strides, n_groups=n_groups,
+        agg_plans=agg_plans, validity=agg_validity, phases=phases)
+
+
 def _run_join_program(conn, lowerer, fact, fact_key, blocks, lookup, kmax_dim, n, outer,
                       where_fn, key_fns, strides, n_groups, agg_plans, agg_validity,
                       plan_key, device, phases):
@@ -386,19 +435,11 @@ def _run_join_program(conn, lowerer, fact, fact_key, blocks, lookup, kmax_dim, n
     ent = cache.get(key)
     if ent is None:
         lookup_t = torch.from_numpy(lookup.astype(np.int64)).to(device)
-        gathers = [(dk, dim_rows[dk[len("__dim__."):]]) for dk in sorted(lowerer.dim_used)]
+        gather = _join_prologue(lowerer, dim_rows, fact_key, kmax_dim, outer)
 
         def prologue(c):
-            fk = c[fact_key].long() if fact_key in c else c[fact_key + _INT]
-            ridx = lookup_t[fk.clamp(0, kmax_dim)]
-            matched = (fk >= 0) & (fk <= kmax_dim) & (ridx >= 0)
-            ridx = torch.where(matched, ridx, 0)
-            for dk, row in gathers:
-                c[dk] = dim_xc[row].index_select(0, ridx)
-            c["__matched__"] = matched
-            # an outer join keeps its unmatched rows: their gathers read dim
-            # row 0, which every matched-validity aggregate drops
-            return None if outer else matched
+            c["__lookup__"], c["__dimxc__"] = lookup_t, dim_xc
+            return gather(c)
 
         ent = (xc, dim_xc, lookup, _build_program(
             where_fn, key_fns, strides, n_groups, agg_plans, {}, n, device,
@@ -456,6 +497,7 @@ def _try_join_tiers(conn, sel: A.Select, analyze_only: bool = False):
     t0 = time.perf_counter()
     phases: dict = {}
     conn._cuda_plan_used = False
+    conn._mesh_plan_used = False
     j = sel.from_
     if (
         not isinstance(j, A.Join)
@@ -666,12 +708,14 @@ def _try_join_tiers(conn, sel: A.Select, analyze_only: bool = False):
                 strides[i] = strides[i + 1] * MAX_GROUPS
             n_groups = MAX_GROUPS
 
+    mesh = MP.get_mesh(conn)
     k5 = None
-    if FS.tier_enabled(device):
+    if FS.tier_enabled(device) and mesh is None:   # with a mesh set K5 does not run
         k5 = _lower_k5(sel, fact, fnames, dim, dnames, fkey_ref, n_groups, agg_plans,
                        items_plan, outer, agg_validity)
     if analyze_only:
-        return "kernel K5" if k5 is not None else "torch join program"
+        return ("torch join program on the mesh" if mesh is not None
+                else "kernel K5" if k5 is not None else "torch join program")
 
     plan_key = (
         "join", repr(sel),
@@ -688,6 +732,19 @@ def _try_join_tiers(conn, sel: A.Select, analyze_only: bool = False):
     phases["upload_ms"] = _ms(t0)
     t0 = time.perf_counter()
     out = None
+    conn._mesh_decline = None
+    if mesh is not None:
+        conn._mesh_decline = MP.mesh_declines(mesh, n, n_groups, agg_plans,
+                                              validity=agg_validity)
+    if mesh is not None and conn._mesh_decline is None:
+        fact_block = (None, {}) if blocks[0] is None else blocks[0]
+        out = _run_join_mesh(conn, mesh, lowerer, fact, fact_key, (fact_block, blocks[1]), lookup,
+                             kmax_dim, n, outer, where_fn, key_fns, strides, n_groups, agg_plans,
+                             agg_validity, phases)
+        phases["mesh_exec_ms"] = _ms(t0)
+        if out is None:
+            return None   # a guard tripped in the program: the host answers
+        conn._mesh_plan_used = True
     if k5 is not None and blocks[0] is not None:
         out = _try_cuda_join(conn, k5, dim, lookup, kmax_dim, n, n_groups, strides,
                              plan_key, blocks)
@@ -710,6 +767,7 @@ def _try_join_tiers(conn, sel: A.Select, analyze_only: bool = False):
     phases["assemble_ms"] = _ms(t0)
     if out_table is None:
         conn._cuda_plan_used = False
+        conn._mesh_plan_used = False
         return None  # collision/frac guard or a NULL-producing group → host path
     if full:
         t0 = time.perf_counter()
@@ -718,6 +776,7 @@ def _try_join_tiers(conn, sel: A.Select, analyze_only: bool = False):
                                               fnames, fact_key, dim, dnames, dvals)
         except Exception:
             conn._cuda_plan_used = False
+            conn._mesh_plan_used = False
             return None  # a phantom-side oddity (host evaluation) → host path, as infera_tpu
         phases["phantom_ms"] = _ms(t0)
     conn._last_phases = phases

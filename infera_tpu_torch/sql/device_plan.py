@@ -75,6 +75,7 @@ from ..ops.window import window_device
 from ..registry import MODELS
 from . import ast as A
 from . import int_agg
+from . import mesh_plan as MP
 
 # row count below which fusion isn't worth the launch
 MIN_DEVICE_ROWS = 1 << 14
@@ -284,6 +285,7 @@ class _Lowerer:
         self.device = device
         self.used_columns: dict = {}
         self.models: dict = {}
+        self.has_window = False
 
     def _column(self, name: str, qualifier):
         key = f"{qualifier}.{name}" if qualifier else name
@@ -399,6 +401,7 @@ class _Lowerer:
         name = wf.name.lower()
         if name not in self._WIN_OK:
             raise _Unsupported(f"window {name}")
+        self.has_window = True
         frame = wf.frame
         if not wf.order_by:
             fkind = "whole"
@@ -907,20 +910,31 @@ def _bit_length(v: torch.Tensor) -> torch.Tensor:
     return n + (v > 0).long()
 
 
-def _hll_hist(x: torch.Tensor, dtype: str, mask, keys, G: int) -> torch.Tensor:
-    """[G, 55] int64 histogram of each group's 2048 HLL registers, the
-    host's (``ops/aggregate._agg_approx_count_distinct``) bit for bit: the
+def _hll_registers(x: torch.Tensor, dtype: str, mask, keys, G: int) -> torch.Tensor:
+    """[G, 2048] int64 HLL registers of each group, the host's
+    (``ops/aggregate._agg_approx_count_distinct``) bit for bit: the
     splitmix64 hash of the value's host bits, bucket = its low 11 bits,
-    register = 54 - bit length of the other 53."""
+    register = 54 - bit length of the other 53 (0: no row)."""
     h = H.splitmix64_device(H.value_bits64_device(x, dtype))
     rho = 54 - _bit_length((h >> 11) & ((1 << 53) - 1))
     cell = torch.where(mask, keys * _HLL_B + (h & (_HLL_B - 1)), G * _HLL_B)
     regs = torch.zeros(G * _HLL_B + 1, dtype=torch.int64, device=x.device)
-    regs = regs.scatter_reduce_(0, cell, rho, "amax")[:-1]
-    group = torch.arange(G * _HLL_B, device=x.device) // _HLL_B
+    return regs.scatter_reduce_(0, cell, rho, "amax")[:-1].view(G, _HLL_B)
+
+
+def _hll_histogram(regs: torch.Tensor) -> torch.Tensor:
+    """[G, 55] int64 histogram of each group's registers ``[G, 2048]``."""
+    G = regs.shape[0]
+    regs = regs.reshape(-1)
+    group = torch.arange(G * _HLL_B, device=regs.device) // _HLL_B
     (hist,) = GG.segment_sum_int_exact([torch.ones_like(regs)], group * _HLL_HIST + regs,
                                        G * _HLL_HIST)
     return hist.view(G, _HLL_HIST)
+
+
+def _hll_hist(x: torch.Tensor, dtype: str, mask, keys, G: int) -> torch.Tensor:
+    """[G, 55] int64 histogram of each group's 2048 HLL registers."""
+    return _hll_histogram(_hll_registers(x, dtype, mask, keys, G))
 
 
 def _group_sorted(v: torch.Tensor, slot: torch.Tensor, count: torch.Tensor) -> tuple:
@@ -1745,7 +1759,8 @@ def try_execute_on_device(conn, sel: A.Select, table: Table,
     except (_Unsupported, OnnxError, SqlError):
         return None
     nodes = [node for _k, node in items_plan] + list(having_aggs)
-    kernel_on = FS.tier_enabled(device)
+    mesh = MP.get_mesh(conn)
+    kernel_on = FS.tier_enabled(device) and mesh is None   # with a mesh set K2 does not run
 
     if analyze_only:
         return ("kernel K2" if kernel_on and _kernel_lowers(table, sel, agg_plans, nodes)
@@ -1868,6 +1883,35 @@ def try_execute_on_device(conn, sel: A.Select, table: Table,
         tuple(sorted(dist_domains.items())),
         id(xc),
     )
+    # --- the mesh (``Connection.set_mesh`` / ``INFERA_MESH``): the plan runs
+    # over the shards with a partial-table exchange (sql/mesh_plan.py); with
+    # a mesh set K2 does not run, and a plan the mesh declines runs the
+    # program below. A plan with a window takes no mesh (a row-sharded
+    # window would split its partitions).
+    conn._mesh_plan_used = False
+    conn._mesh_decline = None
+    if mesh is not None and not lowerer.has_window:
+        conn._mesh_decline = MP.mesh_declines(mesh, n, n_groups, agg_plans, dist_domains)
+        if conn._mesh_decline is None:
+            sharded = {k: (c, "f32") for k, c in lowerer.used_columns.items()
+                       if _block_eligible(c)}
+            sharded.update({k + _INT: (table.columns[k], "i64") for k in int_keys})
+            out = MP.execute_fused_on_mesh(
+                conn, mesh, n=n, sharded=sharded, replicated={}, prologue=None,
+                where_fn=where_fn, key_fns=key_fns, strides=strides, n_groups=n_groups,
+                agg_plans=agg_plans, dist_domains=dist_domains, phases=phases)
+            phases["mesh_exec_ms"] = _ms(t0)
+            if out is None:
+                return None   # a guard tripped in the program: the host answers
+            t0 = time.perf_counter()
+            out_table = _assemble_result(sel, items_plan, agg_plans, having_plan, *out,
+                                         has_keys=bool(key_fns))
+            phases["assemble_ms"] = _ms(t0)
+            if out_table is not None:
+                conn._mesh_plan_used = True
+                conn._last_phases = phases
+            return out_table   # None: a guard tripped, the host answers, not one device
+
     if kernel_on and block is not None:
         out = _try_cuda_fused(conn, sel, table, n, n_groups, strides, agg_plans, items_plan,
                               having_aggs, plan_key, block, dist_domains)

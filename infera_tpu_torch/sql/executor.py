@@ -35,8 +35,14 @@ does. An INNER join of two large tables with duplicate keys that the
 fact→dim join tiers decline runs ``shuffle_join_plan.try_execute_shuffle_join``
 behind the same entry, ``device_join_plan.try_execute_join_on_device``
 (``"shuffle_join"``: per-key partials of one side, the other streamed
-through them, no pair built). The mesh tiers of ``infera_tpu`` come in a
-later slice of the port.
+through them, no pair built).
+
+With a data-parallel mesh set (``set_mesh`` or ``INFERA_MESH``; ROADMAP
+P13a) each of those four tiers runs over the mesh's shards
+(``sql/mesh_plan.py``) and the path takes ``_mesh`` after the tier's name
+(``"device_plan_mesh"``, ``"device_join_plan_mesh"``,
+``"streaming_plan_mesh"``, ``"shuffle_join_mesh"``); K2 and K5 do not run on
+a meshed connection.
 """
 
 from __future__ import annotations
@@ -152,6 +158,8 @@ class Connection:
         self.catalog = catalog or Catalog()
         self._exec_path = "host"  # path that served the current statement
         self._macros: dict = {}   # name → (params, body Expr)
+        self._mesh_plan_used = False   # a device tier ran on the mesh
+        self._mesh_decline = None      # why the mesh last declined a plan, if it did
 
     # -- public API -------------------------------------------------------
 
@@ -177,11 +185,18 @@ class Connection:
         return result
 
     def set_mesh(self, mesh) -> None:
-        """Mesh-partitioned execution is not in the port yet: ``None`` (one
-        device) is accepted, anything else raises."""
-        if mesh is not None:
-            raise SqlError("mesh-partitioned execution is not supported by the "
-                           "torch backend yet (set_mesh(None) runs on one device)")
+        """Enable mesh-partitioned query execution on this connection.
+
+        ``mesh`` may be an int (a dp mesh of that many shards on the port's
+        device, ``parallel.mesh.make_mesh``), a ``parallel.mesh.Mesh``, or
+        None for one device. Overrides the read-once ``INFERA_MESH`` knob."""
+        from ..parallel.mesh import Mesh, make_mesh
+
+        if isinstance(mesh, bool) or not (mesh is None or isinstance(mesh, (int, Mesh))):
+            raise SqlError(f"set_mesh takes a shard count, a Mesh or None, not {mesh!r}")
+        if isinstance(mesh, int):
+            mesh = make_mesh(mesh)
+        self._mesh = mesh
 
     def register_table(self, name: str, table) -> None:
         """Register a columnar Table — or a pandas DataFrame, which is
@@ -618,11 +633,14 @@ class Connection:
 
             # a join the fact→dim tiers decline goes on to the big×big
             # shuffle join (BASELINE config 5) behind the same entry
+            self._mesh_plan_used = False
             fused = try_execute_join_on_device(self, sel)
             if fused is not None:
                 path = ("shuffle_join" if getattr(self, "_shuffle_join_used", False)
                         else "device_join_plan_cuda" if self._cuda_plan_used
                         else "device_join_plan")
+                if self._mesh_plan_used:
+                    path += "_mesh"   # the tier that served the query, on the mesh
                 fused = self._finish_fused(sel, fused)
                 if fused is not None:
                     self._exec_path = path
@@ -643,11 +661,14 @@ class Connection:
                     base = self._execute_from(flat.from_)
                 except SqlError:
                     base = None
+                self._mesh_plan_used = False
                 fused = None if base is None else try_execute_on_device(self, flat, base)
                 if fused is not None:
                     # K2 declines windows; it takes a flattened query that
                     # reads none of the subquery's windows
-                    path = "device_plan_cuda" if self._cuda_plan_used else "device_plan"
+                    path = ("device_plan_mesh" if self._mesh_plan_used
+                            else "device_plan_cuda" if self._cuda_plan_used
+                            else "device_plan")
                     fused = self._finish_fused(flat, fused)
                     if fused is not None:
                         self._exec_path = path
@@ -670,6 +691,7 @@ class Connection:
             from .device_plan import try_execute_on_device
 
             fused, path = None, "streaming_plan"
+            self._mesh_plan_used = False
             if scope.table.num_rows >= streaming_plan.STREAM_MIN_ROWS:
                 # chunked fused aggregation: a fixed device footprint, exact
                 # past the device plan's 2**24-row bound
@@ -678,6 +700,8 @@ class Connection:
                 fused = try_execute_on_device(self, sel, scope.table)
                 if fused is not None:
                     path = "device_plan_cuda" if self._cuda_plan_used else "device_plan"
+            if fused is not None and self._mesh_plan_used:
+                path = path.replace("_cuda", "") + "_mesh"
             if fused is not None:
                 fused = self._finish_fused(sel, fused)
                 if fused is not None:

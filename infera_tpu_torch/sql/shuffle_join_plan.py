@@ -1,7 +1,6 @@
 """Big×big shuffle join (BASELINE config 5's missing half).
 
-Counterpart of ``infera_tpu/sql/shuffle_join_plan.py`` on one device (its
-mesh branch belongs to the distributed tier). Query shape: ``SELECT aggs
+Counterpart of ``infera_tpu/sql/shuffle_join_plan.py``. Query shape: ``SELECT aggs
 FROM A JOIN B ON A.k = B.k [WHERE ...] [GROUP BY A-side int keys]`` where
 both sides are large fact tables with arbitrary (duplicate, skewed) integer
 join keys: the shape ``device_join_plan`` declines (it needs a unique-key
@@ -30,6 +29,14 @@ linear in |A| + |B| for any key distribution. ``infera_tpu`` carries pair
 counts in 8-bit limbs and products in compensated f32 pairs; the card has
 int64 and f64. A zero-pair global group renders NULL. Anything outside the
 shape returns None, and the host join keeps the full semantics.
+
+With a mesh set (``sql/mesh_plan.get_mesh``; path ``shuffle_join_mesh``)
+both sides hash-exchange by join key: B pre-reduced to per-key records on
+each shard before its exchange (``_b_mesh``: a hot key sends at most one
+record from each shard), each A chunk's rows to the owner of their key
+(``_a_pass_mesh``), each owner's pre-aggregated join against its own
+per-key table, and the owners' ``[G]`` partials merged; pair counts stay
+int64.
 """
 
 from __future__ import annotations
@@ -45,11 +52,14 @@ from ..device import get_device
 from ..errors import OnnxError, SqlError
 from ..ops import gemm_groupby as GG
 from ..ops import streaming as S
+from ..parallel import mesh as M
+from ..parallel import shuffle
 from . import ast as A
+from . import mesh_plan as MP
 from .device_plan import (_AGG_NAMES, _find_aggs, _find_column_refs, _full, _int_range, _ms,
                           _to_host, _Unsupported)
 from .streaming_plan import (_ChunkLowerer, _float_only, column_sources, combined_keys, fold,
-                             group_sizing, render)
+                             group_sizing, mesh_merge, render)
 
 SHUFFLE_JOIN_MIN_ROWS = 1 << 15
 A_CHUNK_ROWS = 1 << 20
@@ -235,20 +245,22 @@ class _Plan:
         return len(self.b_fns[kind]) - 1
 
 
-def _b_prepass(plan: _Plan, bt: Table, bk, device) -> dict:
-    """The B side's per-key table: unique keys ``uk`` (ascending int64), the
-    count of rows the WHERE keeps a key (``cnt``), and per slot the f64
-    sums, f32 minima and maxima and f64 product sums of those rows."""
-    nb = bt.num_rows
+def _b_prepass(plan: _Plan, bt: Table, bk, device, rows: slice = slice(None)) -> dict:
+    """The B side's per-key table over its rows ``rows``: unique keys ``uk``
+    (ascending int64), the count of rows the WHERE keeps a key (``cnt``),
+    and per slot the f64 sums, f32 minima and maxima and f64 product sums
+    of those rows."""
     keys = sorted(plan.b_low.f32_columns)
-    arrays, src = column_sources({k: bt.columns[k].data for k in keys})
+    arrays, src = column_sources({k: bt.columns[k].data[rows] for k in keys})
+    bkeys = bk.data[rows]
+    nb = len(bkeys)
     dev = [_upload(a, device) for a in arrays]
     cols = {k: dev[src[k]].float() for k in keys}
     cols["__n__"], cols["__pred__"] = nb, {}
     vb = torch.ones(nb, dtype=torch.bool, device=device)
     if plan.b_where is not None:
         vb = vb & (_full(plan.b_where(cols), nb) != 0)   # NaN is true
-    ks = torch.where(vb, _upload(bk.data, device).long(), INT32_MAX)
+    ks = torch.where(vb, _upload(bkeys, device).long(), INT32_MAX)
     ks_s, order = torch.sort(ks, stable=True)
     uk, uidx, counts = torch.unique_consecutive(ks_s, return_inverse=True, return_counts=True)
     U = uk.numel()
@@ -330,26 +342,8 @@ def try_execute_shuffle_join(conn, sel: A.Select, analyze_only: bool = False):
     phases["plan_ms"] = _ms(t0)
     t0 = time.perf_counter()
 
-    cache = getattr(conn, "_shuffle_join_cache", None)
-    if cache is None:
-        cache = conn._shuffle_join_cache = {}
-    bkey = ("sjoin_b", repr(sel), id(bt), bt.num_rows, tuple(sorted(plan.b_low.f32_columns)),
-            tuple(sorted((nm, id(m)) for nm, m in plan.b_low.models.items())), str(device))
-    ent = cache.get(bkey)
-    try:
-        if ent is None:
-            ent = (bt, _b_prepass(plan, bt, bk, device))  # the VALUE pins the table
-            if len(cache) >= 16:
-                cache.pop(next(iter(cache)))
-            cache[bkey] = ent
-    except (_Unsupported, OnnxError):
-        return None
-    b = ent[1]
-    phases["b_prepass_ms"] = _ms(t0)
-    t0 = time.perf_counter()
-
-    a_low, G, U = plan.a_low, n_groups, b["uk"].numel()
-    a_f32 = sorted(a_low.f32_columns)
+    G = n_groups
+    a_f32 = sorted(plan.a_low.f32_columns)
     named = {k: at.columns[k].data for k in a_f32 + plan.key_keys}
     named["__akey__"] = ak.data
     arrays, src = column_sources(named)
@@ -362,11 +356,82 @@ def try_execute_shuffle_join(conn, sel: A.Select, analyze_only: bool = False):
         elif pname not in ("key", "count_star"):
             kinds.append("add")
 
-    def step(*chunk):
+    # the B side's per-key tables, cached per plan (per mesh with a mesh
+    # set: each local owner's merged table)
+    conn._mesh_plan_used = False
+    mesh = MP.get_mesh(conn)
+    if mesh is not None and min(at.num_rows, bt.num_rows) < mesh.shape["dp"]:
+        mesh = None   # fewer rows than shards: one device
+    cache = getattr(conn, "_shuffle_join_cache", None)
+    if cache is None:
+        cache = conn._shuffle_join_cache = {}
+    bkey = ("sjoin_b", repr(sel), id(bt), bt.num_rows, tuple(sorted(plan.b_low.f32_columns)),
+            tuple(sorted((nm, id(m)) for nm, m in plan.b_low.models.items())), str(device),
+            None if mesh is None else ("mesh", id(mesh)))
+    ent = cache.get(bkey)
+    try:
+        if ent is None or ent[1] is not mesh:
+            b = (_b_prepass(plan, bt, bk, device) if mesh is None
+                 else _b_mesh(mesh, plan, bt, bk))
+            ent = (bt, mesh, b)  # the VALUE pins the table and the mesh
+            if len(cache) >= 16:
+                cache.pop(next(iter(cache)))
+            cache[bkey] = ent
+    except (_Unsupported, OnnxError):
+        return None
+    b = ent[2]
+    phases["b_prepass_ms"] = _ms(t0)
+    t0 = time.perf_counter()
+
+    if mesh is not None:
+        try:
+            acc = _a_pass_mesh(mesh, plan, b, arrays, src, a_f32, strides, G, kinds, phases)
+        except (_Unsupported, OnnxError):
+            return None
+        conn._mesh_plan_used = True
+        phases["a_stream_ms"] = _ms(t0)
+        return _finish(conn, sel, items_plan, plan, acc, phases, time.perf_counter())
+    stats: dict = {}
+    try:
+        acc = S.stream_query(S.chunked(tuple(arrays), A_CHUNK_ROWS),
+                             _a_step(plan, b, src, a_f32, strides, G, device),
+                             fold(kinds), None, device=device, stats=stats)
+    except (_Unsupported, OnnxError):
+        return None
+    phases["a_stream_ms"] = _ms(t0)
+    phases.update({k: (round(v, 3) if isinstance(v, float) else v) for k, v in stats.items()})
+    return _finish(conn, sel, items_plan, plan, acc, phases, time.perf_counter())
+
+
+def _finish(conn, sel, items_plan, plan, acc, phases, t0):
+    """The folded partials read back in one copy and rendered."""
+    res = iter(_to_host(acc))
+    count64 = next(res)
+    kmin, kmax = [], []
+    for _ in plan.key_keys:
+        kmin.append(next(res))
+        kmax.append(next(res))
+    outs = [None if p in ("key", "count_star") else next(res) for p, _ in plan.agg_plans]
+    out = _assemble(sel, items_plan, plan.agg_plans, outs, count64, kmin, kmax,
+                    bool(plan.key_keys))
+    phases["assemble_ms"] = _ms(t0)
+    if out is not None:
+        conn._last_phases = phases
+    return out
+
+
+def _a_step(plan, b, src, a_f32, strides, G, device):
+    """The A pass's step over one chunk (``chunk`` tensors of the arrays
+    ``src`` indexes, on ``device``) against the per-key table ``b``: each
+    row's pair count and partials reduced into the group table. ``valid``
+    (optional) drops padding rows."""
+    U = b["uk"].numel()
+
+    def step(*chunk, valid=None):
         m = chunk[0].shape[0]
         cols = {k: chunk[src[k]].float() for k in a_f32}
         cols["__n__"], cols["__pred__"] = m, {}
-        mask = torch.ones(m, dtype=torch.bool, device=device)
+        mask = torch.ones(m, dtype=torch.bool, device=device) if valid is None else valid
         if plan.a_where is not None:
             mask = mask & (_full(plan.a_where(cols), m) != 0)
         ka = chunk[src["__akey__"]].long()
@@ -400,28 +465,98 @@ def try_execute_shuffle_join(conn, sel: A.Select, analyze_only: bool = False):
                 out.append(GG.segment_minmax([b["max"][payload][idx]], slot, G)[1][0])
         return out
 
+    return step
+
+
+def _b_mesh(mesh, plan, bt, bk) -> list:
+    """The B side over the mesh: each shard pre-reduces its rows to per-key
+    records (``_b_prepass``), so a hot key sends at most one record from
+    each shard; the records exchange to the owner ``key % dp``, which merges
+    them into its own per-key table (counts and sums add, extremes meet).
+    Returns each local owner's table."""
+    dp = mesh.shape["dp"]
+    per = -(-bt.num_rows // dp)
+    recs = []
+    for s, d in zip(mesh.local, mesh.local_devices):
+        b = _b_prepass(plan, bt, bk, d, slice(s * per, (s + 1) * per))
+        keep = torch.nonzero(b["cnt"] > 0).reshape(-1)
+        cols = [b["uk"], b["cnt"], *b["sum"], *b["csum"], *b["min"], *b["max"]]
+        recs.append([c[keep] for c in cols])
+    parts = [torch.remainder(r[0], dp) for r in recs]
+    cap = shuffle.bucket_cap(mesh, parts)
+    sends, valids = [], []
+    for part, r in zip(parts, recs):
+        packed, send_valid = shuffle._pack_buckets(part, r, dp, cap)
+        sends.append(packed)
+        valids.append(send_valid)
+    rvalid = M.all_to_all(mesh, valids)
+    recv = [M.all_to_all(mesh, [p[i] for p in sends]) for i in range(len(recs[0]))]
+    ns, nc = len(plan.b_fns["sum"]), len(plan.b_fns["csum"])
+    tables = []
+    for j, v in enumerate(rvalid):
+        v = v.reshape(-1)
+        got = [r[j].reshape(-1)[v] for r in recv]
+        # a sentinel record keeps every owner's table non-empty
+        uk = torch.cat([got[0], got[0].new_full((1,), INT32_MAX)])
+        uk, inv = torch.unique(uk, sorted=True, return_inverse=True)
+        inv = inv[:-1]
+        U = uk.numel()
+        (cnt,) = GG.segment_sum_int_exact([got[1]], inv, U)
+        sums = [GG.segment_sum(x, inv, U) for x in got[2:2 + ns + nc]]
+        exts = got[2 + ns + nc:]
+        nm = len(plan.b_fns["min"])
+        mins = [GG.segment_minmax([x], inv, U)[0][0] for x in exts[:nm]]
+        maxs = [GG.segment_minmax([x], inv, U)[1][0] for x in exts[nm:]]
+        tables.append({"uk": uk, "cnt": cnt, "sum": sums[:ns], "csum": sums[ns:],
+                       "min": mins, "max": maxs})
+    return tables
+
+
+def _a_pass_mesh(mesh, plan, tables, arrays, src, a_f32, strides, G, kinds, phases):
+    """The A pass of the shuffle join over the mesh (``infera_tpu``'s
+    ``_execute_mesh``, after ``_b_mesh``): A in global chunks of
+    ``A_CHUNK_ROWS × dp`` rows, each shard's part hash-exchanged by join
+    key, each owner's step against its own per-key table ``tables[j]``, and
+    the owners' group partials merged by psum, pmin and pmax. Returns the
+    folded partials on the first local shard's device; records the
+    exchange's share (``mesh_exchange_ms``, after a synchronise)."""
+    dp = mesh.shape["dp"]
+    steps = [_a_step(plan, b, src, a_f32, strides, G, d)
+             for b, d in zip(tables, mesh.local_devices)]
+    akey = src["__akey__"]
+    exchange_ms = [0.0]
+
+    def run(*chunk):
+        te = time.perf_counter()
+        per = -(-chunk[0].shape[0] // dp)
+        parts, payloads = [], []
+        for s, d in zip(mesh.local, mesh.local_devices):
+            pay = [c[s * per:(s + 1) * per].to(d, non_blocking=True) for c in chunk]
+            parts.append(torch.remainder(pay[akey].long(), dp))
+            payloads.append(pay)
+        cap = shuffle.bucket_cap(mesh, parts)
+        sends, valids = [], []
+        for part, pay in zip(parts, payloads):
+            packed, send_valid = shuffle._pack_buckets(part, pay, dp, cap)
+            sends.append(packed)
+            valids.append(send_valid)
+        rvalid = M.all_to_all(mesh, valids)
+        recv = [M.all_to_all(mesh, [p[i] for p in sends]) for i in range(len(chunk))]
+        M.synchronize(mesh)
+        exchange_ms[0] += (time.perf_counter() - te) * 1e3
+        outs = []
+        for j, step in enumerate(steps):
+            v = rvalid[j].reshape(-1)
+            keep = torch.nonzero(v).reshape(-1)
+            outs.append(step(*(r[j].reshape(-1)[keep] for r in recv)))
+        return mesh_merge(mesh, outs, kinds)
+
     stats: dict = {}
-    try:
-        acc = S.stream_query(S.chunked(tuple(arrays), A_CHUNK_ROWS), step,
-                             fold(kinds), None, device=device, stats=stats)
-    except (_Unsupported, OnnxError):
-        return None
-    res = iter(_to_host(acc))
-    phases["a_stream_ms"] = _ms(t0)
+    acc = S.stream_query(S.chunked(tuple(arrays), A_CHUNK_ROWS * dp), run, fold(kinds), None,
+                         device=mesh.local_devices[0], stats=stats)
     phases.update({k: (round(v, 3) if isinstance(v, float) else v) for k, v in stats.items()})
-    t0 = time.perf_counter()
-    count64 = next(res)
-    kmin, kmax = [], []
-    for _ in plan.key_keys:
-        kmin.append(next(res))
-        kmax.append(next(res))
-    outs = [None if p in ("key", "count_star") else next(res) for p, _ in plan.agg_plans]
-    out = _assemble(sel, items_plan, plan.agg_plans, outs, count64, kmin, kmax,
-                    bool(plan.key_keys))
-    phases["assemble_ms"] = _ms(t0)
-    if out is not None:
-        conn._last_phases = phases
-    return out
+    phases["mesh_exchange_ms"] = round(exchange_ms[0], 3)
+    return acc
 
 
 def _assemble(sel, items_plan, agg_plans, acc_outs, count64, acc_kmin, acc_kmax, has_keys):

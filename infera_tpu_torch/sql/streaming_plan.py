@@ -1,8 +1,7 @@
 """Streaming fused aggregation: out-of-core tables through a fixed device
 footprint.
 
-Counterpart of ``infera_tpu/sql/streaming_plan.py`` on one device (its
-mesh branch belongs to the distributed tier). ``device_plan.py`` keeps the
+Counterpart of ``infera_tpu/sql/streaming_plan.py``. ``device_plan.py`` keeps the
 whole table on the device and declines 2**24 rows or more; this module runs
 the same query shapes over tables of any length: the scan reads fixed-size
 row chunks (``CHUNK_ROWS``; memmap columns stream from disk, each chunk
@@ -26,6 +25,12 @@ columns are a dict of their own, with its own ``__n__`` and prediction
 cache. A key guard that trips (two keys in one bucket) sends the query to
 the host executor; an empty global group renders NULL as the host does
 (``infera_tpu`` answers 0 and ±inf there: ROADMAP R17).
+
+With a mesh set (``sql/mesh_plan.get_mesh``; path ``streaming_plan_mesh``)
+a global step is ``CHUNK_ROWS × dp`` rows: each shard runs the step on its
+part of the chunk and the partials merge across the shards with psum, pmin
+and pmax (``mesh_step``) before the same fold and read-back; the pinned
+slots and the copy stream stay.
 """
 
 from __future__ import annotations
@@ -41,7 +46,9 @@ from ..device import get_device
 from ..errors import OnnxError, SqlError
 from ..ops import gemm_groupby as GG
 from ..ops import streaming as S
+from ..parallel import mesh as M
 from . import ast as A
+from . import mesh_plan as MP
 from . import int_agg
 from .device_plan import (_AGG_NAMES, MAX_GROUPS, _find_aggs, _full, _int_range, _Lowerer, _ms,
                           _to_host, _Unsupported)
@@ -136,6 +143,29 @@ def fold(kinds: list):
         return [ops[k](a, p) for k, a, p in zip(kinds, acc, part)]
 
     return combine
+
+
+def mesh_merge(mesh, parts: list, kinds: list) -> list:
+    """Flat partial lists, one a local shard, merged over the mesh by
+    ``kinds`` ("add": psum, "min": pmin, "max": pmax), on the first local
+    shard's device."""
+    reduce = {"add": M.psum, "min": M.pmin, "max": M.pmax}
+    return [reduce[k](mesh, [p[i] for p in parts])[0] for i, k in enumerate(kinds)]
+
+
+def mesh_step(mesh, step, kinds: list):
+    """``step`` over a mesh: a global chunk splits into dp row parts, each
+    local shard runs ``step`` on its part on its device, and the partials
+    merge over the mesh (``mesh_merge``)."""
+    dp = mesh.shape["dp"]
+
+    def run(*chunk):
+        per = -(-chunk[0].shape[0] // dp)
+        return mesh_merge(mesh, [step(*(c[s * per:(s + 1) * per].to(d, non_blocking=True)
+                                         for c in chunk))
+                                 for s, d in zip(mesh.local, mesh.local_devices)], kinds)
+
+    return run
 
 
 def column_sources(named: dict) -> tuple:
@@ -302,12 +332,21 @@ def try_execute_streaming(conn, sel: A.Select, table: Table, analyze_only: bool 
                     out.append(mn if name == "min" else mx)
         return out
 
+    # the mesh: each shard takes its part of every global chunk of
+    # CHUNK_ROWS x dp rows, and the shards' partials merge by psum, pmin and
+    # pmax before the fold (every partial merges exactly: int64 and f64)
+    conn._mesh_plan_used = False
+    mesh = MP.get_mesh(conn)
+    run, rows_per_step = step, CHUNK_ROWS
+    if mesh is not None:
+        run, rows_per_step = mesh_step(mesh, step, kinds), CHUNK_ROWS * mesh.shape["dp"]
     stats: dict = {}
     try:
-        acc = S.stream_query(S.chunked(tuple(arrays), CHUNK_ROWS), step,
+        acc = S.stream_query(S.chunked(tuple(arrays), rows_per_step), run,
                              fold(kinds), None, device=device, stats=stats)
     except (_Unsupported, OnnxError):
         return None
+    conn._mesh_plan_used = mesh is not None
     phases["stream_ms"] = _ms(t0)
     phases.update({k: (round(v, 3) if isinstance(v, float) else v) for k, v in stats.items()})
     t0 = time.perf_counter()

@@ -1,4 +1,4 @@
-"""Benchmark suite: BASELINE.json configs 1-4 on the port (counterpart of
+"""Benchmark suite: BASELINE.json configs 1-5 on the port (counterpart of
 ``infera_tpu/testing/benchmarks.py``).
 
 1. linear.onnx semantics over a 3-column f32 table (a plain product)
@@ -7,8 +7,9 @@
 3. multi-output predictions joined back to the source table (argsort join)
 4. the 64-tree depth-6 GBT through the ONNX engine
 
-Config 5 and the scaling harness need the mesh, which the port does not have
-yet (ROADMAP P13): they raise and are not in ``ALL_BENCHMARKS``.
+5. config 5's distributed step (``parallel/pipeline.py``) over a dp mesh,
+   and the scaling harness over 1, 2, 4 and 8 shards (on one card the
+   shards are logical: the harness measures the exchange, not scaling).
 
 Each config reports rows/s from the host clock between two synchronisations of
 the device around queued calls; each result keeps the last call's output for
@@ -193,14 +194,55 @@ def bench_config4_gbt(rows: int = 262_144, device=None) -> BenchResult:
     return BenchResult("config4_gbt_predict", rows / dt, rows, dt, output=out)
 
 
-def bench_config5_distributed(rows_per_dev: int = 65_536, n_devices: int | None = None):
-    """Distributed shuffle + skewed keys + batched inference on the mesh."""
-    raise NotImplementedError("config 5 needs the mesh, not ported yet (ROADMAP P13)")
+def bench_config5_distributed(rows_per_dev: int = 65_536, n_devices: int = 8,
+                              device=None) -> BenchResult:
+    """Config 5's distributed step (``parallel/pipeline.py``): batched
+    inference, the filter, the shuffle by group key and the psum'd group
+    sums over a dp mesh of ``n_devices`` shards on ``device`` (the port's
+    device by default; on one card the shards are logical)."""
+    from ..parallel.mesh import make_mesh
+    from ..parallel.pipeline import example_inputs, make_distributed_query_step
+
+    mesh = make_mesh(n_devices, device=device)
+    ndev = mesh.shape["dp"]
+    rows = rows_per_dev * ndev
+    step = make_distributed_query_step(mesh, n_groups=64, cap=rows_per_dev)
+    params, x, keys = example_inputs(mesh, rows, in_dim=32, out_dim=16, n_groups=64)
+    dt, out = _time(lambda: step(params, x, keys), mesh.local_devices[0])
+    return BenchResult(f"config5_distributed_{ndev}dev", rows / dt, rows, dt,
+                       detail=_mesh_detail(mesh), output=out)
 
 
-def bench_scaling(rows_per_dev: int = 32_768, device_counts=(1, 2, 4, 8)):
-    """Weak-scaling efficiency of the distributed query step."""
-    raise NotImplementedError("the scaling harness needs the mesh, not ported yet (ROADMAP P13)")
+def _mesh_detail(mesh) -> str:
+    ndev = mesh.shape["dp"]
+    if mesh.n_physical < ndev:
+        return (f"{ndev} shards, logical on {mesh.n_physical} device(s) "
+                f"({mesh.local_devices[0]}): they run one after another")
+    return f"{ndev} device(s)"
+
+
+def bench_scaling(rows_per_dev: int = 32_768, device_counts=(1, 2, 4, 8), device=None) -> list:
+    """The scaling harness: the distributed step at several dp sizes with
+    FIXED rows a shard (weak scaling), efficiency = T(1) / T(n). On one card
+    the shards are logical and run one after another, so this measures the
+    exchange's and the merge's cost, not scaling across chips."""
+    from ..parallel.mesh import make_mesh
+    from ..parallel.pipeline import example_inputs, make_distributed_query_step
+
+    results = []
+    t1 = None
+    for ndev in device_counts:
+        mesh = make_mesh(ndev, device=device)
+        rows = rows_per_dev * ndev
+        step = make_distributed_query_step(mesh, n_groups=64, cap=rows_per_dev)
+        params, x, keys = example_inputs(mesh, rows, in_dim=32, out_dim=16, n_groups=64)
+        dt, out = _time(lambda: step(params, x, keys), mesh.local_devices[0])
+        if t1 is None:
+            t1 = dt
+        results.append(BenchResult(
+            f"scaling_dp{ndev}", rows / dt, rows, dt,
+            detail=f"weak-scaling efficiency {t1 / dt:.2f}; {_mesh_detail(mesh)}", output=out))
+    return results
 
 
 ALL_BENCHMARKS = {
@@ -208,6 +250,8 @@ ALL_BENCHMARKS = {
     "config2": bench_config2_mlp,
     "config3": bench_config3_join,
     "config4": bench_config4_gbt,
+    "config5": bench_config5_distributed,
+    "scaling": bench_scaling,
 }
 
 
@@ -217,9 +261,10 @@ def main(argv=None):
     argv = argv if argv is not None else sys.argv[1:]
     names = [a for a in argv if not a.startswith("-")] or list(ALL_BENCHMARKS)
     for name in names:
-        res = ALL_BENCHMARKS[name]()
-        print(f"{res.name}: {res.rows_per_s:,.0f} rows/s "
-              f"({res.rows:,} rows, {res.seconds * 1e3:.2f} ms/iter) {res.detail}")
+        out = ALL_BENCHMARKS[name]()
+        for res in out if isinstance(out, list) else [out]:
+            print(f"{res.name}: {res.rows_per_s:,.0f} rows/s "
+                  f"({res.rows:,} rows, {res.seconds * 1e3:.2f} ms/iter) {res.detail}")
 
 
 if __name__ == "__main__":

@@ -126,11 +126,15 @@ def test_config4_gbt():
 
 
 def test_config5_and_scaling_wait_for_the_mesh():
-    with pytest.raises(NotImplementedError, match="P13"):
-        bm.bench_config5_distributed()
-    with pytest.raises(NotImplementedError, match="P13"):
-        bm.bench_scaling()
-    assert list(bm.ALL_BENCHMARKS) == ["config1", "config2", "config3", "config4"]
+    """With the mesh ported (ROADMAP P13a) config 5 and the scaling harness
+    run and are in ALL_BENCHMARKS; their logical shards are named as such."""
+    res = bm.bench_config5_distributed(rows_per_dev=64, device="cpu")
+    assert res.name == "config5_distributed_8dev" and res.rows == 512
+    assert "logical" in res.detail and res.rows_per_s > 0
+    runs = bm.bench_scaling(rows_per_dev=64, device_counts=(1, 2), device="cpu")
+    assert [r.name for r in runs] == ["scaling_dp1", "scaling_dp2"]
+    assert list(bm.ALL_BENCHMARKS) == ["config1", "config2", "config3", "config4", "config5",
+                                       "scaling"]
 
 
 def test_main_prints_one_line_a_config(monkeypatch):

@@ -55,6 +55,12 @@ sys.exit(1 if bad else 0)
     "infera_tpu_torch.sql.streaming_plan",
     "infera_tpu_torch.sql.shuffle_join_plan",
     "infera_tpu_torch.testing.billion_stream",
+    "infera_tpu_torch.parallel",
+    "infera_tpu_torch.parallel.mesh",
+    "infera_tpu_torch.parallel.shuffle",
+    "infera_tpu_torch.parallel.pipeline",
+    "infera_tpu_torch.parallel.distributed",
+    "infera_tpu_torch.sql.mesh_plan",
     "chip_smoke",
 ])
 def test_fresh_import_pulls_in_no_jax(module):

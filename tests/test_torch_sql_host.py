@@ -125,10 +125,12 @@ def test_host_rows_match(conns, sql):
 
 
 def test_mesh_is_refused_with_a_clear_error():
+    """set_mesh takes a shard count, a Mesh or None; anything else is
+    refused with an error that names the mesh."""
     conn = Connection()
     conn.set_mesh(None)
     with pytest.raises(SqlError, match="mesh"):
-        conn.set_mesh(8)
+        conn.set_mesh("8")
 
 
 def test_explain_names_the_kernel_tier(monkeypatch):
