@@ -2,7 +2,9 @@
 """Smoke test of the PyTorch + CUDA port on one NVIDIA H100.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one CUDA
-card, builds every kernel of ``infera_tpu_torch/csrc`` with nvcc (sm_90a), and:
+card, builds every kernel of ``infera_tpu_torch/csrc`` with nvcc (sm_90a) and
+the host runtime ``infera_tpu_torch/runtime/src/infera_host.cpp`` with g++,
+and:
 
 1. prints the card, its power limit, the torch and CUDA versions and the
    build time; the tensor-core paths: HMMA in the SASS (``cuobjdump``) of
@@ -194,7 +196,38 @@ card, builds every kernel of ``infera_tpu_torch/csrc`` with nvcc (sm_90a), and:
    tables, a hot key on a tenth of each side) on ``shuffle_join``, equal to
    the numpy per-key oracle (Z1's 2,815,029,434,989 pairs exact, sums
    within 1e-9), first and steady ms, input rows/s, phases and peak;
-15. prints the ``{"kernels": [...]}`` line, the card's name and power limit,
+15. the data-parallel mesh (``mesh_phase``; torch ops, no K2 or K5 launch,
+   so the kernels line gains no row): ``set_mesh(8)``, eight logical shards
+   on the one card; queries A, C, I, J, L, M, N, F and G-LEFT over
+   1,048,576 rows on the paths ``infera_tpu``'s mesh takes
+   (``device_plan_mesh``, ``device_join_plan_mesh``), rows equal to the
+   host executor's; S2 on ``streaming_plan_mesh``; Z1 on
+   ``shuffle_join_mesh`` against the numpy per-key oracle;
+   ``run_data_parallel`` of the config-2 MLP against ``predict``; config
+   5's distributed step and the scaling harness; each with its host-clock
+   time beside one device's, its phases and the exchange's share and the
+   peak allocation;
+16. the rest of the distributed tier and the host runtime
+   (``parallel_phase``; torch ops and host C++, so the kernels line gains
+   no row): ``entry.dryrun_multichip(8)`` to its end; tensor parallel
+   (config 2's 32-128-16 block over 1,048,576 rows, dp=4 x mp=2) against
+   ``mlp_apply`` at rtol 1e-4 / atol 1e-5; pipeline parallel (4 stages of
+   d = 128, 8 microbatches of 131,072 rows) against the sequential stack
+   at 1e-5; expert parallel (8 experts of d = 128, 1,048,576 rows) with
+   ``routed`` exact against a dense per-expert oracle at 1e-5, and at half
+   the capacity dropping the rows a numpy model of the packing drops; ring
+   attention (seq 32,768, d = 64, causal and not) against dense attention
+   in f64 at 1e-5; ``read_csv`` of a 1,048,576-row numeric CSV on the C
+   parser equal to the general reader, and ``predict_from_blob`` through
+   the native decode; no K-kernel launch in the four forms or
+   ``read_csv``; then every ``testing/e2e_eval`` subcommand in-process
+   (``shuffle_join`` at 2^22 rows a side), its JSON lines printed, each
+   query on the path the earlier phases establish and launching only
+   that path's kernels. Each form prints its host-clock ms (median of 5
+   after one warm-up) beside the single-device time of the same work (and
+   ``scaled_dot_product_attention``, timed only), the peak allocation and
+   the card's name and power limit; the phase its wall time;
+17. prints the ``{"kernels": [...]}`` line, the card's name and power limit,
    and last ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero without the ``ok`` line. The script
@@ -2930,6 +2963,373 @@ def mesh_phase(torch, itt, device) -> None:
           f"the port launched (torch ops)")
 
 
+PAR_SHARDS = 8              # logical shards of the parallel phase, all on cuda:0
+N_TP = 1 << 20              # TP: rows through config 2's 32 -> 128 -> 16 block
+PP_STAGES, PP_MICRO, PP_MB, PP_D = 4, 8, 131_072, 128   # PP: 4 stages of d = 128
+N_EP, EP_D = 1 << 20, 128   # EP: rows over 8 experts of d = 128
+SEQ_RING, D_RING = 32_768, 64   # ring attention: the encoder's d_model
+ORACLE_BLOCK = 8_192        # query rows of the f64 dense oracle at a time (2.1 GB of scores)
+N_CSV = 1 << 20             # rows of the native runtime's CSV (e2e_eval's big table)
+E2E_SHUFFLE = 1 << 22       # e2e_eval shuffle_join's rows a side (the stream phase runs 2^24)
+# the K-kernel launches each e2e_eval subcommand may make: those of the
+# paths the earlier phases establish for its queries (sql: query A on K2,
+# whose probe runs the model once on K6; outer_join: G-LEFT and G-FULL on
+# K5; int8: the f32 model on K6)
+E2E_KERNELS = {"sql": {"K2 f32", "K6"}, "outer_join": {"K2 f32", "K2/K5 join"},
+               "int8": {"K6"}, "mobilenet": set(), "window": set(), "shuffle_join": set()}
+DRYRUN_KERNELS = {"K2 f32", "K6"}
+E2E_PATHS = {"sql": "device_plan_cuda", "outer_join": "device_join_plan_cuda",
+             "window": "host", "shuffle_join": "shuffle_join"}
+
+
+def kernel_launches() -> dict:
+    """Every K-kernel's launch counter, by name."""
+    from infera_tpu_torch.ops import fused_query as fq
+    from infera_tpu_torch.ops import fused_sql as fs
+    from infera_tpu_torch.ops.fused_mlp import fused_mlp
+    from infera_tpu_torch.testing import profile_query as pq
+
+    out = {"K6": fused_mlp.launches, "K3": fq.fused_mlp_query_columnar_int8_shift.launches,
+           "K7b": fq.fused_mlp_query_columnar_int8.launches,
+           "K8a": pq.empty_grid_scan.launches}
+    out.update({f"K1 {k}": v for k, v in fq.fused_mlp_query_columnar.launches.items()})
+    out.update({f"K7a {k}": v for k, v in fq.fused_mlp_query.launches.items()})
+    out.update({("K2/K5 join" if k == "join" else f"K2 {k}"): v
+                for k, v in fs.fused_sql.launches.items()})
+    out.update({f"K8b {k}": v for k, v in pq.query_stage.launches.items()})
+    return out
+
+
+def moved(before: dict, after: dict) -> dict:
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def csv_block(lo: int, hi: int) -> str:
+    """Rows ``lo..hi`` of e2e_eval's ``big`` table as CSV text (the float
+    columns as f64 shortest reprs)."""
+    return "".join(f"{x % 64},{(x % 100) / 10.0!r},{((x + 3) % 50) / 5.0!r},"
+                   f"{((x * 7) % 30) / 3.0!r},{((x * 11) % 90) / 9.0!r}\n" for x in range(lo, hi))
+
+
+def write_big_csv(path: str, n: int) -> int:
+    """Write e2e_eval's ``big`` table of ``n`` rows to ``path``; its rows
+    repeat every 14,400 (the columns' periods' least common multiple)."""
+    period = 14_400
+    block = csv_block(0, period)
+    with open(path, "w") as f:
+        f.write("g,f1,f2,f3,f4\n")
+        f.write(block * (n // period))
+        f.write(csv_block(0, n % period))
+    return n
+
+
+def dense_attention_f64(torch, q, k, v, causal: bool):
+    """Dense softmax attention in f64 on the card, ``ORACLE_BLOCK`` query
+    rows at a time."""
+    seq, d = q.shape
+    qd, kd, vd = q.double(), k.double(), v.double()
+    out = torch.empty_like(qd)
+    pos = torch.arange(seq, device=q.device)
+    for lo in range(0, seq, ORACLE_BLOCK):
+        s = torch.matmul(qd[lo:lo + ORACLE_BLOCK], kd.T) / np.sqrt(d)
+        if causal:
+            s.masked_fill_(pos[None, :] > pos[lo:lo + ORACLE_BLOCK, None], float("-inf"))
+        out[lo:lo + ORACLE_BLOCK] = torch.matmul(torch.softmax(s, dim=1), vd)
+        del s
+    return out
+
+
+def dense_attention_f32(torch, q, k, v, causal: bool):
+    """The single-device plain form: the whole score matrix in f32."""
+    seq, d = q.shape
+    s = torch.matmul(q, k.T) * float(np.float32(1.0) / np.sqrt(np.float32(d)))
+    if causal:
+        pos = torch.arange(seq, device=q.device)
+        s.masked_fill_(pos[None, :] > pos[:, None], float("-inf"))
+    return torch.matmul(torch.softmax(s, dim=1), v)
+
+
+def peak_of(torch, fn) -> int:
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated()
+
+
+def parallel_phase(torch, itt, device) -> None:
+    """The rest of the distributed tier and the host runtime (ROADMAP P13b
+    and P14; torch ops and host C++, no K-kernel: the kernels line gains no
+    row): ``entry.dryrun_multichip(8)``; tensor, pipeline and expert
+    parallel and ring attention on 8 logical shards of the card at full
+    width, each held against its single-device form; the native runtime's
+    CSV parser against the general reader, and the blob decode under
+    ``predict_from_blob``; then every ``e2e_eval`` subcommand in-process on
+    the paths the earlier phases establish. No K-kernel launches in the
+    four forms or the runtime; the dry run and each e2e_eval subcommand
+    launch only the kernels of the single-device paths their queries take
+    (``DRYRUN_KERNELS``, ``E2E_KERNELS``)."""
+    import contextlib
+    import io
+    import os
+
+    from infera_tpu_torch import entry, runtime
+    from infera_tpu_torch.onnx import builder
+    from infera_tpu_torch.parallel import mesh as M
+    from infera_tpu_torch.parallel.pipeline import (
+        make_ep_inference_step,
+        make_pp_inference_step,
+        make_tp_inference_step,
+        mlp_apply,
+    )
+    from infera_tpu_torch.parallel.ring_attention import make_ring_attention_step
+    from infera_tpu_torch.runtime import native
+    from infera_tpu_torch.sql import csv_io
+    from infera_tpu_torch.testing import e2e_eval
+
+    t_phase = time.perf_counter()
+    card = nvidia_smi()
+    for var in ("INFERA_PALLAS_SQL", "INFERA_WINDOW_DEVICE", "INFERA_PALLAS_MLP"):
+        os.environ.pop(var, None)
+    check(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 is on")
+
+    # the dry run of every parallel form, with the reference's asserts; its
+    # section 1b holds the mesh's rows to a connection without a mesh, which
+    # runs query A's plan on K2 (its probe runs the model once on K6), as
+    # infera_tpu's runs its kernel there
+    k0 = kernel_launches()
+    t = time.perf_counter()
+    entry.dryrun_multichip(PAR_SHARDS, device=device)
+    torch.cuda.synchronize()
+    dry = moved(k0, kernel_launches())
+    check(set(dry) <= DRYRUN_KERNELS, f"the dry run launched {dry}, outside {DRYRUN_KERNELS}")
+    print(f"parallel dry run: dryrun_multichip({PAR_SHARDS}) on {device} ran to its end "
+          f"(dp step, SQL mesh tiers 1a-1d, tp, pp, ep, sp) in "
+          f"{time.perf_counter() - t:.2f} s on the host clock; K-kernel launches {dry or 'none'} "
+          f"(section 1b's connection without a mesh); card {card}")
+    before = kernel_launches()
+
+    def f32(rng, shape, scale=None):
+        a = rng.standard_normal(shape).astype(np.float32)
+        a = a * np.float32(scale) if scale is not None else a
+        return torch.from_numpy(a).to(device)
+
+    # TP: config 2's block over (dp=4, mp=2), against the replicated MLP
+    rng = np.random.default_rng(0)
+    mesh = M.make_mesh(PAR_SHARDS, mp=2, device=device)
+    params = ((f32(rng, (32, 128), 0.3), f32(rng, 128, 0.1)),
+              (f32(rng, (128, 16), 0.3), f32(rng, 16, 0.1)))
+    x = f32(rng, (N_TP, 32))
+    step = make_tp_inference_step(mesh)
+    got = step(params, x)
+    want = mlp_apply(list(params), x)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    err = float((got - want).abs().max())
+    ms, one = host_ms(torch, lambda: step(params, x), 5), host_ms(torch, lambda: mlp_apply(
+        list(params), x), 5)
+    peak = peak_of(torch, lambda: step(params, x))
+    print(f"parallel TP (dp=4, mp=2; 32-128-16, {N_TP:,} rows): {ms:.3f} ms (median of 5 on "
+          f"the host clock); single-device mlp_apply {one:.3f} ms; max abs diff {err:.3e} "
+          f"(rtol 1e-4, atol 1e-5); peak {peak:,} bytes; card {card}")
+    del x, got, want, params
+
+    # PP: 4 stages of d = 128 over (dp=1, mp=4), against the sequential stack
+    mesh = M.make_mesh(PP_STAGES, mp=PP_STAGES, device=device)
+    W = f32(rng, (PP_STAGES, PP_D, PP_D), np.sqrt(2.0 / PP_D))
+    B = f32(rng, (PP_STAGES, PP_D), 0.1)
+    x = f32(rng, (PP_MICRO, PP_MB, PP_D))
+    step = make_pp_inference_step(mesh, PP_STAGES, PP_MICRO)
+
+    def sequential():
+        h = x.reshape(-1, PP_D)
+        for s in range(PP_STAGES):
+            h = torch.relu(torch.matmul(h, W[s]) + B[s])
+        return h.reshape(x.shape)
+
+    got, want = step((W, B), x), sequential()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    err = float((got - want).abs().max())
+    ms, one = host_ms(torch, lambda: step((W, B), x), 5), host_ms(torch, sequential, 5)
+    peak = peak_of(torch, lambda: step((W, B), x))
+    print(f"parallel PP ({PP_STAGES} stages, d={PP_D}, {PP_MICRO} microbatches of {PP_MB:,} "
+          f"rows, {PP_MICRO + PP_STAGES - 1} ticks): {ms:.3f} ms (median of 5 on the host "
+          f"clock); single-device sequential stack {one:.3f} ms; max abs diff {err:.3e} "
+          f"(1e-5); peak {peak:,} bytes; card {card}")
+    del x, got, want, W, B
+
+    # EP: 8 experts of d = 128 over (dp=1, mp=8), against a dense per-expert oracle
+    n_exp = PAR_SHARDS
+    mesh = M.make_mesh(PAR_SHARDS, mp=n_exp, device=device)
+    EW = f32(rng, (n_exp, EP_D, EP_D), np.sqrt(2.0 / EP_D))
+    EB = f32(rng, (n_exp, EP_D), 0.1)
+    x = f32(rng, (N_EP, EP_D))
+    eid_h = rng.integers(0, n_exp, N_EP).astype(np.int32)
+    eid = torch.from_numpy(eid_h).to(device)
+    loc = N_EP // n_exp
+    per = np.stack([np.bincount(eid_h[s * loc:(s + 1) * loc], minlength=n_exp)
+                    for s in range(n_exp)])
+    cap = int(per.max())
+
+    def dense():
+        out = torch.empty_like(x)
+        for e in range(n_exp):
+            idx = eid == e
+            out[idx] = torch.relu(torch.matmul(x[idx], EW[e]) + EB[e])
+        return out
+
+    step = make_ep_inference_step(mesh, n_exp, cap)
+    (got, routed), want = step(EW, EB, x, eid), dense()
+    check(int(routed) == N_EP, f"EP routed {int(routed)} of {N_EP} rows at cap {cap}")
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    err = float((got - want).abs().max())
+    ms, one = host_ms(torch, lambda: step(EW, EB, x, eid), 5), host_ms(torch, dense, 5)
+    peak = peak_of(torch, lambda: step(EW, EB, x, eid))
+    # cap at half: the rows past it in their (source shard, expert) bucket drop
+    half = cap // 2
+    kept = np.zeros(N_EP, bool)
+    for s in range(n_exp):
+        e_s = eid_h[s * loc:(s + 1) * loc]
+        for e in range(n_exp):
+            kept[s * loc + np.nonzero(e_s == e)[0][:half]] = True
+    got_h, routed_h = make_ep_inference_step(mesh, n_exp, half)(EW, EB, x, eid)
+    dropped = (got_h == 0).all(dim=1).cpu().numpy()
+    check(int(routed_h) == int(kept.sum()), f"EP at cap {half} routed {int(routed_h)}, the "
+          f"numpy model of the packing keeps {int(kept.sum())}")
+    check(bool((dropped == ~kept).all()), f"EP at cap {half} dropped other rows than the numpy "
+          f"model: {int((dropped != ~kept).sum())} differ")
+    kept_t = torch.from_numpy(kept).to(device)
+    torch.testing.assert_close(got_h[kept_t], want[kept_t], rtol=1e-5, atol=1e-5)
+    print(f"parallel EP ({n_exp} experts, d={EP_D}, {N_EP:,} rows, cap {cap} = the largest "
+          f"(source shard, expert) count): {ms:.3f} ms (median of 5 on the host clock); "
+          f"single-device dense per-expert oracle {one:.3f} ms; routed {int(routed):,} exact; "
+          f"max abs diff {err:.3e} (1e-5); at cap {half}: {int(routed_h):,} routed and "
+          f"{int((~kept).sum()):,} dropped, the rows the numpy model of the packing drops; "
+          f"peak {peak:,} bytes; card {card}")
+    del x, got, want, got_h, EW, EB, eid, kept_t
+
+    # ring attention: seq 32,768 over (dp=1, mp=8), against dense f64
+    mesh = M.make_mesh(PAR_SHARDS, mp=PAR_SHARDS, device=device)
+    q, k, v = (f32(rng, (SEQ_RING, D_RING)) for _ in range(3))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for causal in (False, True):
+        step = make_ring_attention_step(mesh, causal=causal)
+        got = step(q, k, v)
+        torch.cuda.reset_peak_memory_stats()
+        want = dense_attention_f64(torch, q, k, v, causal)
+        oracle_peak = torch.cuda.max_memory_allocated()
+        torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=1e-5)
+        err = float((got.double() - want).abs().max())
+        del want
+        torch.cuda.empty_cache()
+        ms = host_ms(torch, lambda: step(q, k, v), 5)
+        one = host_ms(torch, lambda: dense_attention_f32(torch, q, k, v, causal), 5)
+        lib = host_ms(torch, lambda: sdpa(q[None, None], k[None, None], v[None, None],
+                                          is_causal=causal), 5)
+        peak = peak_of(torch, lambda: step(q, k, v))
+        print(f"parallel ring attention ({'causal' if causal else 'not causal'}; seq "
+              f"{SEQ_RING:,}, d={D_RING}, 8 shards of {SEQ_RING // 8:,}): {ms:.3f} ms (median "
+              f"of 5 on the host clock); single-device dense f32 {one:.3f} ms; "
+              f"scaled_dot_product_attention (timed only) {lib:.3f} ms; worst diff against "
+              f"dense f64 {err:.3e} (1e-5; oracle peak {oracle_peak:,} bytes); peak "
+              f"{peak:,} bytes; card {card}")
+    del q, k, v, got
+    torch.cuda.empty_cache()
+
+    # the native host runtime: the C CSV parser against the general reader
+    check(native.native_available(), "the native host runtime did not build or load")
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/big.csv"
+        t = time.perf_counter()
+        write_big_csv(path, N_CSV)
+        write_s = time.perf_counter() - t
+        with open(path, "rb") as f:
+            raw = f.read()
+        check(csv_io._read_csv_native(raw, True, ",") is not None,
+              "read_csv did not take the C parser on the numeric CSV")
+        del raw
+        t = time.perf_counter()
+        fast = csv_io.read_csv(path)
+        c_ms = (time.perf_counter() - t) * 1e3
+        real = csv_io._read_csv_native
+        csv_io._read_csv_native = lambda *a: None
+        try:
+            t = time.perf_counter()
+            slow = csv_io.read_csv(path)
+            py_ms = (time.perf_counter() - t) * 1e3
+        finally:
+            csv_io._read_csv_native = real
+        size = os.path.getsize(path)
+    check(fast.names == slow.names == ["g", "f1", "f2", "f3", "f4"], f"names {fast.names}")
+    for name in fast.names:
+        a, b = fast.columns[name], slow.columns[name]
+        check(a.sql_type.name == b.sql_type.name, f"{name}: {a.sql_type} vs {b.sql_type}")
+        check(a.data.dtype == b.data.dtype and np.array_equal(a.data, b.data),
+              f"{name}: values differ")
+        check(np.array_equal(a.valid_mask(), b.valid_mask()), f"{name}: validity differs")
+    print(f"parallel native runtime: read_csv of {N_CSV:,} rows x 5 columns ({size:,} bytes, "
+          f"written in {write_s:.2f} s): C parser {c_ms:.1f} ms, general reader {py_ms:.1f} ms "
+          f"(host clock, once each, file warm); names, types "
+          f"{[fast.columns[n].sql_type.name for n in fast.names]}, values and validity equal; "
+          f"card {card}")
+    del fast, slow
+    after = kernel_launches()
+    check(after == before, f"a K-kernel launched in the parallel forms or the runtime: "
+          f"{moved(before, after)}")
+    print("parallel: no K-kernel launched in TP, PP, EP, ring attention or read_csv")
+    calls = []
+    real_decode = runtime.blob_decode_f32
+
+    def spy(blob):
+        calls.append(len(blob))
+        return real_decode(blob)
+
+    with tempfile.TemporaryDirectory() as d:
+        builder.write_reference_test_models(d)
+        itt.load_model("linear_rt", f"{d}/linear.onnx")
+    runtime.blob_decode_f32 = spy
+    try:
+        res = itt.predict_from_blob("linear_rt", np.array([1.0, 2.0, 3.0], "<f4").tobytes())
+    finally:
+        runtime.blob_decode_f32 = real_decode
+    blob_k = moved(after, kernel_launches())
+    check(abs(float(res.data[0]) - 1.75) < 1e-5 and calls == [12],
+          f"predict_from_blob: {res.data}, native decode calls {calls}")
+    check(set(blob_k) <= {"K6"}, f"predict_from_blob launched {blob_k}")
+    itt.unload_model("linear_rt")
+    print(f"parallel native runtime: predict_from_blob decoded its 12 bytes through "
+          f"runtime.blob_decode_f32 on the C library (native_available True) and gave 1.75; "
+          f"K-kernel launches {blob_k or 'none'} (the engine's MLP path)")
+    forms_s = time.perf_counter() - t_phase
+
+    # e2e_eval, every subcommand in-process on the card
+    sizes = {"shuffle_join": dict(n=E2E_SHUFFLE)}
+    for cmd in ("sql", "outer_join", "int8", "mobilenet", "window", "shuffle_join"):
+        t = time.perf_counter()
+        k0 = kernel_launches()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            e2e_eval.CMDS[cmd](**sizes.get(cmd, {}))
+        torch.cuda.synchronize()
+        launched = moved(k0, kernel_launches())
+        lines = [json.loads(s) for s in buf.getvalue().splitlines() if s.startswith("{")]
+        for line in lines:
+            print(f"e2e {cmd}: {json.dumps(line)}")
+        paths = {line["path"] for line in lines if "path" in line}
+        if cmd in E2E_PATHS:
+            check(paths == {E2E_PATHS[cmd]}, f"e2e {cmd} ran on {paths}, not "
+                  f"{E2E_PATHS[cmd]}")
+        check(set(launched) <= E2E_KERNELS[cmd], f"e2e {cmd} launched {launched}, outside "
+              f"{E2E_KERNELS[cmd]}")
+        if cmd == "shuffle_join":
+            exact = next(s for s in lines if s["step"] == "shuffle_join_exact")
+            check(exact["count_exact"] and exact["sv_rel"] < 1e-9 and exact["sw_rel"] < 1e-6,
+                  f"e2e shuffle_join against its oracle: {exact}")
+        print(f"e2e {cmd}: {time.perf_counter() - t:.1f} s on the host clock; paths "
+              f"{sorted(paths) or '-'}; K-kernel launches {launched or 'none'}; card {card}")
+    print(f"parallel phase: {time.perf_counter() - t_phase:.1f} s on the host clock "
+          f"(the dry run, the four forms and the runtime {forms_s:.1f} s; then e2e_eval)")
+
+
 def mma_report(torch, _kernels, device) -> None:
     """The tensor-core paths: HMMA in the SASS (cuobjdump) of the bf16
     kernels of K1, K7a and K8b and none in the f32 and int8 ones, IMMA in
@@ -3078,6 +3478,11 @@ def main() -> int:
         for line in _kernels.build_log(src).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {src}: {line.strip()}")
+    from infera_tpu_torch.runtime import native
+
+    t = time.perf_counter()
+    check(native.native_available(), "the native host runtime did not build or load")
+    print(f"host runtime build (g++ -O3, {native._LIB.name}): {time.perf_counter() - t:.1f} s")
     device = torch.device("cuda")
     itt.set_device(device)
     mma_report(torch, _kernels, device)
@@ -3325,6 +3730,7 @@ def main() -> int:
     onnx_rest_phase(torch, itt, device)
     stream_phase(torch, itt, device)
     mesh_phase(torch, itt, device)
+    parallel_phase(torch, itt, device)
 
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())

@@ -8,6 +8,7 @@ first use of the device raises; importing the package does not.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 
@@ -37,3 +38,19 @@ def get_device() -> torch.device:
             "CUDA is not available: set INFERA_PLATFORM=cpu or call "
             "infera_tpu_torch.set_device('cpu') to run on the CPU")
     return device
+
+
+@contextlib.contextmanager
+def using_device(device):
+    """Pin ``device`` (as ``set_device``; ``None`` leaves the choice as it
+    is) for the body of a ``with``, then restore the earlier choice."""
+    global _device
+    with _lock:
+        prev = _device
+    if device is not None:
+        set_device(device)
+    try:
+        yield get_device()
+    finally:
+        with _lock:
+            _device = prev

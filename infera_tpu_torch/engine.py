@@ -115,11 +115,12 @@ def run_inference(model_name: str, data: np.ndarray, rows: int, cols: int) -> In
 
 
 def _blob_decode_f32(blob: bytes) -> np.ndarray | None:
-    """Little-endian f32 bytes to an array; None if len % 4 != 0 (the numpy
-    path of ``infera_tpu.runtime.native.blob_decode_f32``)."""
-    if len(blob) % 4 != 0:
-        return None
-    return np.frombuffer(blob, dtype="<f4").astype(np.float32)
+    """Little-endian f32 bytes to an array; None if len % 4 != 0, through
+    the native host runtime (``runtime.blob_decode_f32``, with its numpy
+    fallback), as ``infera_tpu``'s engine decodes."""
+    from .runtime import blob_decode_f32
+
+    return blob_decode_f32(blob)
 
 
 def run_inference_blob(model_name: str, blob: bytes) -> InferenceResult:

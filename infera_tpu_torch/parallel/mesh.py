@@ -7,9 +7,14 @@ grid of ``torch.device``s, a "sharded" value is a list of tensors, one a
 shard this process holds, and the collectives below take and return such
 lists. Axes:
 
-- ``dp``: the data-parallel axis. Tables are row-partitioned over it.
-- ``mp``: the model-parallel axis, reserved (tensor-, pipeline- and
-  expert-parallel forms are ROADMAP P13b).
+- ``dp``: the data-parallel axis. Tables are row-partitioned over it. A
+  value sharded on ``dp`` alone is a list with one tensor a local dp row.
+- ``mp``: the model-parallel axis. It carries the tensor-, pipeline-,
+  expert- and sequence-parallel forms (``parallel/pipeline.py``,
+  ``parallel/ring_attention.py``). A value sharded over ``(dp, mp)`` is a
+  list of the local grid's shards in the grid's row-major order
+  (``Mesh.local_grid``); ``shard`` and ``gather`` move a global tensor in
+  and out of that form.
 
 ``make_mesh(n)`` places shard ``i`` on ``cuda:(i % torch.cuda.device_count())``
 on CUDA, so on one card every shard shares ``cuda:0``: logical shards, as
@@ -23,7 +28,15 @@ Between shards of one process a collective is index operations (and
 its local shards, then runs once across processes through
 ``torch.distributed`` (gloo, on CPU tensors): ``all_reduce`` with SUM, MIN or
 MAX, ``all_gather``, ``all_to_all_single``. A process group over CUDA
-tensors needs NCCL and one card a process, which is ROADMAP P13b: it raises.
+tensors needs NCCL and one card a process (ROADMAP P13c,
+blocked on a one-card machine): it raises.
+
+``psum``, ``all_gather``, ``all_to_all`` and ``ppermute`` take ``axis``:
+``"dp"`` (over a dp list; the default but for ``ppermute``, as the mesh plan,
+the shuffle and the query step call them) or ``"mp"`` (over a grid list,
+within each dp row). A process holds whole dp rows, so an ``mp``
+collective never crosses processes and needs no ``torch.distributed``, on a
+gloo mesh too.
 """
 
 from __future__ import annotations
@@ -49,7 +62,8 @@ def _no_cuda_group(device: torch.device) -> None:
     if device.type == "cuda":
         raise NotImplementedError(
             "a mesh across processes runs gloo collectives on CPU tensors; a CUDA mesh "
-            "across processes needs NCCL and one card a process (ROADMAP P13b)")
+            "across processes needs NCCL and one card a process (ROADMAP P13c, "
+            "blocked on a one-card machine)")
 
 
 class Mesh:
@@ -57,8 +71,10 @@ class Mesh:
     mapping (``mesh.shape["dp"]``), as ``jax.sharding.Mesh``.
 
     ``local`` lists the dp indices this process holds (all of them without
-    a process group), ``local_devices`` their devices and ``n_physical``
-    the distinct devices the whole mesh spans."""
+    a process group), ``local_devices`` the devices of their ``mp`` column
+    0 (where a dp list lives), ``local_grid`` the devices of every local
+    ``(dp, mp)`` shard in row-major order (where a grid list lives) and
+    ``n_physical`` the distinct devices the whole mesh spans."""
 
     def __init__(self, devices: np.ndarray, world: int = 1, rank: int = 0):
         self.devices = devices
@@ -69,6 +85,7 @@ class Mesh:
         per = dp // world
         self.local = list(range(rank * per, (rank + 1) * per))
         self.local_devices = [devices[i, 0] for i in self.local]
+        self.local_grid = [devices[i, j] for i in self.local for j in range(mp)]
         self.n_physical = len({str(d) for d in devices.flat}) * world
 
     @property
@@ -151,73 +168,153 @@ def replicate(mesh: Mesh, x) -> list:
     return [x.to(d, non_blocking=True) for d in mesh.local_devices]
 
 
+def shard(mesh: Mesh, x, spec: tuple = ()) -> list:
+    """``x`` (a host array or a tensor) as a grid list, as
+    ``jax.device_put(x, NamedSharding(mesh, P(*spec)))``: local grid shard
+    ``(i, j)`` takes, along each axis of ``x`` that ``spec`` names ``"dp"``
+    or ``"mp"``, its ``i``-th or ``j``-th equal part, and the whole of every
+    other axis. A list or tuple is taken as a grid list already."""
+    if isinstance(x, (list, tuple)):
+        if len(x) != len(mesh.local_grid):
+            raise ValueError(f"a grid list holds {len(mesh.local_grid)} shards, got {len(x)}")
+        return list(x)
+    if isinstance(x, np.ndarray):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+    mp = mesh.shape["mp"]
+    out = []
+    for k, dev in enumerate(mesh.local_grid):
+        at = {"dp": mesh.local[k // mp], "mp": k % mp}
+        part = x
+        for ax, name in enumerate(spec):
+            if name is None:
+                continue
+            n = mesh.shape[name]
+            if part.shape[ax] % n:
+                raise ValueError(f"axis {ax} of {tuple(x.shape)} does not split evenly over "
+                                 f"{n} {name} shards")
+            c = part.shape[ax] // n
+            part = part.narrow(ax, at[name] * c, c)
+        out.append(part.to(dev, non_blocking=True))
+    return out
+
+
+def gather(mesh: Mesh, xs: list, spec: tuple = ()) -> torch.Tensor:
+    """The global tensor of a grid list sharded as ``spec`` (the inverse of
+    ``shard``; a ``"dp"`` axis must be axis 0), on the first local device:
+    the ``mp`` parts of each dp row concatenated, then the dp rows (across
+    processes too)."""
+    mp = mesh.shape["mp"]
+    rows = [xs[r * mp:(r + 1) * mp] for r in range(len(mesh.local))]
+    if "mp" in spec:
+        ax = spec.index("mp")
+        rows = [[torch.cat([t.to(row[0].device, non_blocking=True) for t in row], ax)]
+                for row in rows]
+    col = [row[0] for row in rows]
+    if "dp" in spec:
+        if spec.index("dp") != 0:
+            raise ValueError(f"gather needs the dp axis first, got {spec}")
+        return all_gather(mesh, col)[0]
+    return col[0]
+
+
+def _groups(mesh: Mesh, xs: list, axis: str) -> list:
+    """(shards, devices) of each group a collective over ``axis`` runs
+    within: the whole dp list for ``"dp"``, each local dp row of a grid list
+    for ``"mp"``."""
+    if axis == "dp":
+        return [(list(xs), mesh.local_devices)]
+    if axis != "mp":
+        raise ValueError(f"no mesh axis {axis!r}; the axes are {AXES}")
+    if len(xs) != len(mesh.local_grid):
+        raise ValueError(f"an mp collective takes a grid list of {len(mesh.local_grid)} "
+                         f"shards, got {len(xs)}")
+    mp = mesh.shape["mp"]
+    return [(xs[r * mp:(r + 1) * mp], mesh.local_grid[r * mp:(r + 1) * mp])
+            for r in range(len(mesh.local))]
+
+
 def _cross(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
     """A tensor ready for a gloo collective: on the CPU, contiguous."""
     _no_cuda_group(t.device)
     return t.contiguous()
 
 
-def _all_reduce(mesh: Mesh, xs: list, local_op, dist_op: str) -> list:
-    acc = xs[0]
-    for x in xs[1:]:
-        acc = local_op(acc, x.to(acc.device, non_blocking=True))
-    if mesh.distributed:
-        import torch.distributed as dist
+def _all_reduce(mesh: Mesh, xs: list, local_op, dist_op: str, axis: str) -> list:
+    out = []
+    for group, devs in _groups(mesh, xs, axis):
+        acc = group[0]
+        for x in group[1:]:
+            acc = local_op(acc, x.to(acc.device, non_blocking=True))
+        if axis == "dp" and mesh.distributed:
+            import torch.distributed as dist
 
-        is_bool = acc.dtype == torch.bool
-        t = _cross(mesh, acc.to(torch.uint8) if is_bool else acc.clone())
-        dist.all_reduce(t, op=getattr(dist.ReduceOp, dist_op))
-        acc = t.bool() if is_bool else t
-    return [acc.to(d, non_blocking=True) for d in mesh.local_devices]
+            is_bool = acc.dtype == torch.bool
+            t = _cross(mesh, acc.to(torch.uint8) if is_bool else acc.clone())
+            dist.all_reduce(t, op=getattr(dist.ReduceOp, dist_op))
+            acc = t.bool() if is_bool else t
+        out += [acc.to(d, non_blocking=True) for d in devs]
+    return out
 
 
-def psum(mesh: Mesh, xs: list) -> list:
-    """The sum over every shard of the mesh, on each local shard (a bool
-    sums as int64)."""
+def psum(mesh: Mesh, xs: list, axis: str = "dp") -> list:
+    """The sum over every shard of ``axis`` (``jax.lax.psum``), on each
+    shard (a bool sums as int64)."""
     xs = [x.long() if x.dtype == torch.bool else x for x in xs]
-    return _all_reduce(mesh, xs, torch.add, "SUM")
+    return _all_reduce(mesh, xs, torch.add, "SUM", axis)
 
 
 def pmin(mesh: Mesh, xs: list) -> list:
-    """The elementwise minimum over every shard (NaN wins, as XLA's)."""
-    return _all_reduce(mesh, xs, torch.minimum, "MIN")
+    """The elementwise minimum over every shard of the mesh (NaN wins, as
+    XLA's)."""
+    return _all_reduce(mesh, xs, torch.minimum, "MIN", "dp")
 
 
 def pmax(mesh: Mesh, xs: list) -> list:
-    """The elementwise maximum over every shard (NaN wins, as XLA's)."""
-    return _all_reduce(mesh, xs, torch.maximum, "MAX")
+    """The elementwise maximum over every shard of the mesh (NaN wins, as
+    XLA's)."""
+    return _all_reduce(mesh, xs, torch.maximum, "MAX", "dp")
 
 
-def all_gather(mesh: Mesh, xs: list) -> list:
-    """Every shard's tensor concatenated along axis 0 in dp order
-    (``jax.lax.all_gather(..., tiled=True)``), on each local shard."""
-    dev0 = xs[0].device
-    acc = torch.cat([x.to(dev0, non_blocking=True) for x in xs])
-    if mesh.distributed:
-        import torch.distributed as dist
+def all_gather(mesh: Mesh, xs: list, axis: str = "dp") -> list:
+    """Every shard's tensor of ``axis`` concatenated along axis 0 in axis
+    order (``jax.lax.all_gather(..., tiled=True)``), on each shard."""
+    out = []
+    for group, devs in _groups(mesh, xs, axis):
+        dev0 = group[0].device
+        acc = torch.cat([x.to(dev0, non_blocking=True) for x in group])
+        if axis == "dp" and mesh.distributed:
+            import torch.distributed as dist
 
-        t = _cross(mesh, acc.to(torch.uint8) if acc.dtype == torch.bool else acc)
-        parts = [torch.empty_like(t) for _ in range(mesh.world)]
-        dist.all_gather(parts, t)
-        acc = torch.cat(parts).to(acc.dtype)
-    return [acc.to(d, non_blocking=True) for d in mesh.local_devices]
+            t = _cross(mesh, acc.to(torch.uint8) if acc.dtype == torch.bool else acc)
+            parts = [torch.empty_like(t) for _ in range(mesh.world)]
+            dist.all_gather(parts, t)
+            acc = torch.cat(parts).to(acc.dtype)
+        out += [acc.to(d, non_blocking=True) for d in devs]
+    return out
 
 
-def all_to_all(mesh: Mesh, xs: list) -> list:
-    """``jax.lax.all_to_all(x, "dp", 0, 0)``: each local shard's ``[dp, ...]``
-    tensor sends its row ``d`` to shard ``d``; shard ``d`` gets ``[dp, ...]``
-    whose row ``s`` came from shard ``s``."""
-    dp = mesh.shape["dp"]
+def all_to_all(mesh: Mesh, xs: list, axis: str = "dp") -> list:
+    """``jax.lax.all_to_all(x, axis, 0, 0)``: over the ``n`` shards of
+    ``axis``, each shard's ``[n, ...]`` tensor sends its row ``d`` to shard
+    ``d``; shard ``d`` gets ``[n, ...]`` whose row ``s`` came from shard
+    ``s``."""
+    groups = _groups(mesh, xs, axis)
+    n = mesh.shape[axis]
     for x in xs:
-        if x.shape[0] != dp:
-            raise ValueError(f"all_to_all needs [{dp}, ...] tensors, got {tuple(x.shape)}")
-    if not mesh.distributed:
-        dev0 = xs[0].device
-        if all(d == dev0 for d in mesh.local_devices):
-            stacked = torch.stack(xs)   # [src, dst, ...]
-            return [stacked[:, j] for j in range(dp)]
-        return [torch.stack([x[j].to(dst, non_blocking=True) for x in xs])
-                for j, dst in enumerate(mesh.local_devices)]
+        if x.shape[0] != n:
+            raise ValueError(f"all_to_all needs [{n}, ...] tensors over {axis}, "
+                             f"got {tuple(x.shape)}")
+    if axis == "mp" or not mesh.distributed:
+        out = []
+        for group, devs in groups:
+            dev0 = group[0].device
+            if all(d == dev0 for d in devs):
+                stacked = torch.stack(group)   # [src, dst, ...]
+                out += [stacked[:, j] for j in range(n)]
+            else:
+                out += [torch.stack([x[j].to(dst, non_blocking=True) for x in group])
+                        for j, dst in enumerate(devs)]
+        return out
     import torch.distributed as dist
 
     L, P = len(xs), mesh.world
@@ -233,8 +330,35 @@ def all_to_all(mesh: Mesh, xs: list) -> list:
     return [recv[:, j].to(d, non_blocking=True) for j, d in enumerate(mesh.local_devices)]
 
 
+def ppermute(mesh: Mesh, xs: list, perm, axis: str = "mp") -> list:
+    """``jax.lax.ppermute(x, axis, perm)``: for each ``(src, dst)`` pair of
+    ``perm`` (indices along ``axis``), shard ``dst`` receives shard
+    ``src``'s tensor; a shard that no pair names as a destination receives
+    zeros (the pipeline's first stage relies on it). Over ``"mp"`` only,
+    which never crosses processes."""
+    if axis != "mp":
+        raise ValueError(f"ppermute runs over mp only, not {axis!r}")
+    groups = _groups(mesh, xs, axis)
+    perm = [(int(s), int(d)) for s, d in perm]
+    n = mesh.shape[axis]
+    srcs, dsts = [s for s, _ in perm], [d for _, d in perm]
+    if len(set(srcs)) < len(srcs) or len(set(dsts)) < len(dsts) or not all(
+            0 <= i < n for i in srcs + dsts):
+        raise ValueError(f"ppermute over {axis} of {n} shards needs distinct sources and "
+                         f"destinations in range, got {perm}")
+    came_from = {d: s for s, d in perm}
+    out = []
+    for group, devs in groups:
+        for j, (x, dev) in enumerate(zip(group, devs)):
+            if j in came_from:
+                out.append(group[came_from[j]].to(dev, non_blocking=True))
+            else:
+                out.append(torch.zeros_like(x, device=dev))
+    return out
+
+
 def synchronize(mesh: Mesh) -> None:
     """Wait for the work queued on every local CUDA device of the mesh."""
-    for d in {str(d): d for d in mesh.local_devices}.values():
+    for d in {str(d): d for d in mesh.local_grid}.values():
         if d.type == "cuda":
             torch.cuda.synchronize(d)

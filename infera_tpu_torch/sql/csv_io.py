@@ -18,13 +18,17 @@ from ..errors import SqlError
 
 
 def read_csv(path: str, header: bool = True, delimiter: str = ",") -> Table:
-    # the general reader; infera_tpu's native C parser for unquoted numeric
-    # bodies is a host speed-up that the port does not carry
+    # native path: an unquoted all-numeric body parses in C
+    # (runtime/src/infera_host.cpp infera_csv_parse_numeric); anything the
+    # C parser cannot prove numeric goes to the general reader
     try:
         with open(path, "rb") as fb:
             raw_bytes = fb.read()
     except OSError as e:
         raise SqlError(f"IO Error: {e}")
+    native_table = _read_csv_native(raw_bytes, header, delimiter)
+    if native_table is not None:
+        return native_table
     rows = list(csv.reader(
         raw_bytes.decode("utf-8", errors="replace").splitlines(),
         delimiter=delimiter))
@@ -40,6 +44,41 @@ def read_csv(path: str, header: bool = True, delimiter: str = ",") -> Table:
     for j, name in enumerate(names):
         raw = [r[j] if j < len(r) else "" for r in data_rows]
         cols[_dedupe(name, cols)] = _infer_column(raw)
+    return Table(cols)
+
+
+def _read_csv_native(raw: bytes, header: bool, delimiter: str):
+    """The C-parsed Table of an unquoted numeric CSV, or None (the general
+    reader): a quote in the first 4,096 bytes, a header-only file, or a body
+    the C parser refuses."""
+    if not raw or b'"' in raw[:4096]:
+        return None
+    from ..runtime.native import csv_parse_numeric
+
+    if header:
+        nl = raw.find(b"\n")
+        if nl < 0:
+            return None
+        head = raw[:nl].rstrip(b"\r").decode("utf-8", errors="replace")
+        names = [c.strip() or f"col{i}" for i, c in enumerate(head.split(delimiter))]
+        body = raw[nl + 1:]
+    else:
+        first = raw.split(b"\n", 1)[0].rstrip(b"\r")
+        names = [f"col{i}" for i in range(first.count(delimiter.encode()) + 1)]
+        body = raw
+    if not body:
+        return None  # header-only file: the general reader's empty table
+    parsed = csv_parse_numeric(body, len(names), delimiter)
+    if parsed is None:
+        return None
+    values, valid, is_float = parsed
+    cols: dict = {}
+    for j, name in enumerate(names):
+        validity = None if valid[j].all() else valid[j]
+        if is_float[j]:
+            cols[_dedupe(name, cols)] = Column(values[j], T.DOUBLE, validity)
+        else:
+            cols[_dedupe(name, cols)] = Column(values[j].astype(np.int64), T.BIGINT, validity)
     return Table(cols)
 
 

@@ -6,7 +6,7 @@ meshed device plan (model, exact int64, DISTINCT, MODE, HLL, medians), the
 meshed join program, streaming and the shuffle join give the CPU mesh's
 rows (keys, counts, integers, HLL and order statistics exact; f64 sums to
 1e-9, 1e-5 where a model is read); ``make_mesh`` on CUDA puts every shard
-on a card; a CUDA mesh across processes raises (ROADMAP P13b)."""
+on a card; a CUDA mesh across processes raises (ROADMAP P13c)."""
 
 import os
 import socket
@@ -142,7 +142,7 @@ itt.set_device("cuda")
 try:
     M.make_mesh(2)
 except NotImplementedError as e:
-    assert "P13b" in str(e)
+    assert "P13c" in str(e)
     print("REFUSED", flush=True)
 """
 

@@ -157,7 +157,7 @@ GROUP_WORKER = PRELUDE + textwrap.dedent("""
         M.make_mesh(2, device="cuda")
         raise AssertionError("a CUDA mesh across processes was built")
     except NotImplementedError as e:
-        assert "P13b" in str(e), e
+        assert "P13c" in str(e), e
     ops.unload("m")
     assert not itt.is_model_loaded("m")
     print(f"proc{pid} OK", flush=True)
@@ -300,7 +300,7 @@ def _spawn(tmp_path, name, source, extra, timeout):
 
 def test_two_process_group(tmp_path, model_dir):
     """The replicated registry, a cross-process psum and all_gather, and the
-    refusal of a CUDA mesh across processes (ROADMAP P13b)."""
+    refusal of a CUDA mesh across processes (ROADMAP P13c)."""
     codes, outputs = _spawn(tmp_path, "group", GROUP_WORKER, [model_dir], 150)
     assert codes == [0, 0], "\n".join(outputs)
     assert "proc0 OK" in outputs[0] and "proc1 OK" in outputs[1]

@@ -61,6 +61,11 @@ sys.exit(1 if bad else 0)
     "infera_tpu_torch.parallel.pipeline",
     "infera_tpu_torch.parallel.distributed",
     "infera_tpu_torch.sql.mesh_plan",
+    "infera_tpu_torch.parallel.ring_attention",
+    "infera_tpu_torch.entry",
+    "infera_tpu_torch.runtime",
+    "infera_tpu_torch.runtime.native",
+    "infera_tpu_torch.testing.e2e_eval",
     "chip_smoke",
 ])
 def test_fresh_import_pulls_in_no_jax(module):

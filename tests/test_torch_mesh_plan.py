@@ -18,6 +18,8 @@ Then the exchange probe, the declines, the guards, K2 off on a mesh, and
 the per-mesh caches.
 """
 
+import os
+
 import numpy as np
 import pytest
 
@@ -425,10 +427,10 @@ def test_phases_name_the_exchange(both):
             "mesh_exec_ms"} <= set(port._last_phases)
 
 
-def _chip_smoke_tables(port, ref, model_dir, n):
+def _chip_smoke_tables(port, ref, save_dir, n):
     """chip_smoke's tables (big, tail, t, and config 3's src, meta, fact,
     dim) and models (m, mt, m3) at ``n`` rows in both packages, from the
-    same files and draws."""
+    same files (saved under ``save_dir``) and draws."""
     import chip_smoke as cs
     from infera_tpu.columnar import Column as RCol, Table as RTable
     from infera_tpu.columnar import types as RT
@@ -441,7 +443,7 @@ def _chip_smoke_tables(port, ref, model_dir, n):
                                                  softmax=False)),
                         ("m3", builder.mlp_model(in_dim=8, hidden=(), out_dim=4, softmax=False,
                                                  seed=0))):
-        path = f"{model_dir}/cs_{name}.onnx"
+        path = f"{save_dir}/cs_{name}.onnx"
         proto.save_model_file(model, path)
         it.load_model(name, path)
         itt.load_model(name, path)
@@ -464,7 +466,8 @@ def _chip_smoke_tables(port, ref, model_dir, n):
                      "from range(1000) r(x)")
 
 
-def test_chip_smoke_mesh_queries_take_the_reference_paths(both, model_dir, monkeypatch):
+def test_chip_smoke_mesh_queries_take_the_reference_paths(both, model_dir, tmp_path,
+                                                         monkeypatch):
     """chip_smoke's mesh phase at 2**15 rows: queries A, C, I, J, L, M, N,
     F and G-LEFT take the path infera_tpu's mesh records for the same plan,
     with the host's rows at each query's chip_smoke tolerance and
@@ -474,7 +477,10 @@ def test_chip_smoke_mesh_queries_take_the_reference_paths(both, model_dir, monke
     port, ref = Connection(), RefConnection()
     for conn in (port, ref):
         conn.set_mesh(NDEV)
-    _chip_smoke_tables(port, ref, model_dir, 1 << 15)
+    shared = sorted(os.listdir(model_dir))
+    _chip_smoke_tables(port, ref, tmp_path, 1 << 15)
+    # the shared model_dir fixture is autoloaded by other tests
+    assert sorted(os.listdir(model_dir)) == shared
     for key, (q, path, tol) in cs.mesh_queries().items():
         rows = port.execute(q).rows
         assert port._exec_path == path, (key, port._exec_path, port._mesh_decline)

@@ -1,9 +1,10 @@
 """The parity sqllogictest suite (tests/sqllogic/*.test) through the port.
 
-Every file replays through the port's own runner and Connection, on one
-device (the mesh is not in the port yet), with the port's registry and cache
-isolated per file. The tables of these files are small, so the statements
-run on the port's host executor."""
+Every file replays through the port's own runner and Connection twice, on
+one device and on a connection meshed over 8 shards (``set_mesh(8)``, as
+``tests/test_sqllogic_parity.py`` replays ``infera_tpu``), with the port's
+registry and cache isolated per file. The tables of these files are small,
+so most statements run on the port's host executor either way."""
 
 import glob
 import os
@@ -45,9 +46,11 @@ def test_the_suite_has_every_file():
     assert len(FILES) == 14
 
 
+@pytest.mark.parametrize("mesh", [None, 8], ids=["single", "mesh8"])
 @pytest.mark.parametrize("path", FILES, ids=[os.path.basename(f) for f in FILES])
-def test_sqllogic_file(path, port_model_dir, port_env):
+def test_sqllogic_file(path, mesh, port_model_dir, port_env):
     conn = Connection()
+    conn.set_mesh(mesh)  # mesh8: the partitioned tiers must keep parity
     runner = SqlLogicRunner(conn, substitutions={"MODELS": port_model_dir,
                                                  "TMP": str(port_env)})
     result = runner.run_file(path)
