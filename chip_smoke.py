@@ -207,7 +207,23 @@ and:
    5's distributed step and the scaling harness; each with its host-clock
    time beside one device's, its phases and the exchange's share and the
    peak allocation;
-16. the rest of the distributed tier and the host runtime
+16. the process-group mesh (``process_phase``, ROADMAP P13c; torch ops, no
+   K2 or K5 launch: the kernels line gains no row, K6's row counts the
+   workers' launches): a one-rank ``cpu:gloo,cuda:nccl`` group holds the
+   NCCL transport's wire functions (``all_reduce`` SUM/MIN/MAX,
+   ``all_gather``, ``all_to_all_single`` on int64, float32, float64 and
+   uint8) and gloo-pinned's to a one-shard mesh's answer; then two
+   worker processes share the card in one gloo group (``gloo-pinned``:
+   pinned host copies cross processes), 4 of 8 global shards each: each
+   loads the models through ``ReplicatedModelOps`` and ``predict``s
+   1,048,576 rows (K6), and runs A, C, I, M, F and G-LEFT, S2 and Z1 (2^24
+   rows a side), config 5's step and ``run_data_parallel``, with every
+   shard tensor and every collective's input and output on the card. Rows equal the host executor's (the mesh
+   phase's) at each query's limit and across ranks, Z1's pairs exact,
+   config 5's counts equal the one-process mesh's; each time printed
+   beside the one-process mesh's and the exchange's share; a worker that
+   fails or hangs is killed and the phase raises;
+17. the rest of the distributed tier and the host runtime
    (``parallel_phase``; torch ops and host C++, so the kernels line gains
    no row): ``entry.dryrun_multichip(8)`` to its end; tensor parallel
    (config 2's 32-128-16 block over 1,048,576 rows, dp=4 x mp=2) against
@@ -227,7 +243,7 @@ and:
    after one warm-up) beside the single-device time of the same work (and
    ``scaled_dot_product_attention``, timed only), the peak allocation and
    the card's name and power limit; the phase its wall time;
-17. the rest of the user surface (``surface_phase``; no new kernel: each
+18. the rest of the user surface (``surface_phase``; no new kernel: each
    step's launches of K6, K2, K4 and K5 are added to their rows of the
    kernels line, every count set to 0 before the step and read after):
    the examples ``infera_tpu_torch.examples`` e1-e5, e7 and e8 (their
@@ -252,7 +268,7 @@ and:
    a 1,048,576-row ``predict`` while a ninth loads and unloads a model:
    every answer must equal the single-threaded one and the launch counts
    the serial run's; it prints the wall time beside the serial run's;
-18. prints the ``{"kernels": [...]}`` line, the card's name and power limit,
+19. prints the ``{"kernels": [...]}`` line, the card's name and power limit,
    and last ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero without the ``ok`` line. The script
@@ -2829,7 +2845,7 @@ def mesh_timed(torch, conn, q, runs: int = 5):
             torch.cuda.max_memory_allocated())
 
 
-def mesh_phase(torch, itt, device) -> None:
+def mesh_phase(torch, itt, device) -> dict:
     """The data-parallel mesh on the card (ROADMAP P13a; torch ops, no kernel
     of the port: the kernels line gains no row): ``set_mesh(8)``, eight
     logical shards on the one card. Queries A, C, I, J, L, M, N, F and
@@ -2842,7 +2858,9 @@ def mesh_phase(torch, itt, device) -> None:
     one warm-up), its phases and the exchange's share, the peak allocation
     and the single-device time of the same work beside it. On one card the
     shards run one after another: the times price the exchange and the
-    merge, not scaling."""
+    merge, not scaling. Returns what ``process_phase`` holds its two
+    processes to: each query's host rows, time and exchange share on this
+    one-process mesh, S2's host rows, Z1's oracle, config 5's output."""
     import os
 
     from infera_tpu_torch.onnx import builder, proto
@@ -2894,9 +2912,11 @@ def mesh_phase(torch, itt, device) -> None:
     host_j, host_j_ms = host_rows(conn, {k: v[0] for k, v in joins.items()}, "device_join")
     host.update(host_j)
     host_ms_.update(host_j_ms)
+    ref = {}
     for key, (rows, ms, phases, peak, ms1, path1) in out.items():
         worst = compare_rows(key, rows, host[key], queries[key][2])
         share = phases.get("mesh_exchange_ms", 0.0) / max(phases.get("mesh_exec_ms", 0.0), 1e-9)
+        ref[key] = {"host": host[key], "ms": ms, "share": share}
         print(f"mesh {key} {queries[key][1]}: median {ms:.3f} ms of 5 on the host clock "
               f"({n / ms * 1e3:,.0f} rows/s); single device ({path1}) {ms1:.3f} ms; rows equal "
               f"the host's (worst rel {worst:.3e}; host {host_ms_[key]:.1f} ms once); K2/K5 "
@@ -2914,6 +2934,7 @@ def mesh_phase(torch, itt, device) -> None:
     check(path1 == "streaming_plan", f"S2 on one device ran on {path1}")
     host, host_ms_ = host_rows(s2, {"S2": SQL_A})
     worst = compare_rows("S2", rows, host["S2"], SQL_TOL["A"])
+    ref["S2"] = {"host": host["S2"], "ms": ms}
     print(f"mesh S2 streaming_plan_mesh ({N_STREAM_MODEL:,} rows): median {ms:.3f} ms of 5 on "
           f"the host clock ({N_STREAM_MODEL / ms * 1e3:,.0f} rows/s); single device "
           f"(streaming_plan) {ms1:.3f} ms; rows equal the host's (worst rel {worst:.3e}; host "
@@ -2940,6 +2961,7 @@ def mesh_phase(torch, itt, device) -> None:
     _r1, ms1, _p1, path1, _pk = mesh_timed(torch, z_one, SQL_Z["Z1"], 3)
     check(path1 == "shuffle_join", f"Z1 on one device ran on {path1}")
     share = phases.get("mesh_exchange_ms", 0.0) / max(phases.get("a_stream_ms", 0.0), 1e-9)
+    ref["Z1"] = {"want": want, "ms": ms, "first_ms": first_ms, "share": share}
     print(f"mesh Z1 shuffle_join_mesh ({N_SHUFFLE:,} rows a side): first {first_ms:.3f} ms, "
           f"median {ms:.3f} ms of 5 after it ({2 * N_SHUFFLE / ms * 1e3:,.0f} input rows/s); "
           f"single device (shuffle_join) {ms1:.3f} ms (median of 3); {rows[0][0]:,} pairs "
@@ -2959,6 +2981,7 @@ def mesh_phase(torch, itt, device) -> None:
     check(err <= 1e-5, f"run_data_parallel differs from predict by {err:.3e}")
     dp_ms = host_ms(torch, lambda: model.run_data_parallel(mesh, x), 5)
     one_ms = host_ms(torch, lambda: itt.predict("mlp", x), 5)
+    ref["dp"] = {"ms": dp_ms, "predict_ms": one_ms}
     print(f"mesh run_data_parallel of the 32-128-128-16 softmax MLP over {n:,} rows: "
           f"{dp_ms:.3f} ms (median of 5 on the host clock) = {n / dp_ms * 1e3:,.0f} rows/s; "
           f"single-device predict (K6) {one_ms:.3f} ms; max abs difference {err:.3e}; peak "
@@ -2974,6 +2997,7 @@ def mesh_phase(torch, itt, device) -> None:
     one = bm.bench_config5_distributed(rows_per_dev=65_536 * MESH_SHARDS, n_devices=1,
                                        device=device)
     check(float(one.output[2]) == float(total), "config 5: one device selects other rows")
+    ref["config5"] = {"output": [t.cpu().numpy() for t in res.output], "ms": res.seconds * 1e3}
     print(f"mesh {res.name}: {res.rows_per_s:,.0f} rows/s ({res.rows:,} rows, "
           f"{res.seconds * 1e3:.3f} ms a step, the harness's own timer); the same rows on "
           f"one device {one.seconds * 1e3:.3f} ms; peak {torch.cuda.max_memory_allocated():,} "
@@ -2986,6 +3010,415 @@ def mesh_phase(torch, itt, device) -> None:
           f"meshes; card {card}")
     print(f"mesh phase: {time.perf_counter() - t_phase:.1f} s on the host clock; no kernel of "
           f"the port launched (torch ops)")
+    return ref
+
+
+# the process-group mesh (ROADMAP P13c): two processes share the one card,
+# 4 of the 8 global shards each; NCCL refuses two ranks on one card, so
+# their collectives cross through gloo from pinned host buffers, and NCCL's
+# own wire functions are held in a one-rank group
+PROC_WORLD = 2
+PROC_QUERIES = ("A", "C", "I", "M", "F", "G-LEFT")
+PROC_TIMEOUT_S = 420.0     # a worker still running then is killed and the phase fails
+NCCL_WIRE_N = 1 << 20      # f32 elements of the one-rank all_reduce timed on each transport
+
+
+def run_workers(cmds: list, env: dict, log_dir: str, timeout: float) -> list:
+    """Start every command at once, each one's output into a file under
+    ``log_dir``, and wait up to ``timeout`` seconds in all. If one fails or
+    the time runs out, kill every one still running and raise with the end
+    of each log; else return the logs."""
+    procs, paths = [], []
+    try:
+        for i, cmd in enumerate(cmds):
+            paths.append(f"{log_dir}/worker{i}.log")
+            with open(paths[-1], "w") as log:
+                procs.append(subprocess.Popen(cmd, env=env, stdout=log,
+                                              stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            codes = [p.poll() for p in procs]
+            if None not in codes or any(c not in (None, 0) for c in codes):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    logs = []
+    for path in paths:
+        with open(path) as f:
+            logs.append(f.read())
+    codes = [p.returncode for p in procs]
+    if codes != [0] * len(cmds):
+        tails = "\n".join(f"--- worker {i}, exit {c} ---\n{log[-4000:]}"
+                          for i, (c, log) in enumerate(zip(codes, logs)))
+        raise AssertionError(f"a worker failed or ran past {timeout:.0f} s and was killed:\n"
+                             f"{tails}")
+    return logs
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def process_worker(rank: int, port: str, cfg_path: str) -> int:
+    """One process of ``process_phase``'s gloo group (``chip_smoke.py
+    --process-worker RANK PORT CONFIG``): loads the models through
+    ``ReplicatedModelOps``, ``predict``s 1,048,576 rows (K6), builds the
+    mesh phase's tables, runs ``PROC_QUERIES``, S2 and Z1 on ``set_mesh(8)``
+    (4 shards here), config 5's step and ``run_data_parallel``, holds every
+    shard tensor and every collective's input and output to the device and
+    K2/K5 to no launch, and writes its rows, times and launches as JSON."""
+    import torch
+    import torch.distributed as dist
+
+    import infera_tpu_torch as itt
+    from infera_tpu_torch.ops import fused_sql as fs
+    from infera_tpu_torch.ops.fused_mlp import fused_mlp
+    from infera_tpu_torch.parallel import mesh as M
+    from infera_tpu_torch.parallel.distributed import ReplicatedModelOps, initialize
+    from infera_tpu_torch.registry import MODELS
+    from infera_tpu_torch.sql import Connection, shuffle_join_plan, streaming_plan
+    from infera_tpu_torch.testing import benchmarks as bm
+
+    t0 = time.perf_counter()
+    with open(cfg_path) as f:
+        cfg = json.load(f)
+    device = torch.device(cfg["device"])
+    cuda = device.type == "cuda"
+    itt.set_device(device)
+    streaming_plan.STREAM_MIN_ROWS, streaming_plan.CHUNK_ROWS = cfg["stream_min"], cfg["chunk"]
+    shuffle_join_plan.A_CHUNK_ROWS = cfg["a_chunk"]
+    check(initialize(f"127.0.0.1:{port}", cfg["world"], rank), "no process group")
+
+    def timed(fn, warm=True, runs=5):
+        """(the last run's result, median host-clock ms of ``runs`` runs,
+        each ended by a synchronise)."""
+        if warm:
+            fn()
+        times = []
+        for _ in range(runs):
+            t = time.perf_counter()
+            out = fn()
+            if cuda:
+                torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        return out, float(np.median(times))
+
+    crossed = []   # (input device, output device) of every collective between processes
+
+    def spy(name):
+        inner = getattr(M, name)
+
+        def wrapped(t, *args):
+            out = inner(t, *args)
+            crossed.append((t.device.type, out.device.type))
+            return out
+
+        setattr(M, name, wrapped)
+
+    for name in ("cross_all_reduce", "cross_all_gather", "cross_all_to_all"):
+        spy(name)
+
+    def shard_devices(conn) -> set:
+        seen = set()
+        for table in conn.catalog.tables.values():
+            for col in table.columns.values():
+                for _mesh, shards in col.__dict__.get("_mesh_shards", {}).values():
+                    seen.update(t.device.type for t in shards)
+        for _mesh, masks in conn.__dict__.get("_mesh_valid_cache", {}).values():
+            seen.update(t.device.type for t in masks)
+        return seen
+
+    def run(conn, q):
+        return conn.execute(q).rows, dict(conn._last_phases or {}), conn._exec_path
+
+    def k2() -> int:
+        return sum(fs.fused_sql.launches.values())
+
+    n = cfg["n_main"]
+    one = Connection()
+    for sql in (BIG_TABLE, TAIL_TABLE, DP_T):
+        one.execute(sql.format(n=n))
+    config3_tables(itt, one, n)
+    ops = ReplicatedModelOps()
+    for name in ("m", "mt", "mlp", "m3"):
+        ops.load(name, f"{cfg['models']}/{name}.onnx")
+    x = np.random.default_rng(1).standard_normal((n, 32)).astype(np.float32)
+    pred = itt.predict("mlp", x).data.reshape(n, 16)
+    t_tables = time.perf_counter() - t0
+
+    conn = Connection(one.catalog)
+    conn.set_mesh(MESH_SHARDS)
+    mesh = conn._mesh
+    per = MESH_SHARDS // cfg["world"]
+    check(mesh.world == cfg["world"] and mesh.local == list(range(rank * per, (rank + 1) * per)),
+          f"rank {rank} holds shards {mesh.local} of {mesh}")
+    check(mesh.transport == cfg["transport"], f"{mesh} is not on {cfg['transport']}")
+    check({d.type for d in mesh.devices.flat} == {device.type},
+          f"a shard is off the {device.type} device: {list(mesh.devices.flat)}")
+    out = {"rank": rank, "mesh": repr(mesh), "tables_s": t_tables, "queries": {},
+           "devices": sorted({str(d) for d in mesh.local_devices})}
+    queries = mesh_queries()
+    for key in PROC_QUERIES:
+        q, path, _tol = queries[key]
+        before, seen = k2(), len(crossed)
+        (rows, phases, got), ms = timed(lambda: run(conn, q))
+        check(got == path, f"process query {key} ran on {got}, not {path}")
+        check(k2() == before, f"process query {key} launched K2/K5 {k2() - before} times")
+        out["queries"][key] = {"rows": rows, "ms": ms, "phases": phases,
+                               "crossings": (len(crossed) - seen) / 6}
+    check(shard_devices(conn) == {device.type},
+          f"the mesh's shard tensors lie on {shard_devices(conn)}")
+
+    # S2: query A's MLP streamed over 4,206,649 rows
+    s2 = Connection()
+    s2.execute(BIG_TABLE.format(n=cfg["n_stream"]))
+    s2.set_mesh(MESH_SHARDS)
+    before = k2()
+    (rows, phases, got), ms = timed(lambda: run(s2, SQL_A))
+    check(got == "streaming_plan_mesh", f"S2 ran on {got}")
+    check(k2() == before, "S2 launched K2")
+    out["S2"] = {"rows": rows, "ms": ms, "phases": phases}
+    del s2
+
+    # Z1: config 5's shuffle join
+    z = Connection()
+    register_shuffle_tables(z, cfg["n_shuffle"])
+    z.set_mesh(MESH_SHARDS)
+    t = time.perf_counter()
+    first, first_phases, got = run(z, SQL_Z["Z1"])
+    if cuda:
+        torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t) * 1e3
+    check(got == "shuffle_join_mesh", f"Z1 ran on {got}")
+    (rows, phases, _got), ms = timed(lambda: run(z, SQL_Z["Z1"]), warm=False)
+    out["Z1"] = {"first_rows": first, "rows": rows, "first_ms": first_ms, "ms": ms,
+                 "first_phases": first_phases, "phases": phases}
+    del z
+
+    # config 5's distributed step and run_data_parallel of the config-2 MLP
+    c5 = bm.bench_config5_distributed(rows_per_dev=65_536, n_devices=MESH_SHARDS, device=device)
+    check(all(t.device.type == device.type for t in c5.output), "config 5's output left the card")
+    out["config5"] = {"output": [t.cpu().numpy().tolist() for t in c5.output],
+                      "ms": c5.seconds * 1e3, "detail": c5.detail}
+    model = MODELS.get("mlp")
+    got, dp_ms = timed(lambda: model.run_data_parallel(mesh, x)[0])
+    check(got.device.type == device.type, f"run_data_parallel's output is on {got.device}")
+    err = float(np.abs(got.cpu().numpy() - pred).max())
+    check(err <= 1e-5, f"run_data_parallel differs from predict by {err:.3e}")
+    _pred, predict_ms = timed(lambda: itt.predict("mlp", x))
+    out["dp"] = {"ms": dp_ms, "predict_ms": predict_ms, "err": err}
+
+    check(len(crossed) > 0 and set(crossed) == {(device.type, device.type)},
+          f"collectives across processes took or gave tensors off the {device.type} device: "
+          f"{sorted(set(crossed))}")
+    out["crossings"] = len(crossed)
+    out["launches"] = {"K6": fused_mlp.launches, "K2/K5": k2()}
+    out["seconds"] = time.perf_counter() - t0
+    with open(f"{cfg['out']}{rank}.json", "w") as f:
+        json.dump(out, f, default=lambda o: o.item())
+    dist.destroy_process_group()
+    print(f"process worker {rank}: done in {out['seconds']:.1f} s on the host clock (tables and "
+          f"models {t_tables:.1f} s); {len(crossed)} collectives across processes", flush=True)
+    return 0
+
+
+def nccl_wire_check(port: str, out_path: str) -> int:
+    """The NCCL transport in a one-rank group on the card (``chip_smoke.py
+    --nccl-check PORT OUT``): ``cross_all_reduce`` SUM/MIN/MAX,
+    ``cross_all_gather`` and ``cross_all_to_all`` on int64, float32, float64 and uint8 tensors on
+    ``"nccl"`` and on ``"gloo-pinned"`` (the group's gloo half), each equal
+    to the single-process result (a one-shard mesh's collective); and one
+    all_reduce of ``NCCL_WIRE_N`` f32 on each, timed."""
+    import torch
+    import torch.distributed as dist
+
+    from infera_tpu_torch.parallel import distributed as D
+    from infera_tpu_torch.parallel import mesh as M
+
+    dist.init_process_group(D.PG_BACKEND["nccl"], init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        dev = torch.device("cuda", 0)
+        local = M.make_mesh(1, device=dev)
+        rng = np.random.default_rng(5)
+        checks = 0
+        for dtype in (torch.int64, torch.float32, torch.float64, torch.uint8):
+            t = torch.as_tensor(rng.integers(0, 200, (257, 33))).to(device=dev, dtype=dtype)
+            want = {"SUM": M.psum(local, [t])[0], "MIN": M.pmin(local, [t])[0],
+                    "MAX": M.pmax(local, [t])[0], "gather": M.all_gather(local, [t])[0]}
+            for transport in ("nccl", "gloo-pinned"):
+                for op in ("SUM", "MIN", "MAX"):
+                    got = M.cross_all_reduce(t, op, transport)
+                    check(got.device == dev and torch.equal(got, want[op]),
+                          f"{transport} all_reduce {op} of {dtype} differs")
+                got = M.cross_all_gather(t, transport)
+                check(got.device == dev and torch.equal(got, want["gather"]),
+                      f"{transport} all_gather of {dtype} differs")
+                got = M.cross_all_to_all(t, transport)
+                check(got.device == dev and torch.equal(got, t),
+                      f"{transport} all_to_all_single of {dtype} differs")
+                checks += 5
+        x = torch.randn(NCCL_WIRE_N, device=dev)
+        ms = {tr: host_ms(torch, lambda tr=tr: M.cross_all_reduce(x, "SUM", tr), 20)
+              for tr in ("nccl", "gloo-pinned")}
+        with open(out_path, "w") as f:
+            json.dump({"checks": checks, "backend": dist.get_backend_config(), "ms": ms}, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def process_phase(torch, itt, device, ref: dict) -> dict:
+    """The process-group mesh on the card (ROADMAP P13c; torch ops, no K2
+    or K5 launch: the kernels line gains no row, K6's counts the workers'
+    ``predict`` launches). A one-rank NCCL group holds NCCL's wire
+    functions (``nccl_wire_check``); then ``PROC_WORLD`` processes share
+    the card in one gloo group (``process_worker``; the transport
+    ``gloo-pinned``, 4 of 8 global shards each): A, C, I, M, F and G-LEFT
+    over 1,048,576 rows, S2 and Z1, config 5's step and
+    ``run_data_parallel``. Each rank's rows equal the other's and the host
+    executor's at the query's limit (``ref``, from ``mesh_phase``, whose
+    one-process times are printed beside these), Z1's pairs exact, config
+    5's counts equal the one-process mesh's. Returns the launches to credit
+    to the kernel rows."""
+    import os
+
+    from infera_tpu_torch.onnx import builder, proto
+
+    t_phase = time.perf_counter()
+    card = nvidia_smi()
+    cuda = device.type == "cuda"
+    root = os.path.dirname(os.path.abspath(__file__))
+    script = os.path.join(root, "chip_smoke.py")
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               OMP_NUM_THREADS="4")
+    env.pop("INFERA_PALLAS_SQL", None)
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        if cuda:
+            run_workers([[sys.executable, "-u", script, "--nccl-check", str(free_port()),
+                          f"{d}/nccl.json"]], env, d, 120)
+            with open(f"{d}/nccl.json") as f:
+                nc = json.load(f)
+            print(f"process NCCL wire: one-rank group ({nc['backend']}) on cuda:0; all_reduce "
+                  f"SUM/MIN/MAX, all_gather and all_to_all_single on int64, float32, float64 "
+                  f"and uint8 over nccl and "
+                  f"gloo-pinned equal the single-process result ({nc['checks']} checks); "
+                  f"all_reduce of {NCCL_WIRE_N:,} f32 on one rank: nccl {nc['ms']['nccl']:.3f} "
+                  f"ms, gloo-pinned {nc['ms']['gloo-pinned']:.3f} ms (median of 20, host "
+                  f"clock); card {card}")
+        else:
+            print("process NCCL wire: not run (no card)")
+        for name, model in (("m", builder.mlp_model(in_dim=4, hidden=(32,), out_dim=1)),
+                            ("mt", builder.mlp_model(in_dim=4, hidden=(32,), out_dim=1,
+                                                     softmax=False)),
+                            ("mlp", builder.mlp_model(in_dim=32, hidden=(128, 128), out_dim=16,
+                                                      softmax=True)),
+                            ("m3", builder.mlp_model(in_dim=8, hidden=(), out_dim=4,
+                                                     softmax=False, seed=0))):
+            proto.save_model_file(model, f"{d}/{name}.onnx")
+        from infera_tpu_torch.sql import shuffle_join_plan as sjp
+        from infera_tpu_torch.sql import streaming_plan as sp
+
+        transport = "gloo-pinned" if cuda else "gloo"
+        cfg = {"device": device.type, "world": PROC_WORLD, "transport": transport,
+               "models": d, "out": f"{d}/rank", "n_main": N_MAIN,
+               "n_stream": N_STREAM_MODEL, "n_shuffle": N_SHUFFLE,
+               "stream_min": sp.STREAM_MIN_ROWS, "chunk": sp.CHUNK_ROWS,
+               "a_chunk": sjp.A_CHUNK_ROWS}
+        with open(f"{d}/cfg.json", "w") as f:
+            json.dump(cfg, f)
+        port = free_port()
+        t = time.perf_counter()
+        logs = run_workers([[sys.executable, "-u", script, "--process-worker", str(r), str(port),
+                             f"{d}/cfg.json"] for r in range(PROC_WORLD)], env, d,
+                           PROC_TIMEOUT_S)
+        workers_s = time.perf_counter() - t
+        res = []
+        for r in range(PROC_WORLD):
+            with open(f"{d}/rank{r}.json") as f:
+                res.append(json.load(f))
+    for r, log in enumerate(logs):
+        done = [line for line in log.splitlines() if line.startswith("process worker")]
+        print(f"process rank {r}: {res[r]['mesh']} on {res[r]['devices']}; {done[-1]}")
+    r0 = res[0]
+    per = MESH_SHARDS // PROC_WORLD
+    where = f"{PROC_WORLD} processes x {per} shards on {r0['devices']} ({transport})"
+
+    def same_ranks(key, get):
+        check(all(get(r) == get(r0) for r in res[1:]), f"process {key}: the ranks' rows differ")
+
+    def ms_of(get) -> str:
+        return " / ".join(f"{get(r):.3f}" for r in res)
+
+    queries = mesh_queries()
+    for key in PROC_QUERIES:
+        same_ranks(key, lambda r: r["queries"][key]["rows"])
+        q0 = r0["queries"][key]
+        worst = compare_rows(key, q0["rows"], ref[key]["host"], queries[key][2])
+        ph = q0["phases"]
+        share = ph.get("mesh_exchange_ms", 0.0) / max(ph.get("mesh_exec_ms", 0.0), 1e-9)
+        print(f"process {key} {queries[key][1]}: {where}: median "
+              f"{ms_of(lambda r: r['queries'][key]['ms'])} ms of 5 (rank 0 / rank 1, host "
+              f"clock); one-process 8-shard mesh {ref[key]['ms']:.3f} ms; exchange "
+              f"{100 * share:.1f} % of mesh_exec_ms (one process {100 * ref[key]['share']:.1f} "
+              f"%); {q0['crossings']:.0f} collectives across processes an execution; rows equal "
+              f"the host's (worst rel {worst:.3e}) and across ranks; K2/K5 launches 0; "
+              f"card {card}")
+        print(f"process {key} phases (rank 0): {ph}")
+    same_ranks("S2", lambda r: r["S2"]["rows"])
+    worst = compare_rows("S2", r0["S2"]["rows"], ref["S2"]["host"], SQL_TOL["A"])
+    print(f"process S2 streaming_plan_mesh ({N_STREAM_MODEL:,} rows): {where}: median "
+          f"{ms_of(lambda r: r['S2']['ms'])} ms of 5; one-process mesh {ref['S2']['ms']:.3f} ms; "
+          f"rows equal the host's (worst rel {worst:.3e}) and across ranks; phases (rank 0) "
+          f"{r0['S2']['phases']}; card {card}")
+    z = r0["Z1"]
+    same_ranks("Z1", lambda r: (r["Z1"]["first_rows"], r["Z1"]["rows"]))
+    want = ref["Z1"]["want"]
+    worst = max(compare_rows("Z1", z["first_rows"], want, (None, 1e-9, 1e-9)),
+                compare_rows("Z1", z["rows"], want, (None, 1e-9, 1e-9)))
+    ph = z["phases"]
+    share = ph.get("mesh_exchange_ms", 0.0) / max(ph.get("a_stream_ms", 0.0), 1e-9)
+    print(f"process Z1 shuffle_join_mesh ({N_SHUFFLE:,} rows a side): {where}: first "
+          f"{ms_of(lambda r: r['Z1']['first_ms'])} ms, median {ms_of(lambda r: r['Z1']['ms'])} ms "
+          f"of 5 after it; one-process mesh {ref['Z1']['ms']:.3f} ms; {z['rows'][0][0]:,} pairs "
+          f"exact, sums within 1e-9 of the oracle (worst rel {worst:.3e}); the A pass's "
+          f"exchange {100 * share:.1f} % of "
+          f"a_stream_ms; phases (rank 0) {ph}; card {card}")
+    same_ranks("config 5", lambda r: r["config5"]["output"])
+    sums, counts, total = (np.asarray(v) for v in r0["config5"]["output"])
+    one_sums, one_counts, one_total = ref["config5"]["output"]
+    check(np.array_equal(counts, one_counts) and float(total) == float(one_total),
+          "config 5: the processes select other rows than the one-process mesh")
+    np.testing.assert_allclose(sums, one_sums, rtol=1e-5, atol=1e-5)
+    print(f"process config5_distributed_8dev: {where}: "
+          f"{ms_of(lambda r: r['config5']['ms'])} ms a step (the harness's timer); one-process "
+          f"mesh {ref['config5']['ms']:.3f} ms; counts and total equal the one-process mesh's, "
+          f"sums within 1e-5; card {card}")
+    print(f"process run_data_parallel of the 32-128-128-16 softmax MLP over {N_MAIN:,} rows: "
+          f"{where}: {ms_of(lambda r: r['dp']['ms'])} ms (median of 5); one-process mesh "
+          f"{ref['dp']['ms']:.3f} ms; each rank's predict (K6) "
+          f"{ms_of(lambda r: r['dp']['predict_ms'])} ms; max abs difference "
+          f"{max(r['dp']['err'] for r in res):.3e}; card {card}")
+    k6 = [r["launches"]["K6"] for r in res]
+    check(all(r["launches"]["K2/K5"] == 0 for r in res), "a worker launched K2 or K5")
+    if cuda:
+        check(all(k > 0 for k in k6), f"K6 launches by rank {k6}: a worker did not launch it")
+    print(f"process phase: {time.perf_counter() - t_phase:.1f} s on the host clock (workers "
+          f"{workers_s:.1f} s); K6 launches by rank {k6}, K2/K5 0; "
+          f"{sum(r['crossings'] for r in res)} collectives across processes, every input and "
+          f"output on {device.type}")
+    return {"K6 fused_mlp": sum(k6)}
 
 
 PAR_SHARDS = 8              # logical shards of the parallel phase, all on cuda:0
@@ -4386,14 +4819,16 @@ def main() -> int:
     onnx_phase(torch, itt, device)
     onnx_rest_phase(torch, itt, device)
     stream_phase(torch, itt, device)
-    mesh_phase(torch, itt, device)
+    mesh_ref = mesh_phase(torch, itt, device)
+    processes = process_phase(torch, itt, device, mesh_ref)
     parallel_phase(torch, itt, device)
     surface = surface_phase(torch, itt, device)
     names = {row["name"] for row in rows}
-    check(set(surface) <= names, f"surface launches credited to rows {set(surface) - names} "
-          f"that the kernels line lacks")
-    for row in rows:
-        row["launches"] += surface.get(row["name"], 0)
+    for credited in (processes, surface):
+        check(set(credited) <= names, f"launches credited to rows {set(credited) - names} "
+              f"that the kernels line lacks")
+        for row in rows:
+            row["launches"] += credited.get(row["name"], 0)
 
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
@@ -4403,4 +4838,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--process-worker"]:
+        sys.exit(process_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
+    if sys.argv[1:2] == ["--nccl-check"]:
+        sys.exit(nccl_wire_check(sys.argv[2], sys.argv[3]))
     sys.exit(main())

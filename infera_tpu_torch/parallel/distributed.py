@@ -3,10 +3,13 @@ registry, failure recovery.
 
 Counterpart of ``infera_tpu/parallel/distributed.py``:
 
-- ``initialize()``: ``torch.distributed`` process-group bring-up with the
-  gloo backend (a no-op for one process). The caller gives the address
-  (``tcp://host:port``), the world size and the rank; nothing is read from
-  a cluster.
+- ``initialize()``: ``torch.distributed`` process-group bring-up (a no-op
+  for one process). The caller gives the address (``tcp://host:port``), the
+  world size and the rank; nothing is read from a cluster. It picks the
+  transport a CUDA mesh's collectives cross processes by
+  (``choose_transport``): NCCL where every process of the host owns a card,
+  else gloo through pinned host buffers (two processes on one card), and
+  gloo on the CPU.
 - ``ReplicatedModelOps``: the registry control plane. Queries execute on
   every process (the same statement stream), so load/unload/autoload apply
   on every process; rank 0's op is broadcast and every rank checks its own
@@ -20,6 +23,7 @@ Counterpart of ``infera_tpu/parallel/distributed.py``:
 from __future__ import annotations
 
 import json
+import os
 import threading
 import time
 from dataclasses import dataclass, field
@@ -31,19 +35,80 @@ from .. import api, log
 from ..errors import InferaError
 
 
+# each transport and the process group it runs in: NCCL moves the mesh's
+# CUDA tensors and gloo the control plane's CPU tensors (``_broadcast_ops``),
+# so an NCCL group is torch's two-backend group, never NCCL alone
+PG_BACKEND = {"gloo": "gloo", "gloo-pinned": "gloo", "nccl": "cpu:gloo,cuda:nccl"}
+
+_GROUP: tuple | None = None   # (processes of the host, transport) of initialize's group
+
+
+def choose_transport(device_type: str, local_world: int, n_cards: int) -> str:
+    """The transport of a process group's collectives (a key of
+    ``PG_BACKEND``): ``"gloo"`` on the CPU; on CUDA ``"nccl"`` when each of
+    the host's ``local_world`` processes can own one of its ``n_cards``
+    cards, else ``"gloo-pinned"`` (gloo over pinned host copies of the
+    card's tensors). CUDA without a card raises; nothing falls back."""
+    if device_type != "cuda":
+        return "gloo"
+    if n_cards < 1:
+        raise RuntimeError("a process group on CUDA needs a CUDA card; torch sees none")
+    return "nccl" if local_world <= n_cards else "gloo-pinned"
+
+
+def card_of(local_rank: int, local_world: int, n_cards: int) -> int:
+    """The card of the host's process ``local_rank``: its own where every
+    process has one, else a share of one, neighbouring ranks together."""
+    if local_world <= n_cards:
+        return local_rank
+    return local_rank * n_cards // local_world
+
+
+def local_world(world: int) -> int:
+    """The processes of this host: ``LOCAL_WORLD_SIZE``, else all ``world``
+    (one host). A host's ranks are consecutive, as torchrun numbers them,
+    so process ``rank``'s local rank is ``rank % local_world``."""
+    return int(os.environ.get("LOCAL_WORLD_SIZE", world))
+
+
+def group_layout() -> tuple:
+    """(processes of the host, transport) of the group ``initialize``
+    brought up; raises where it brought up none."""
+    if _GROUP is None:
+        raise RuntimeError("a CUDA mesh across processes needs the process group that "
+                           "parallel.distributed.initialize() brings up")
+    return _GROUP
+
+
 def initialize(coordinator_address: str | None = None, num_processes: int | None = None,
                process_id: int | None = None) -> bool:
-    """``torch.distributed.init_process_group("gloo", ...)`` when
-    ``num_processes > 1`` (``coordinator_address`` as ``host:port`` or a
-    ``tcp://`` URL); returns True if a multi-process group is live."""
+    """``torch.distributed.init_process_group`` when ``num_processes > 1``
+    (``coordinator_address`` as ``host:port`` or a ``tcp://`` URL), on the
+    transport ``choose_transport`` picks for the port's device
+    (``get_device()``), the processes of this host (``local_world``) and
+    its cards, recorded for ``make_mesh`` (``group_layout``). On CUDA the
+    process's current card becomes its own (``card_of``). Returns True if a
+    multi-process group is live."""
     import torch.distributed as dist
 
+    global _GROUP
     if num_processes is not None and num_processes > 1:
+        from ..device import get_device
+
+        device = get_device()
+        per_host = local_world(num_processes)
+        n_cards = torch.cuda.device_count() if device.type == "cuda" else 0
+        transport = choose_transport(device.type, per_host, n_cards)
+        if device.type == "cuda":
+            torch.cuda.set_device(card_of(process_id % per_host, per_host, n_cards))
         addr = coordinator_address or ""
         if "://" not in addr:
             addr = f"tcp://{addr}"
-        dist.init_process_group("gloo", init_method=addr, world_size=num_processes,
-                                rank=process_id)
+        dist.init_process_group(PG_BACKEND[transport], init_method=addr,
+                                world_size=num_processes, rank=process_id)
+        _GROUP = per_host, transport
+        log.info(f"process {process_id} of {num_processes} ({per_host} on this host): transport "
+                 f"{transport}, process group {PG_BACKEND[transport]}")
         return True
     return dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1
 
@@ -60,8 +125,9 @@ _BCAST_BUF = 1 << 16
 def _broadcast_ops(ops: list) -> list:
     """Replication consistency guard. Every process runs the same statement
     stream, so each reaches this point with the same op. Rank 0's op is
-    broadcast (JSON in a fixed uint8 buffer) and every rank checks that its
-    own op matches before applying, catching divergent registries early."""
+    broadcast (JSON in a fixed uint8 buffer, a CPU tensor: gloo moves it,
+    in an NCCL group too) and every rank checks that its own op matches
+    before applying, catching divergent registries early."""
     if _world() <= 1:
         return ops
     import torch.distributed as dist

@@ -19,17 +19,21 @@ lists. Axes:
 ``make_mesh(n)`` places shard ``i`` on ``cuda:(i % torch.cuda.device_count())``
 on CUDA, so on one card every shard shares ``cuda:0``: logical shards, as
 ``infera_tpu``'s tests run 8 virtual CPU devices on one host. On the CPU
-every shard is ``cpu``. A CUDA mesh never falls back to the CPU.
+every shard is ``cpu``. A CUDA mesh never falls back to the CPU, and on a
+machine without a card it raises.
 
 Between shards of one process a collective is index operations (and
 ``.to(dst, non_blocking=True)`` copies between cards). Where
 ``parallel/distributed.initialize`` built a process group, each process holds
-``n / world`` consecutive shards: a collective first reduces or stacks over
-its local shards, then runs once across processes through
-``torch.distributed`` (gloo, on CPU tensors): ``all_reduce`` with SUM, MIN or
-MAX, ``all_gather``, ``all_to_all_single``. A process group over CUDA
-tensors needs NCCL and one card a process (ROADMAP P13c,
-blocked on a one-card machine): it raises.
+``n / world`` consecutive shards, all on its own card
+(``distributed.card_of``): a collective first reduces or stacks over its
+local shards, then runs once across processes through ``torch.distributed``
+(``all_reduce`` with SUM, MIN or MAX, ``all_gather``, ``all_to_all_single``)
+on the mesh's ``transport``: ``"gloo"`` for a CPU mesh; for a CUDA mesh
+``"nccl"`` in an NCCL group (one card a process) or ``"gloo-pinned"`` in a
+gloo group (processes that share a card), which moves pinned host copies of
+the card's tensors. ``to_wire`` and ``from_wire`` put a tensor into the
+transport's form and take it back out.
 
 ``psum``, ``all_gather``, ``all_to_all`` and ``ppermute`` take ``axis``:
 ``"dp"`` (over a dp list; the default but for ``ppermute``, as the mesh plan,
@@ -58,14 +62,6 @@ def _process_group():
     return 1, 0
 
 
-def _no_cuda_group(device: torch.device) -> None:
-    if device.type == "cuda":
-        raise NotImplementedError(
-            "a mesh across processes runs gloo collectives on CPU tensors; a CUDA mesh "
-            "across processes needs NCCL and one card a process (ROADMAP P13c, "
-            "blocked on a one-card machine)")
-
-
 class Mesh:
     """A ``(dp, mp)`` grid of devices with ``axis_names`` and a ``shape``
     mapping (``mesh.shape["dp"]``), as ``jax.sharding.Mesh``.
@@ -74,19 +70,23 @@ class Mesh:
     a process group), ``local_devices`` the devices of their ``mp`` column
     0 (where a dp list lives), ``local_grid`` the devices of every local
     ``(dp, mp)`` shard in row-major order (where a grid list lives) and
-    ``n_physical`` the distinct devices the whole mesh spans."""
+    ``n_physical`` the distinct devices the whole mesh spans (a process's
+    CPU, or a host's card). ``transport`` says how a collective crosses
+    processes: ``"local"`` without a process group, else ``"gloo"``,
+    ``"gloo-pinned"`` or ``"nccl"``."""
 
-    def __init__(self, devices: np.ndarray, world: int = 1, rank: int = 0):
+    def __init__(self, devices: np.ndarray, world: int = 1, rank: int = 0,
+                 transport: str = "local", n_physical: int | None = None):
         self.devices = devices
         self.axis_names = AXES
         dp, mp = devices.shape
         self.shape = {"dp": dp, "mp": mp}
-        self.world, self.rank = world, rank
+        self.world, self.rank, self.transport = world, rank, transport
         per = dp // world
         self.local = list(range(rank * per, (rank + 1) * per))
         self.local_devices = [devices[i, 0] for i in self.local]
         self.local_grid = [devices[i, j] for i in self.local for j in range(mp)]
-        self.n_physical = len({str(d) for d in devices.flat}) * world
+        self.n_physical = n_physical or len({str(d) for d in devices.flat})
 
     @property
     def distributed(self) -> bool:
@@ -94,7 +94,8 @@ class Mesh:
 
     def __repr__(self) -> str:
         return (f"Mesh(dp={self.shape['dp']}, mp={self.shape['mp']}, "
-                f"devices={self.n_physical} physical, processes={self.world})")
+                f"devices={self.n_physical} physical, processes={self.world}, "
+                f"transport={self.transport})")
 
 
 def make_mesh(n_devices: int | None = None, mp: int = 1, device=None) -> Mesh:
@@ -102,15 +103,16 @@ def make_mesh(n_devices: int | None = None, mp: int = 1, device=None) -> Mesh:
     ``get_device()``): on CUDA shard ``i`` on ``cuda:(i % device_count)``,
     on the CPU every shard on ``cpu``. Under a process group the mesh is
     global: ``n_devices`` shards over all processes, ``n_devices / world``
-    of them here (gloo, so the CPU only). ``n_devices`` defaults to the
-    physical devices of all processes."""
+    of them here, on this process's card on CUDA. ``n_devices`` defaults to
+    the cards of one process (one for each process under a group)."""
     device = torch.device(device) if device is not None else get_device()
     world, rank = _process_group()
-    if world > 1:
-        _no_cuda_group(device)
     phys = torch.cuda.device_count() if device.type == "cuda" else 1
+    if phys < 1:
+        raise RuntimeError("a CUDA mesh needs a CUDA card and torch sees none; "
+                           "make_mesh(device='cpu') builds a CPU mesh")
     if n_devices is None:
-        n_devices = phys * world
+        n_devices = world if world > 1 else phys
     if n_devices < 1:
         raise ValueError(f"a mesh needs at least one shard, not {n_devices}")
     if n_devices % mp != 0:
@@ -118,14 +120,30 @@ def make_mesh(n_devices: int | None = None, mp: int = 1, device=None) -> Mesh:
     dp = n_devices // mp
     if dp % world != 0:
         raise ValueError(f"dp {dp} not divisible by the {world} processes of the group")
-    if device.type == "cuda":
+    transport, n_physical = "local", None
+    if device.type == "cpu":
+        devs = [torch.device("cpu")] * n_devices
+        if world > 1:
+            transport, n_physical = "gloo", world
+    elif world == 1:
         devs = [torch.device("cuda", i % phys) for i in range(n_devices)]
     else:
-        devs = [torch.device("cpu")] * n_devices
+        from . import distributed as D
+
+        # every process lays out the same global grid: process p's shards
+        # on p's card, the card initialize made current there
+        per_host, transport = D.group_layout()
+        if transport not in ("nccl", "gloo-pinned"):
+            raise RuntimeError(f"the process group moves CPU tensors ({transport}); a CUDA mesh "
+                               f"across processes needs initialize() with the device on CUDA")
+        cards = [D.card_of(p % per_host, per_host, phys) for p in range(world)]
+        per = n_devices // world
+        devs = [torch.device("cuda", cards[i // per]) for i in range(n_devices)]
+        n_physical = len({(p // per_host, c) for p, c in enumerate(cards)})
     grid = np.empty((dp, mp), dtype=object)
     for i, d in enumerate(devs):
         grid[i // mp, i % mp] = d
-    return Mesh(grid, world, rank)
+    return Mesh(grid, world, rank, transport, n_physical)
 
 
 def local_rows(n: int, dp: int) -> int:
@@ -233,10 +251,72 @@ def _groups(mesh: Mesh, xs: list, axis: str) -> list:
             for r in range(len(mesh.local))]
 
 
-def _cross(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
-    """A tensor ready for a gloo collective: on the CPU, contiguous."""
-    _no_cuda_group(t.device)
-    return t.contiguous()
+def _wire_empty(shape, dtype, device, transport: str) -> torch.Tensor:
+    if transport == "gloo-pinned":
+        return torch.empty(shape, dtype=dtype, pin_memory=True)
+    return torch.empty(shape, dtype=dtype, device=device)
+
+
+def to_wire(t: torch.Tensor, transport: str) -> torch.Tensor:
+    """``t`` in the form ``transport`` moves, contiguous, bool as uint8
+    (neither gloo nor NCCL moves bool): under ``"gloo"`` a CPU tensor and
+    under ``"nccl"`` a CUDA one, as they are; under ``"gloo-pinned"`` a copy
+    of the card's tensor in a pinned host buffer, complete when this returns
+    (the stream that wrote ``t`` is synchronised after the copy is queued on
+    it), so gloo never reads the buffer before the card has filled it."""
+    want = {"gloo": "cpu", "nccl": "cuda", "gloo-pinned": "cuda"}[transport]
+    if t.device.type != want:
+        raise RuntimeError(f"the {transport} transport moves {want} tensors, not "
+                           f"{t.device.type} ones")
+    if t.dtype == torch.bool:
+        t = t.to(torch.uint8)
+    if transport != "gloo-pinned":
+        return t.contiguous()
+    buf = _wire_empty(t.shape, t.dtype, None, transport)
+    buf.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(t.device).synchronize()
+    return buf
+
+
+def from_wire(w: torch.Tensor, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A tensor off the wire as ``dtype`` on ``device``. A pinned buffer's
+    copy to the card is queued without waiting: torch's pinned allocator
+    records the copy and hands the buffer out again only after it ran."""
+    return w.to(device, non_blocking=True).to(dtype)
+
+
+def cross_all_reduce(t: torch.Tensor, op: str, transport: str) -> torch.Tensor:
+    """``t`` reduced by ``op`` (SUM, MIN, MAX) over the processes of the
+    group, on ``t``'s device in its dtype; ``t`` is left as it was."""
+    import torch.distributed as dist
+
+    w = to_wire(t, transport)
+    if w.data_ptr() == t.data_ptr():
+        w = w.clone()   # the reduction writes its buffer: not the caller's tensor
+    dist.all_reduce(w, op=getattr(dist.ReduceOp, op))
+    return from_wire(w, t.dtype, t.device)
+
+
+def cross_all_gather(t: torch.Tensor, transport: str) -> torch.Tensor:
+    """Every process's ``t`` (the same shape on each) concatenated along
+    axis 0 in rank order, on ``t``'s device."""
+    import torch.distributed as dist
+
+    w = to_wire(t, transport)
+    out = _wire_empty((dist.get_world_size(),) + tuple(w.shape), w.dtype, w.device, transport)
+    dist.all_gather(list(out.unbind(0)), w)
+    return from_wire(out.flatten(0, 1) if w.dim() else out, t.dtype, t.device)
+
+
+def cross_all_to_all(send: torch.Tensor, transport: str) -> torch.Tensor:
+    """``all_to_all_single``: row ``p`` of ``send`` ``[world, ...]`` goes to
+    process ``p``; row ``q`` of the result came from process ``q``."""
+    import torch.distributed as dist
+
+    w = to_wire(send, transport)
+    recv = _wire_empty(w.shape, w.dtype, w.device, transport)
+    dist.all_to_all_single(recv, w)
+    return from_wire(recv, send.dtype, send.device)
 
 
 def _all_reduce(mesh: Mesh, xs: list, local_op, dist_op: str, axis: str) -> list:
@@ -246,12 +326,7 @@ def _all_reduce(mesh: Mesh, xs: list, local_op, dist_op: str, axis: str) -> list
         for x in group[1:]:
             acc = local_op(acc, x.to(acc.device, non_blocking=True))
         if axis == "dp" and mesh.distributed:
-            import torch.distributed as dist
-
-            is_bool = acc.dtype == torch.bool
-            t = _cross(mesh, acc.to(torch.uint8) if is_bool else acc.clone())
-            dist.all_reduce(t, op=getattr(dist.ReduceOp, dist_op))
-            acc = t.bool() if is_bool else t
+            acc = cross_all_reduce(acc, dist_op, mesh.transport)
         out += [acc.to(d, non_blocking=True) for d in devs]
     return out
 
@@ -283,12 +358,7 @@ def all_gather(mesh: Mesh, xs: list, axis: str = "dp") -> list:
         dev0 = group[0].device
         acc = torch.cat([x.to(dev0, non_blocking=True) for x in group])
         if axis == "dp" and mesh.distributed:
-            import torch.distributed as dist
-
-            t = _cross(mesh, acc.to(torch.uint8) if acc.dtype == torch.bool else acc)
-            parts = [torch.empty_like(t) for _ in range(mesh.world)]
-            dist.all_gather(parts, t)
-            acc = torch.cat(parts).to(acc.dtype)
+            acc = cross_all_gather(acc, mesh.transport)
         out += [acc.to(d, non_blocking=True) for d in devs]
     return out
 
@@ -315,18 +385,11 @@ def all_to_all(mesh: Mesh, xs: list, axis: str = "dp") -> list:
                 out += [torch.stack([x[j].to(dst, non_blocking=True) for x in group])
                         for j, dst in enumerate(devs)]
         return out
-    import torch.distributed as dist
-
     L, P = len(xs), mesh.world
     tail = tuple(xs[0].shape[1:])
-    dtype = xs[0].dtype
     stacked = torch.stack(xs).reshape((L, P, L) + tail)   # [local src, process, local dst]
-    if dtype == torch.bool:
-        stacked = stacked.to(torch.uint8)                  # gloo moves no bool
-    send = _cross(mesh, stacked.transpose(0, 1))
-    recv = torch.empty_like(send)                          # [process src, local src, local dst]
-    dist.all_to_all_single(recv, send)
-    recv = recv.reshape((P * L, L) + tail).to(dtype)
+    recv = cross_all_to_all(stacked.transpose(0, 1), mesh.transport)
+    recv = recv.reshape((P * L, L) + tail)                  # [process src, local src, local dst]
     return [recv[:, j].to(d, non_blocking=True) for j, d in enumerate(mesh.local_devices)]
 
 

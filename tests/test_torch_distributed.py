@@ -153,11 +153,13 @@ GROUP_WORKER = PRELUDE + textwrap.dedent("""
     assert float(total[0]) == 3.0, total
     gathered = M.all_gather(mesh, [torch.tensor([pid, 10 + pid])])[0]
     assert gathered.tolist() == [0, 10, 1, 11], gathered
+    assert mesh.transport == "gloo" and "transport=gloo" in repr(mesh), mesh
+    torch.cuda.device_count = lambda: 0   # a machine without a card, wherever this runs
     try:
-        M.make_mesh(2, device="cuda")
-        raise AssertionError("a CUDA mesh across processes was built")
-    except NotImplementedError as e:
-        assert "P13c" in str(e), e
+        bad = M.make_mesh(2, device="cuda")
+        raise AssertionError(f"a CUDA mesh without a card: {list(bad.devices.flat)}")
+    except RuntimeError as e:
+        assert "needs a CUDA card" in str(e), e
     ops.unload("m")
     assert not itt.is_model_loaded("m")
     print(f"proc{pid} OK", flush=True)
@@ -299,8 +301,9 @@ def _spawn(tmp_path, name, source, extra, timeout):
 
 
 def test_two_process_group(tmp_path, model_dir):
-    """The replicated registry, a cross-process psum and all_gather, and the
-    refusal of a CUDA mesh across processes (ROADMAP P13c)."""
+    """The replicated registry, a cross-process psum and all_gather on the
+    gloo transport, and the clear refusal of a CUDA mesh on a machine
+    without a card (no CPU shards)."""
     codes, outputs = _spawn(tmp_path, "group", GROUP_WORKER, [model_dir], 150)
     assert codes == [0, 0], "\n".join(outputs)
     assert "proc0 OK" in outputs[0] and "proc1 OK" in outputs[1]
