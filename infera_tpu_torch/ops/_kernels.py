@@ -21,6 +21,8 @@ from pathlib import Path
 
 import torch
 
+from .. import observability as obs
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "_build"
@@ -195,7 +197,8 @@ def load(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             if _stale(name):
-                _finish(name, *_start(name))
+                with obs.span("build"):
+                    _finish(name, *_start(name))
             lib = ctypes.CDLL(str(_lib_path(name)))
             for fn, argtypes in _SIGNATURES[name].items():
                 getattr(lib, fn).argtypes = argtypes

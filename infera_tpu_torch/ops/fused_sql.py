@@ -87,6 +87,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from .. import observability as obs
 from . import _kernels
 from .fused_mlp import ACT_STRIDE, MAX_LAYERS, SMEM_LIMIT, pad8
 from .fused_query import (TWO_BLOCK_SMEM, QueryWeights, mma_blob_bytes, mma_tile_bytes,
@@ -1279,20 +1280,27 @@ def execute_fused_plan(packed: PackedPlan, xc: torch.Tensor, n_valid: int,
     and ``argrids`` [G] int64 per arg slot (-1: empty). None when a key
     reached |value| >= 2**24 (past f32's exact integers two keys could share
     a bucket unseen) or an arg slot met a NaN (the host's order lets a NaN
-    win only as its group's first row): the host executor answers."""
+    win only as its group's first row): the host executor answers.
+
+    Spans: ``launch`` (the kernel's launch, or its plain version), ``wait``
+    (the first read-back, which waits for the card to run the launch) and
+    ``copy`` (the other read-backs and the fold)."""
     plan = packed.plan
-    res = fused_sql(packed, xc, n_valid, dim_xc, int_xc)
-    flags = int(res["flags"].cpu()[0])
+    with obs.span("launch"):
+        res = fused_sql(packed, xc, n_valid, dim_xc, int_xc)
+    with obs.span("wait"):
+        flags = int(res["flags"].cpu()[0])
     K, M, X, D = len(plan.keys), len(plan.mins), len(plan.maxs), len(plan.dists)
     if flags >> K & 1 or flags >> (K + 1 + D) & ((1 << len(plan.args)) - 1):
         return None
-    count = res["count"].cpu().numpy()
-    sums = res["sums"].cpu().numpy()
-    mm = res["mm"].cpu().numpy()
-    ints = res["ints"].cpu().numpy()
-    iest = res["iest"].cpu().numpy()
-    dists = [tuple(a.cpu().numpy() for a in f) for f in fold_dists(plan, res["dist"])]
-    rids = arg_rows(plan, res["args"]).cpu().numpy() if plan.args else []
+    with obs.span("copy"):
+        count = res["count"].cpu().numpy()
+        sums = res["sums"].cpu().numpy()
+        mm = res["mm"].cpu().numpy()
+        ints = res["ints"].cpu().numpy()
+        iest = res["iest"].cpu().numpy()
+        dists = [tuple(a.cpu().numpy() for a in f) for f in fold_dists(plan, res["dist"])]
+        rids = arg_rows(plan, res["args"]).cpu().numpy() if plan.args else []
     zeros = np.zeros(plan.n_groups, np.float64)
     est_of = {i: iest[j] for j, i in enumerate(plan.int_sums)}
     return {

@@ -61,6 +61,7 @@ import time
 import numpy as np
 import torch
 
+from .. import observability as obs
 from ..columnar import Column, Table
 from ..columnar import types as T
 from ..device import get_device
@@ -749,7 +750,8 @@ def _packed(conn, plan_key, plan: FS.FusedPlan, block_xc, lookup=None,
         conn._device_plan_cache = cache
     ent = cache.get(plan_key)
     if ent is None:
-        ent = (block_xc, FS.pack_plan(plan, block_xc.device, lookup), dim_xc, int_xc)
+        with obs.span("pack"):
+            ent = (block_xc, FS.pack_plan(plan, block_xc.device, lookup), dim_xc, int_xc)
         if len(cache) >= 16:
             cache.pop(next(iter(cache)))
         cache[plan_key] = ent  # the VALUE pins the blocks its rows address
@@ -760,21 +762,11 @@ def _packed(conn, plan_key, plan: FS.FusedPlan, block_xc, lookup=None,
 _TRIPPED = object()
 
 
-def _try_cuda_fused(conn, sel, table, n, n_groups, strides, agg_plans, items_plan,
-                    having_aggs, plan_key, block, dist_domains):
-    """Lower the fused plan onto K2's slots, as ``infera_tpu``'s
-    ``_try_pallas_fused`` lowers it onto its Pallas kernel, and run it.
-    Returns the _assemble_result 5-tuple; None when K2 declines the plan
-    (an aggregate outside ``_KERNEL_AGGS``, an expression or model it does
-    not lower, group count, value domain, column cap, shared-memory budget,
-    a MODE that ties in a live group), and the torch program runs it;
-    ``_TRIPPED`` when a key reached past f32's exact integers or an arg
-    slot met a NaN, and the host executor answers. A kernel that fails to
-    build or launch raises."""
-    if not 1 <= n_groups <= FS.MAX_GROUPS:
-        return None
-    if any(p[0] not in _KERNEL_AGGS for p in agg_plans):
-        return None
+def _lower_onto_k2(conn, sel, table, n_groups, strides, agg_plans, items_plan, having_aggs,
+                   plan_key, block, dist_domains):
+    """``_try_cuda_fused``'s plan on K2's slots, packed (``_packed``, cached by
+    plan key): (packed plan, int block or None, each aggregate's slot), or
+    None where K2 declines the plan."""
     low = _ProgramLowerer(table)
     sums: list = []
     mins: list = []
@@ -847,8 +839,31 @@ def _try_cuda_fused(conn, sel, table, n, n_groups, strides, agg_plans, items_pla
     if not FS.smem_fits(plan):
         return None
     int_xc = get_int_block(table, xc.device, int_keys) if int_keys else None
-    packed = _packed(conn, plan_key, plan, xc, int_xc=int_xc)
-    res = FS.execute_fused_plan(packed, xc, n, int_xc=int_xc)
+    return _packed(conn, plan_key, plan, xc, int_xc=int_xc), int_xc, slot_map
+
+
+def _try_cuda_fused(conn, sel, table, n, n_groups, strides, agg_plans, items_plan,
+                    having_aggs, plan_key, block, dist_domains):
+    """Lower the fused plan onto K2's slots, as ``infera_tpu``'s
+    ``_try_pallas_fused`` lowers it onto its Pallas kernel, and run it.
+    Returns the _assemble_result 5-tuple; None when K2 declines the plan
+    (an aggregate outside ``_KERNEL_AGGS``, an expression or model it does
+    not lower, group count, value domain, column cap, shared-memory budget,
+    a MODE that ties in a live group), and the torch program runs it;
+    ``_TRIPPED`` when a key reached past f32's exact integers or an arg
+    slot met a NaN, and the host executor answers. A kernel that fails to
+    build or launch raises."""
+    if not 1 <= n_groups <= FS.MAX_GROUPS:
+        return None
+    if any(p[0] not in _KERNEL_AGGS for p in agg_plans):
+        return None
+    with obs.span("lower"):
+        lowered = _lower_onto_k2(conn, sel, table, n_groups, strides, agg_plans, items_plan,
+                                 having_aggs, plan_key, block, dist_domains)
+    if lowered is None:
+        return None
+    packed, int_xc, slot_map = lowered
+    res = FS.execute_fused_plan(packed, block[0], n, int_xc=int_xc)
     if res is None:
         return _TRIPPED
     results: list = []
@@ -1454,6 +1469,14 @@ def _ms(t0: float) -> float:
     return round((time.perf_counter() - t0) * 1e3, 3)
 
 
+def _lap(phases: dict, key: str, t0: int, sp=obs.NO_SPAN) -> int:
+    """Close the phase ``key`` begun at ``t0`` (perf_counter_ns) into
+    ``phases`` in ms and its span ``sp`` on the same reading; returns it."""
+    t1 = sp.close() or time.perf_counter_ns()
+    phases[key] = round((t1 - t0) / 1e6, 3)
+    return t1
+
+
 def _kernel_lowers(table: Table, sel: A.Select, agg_plans, nodes) -> bool:
     """Whether K2 can take the plan as far as the plan alone tells (its
     aggregate kinds, its expressions, its models); the group count and the
@@ -1496,8 +1519,15 @@ def try_execute_on_device(conn, sel: A.Select, table: Table,
     Records a per-phase wall-clock breakdown on ``conn._last_phases``
     (plan_ms, upload_ms, probe_ms, exec_ms: the tier's run with the read
     back of the group table, assemble_ms) — surfaced through METRICS and
-    EXPLAIN ANALYZE."""
-    t0 = time.perf_counter()
+    EXPLAIN ANALYZE, each phase inside its span (``plan``, ``upload``,
+    ``probe``, ``exec``, ``assemble``) under ``device_plan``."""
+    with obs.span("device_plan"):
+        return _execute_on_device(conn, sel, table, analyze_only)
+
+
+def _execute_on_device(conn, sel: A.Select, table: Table, analyze_only: bool):
+    t0 = time.perf_counter_ns()
+    sp = obs.span("plan").open(t0)
     phases: dict = {}
     conn._last_phases = None
     conn._cuda_plan_used = False
@@ -1763,8 +1793,8 @@ def try_execute_on_device(conn, sel: A.Select, table: Table,
     if analyze_only:
         return ("kernel K2" if kernel_on and _kernel_lowers(table, sel, agg_plans, nodes)
                 else "torch program")
-    phases["plan_ms"] = _ms(t0)
-    t0 = time.perf_counter()
+    t0 = _lap(phases, "plan_ms", t0, sp)
+    sp = obs.span("upload").open(t0)
     block = get_table_block(table, device)
     xc = None if block is None else block[0]
     try:
@@ -1778,8 +1808,8 @@ def try_execute_on_device(conn, sel: A.Select, table: Table,
     if int_keys:
         int_xc = get_int_block(table, device, int_keys)
         cols.update({k + _INT: int_xc[i, :n] for i, k in enumerate(int_keys)})
-    phases["upload_ms"] = _ms(t0)
-    t0 = time.perf_counter()
+    t0 = _lap(phases, "upload_ms", t0, sp)
+    sp = obs.span("probe").open(t0)
 
     # --- value probes (cached): one max per key expression and DISTINCT/
     # MODE argument, for the adaptive group-key radices and value domains;
@@ -1868,8 +1898,7 @@ def try_execute_on_device(conn, sel: A.Select, table: Table,
             dist_domains[ai] = v_dom
     except (_Unsupported, OnnxError):
         return None
-    phases["probe_ms"] = _ms(t0)
-    t0 = time.perf_counter()
+    t0 = _lap(phases, "probe_ms", t0, sp)
 
     plan_key = (
         repr(sel),
@@ -1898,29 +1927,29 @@ def try_execute_on_device(conn, sel: A.Select, table: Table,
                 conn, mesh, n=n, sharded=sharded, replicated={}, prologue=None,
                 where_fn=where_fn, key_fns=key_fns, strides=strides, n_groups=n_groups,
                 agg_plans=agg_plans, dist_domains=dist_domains, phases=phases)
-            phases["mesh_exec_ms"] = _ms(t0)
+            t0 = _lap(phases, "mesh_exec_ms", t0)
             if out is None:
                 return None   # a guard tripped in the program: the host answers
-            t0 = time.perf_counter()
             out_table = _assemble_result(sel, items_plan, agg_plans, having_plan, *out,
                                          has_keys=bool(key_fns))
-            phases["assemble_ms"] = _ms(t0)
+            _lap(phases, "assemble_ms", t0)
             if out_table is not None:
                 conn._mesh_plan_used = True
                 conn._last_phases = phases
             return out_table   # None: a guard tripped, the host answers, not one device
 
+    sp = obs.span("exec").open(t0)
     if kernel_on and block is not None:
         out = _try_cuda_fused(conn, sel, table, n, n_groups, strides, agg_plans, items_plan,
                               having_aggs, plan_key, block, dist_domains)
         if out is _TRIPPED:
             return None
         if out is not None:
-            phases["exec_ms"] = _ms(t0)
-            t0 = time.perf_counter()
+            t0 = _lap(phases, "exec_ms", t0, sp)
+            sp = obs.span("assemble").open(t0)
             out_table = _assemble_result(sel, items_plan, agg_plans, having_plan, *out,
                                          has_keys=bool(key_fns))
-            phases["assemble_ms"] = _ms(t0)
+            _lap(phases, "assemble_ms", t0, sp)
             if out_table is not None:
                 conn._cuda_plan_used = True
                 conn._last_phases = phases
@@ -1942,14 +1971,14 @@ def try_execute_on_device(conn, sel: A.Select, table: Table,
         results, group_count, key_mins, key_maxs, fracs, trip = _to_host(ent[1](cols))
     except (_Unsupported, OnnxError):
         return None
-    phases["exec_ms"] = _ms(t0)
+    t0 = _lap(phases, "exec_ms", t0, sp)
     if trip:
         return None
-    t0 = time.perf_counter()
+    sp = obs.span("assemble").open(t0)
     out_table = _assemble_result(sel, items_plan, agg_plans, having_plan, results,
                                  group_count, key_mins, key_maxs, fracs,
                                  has_keys=bool(key_fns))
-    phases["assemble_ms"] = _ms(t0)
+    _lap(phases, "assemble_ms", t0, sp)
     if out_table is not None:
         conn._last_phases = phases
     return out_table

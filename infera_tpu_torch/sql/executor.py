@@ -55,6 +55,7 @@ import numpy as np
 from ..columnar import Column, Table, infer_sql_type
 from ..columnar import types as T
 from ..errors import SqlError
+from ..observability import measure, span
 from . import ast as A
 from .functions import AGGREGATE_FUNCTIONS, SCALAR_FUNCTIONS
 from .parser import parse_sql
@@ -166,20 +167,21 @@ class Connection:
     def execute(self, sql: str, parameters: list | None = None) -> QueryResult:
         """Execute one or more ';'-separated statements. ``parameters`` bind
         positional '?' placeholders (prepared-statement style)."""
-        from ..observability import measure
-
         result = QueryResult()
         self._bound_params = list(parameters) if parameters is not None else None
         try:
-            for stmt in parse_sql(sql):
-                with measure(type(stmt).__name__) as m:
-                    self._exec_path = "host"
-                    self._last_phases = None
-                    result = self._execute_statement(stmt)
-                    m.path = self._exec_path
-                    m.phases = getattr(self, "_last_phases", None)
-                    if result.table is not None:
-                        m.rows = result.table.num_rows
+            with span("execute", root=True):
+                with span("parse"):
+                    stmts = parse_sql(sql)
+                for stmt in stmts:
+                    with measure(type(stmt).__name__) as m:
+                        self._exec_path = "host"
+                        self._last_phases = None
+                        result = self._execute_statement(stmt)
+                        m.path = self._exec_path
+                        m.phases = getattr(self, "_last_phases", None)
+                        if result.table is not None:
+                            m.rows = result.table.num_rows
         finally:
             self._bound_params = None
         return result

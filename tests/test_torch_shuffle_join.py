@@ -10,6 +10,8 @@ built; sums, averages and extremes to 1e-6 relative, the bound of
 int32 bounds, and NaN B values against the port's host join.
 """
 
+import time
+
 import numpy as np
 import pytest
 
@@ -296,3 +298,17 @@ def test_explain_names_the_shuffle_join(both):
     lines = [r[0] for r in port.execute(
         "explain select count(*) from fa join fb on fa.k = fb.k").rows]
     assert any("shuffle join" in ln for ln in lines), lines
+
+
+def test_shuffle_join_phases_fit_inside_the_query_wall_time(both):
+    """Each phase times its own interval: together they take no more than
+    the query's wall time."""
+    _mk(both)
+    port, _ = both
+    t0 = time.perf_counter()
+    port.execute("select g, count(*), sum(w) from fa join fb on fa.k = fb.k group by g")
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    assert port._exec_path == SJ
+    ms = [port._last_phases[k] for k in ("plan_ms", "b_prepass_ms", "a_stream_ms",
+                                         "assemble_ms")]
+    assert all(v >= 0 for v in ms) and sum(ms) <= wall_ms, (ms, wall_ms)

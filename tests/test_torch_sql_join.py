@@ -16,6 +16,8 @@ torch join program), but where ``infera_tpu`` lowers a ``coalesce`` of a
 join to its XLA program the port lowers it to ``SEL`` in the kernel; the
 host elsewhere."""
 
+import time
+
 import numpy as np
 import pytest
 
@@ -380,6 +382,20 @@ def test_explain_and_phases_of_the_join_tier(both, monkeypatch):
     assert port._exec_path == "device_join_plan"
     assert set(port._last_phases) == {"plan_ms", "upload_ms", "exec_ms", "assemble_ms",
                                       "phantom_ms"}
+
+
+@pytest.mark.parametrize("k5", ["1", "0"])
+def test_join_phases_fit_inside_the_query_wall_time(both, monkeypatch, k5):
+    """Each phase times its own interval, on K5 and on the join program:
+    together they take no more than the query's wall time."""
+    port, _ = both
+    monkeypatch.setenv("INFERA_PALLAS_SQL", k5)
+    t0 = time.perf_counter()
+    port.execute(CASES["full_global"])
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    assert port._exec_path.startswith("device_join_plan")
+    ms = list(port._last_phases.values())
+    assert all(v >= 0 for v in ms) and sum(ms) <= wall_ms, (port._last_phases, wall_ms)
 
 
 def test_join_plan_carries_the_join_opcodes(both, monkeypatch):

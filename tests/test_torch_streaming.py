@@ -14,6 +14,8 @@ cases: a group key past 2**24, predictions across ragged chunks, NaN and
 host's NULLs), each decline, and no table-sized block cached on the device.
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -415,6 +417,21 @@ def test_streaming_caches_no_table_sized_block(both, monkeypatch):
     phases = port._last_phases
     assert phases["chunks"] == 4
     assert {"plan_ms", "probe_ms", "stream_ms", "fold_ms", "assemble_ms"} <= set(phases)
+
+
+def test_streaming_phases_fit_inside_the_query_wall_time(both):
+    """Each phase times its own interval: together they take no more than
+    the query's wall time."""
+    _create(both, "create table pw as select x % 8 as g, (x % 10)::float as f "
+                  "from range(40000) r(x)")
+    port, _ = both
+    t0 = time.perf_counter()
+    port.execute("select g, count(*), sum(f) from pw group by g")
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    assert port._exec_path == STREAM
+    ms = [port._last_phases[k] for k in ("plan_ms", "probe_ms", "stream_ms", "fold_ms",
+                                         "assemble_ms")]
+    assert all(v >= 0 for v in ms) and sum(ms) <= wall_ms, (ms, wall_ms)
 
 
 def test_small_tables_and_the_analyze_only_probe(both, monkeypatch):
