@@ -1,4 +1,5 @@
-"""Recursive-descent SQL parser for the engine's dialect.
+"""SQL parser for the engine's dialect: recursive descent over statements,
+precedence climbing over expressions.
 
 Covers the statements and expression forms used by the reference's SQL test
 suite (upstream test/sql/*.test — SURVEY.md §4) and the BASELINE.json
@@ -11,7 +12,7 @@ from __future__ import annotations
 
 from ..errors import SqlError
 from . import ast as A
-from .lexer import Token, tokenize
+from .lexer import KIND, TEXT, UPPER, Token, tokenize
 
 _KEYWORDS_STOP_ALIAS = {
     "FROM", "WHERE", "GROUP", "HAVING", "ORDER", "LIMIT", "OFFSET", "JOIN",
@@ -20,63 +21,86 @@ _KEYWORDS_STOP_ALIAS = {
 }
 
 
+# binding levels of the expression grammar, low to high: a level's operators
+# take operands of the level above (left-associative), and prefix NOT
+# applies only where an operand of level NOT or lower is wanted
+_OR, _AND, _NOT, _CMP, _CONCAT, _ADD, _MUL, _UNARY = range(1, 9)
+_OP_LEVEL = {"=": _CMP, "==": _CMP, "<>": _CMP, "!=": _CMP, "<": _CMP, "<=": _CMP,
+             ">": _CMP, ">=": _CMP, "||": _CONCAT, "+": _ADD, "-": _ADD,
+             "*": _MUL, "/": _MUL, "%": _MUL}
+_KW_LEVEL = {"OR": _OR, "AND": _AND, "IS": _CMP, "NOT": _CMP, "IN": _CMP,
+             "BETWEEN": _CMP, "LIKE": _CMP}
+_CANONICAL_OP = {"==": "=", "!=": "<>"}
+_IN_BETWEEN_LIKE = ("IN", "BETWEEN", "LIKE")
+# identifiers that open something other than a column or a function call
+_PRIMARY_KWS = {"NULL", "TRUE", "FALSE", "CASE", "EXISTS", "CAST", "POSITION"}
+
+
 class Parser:
     def __init__(self, sql: str):
         self.tokens = tokenize(sql)
+        self.tokens.append(self.tokens[-1])  # a second EOF: peek(1) needs no bounds check
         self.i = 0
+        self.tok = self.tokens[0]  # the current token, tokens[i]
         self._param_count = 0  # positional '?' parameters seen so far
 
     # -- token helpers ----------------------------------------------------
 
     def peek(self, offset: int = 0) -> Token:
-        return self.tokens[min(self.i + offset, len(self.tokens) - 1)]
+        return self.tokens[self.i + offset]
 
     def next(self) -> Token:
-        t = self.tokens[self.i]
-        if t.kind != "EOF":
+        t = self.tok
+        if t[KIND] != "EOF":
             self.i += 1
+            self.tok = self.tokens[self.i]
         return t
 
     def at_kw(self, *kws: str) -> bool:
-        t = self.peek()
-        return t.kind == "IDENT" and t.upper in kws
+        t = self.tok
+        return t[KIND] == "IDENT" and t[UPPER] in kws
 
-    def accept_kw(self, *kws: str) -> bool:
-        if self.at_kw(*kws):
-            self.next()
+    def accept_kw(self, kw: str) -> bool:
+        t = self.tok
+        if t[UPPER] == kw and t[KIND] == "IDENT":
+            self.i += 1
+            self.tok = self.tokens[self.i]
             return True
         return False
 
     def expect_kw(self, kw: str) -> None:
         if not self.accept_kw(kw):
-            raise SqlError(f"Parser Error: expected {kw}, got '{self.peek().text}'")
+            raise SqlError(f"Parser Error: expected {kw}, got '{self.tok[TEXT]}'")
 
-    def at_op(self, *ops: str) -> bool:
-        t = self.peek()
-        return t.kind == "OP" and t.text in ops
+    def at_op(self, op: str) -> bool:
+        t = self.tok
+        return t[TEXT] == op and t[KIND] == "OP"
 
-    def accept_op(self, *ops: str) -> bool:
-        if self.at_op(*ops):
-            self.next()
+    def accept_op(self, op: str) -> bool:
+        t = self.tok
+        if t[TEXT] == op and t[KIND] == "OP":
+            self.i += 1
+            self.tok = self.tokens[self.i]
             return True
         return False
 
     def expect_op(self, op: str) -> None:
         if not self.accept_op(op):
-            raise SqlError(f"Parser Error: expected '{op}', got '{self.peek().text}'")
+            raise SqlError(f"Parser Error: expected '{op}', got '{self.tok[TEXT]}'")
 
     def expect_ident(self) -> str:
-        t = self.peek()
-        if t.kind != "IDENT":
-            raise SqlError(f"Parser Error: expected identifier, got '{t.text}'")
-        self.next()
-        return t.text
+        t = self.tok
+        if t[KIND] != "IDENT":
+            raise SqlError(f"Parser Error: expected identifier, got '{t[TEXT]}'")
+        self.i += 1
+        self.tok = self.tokens[self.i]
+        return t[TEXT]
 
     # -- statements -------------------------------------------------------
 
     def parse_statements(self) -> list:
         stmts = []
-        while self.peek().kind != "EOF":
+        while self.tok[KIND] != "EOF":
             stmts.append(self.parse_statement())
             while self.accept_op(";"):
                 pass
@@ -98,13 +122,13 @@ class Parser:
         if self.at_kw("DROP"):
             return self._parse_drop()
         if self.at_kw("EXPORT") or self.at_kw("IMPORT"):
-            kind = self.next().upper
+            kind = self.next()[UPPER]
             self.expect_kw("DATABASE")
             t = self.next()
-            if t.kind != "STRING":
+            if t[KIND] != "STRING":
                 raise SqlError(f"Parser Error: {kind} DATABASE expects a path string")
-            return (A.ExportDatabase(t.text) if kind == "EXPORT"
-                    else A.ImportDatabase(t.text))
+            return (A.ExportDatabase(t[TEXT]) if kind == "EXPORT"
+                    else A.ImportDatabase(t[TEXT]))
         if self.at_kw("WITH"):
             self.next()
             ctes = []
@@ -159,32 +183,32 @@ class Parser:
                 source = self.expect_ident()
             self.expect_kw("TO")
             t = self.next()
-            if t.kind != "STRING":
+            if t[KIND] != "STRING":
                 raise SqlError("Parser Error: COPY ... TO expects a path string")
             fmt = "csv"
             if self.accept_op("("):
                 if not self.accept_kw("FORMAT"):
                     self.expect_ident()  # tolerate other option names
-                fmt = self.next().text.lower()
+                fmt = self.next()[TEXT].lower()
                 self.expect_op(")")
-            return A.CopyTo(source, t.text, fmt)
+            return A.CopyTo(source, t[TEXT], fmt)
         if self.at_kw("PRAGMA"):
             self.next()
             name = self.expect_ident()
             value = None
             if self.accept_op("="):
-                value = self.next().text
+                value = self.next()[TEXT]
             return A.Pragma(name, value)
         if self.at_kw("LOAD"):
             self.next()
             t = self.next()
-            return A.Load(t.text)
+            return A.Load(t[TEXT])
         if self.at_kw("SET"):
             self.next()
             name = self.expect_ident()
             self.expect_op("=")
-            return A.SetStmt(name, self.next().text)
-        raise SqlError(f"Parser Error: unexpected statement start '{self.peek().text}'")
+            return A.SetStmt(name, self.next()[TEXT])
+        raise SqlError(f"Parser Error: unexpected statement start '{self.tok[TEXT]}'")
 
     def _parse_create(self) -> A.Statement:
         self.expect_kw("CREATE")
@@ -226,9 +250,9 @@ class Parser:
         tname = self.expect_ident().upper()
         width = scale = 0
         if self.accept_op("("):
-            width = int(self.next().text)
+            width = int(self.next()[TEXT])
             if self.accept_op(","):
-                scale = int(self.next().text)
+                scale = int(self.next()[TEXT])
             self.expect_op(")")
         return tname, width, scale
 
@@ -276,7 +300,7 @@ class Parser:
         """SELECT optionally chained with UNION [ALL] / EXCEPT / INTERSECT."""
         left = self.parse_select()
         while self.at_kw("UNION", "EXCEPT", "INTERSECT"):
-            kind = self.next().upper
+            kind = self.next()[UPPER]
             all_ = self.accept_kw("ALL")
             right = self.parse_select()
             # ORDER BY / LIMIT written after the final select bind to the
@@ -300,7 +324,7 @@ class Parser:
             sel.where = self.parse_expr()
         if self.accept_kw("GROUP"):
             self.expect_kw("BY")
-            kw = self.peek().upper if self.peek().kind == "IDENT" else ""
+            kw = self.tok[UPPER] if self.tok[KIND] == "IDENT" else ""
             if kw in ("ROLLUP", "CUBE"):
                 self.next()
                 self.expect_op("(")
@@ -320,7 +344,7 @@ class Parser:
                                       range(len(keys), -1, -1)
                                       for c in _it.combinations(keys, r)]
                 sel.group_by = list(keys)
-            elif kw == "GROUPING" and self.peek(1).upper == "SETS":
+            elif kw == "GROUPING" and self.peek(1)[UPPER] == "SETS":
                 self.next()
                 self.next()
                 self.expect_op("(")
@@ -370,9 +394,9 @@ class Parser:
                 if not self.accept_op(","):
                     break
         if self.accept_kw("LIMIT"):
-            sel.limit = int(self.next().text)
+            sel.limit = int(self.next()[TEXT])
         if self.accept_kw("OFFSET"):
-            sel.offset = int(self.next().text)
+            sel.offset = int(self.next()[TEXT])
         return sel
 
     def _parse_select_item(self) -> A.SelectItem:
@@ -380,8 +404,8 @@ class Parser:
         alias = None
         if self.accept_kw("AS"):
             alias = self.expect_ident()
-        elif self.peek().kind == "IDENT" and self.peek().upper not in _KEYWORDS_STOP_ALIAS:
-            alias = self.next().text
+        elif self.tok[KIND] == "IDENT" and self.tok[UPPER] not in _KEYWORDS_STOP_ALIAS:
+            alias = self.next()[TEXT]
         return A.SelectItem(expr, alias)
 
     def _parse_table_ref(self) -> A.TableRef:
@@ -469,8 +493,8 @@ class Parser:
     def _maybe_alias(self) -> str | None:
         if self.accept_kw("AS"):
             return self.expect_ident()
-        if self.peek().kind == "IDENT" and self.peek().upper not in _KEYWORDS_STOP_ALIAS:
-            return self.next().text
+        if self.tok[KIND] == "IDENT" and self.tok[UPPER] not in _KEYWORDS_STOP_ALIAS:
+            return self.next()[TEXT]
         return None
 
     def _maybe_alias_with_columns(self) -> tuple:
@@ -489,52 +513,68 @@ class Parser:
 
     # -- expressions (precedence climbing) --------------------------------
 
-    def parse_expr(self) -> A.Expr:
-        return self._parse_or()
+    def parse_expr(self, level: int = _OR) -> A.Expr:
+        """An expression of the operators that bind at ``level`` or tighter.
 
-    def _parse_or(self) -> A.Expr:
-        left = self._parse_and()
-        while self.accept_kw("OR"):
-            left = A.Binary("OR", left, self._parse_and())
-        return left
-
-    def _parse_and(self) -> A.Expr:
-        left = self._parse_not()
-        while self.accept_kw("AND"):
-            left = A.Binary("AND", left, self._parse_not())
-        return left
-
-    def _parse_not(self) -> A.Expr:
-        if self.accept_kw("NOT"):
-            return A.Unary("NOT", self._parse_not())
-        return self._parse_comparison()
-
-    def _parse_comparison(self) -> A.Expr:
-        left = self._parse_concat()
+        Once an operator of some level has been applied, only operators of
+        that level or looser may follow: ``a IS NULL * b`` stops before the
+        ``*``, as the descent it replaces did."""
+        kind, text, _, upper = self.tok
+        ceiling = _UNARY  # after a bare operand any operator may follow
+        if kind == "IDENT" and upper == "NOT" and level <= _NOT:
+            self.i += 1
+            self.tok = self.tokens[self.i]
+            left = A.Unary("NOT", self.parse_expr(_NOT))
+            ceiling = _NOT
+        elif kind == "OP" and (text == "-" or text == "+"):
+            left = self._parse_unary()
+        else:
+            if kind == "IDENT" and upper not in _PRIMARY_KWS:
+                nt = self.tokens[self.i + 1]
+                if nt[KIND] == "OP" and (nt[TEXT] == "," or nt[TEXT] == ")"):
+                    # a bare column, as most operands of a select list or a
+                    # call are: nothing after it can extend the expression
+                    self.i += 1
+                    self.tok = nt
+                    return A.ColumnRef(text)
+            left = self._parse_primary()
+            if self.tok[KIND] == "OP" and self.tok[TEXT] in ("::", "["):
+                left = self._parse_postfix(left)
         while True:
-            if self.at_op("=", "==", "<>", "!=", "<", "<=", ">", ">="):
-                op = self.next().text
-                if op == "==":
-                    op = "="
-                if op == "!=":
-                    op = "<>"
-                left = A.Binary(op, left, self._parse_concat())
-                continue
-            if self.at_kw("IS"):
-                self.next()
-                negated = self.accept_kw("NOT")
-                self.expect_kw("NULL")
-                left = A.IsNull(left, negated)
-                continue
-            if self.at_kw("NOT") and self.peek(1).upper in ("IN", "BETWEEN", "LIKE"):
-                self.next()
-                left = self._parse_in_between_like(left, negated=True)
-                continue
-            if self.at_kw("IN", "BETWEEN", "LIKE"):
-                left = self._parse_in_between_like(left, negated=False)
-                continue
-            break
-        return left
+            kind, text, _, upper = self.tok
+            if kind == "OP":
+                lv = _OP_LEVEL.get(text)
+                if lv is None or not level <= lv <= ceiling:
+                    return left
+                self.i += 1
+                self.tok = self.tokens[self.i]
+                if lv == _MUL:
+                    left = A.Binary(text, left, self._parse_unary())
+                else:
+                    left = A.Binary(_CANONICAL_OP.get(text, text), left, self.parse_expr(lv + 1))
+            elif kind == "IDENT":
+                lv = _KW_LEVEL.get(upper)
+                if lv is None or not level <= lv <= ceiling:
+                    return left
+                if lv != _CMP:  # AND, OR
+                    self.i += 1
+                    self.tok = self.tokens[self.i]
+                    left = A.Binary(upper, left, self.parse_expr(lv + 1))
+                elif upper == "IS":
+                    self.next()
+                    negated = self.accept_kw("NOT")
+                    self.expect_kw("NULL")
+                    left = A.IsNull(left, negated)
+                elif upper == "NOT":
+                    if self.tokens[self.i + 1][UPPER] not in _IN_BETWEEN_LIKE:
+                        return left
+                    self.next()
+                    left = self._parse_in_between_like(left, negated=True)
+                else:
+                    left = self._parse_in_between_like(left, negated=False)
+            else:
+                return left
+            ceiling = lv
 
     def _parse_in_between_like(self, left: A.Expr, negated: bool) -> A.Expr:
         if self.accept_kw("IN"):
@@ -551,98 +591,111 @@ class Parser:
             self.expect_op(")")
             return A.InList(left, items, negated)
         if self.accept_kw("BETWEEN"):
-            low = self._parse_concat()
+            low = self.parse_expr(_CONCAT)
             self.expect_kw("AND")
-            high = self._parse_concat()
+            high = self.parse_expr(_CONCAT)
             return A.Between(left, low, high, negated)
         self.expect_kw("LIKE")
-        return A.Like(left, self._parse_concat(), negated)
-
-    def _parse_concat(self) -> A.Expr:
-        left = self._parse_additive()
-        while self.accept_op("||"):
-            left = A.Binary("||", left, self._parse_additive())
-        return left
-
-    def _parse_additive(self) -> A.Expr:
-        left = self._parse_multiplicative()
-        while self.at_op("+", "-"):
-            op = self.next().text
-            left = A.Binary(op, left, self._parse_multiplicative())
-        return left
-
-    def _parse_multiplicative(self) -> A.Expr:
-        left = self._parse_unary()
-        while self.at_op("*", "/", "%"):
-            op = self.next().text
-            left = A.Binary(op, left, self._parse_unary())
-        return left
+        return A.Like(left, self.parse_expr(_CONCAT), negated)
 
     def _parse_unary(self) -> A.Expr:
-        if self.accept_op("-"):
-            return A.Unary("-", self._parse_unary())
-        if self.accept_op("+"):
-            return self._parse_unary()
-        return self._parse_postfix()
-
-    def _parse_postfix(self) -> A.Expr:
+        kind, text, _, _ = self.tok
+        if kind == "OP":
+            if text == "-":
+                self.next()
+                return A.Unary("-", self._parse_unary())
+            if text == "+":
+                self.next()
+                return self._parse_unary()
         e = self._parse_primary()
+        if self.tok[KIND] == "OP" and self.tok[TEXT] in ("::", "["):
+            e = self._parse_postfix(e)
+        return e
+
+    def _parse_postfix(self, e: A.Expr) -> A.Expr:
         while True:
             if self.accept_op("::"):
                 tname, width, scale = self._parse_type_name()
                 e = A.Cast(e, tname, width, scale)
                 continue
-            if self.at_op("["):
-                self.expect_op("[")
+            if self.accept_op("["):
                 idx = self.parse_expr()
                 self.expect_op("]")
                 e = A.FuncCall("list_extract", [e, idx])
                 continue
-            break
-        return e
+            return e
 
     def _parse_primary(self) -> A.Expr:
-        t = self.peek()
-        if t.kind == "OP" and t.text == "?":
-            # positional prepared-statement parameter, bound at execute time
+        kind, text, _, upper = self.tok
+        if kind == "IDENT":
+            if upper in _PRIMARY_KWS:
+                e = self._parse_keyword_primary(upper)
+                if e is not None:
+                    return e
+            # identifier: column ref, qualified ref, or function call
+            self.i += 1
+            nt = self.tokens[self.i]
+            self.tok = nt
+            if nt[KIND] != "OP":
+                return A.ColumnRef(text)
+            if nt[TEXT] == "(":
+                return self._parse_call(text)
+            if nt[TEXT] == ".":
+                after = self.tokens[self.i + 1]
+                if after[KIND] == "IDENT":
+                    self.next()
+                    col = self.next()[TEXT]
+                    if col == "*":
+                        return A.Star(table=text)
+                    return A.ColumnRef(col, table=text)
+                if after[TEXT] == "*":
+                    self.next()
+                    self.next()
+                    return A.Star(table=text)
+            return A.ColumnRef(text)
+        if kind == "NUMBER":
             self.next()
-            idx = self._param_count
-            self._param_count += 1
-            return A.Parameter(idx)
-        if t.kind == "NUMBER":
-            self.next()
-            if "." in t.text or "e" in t.text or "E" in t.text:
-                return A.Literal(float(t.text), "DOUBLE")
-            v = int(t.text)
+            if "." in text or "e" in text or "E" in text:
+                return A.Literal(float(text), "DOUBLE")
+            v = int(text)
             return A.Literal(v, "INTEGER" if -(2**31) <= v < 2**31 else "BIGINT")
-        if t.kind == "STRING":
+        if kind == "STRING":
             self.next()
-            return A.Literal(t.text, "VARCHAR")
-        if t.kind == "OP" and t.text == "(":
-            self.next()
-            if self.at_kw("SELECT"):
-                q = self.parse_select()
+            return A.Literal(text, "VARCHAR")
+        if kind == "OP":
+            if text == "?":
+                # positional prepared-statement parameter, bound at execute time
+                self.next()
+                idx = self._param_count
+                self._param_count += 1
+                return A.Parameter(idx)
+            if text == "(":
+                self.next()
+                if self.at_kw("SELECT"):
+                    q = self.parse_select()
+                    self.expect_op(")")
+                    return A.FuncCall("__scalar_subquery__", [q])
+                e = self.parse_expr()
                 self.expect_op(")")
-                return A.FuncCall("__scalar_subquery__", [q])
-            e = self.parse_expr()
-            self.expect_op(")")
-            return e
-        if t.kind == "OP" and t.text == "[":
-            self.next()
-            items = []
-            if not self.at_op("]"):
-                while True:
-                    items.append(self.parse_expr())
-                    if not self.accept_op(","):
-                        break
-            self.expect_op("]")
-            return A.ListExpr(items)
-        if t.kind == "OP" and t.text == "*":
-            self.next()
-            return A.Star()
-        if t.kind != "IDENT":
-            raise SqlError(f"Parser Error: unexpected token '{t.text}'")
-        upper = t.upper
+                return e
+            if text == "[":
+                self.next()
+                items = []
+                if not self.at_op("]"):
+                    while True:
+                        items.append(self.parse_expr())
+                        if not self.accept_op(","):
+                            break
+                self.expect_op("]")
+                return A.ListExpr(items)
+            if text == "*":
+                self.next()
+                return A.Star()
+        raise SqlError(f"Parser Error: unexpected token '{text}'")
+
+    def _parse_keyword_primary(self, upper: str) -> A.Expr | None:
+        """NULL, TRUE, FALSE, CASE, EXISTS (, CAST and position(x IN y); None
+        where the identifier is a plain column or function name after all."""
         if upper == "NULL":
             self.next()
             return A.Literal(None, None)
@@ -654,7 +707,7 @@ class Parser:
             return A.Literal(False, "BOOLEAN")
         if upper == "CASE":
             return self._parse_case()
-        if upper == "EXISTS" and self.peek(1).text == "(":
+        if upper == "EXISTS" and self.peek(1)[TEXT] == "(":
             self.next()
             self.expect_op("(")
             q = self.parse_select()
@@ -668,50 +721,44 @@ class Parser:
             tname, width, scale = self._parse_type_name()
             self.expect_op(")")
             return A.Cast(operand, tname, width, scale)
-        if upper == "POSITION" and self.peek(1).text == "(":
+        if upper == "POSITION" and self.peek(1)[TEXT] == "(":
             # position(needle in haystack)
             save = self.i
             self.next()
             self.expect_op("(")
-            needle = self._parse_concat()  # stop before IN
+            needle = self.parse_expr(_CONCAT)  # stop before IN
             if self.accept_kw("IN"):
                 haystack = self.parse_expr()
                 self.expect_op(")")
                 return A.PositionIn(needle, haystack)
             self.i = save  # plain function call position(...)
-        # identifier: column ref, qualified ref, or function call
-        self.next()
-        if self.at_op("("):
-            self.expect_op("(")
-            if self.accept_op("*"):
-                self.expect_op(")")
-                call = A.FuncCall(t.text.lower(), [], is_star=True)
-                if self.at_kw("OVER"):
-                    return self._parse_over(call)
-                return call
-            args = []
-            distinct = self.accept_kw("DISTINCT")
-            if not self.at_op(")"):
-                while True:
-                    args.append(self.parse_expr())
-                    if not self.accept_op(","):
-                        break
+            self.tok = self.tokens[save]
+        return None
+
+    def _parse_call(self, name: str) -> A.Expr:
+        """A function call from its '(' on, with an OVER clause if one follows."""
+        self.expect_op("(")
+        if self.accept_op("*"):
             self.expect_op(")")
-            call = A.FuncCall(t.text.lower(), args, distinct=distinct)
+            call = A.FuncCall(name.lower(), [], is_star=True)
             if self.at_kw("OVER"):
                 return self._parse_over(call)
             return call
-        if self.at_op(".") and self.peek(1).kind == "IDENT":
-            self.next()
-            col = self.next()
-            if col.text == "*":
-                return A.Star(table=t.text)
-            return A.ColumnRef(col.text, table=t.text)
-        if self.at_op(".") and self.peek(1).text == "*":
-            self.next()
-            self.next()
-            return A.Star(table=t.text)
-        return A.ColumnRef(t.text)
+        args = []
+        distinct = self.accept_kw("DISTINCT")
+        if not self.at_op(")"):
+            while True:
+                args.append(self.parse_expr())
+                t = self.tok
+                if t[TEXT] != "," or t[KIND] != "OP":
+                    break
+                self.i += 1
+                self.tok = self.tokens[self.i]
+        self.expect_op(")")
+        call = A.FuncCall(name.lower(), args, distinct=distinct)
+        if self.at_kw("OVER"):
+            return self._parse_over(call)
+        return call
 
     def _parse_over(self, call: A.FuncCall) -> A.WindowFunc:
         self.expect_kw("OVER")

@@ -6,14 +6,22 @@ statements over the same data give the same rows. The tables here are small
 (under ``MIN_DEVICE_ROWS``), so both packages answer on their host
 executors."""
 
+import glob
+import os
+import random
+
 import numpy as np
 import pytest
 
 from infera_tpu.sql import Connection as RefConnection
+from infera_tpu.sql.lexer import tokenize as ref_tokenize
 from infera_tpu.sql.parser import parse_sql as ref_parse_sql
 from infera_tpu_torch.errors import SqlError
 from infera_tpu_torch.sql import Connection
+from infera_tpu_torch.sql.lexer import tokenize
 from infera_tpu_torch.sql.parser import parse_sql
+from infera_tpu_torch.testing.sqllogic import SqlLogicRunner
+from perfbench import harness
 
 # the statements of tests/test_pallas_sql.py:52-186 and the SQL flagship of
 # infera_tpu/testing/e2e_eval.py
@@ -76,22 +84,236 @@ HOST_QUERIES = [
 ]
 
 
+SQLLOGIC_FILES = sorted(glob.glob(os.path.join(os.path.dirname(__file__), "sqllogic", "*.test")))
+
+# one statement of each construct the parser knows
+CONSTRUCTS = [
+    "select g, sum(v) over (partition by g order by f desc, v rows between 2 preceding and "
+    "current row) s, avg(v) over (order by f range between unbounded preceding and 3 "
+    "following) a, count(*) over () c, rank() over (order by g rows 1 preceding) r from t",
+    "select g, h, sum(v) from t group by grouping sets ((g, h), (g), ()) order by g, h",
+    "select g, h, count(*) from t group by rollup (g, h)",
+    "select g, h, count(*) from t group by cube (g, h) having count(*) > 1",
+    "select case when v > 0 then 'pos' when v < 0 then 'neg' else 'zero' end, "
+    "case g when 1 then 'a' end from t",
+    "select cast(f as integer), cast(v as decimal(10, 2)), f::varchar, (f + 1)::double, "
+    "x::int::varchar, cast(s as varchar(3)) from t",
+    "select position('b' in 'abc'), position(s in 'k1' || s), position('a', 'b') from t",
+    "select * from t where exists (select 1 from d where d.g = t.g) and g in (select g from d) "
+    "and h not in (select 1) and (select max(w) from d) > 1",
+    "select g from t union select g from d except select 1 intersect all select 2 "
+    "union all select 3 order by 1 limit 2",
+    "with q(a, b) as (select g, sum(v) from t group by g), r as (select * from q) "
+    "select * from r join q using (a)",
+    "copy t to 'out.csv'",
+    "copy (select g from t where v > 0) to 'out.parquet' (format parquet)",
+    "pragma enable_verification",
+    "pragma threads = 4",
+    "select ? + ?, f(?, ?)[?] from t where g = ? and s like ?",
+    "select t.*, d.*, t.g, d.nm from t, d cross join t t2 left outer join d d2 on t.g = d2.g "
+    "right join d d3 on true full join d d4 on false inner join d d5 using (g)",
+    "select a = b = c, a < b <> c >= d, a == b != c, 1 < 2 = true from t",
+    "select not a in (1), a not in (1, 2), not a between 1 and 2, a not between 1 and 2, "
+    "not a like 'x%', a not like 'x%', not not a, not a = b and not c or not d from t",
+    "select -1, - -1, -+-x, +-+x, -x::int, -x[1], -2 * -3, 2 - -3, -(1 + 2) from t",
+    "select a is null is not null, a || b in (c), a between 1 and 2 is null, a = b is null, "
+    "a in (1) = b like c, not a is null and b or c, not a = b = c + d, "
+    "a between 1 and 2 || 'x', a like 'b' - 1 from t",
+    "select [1, 2, 3][2], [], f()[1][2], list_value(1)[-1] from t",
+    "select count(*), count(distinct g), sum(distinct v), f(*) from t",
+    "select 1.5, .5, 1., 1e3, 1.e3, 2E-3, 1e+5, 2147483648, -2147483648, 'it''s', \"Q u\" "
+    "from t",
+    "select x from range(10) r(x) where x % 2 = 1 limit 3 offset 1",
+    "select * from (values (1, 'a'), (2, 'b')) v(n, s) order by n desc nulls first, "
+    "s asc nulls last",
+    "select * from (select g from t) sub(k), read_csv('f.csv') c",
+    "explain analyze select g from t",
+    "explain with q as (select 1) select * from q",
+    "create or replace table u as select * from t",
+    "create table if not exists u (a integer, b varchar(10), c decimal(18, 3))",
+    "create macro m(a, b) as a + b * 2",
+    "create or replace macro m0() as 1",
+    "insert into u (a, b) values (1, 'x'), (2, null)",
+    "insert into u select * from t",
+    "update u set a = a + 1, b = 'y' where a > 0",
+    "delete from u where a is not null",
+    "delete from u",
+    "drop table if exists u",
+    "drop table u",
+    "set threads = 8",
+    "load 'httpfs'",
+    "export database 'dir'",
+    "import database 'dir'",
+    "select 1; select 2;; select 3",
+    "select a.b, \"select\" from t where true and false or null",
+]
+
+# statements whose every cut, at a token's edge or inside one, must parse or
+# fail as the reference's does
+PREFIXED = [CONSTRUCTS[i] for i in (0, 1, 5, 6, 7, 9, 17, 19, 23, 26, 33)] + [
+    HOST_QUERIES[6], PARSED[11], PARSED[12]]
+
+# the lexer's edge cases, each in a statement; the last ones hold characters
+# outside ASCII, which the per-character scanner takes
+LEXED = [
+    "select 'abc", "select \"abc", "select 1 /* open", "select 1 -- to the end",
+    "select 1 --", "select 1e", "select .5", "select 1.e3", "select 1e+", "select 1e-x",
+    "select 1.2.3", "select 1..2", "select a.*", "select #", "select $1", "select a : b",
+    "select a | b", "select !", "select a != b", "select a ! b", "select \t\r\na\n",
+    "select '' || '''' || 'a''b'", "select \"\"", "select /**/ 1 /* a */ /* b */",
+    "select 1 /*/ 2 */", "select \x0c 1", "select \x00", "select 1 'a''",
+    "select é", "select 日本 from t", "select ²", "select x² from t", "select 'é",
+    "select \"日本\" -- ü", "select ٣", "select a ¬ b",
+]
+
+
+def _outcome(parse, sql):
+    try:
+        return repr(parse(sql))
+    except Exception as e:  # the parity check compares the errors themselves
+        return f"{type(e).__name__}: {e}"
+
+
+class _Recorder:
+    """A connection that keeps each statement the runner sends it."""
+
+    def __init__(self):
+        self.sqls = []
+
+    def execute(self, sql):
+        self.sqls.append(sql)
+        raise RuntimeError("recorded, not run")
+
+
+def _statements(path):
+    rec = _Recorder()
+    SqlLogicRunner(rec).run_file(path)
+    return rec.sqls
+
+
+def _benchmark_texts():
+    """Each template of the benchmark's mixes at each of its thresholds."""
+    out = []
+    for mix, config in (("sql1_mlp", "mlp_classifier_f32"), ("sql4_gbt", "gbt_models_f32")):
+        m, c = harness.load("mixes", mix), harness.load("configs", config)
+        for name, t in sorted(m["templates"].items()):
+            out += [pytest.param(harness.sql_of(c, t, v), id=f"{name}-{v}")
+                    for v in harness.values_of(t)]
+    return out
+
+
+_OPERANDS = ["a", "t.b", "1", "2.5", "'s'", "null", "true", "?", '"q"', "t.*", "-1", "f(a)"]
+_BINARY = ["or", "and", "=", "==", "<>", "!=", "<", "<=", ">", ">=", "||", "+", "-", "*", "/",
+           "%"]
+_WORDS = ["select", "from", "where", "and", "or", "not", "in", "is", "null", "between", "like",
+          "(", ")", ",", "+", "*", "::", "[", "]", "case", "end", "over", "as"]
+
+
+def _expression(rng, depth):
+    """A random expression over every operator form."""
+    if depth <= 0 or rng.random() < 0.2:
+        return rng.choice(_OPERANDS)
+    a, b, c = (_expression(rng, depth - 1) for _ in range(3))
+    neg = rng.choice(["", "not "])
+    return rng.choice([
+        f"{a} {rng.choice(_BINARY)} {b}", f"{a} {rng.choice(_BINARY)} {b}",
+        f"not {a}", f"{rng.choice(['-', '+', '- -', '-+'])}{a}",
+        f"{a} is {neg}null", f"{a} {neg}in ({b}, {c})", f"{a} {neg}between {b} and {c}",
+        f"{a} {neg}like {b}", f"({a})::{rng.choice(['int', 'decimal(5, 2)'])}",
+        f"g({a}, {b})[{c}]", f"case when {a} then {b} else {c} end",
+        f"position({a} in {b})", f"cast({a} as double)",
+    ])
+
+
+def _generated(seed, n=150):
+    """Statements of random expressions, half of them with a word dropped,
+    added or swapped, so that most of that half fail somewhere."""
+    rng = random.Random(seed)
+    out = []
+    for _ in range(n):
+        sql = (f"select {_expression(rng, rng.randint(1, 5))}, {_expression(rng, 2)} "
+               f"from t where {_expression(rng, 3)}")
+        if rng.random() < 0.5:
+            parts = sql.split(" ")
+            for _ in range(rng.randint(1, 3)):
+                j = rng.randrange(len(parts))
+                kind = rng.randrange(3)
+                if kind == 0 and len(parts) > 1:
+                    del parts[j]
+                elif kind == 1:
+                    parts.insert(j, rng.choice(_WORDS))
+                else:
+                    parts[j] = rng.choice(_WORDS)
+            sql = " ".join(parts)
+        out.append(sql)
+    return out
+
+
 @pytest.mark.parametrize("sql", PARSED)
 def test_parse_gives_the_same_ast(sql):
     assert repr(parse_sql(sql)) == repr(ref_parse_sql(sql))
 
 
+@pytest.mark.parametrize("sql", CONSTRUCTS)
+def test_every_construct_parses_to_the_same_ast(sql):
+    assert repr(parse_sql(sql)) == repr(ref_parse_sql(sql))
+
+
+@pytest.mark.parametrize("path", SQLLOGIC_FILES, ids=os.path.basename)
+def test_sqllogic_statements_parse_the_same(path):
+    sqls = _statements(path)
+    assert sqls
+    for sql in sqls:
+        assert _outcome(parse_sql, sql) == _outcome(ref_parse_sql, sql), sql
+
+
+@pytest.mark.parametrize("sql", _benchmark_texts())
+def test_benchmark_texts_parse_to_the_same_ast(sql):
+    assert repr(parse_sql(sql)) == repr(ref_parse_sql(sql))
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_generated_expressions_parse_the_same(seed):
+    for sql in _generated(seed):
+        assert _outcome(parse_sql, sql) == _outcome(ref_parse_sql, sql), sql
+
+
+# once an operator has been applied, a tighter one may not follow it
+ENDED = [
+    "select a is null * b", "select a in (1) + 2", "select a between 1 and 2 * 3 is null + 1",
+    "select a like 'b' || 'c' is null * 2", "select not a is not null / b",
+    "select -a is null::int", "select a not in (1) [1]", "select not a = b is null || c",
+]
+
+
 @pytest.mark.parametrize("sql", ["select 1 +", "selec 1", "select (1", "select * from t where",
-                                 "select 'abc", "select 1 from t group"])
+                                 "select 'abc", "select 1 from t group"] + ENDED + LEXED)
 def test_parse_errors_are_byte_equal(sql):
-    outcomes = []
-    for parse in (parse_sql, ref_parse_sql):
-        try:
-            outcomes.append(repr(parse(sql)))
-        except Exception as e:  # the parity check compares the errors themselves
-            outcomes.append(f"{type(e).__name__}: {e}")
+    outcomes = [_outcome(parse, sql) for parse in (parse_sql, ref_parse_sql)]
     assert outcomes[0] == outcomes[1]
-    assert outcomes[0].startswith("SqlError")
+    if sql not in LEXED:
+        assert outcomes[0].startswith("SqlError")
+
+
+@pytest.mark.parametrize("sql", PREFIXED)
+def test_every_cut_of_a_statement_parses_or_fails_the_same(sql):
+    for k in range(len(sql) + 1):
+        cut = sql[:k]
+        assert _outcome(parse_sql, cut) == _outcome(ref_parse_sql, cut), cut
+
+
+@pytest.mark.parametrize("sql", LEXED + CONSTRUCTS[:8])
+def test_tokens_match_the_reference(sql):
+    def ref_fields(t):
+        return t.kind, t.text, t.pos, t.upper
+
+    outcomes = []
+    for lex, fields in ((tokenize, tuple), (ref_tokenize, ref_fields)):
+        try:
+            outcomes.append([fields(t) for t in lex(sql)])
+        except Exception as e:  # each package raises its own SqlError
+            outcomes.append(str(e))
+    assert outcomes[0] == outcomes[1]
 
 
 @pytest.fixture(scope="module")
